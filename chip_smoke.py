@@ -1,4 +1,4 @@
-"""Drive the PyTorch port's GCN serving path once on one NVIDIA GPU.
+"""Drive the PyTorch port's GCN and GAT serving paths once on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -19,6 +19,19 @@ Phases, each raising on failure (so the run exits non-zero):
    forward requests through K2 and one through K1 (fuse=False view of the
    same prep), with launch counts, times, peak memory, and the logits held
    against a forward whose aggregations run the plain K2 on the card.
+5. the GAT slice on the same graph: for_gat prepare (hybrid attention
+   split); K6 (flash_gat_hybrid_forward) on the plan and K3
+   (flash_gat_forward) on its tile set timed against their plain versions
+   at H=4, F=64; then GATModel(100, 64, 16, nheads=4) (random weights from
+   a numpy seed) answers 3 requests through K6, with launch counts, times,
+   peak memory, a profiler window, and the logits held against a forward
+   whose attention runs the plain K6 on the card.
+6. the small GAT path: the n=8192 power-law graph, full-cover flash tiles,
+   3 requests through K3, held against the plain K3.
+
+Phase 3 also holds K3 and K6 against their plain versions over the tile
+forms, head counts, ragged widths, isolated rows, split runs and chunk
+layouts, and a small GATModel through both against the edge path.
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.
@@ -35,20 +48,25 @@ import time
 import numpy as np
 import torch
 
-from sgracex1_tpu_torch import GCNModel, agg_matmul, prepare_adjacency, sym_norm
+from sgracex1_tpu_torch import GATModel, GCNModel, agg_matmul, prepare_adjacency, sym_norm
 from sgracex1_tpu_torch.graph.csr import SparseMatrix
 from sgracex1_tpu_torch.graph.datasets import powerlaw_node_classification
 from sgracex1_tpu_torch.graph.reorder import degree_order, permute_graph
 from sgracex1_tpu_torch.ops import _cuda
 from sgracex1_tpu_torch.ops import bsr as K1
 from sgracex1_tpu_torch.ops import fused_agg as K2
-from sgracex1_tpu_torch.ops.dispatch import split_by_tile_density
+from sgracex1_tpu_torch.ops import flash_gat as FG
+from sgracex1_tpu_torch.ops.fused_gnn import relu_hw
+from sgracex1_tpu_torch.ops.dispatch import _drop_zero_val_edges, split_by_tile_density
 
 SLICE = dict(n=1 << 20, avg_degree=16, num_features=100, num_classes=16, seed=0)
 HIDDEN = 128
 REQUESTS = 3
 K2_TOL = 2e-2  # both write bf16
 K1_TOL = 1e-3  # identical bf16 operands, f32 sums in another order
+GAT_TOL = 2e-2  # bf16(p) rounds against each CTA segment's running max
+GAT_HIDDEN, GAT_HEADS = 64, 4  # examples/ppi_gat.py: 4 heads x 64, then 1 x 64
+GAT_SMALL = dict(SLICE, n=8192)
 
 
 def _log(msg: str) -> None:
@@ -105,12 +123,15 @@ def phase_build():
             _log("  " + line.strip())
 
 
-def _random_graph(n, weighted, seed):
+def _random_graph(n, weighted, seed, isolated=None):
     """Random edges plus dense hub rows/cols: tiles past the threshold and
-    a sparse remainder."""
+    a sparse remainder. With ``isolated``, nodes i % isolated == 3 get no
+    edge (sym_norm leaves them only a zero-valued self-loop)."""
     rng = np.random.default_rng(seed)
     h = np.stack([rng.integers(0, 200, 20 * n), rng.integers(0, n, 20 * n)])
     ei = np.unique(np.concatenate([rng.integers(0, n, (2, 4 * n)), h, h[::-1]], axis=1), axis=1)
+    if isolated:
+        ei = ei[:, (ei % isolated != 3).all(axis=0)]
     if not weighted:
         return sym_norm(ei, n)
     v = rng.uniform(0.5, 2.0, ei.shape[1]).astype(np.float32)
@@ -168,6 +189,88 @@ def phase_kernels_small(device):
         ref = net(prepare_adjacency(A, method="xla", device=device), x)
     e = _check("small GCN K2 vs edge path", out, ref, 5e-2)
     _log(f"  small GCN (3001 nodes) K2 route vs f32 edge path: max err {e:.3g}")
+    _gat_kernels_small(device, gen)
+
+
+def _scores(n, H, F, gen, device):
+    s1 = torch.randn(n, H, generator=gen, device=device) * 2
+    s2 = torch.randn(n, H, generator=gen, device=device) * 2
+    return s1, s2, torch.randn(n, H, F, generator=gen, device=device)
+
+
+def _check_flash(name, res, ref) -> float:
+    """(out, m, l) of a kernel against its plain version: out and l at
+    GAT_TOL, m exactly (the same f32 operations)."""
+    err = _check(name, res[0], ref[0], GAT_TOL)
+    _check(name + " m", res[1], ref[1], 0.0)
+    _check(name + " l", res[2], ref[2], GAT_TOL)
+    return err
+
+
+def _gat_kernels_small(device, gen):
+    """K3 and K6 against their plain versions; a small GATModel through
+    both against the edge path."""
+    k3_cases = [
+        # name, n, prepare keywords, H, F, stats
+        ("int8-tb128-hub-H4-F64", 3001, dict(method="xla", gat_tb=128), 4, 64, True),
+        ("int8-tb256-H1-F40", 3001, dict(method="xla"), 1, 40, False),
+        ("packed-tb1024-H4-F16", 5000, dict(method="xla", gat_tb=1024), 4, 16, True),
+        ("bf16-values-bsr-H4-F64-ragged", 2100, dict(method="bsr", rank1=False, tb=256), 4, 64, True),
+        ("int8-tb256-H4-F8", 4099, dict(method="xla"), 4, 8, True),
+        ("int8-tb128-H2-F100-two-feature-slices", 3001, dict(method="xla", gat_tb=128), 2, 100, True),
+        ("int8-tb256-H3-F20-unaligned-rows", 3001, dict(method="xla"), 3, 20, False),
+    ]
+    for i, (name, n, kw, H, F, stats) in enumerate(k3_cases):
+        A = _random_graph(n, "values" in name, seed=20 + i, isolated=7)
+        prep = prepare_adjacency(A, for_gat=True, build_transpose=False, device=device, **kw)
+        B = prep.flash_tiles
+        s1, s2, Wh = _scores(n, H, F, gen, device)
+        res = FG.flash_gat_forward(B, s1, s2, Wh, return_stats=stats)
+        ref = FG.flash_gat_forward_plain(B, s1, s2, Wh, return_stats=stats)
+        if stats:
+            err = _check_flash(f"K3 {name}", res, ref)
+            out = res[0]
+        else:
+            err = _check(f"K3 {name}", res, ref, GAT_TOL)
+            out = res
+        has = torch.zeros(n, dtype=torch.bool, device=device)
+        has[prep.A.rows[: A.nnz][prep.A.vals[: A.nnz] > 0].long()] = True
+        if has.all() or (out[~has] != 0).any():
+            raise AssertionError(f"K3 {name}: rows without an edge must come out exactly 0")
+        _log(f"  K3 {name}: T={B.num_tiles} tiles {tuple(B.tiles.shape[1:])} {B.tiles.dtype} "
+             f"segments={B.segments.n_seg} split_runs={B.segments.n_fin} "
+             f"isolated_rows={int((~has).sum())} err {err:.3g}")
+        if name.startswith("int8-tb128") and B.segments.n_fin == 0:
+            raise AssertionError("the hub case must split a run (merge pass)")
+
+    A = _random_graph(3001, False, seed=30)
+    part, rest = split_by_tile_density(A, 128, 40)
+    rest = _drop_zero_val_edges(rest)
+    B = K1.bsr_mask_from_sparse(part, tb=128, cover_rows=True, cover_cols=True, device=device)
+    for attach, H, stats in ((True, 4, True), (False, 4, False), (True, 1, True)):
+        plan = K2.build_fused_plan(B, rest, attach_chunks=attach)
+        s1, s2, Wh = _scores(3001, H, 64, gen, device)
+        name = f"K6 {'attached' if attach else 'unattached'}-H{H}"
+        res = FG.flash_gat_hybrid_forward(plan, s1, s2, Wh, return_stats=stats)
+        ref = FG.flash_gat_hybrid_forward_plain(plan, s1, s2, Wh, return_stats=stats)
+        err = _check_flash(name, res, ref) if stats else _check(name, res, ref, GAT_TOL)
+        kinds = sorted(set(plan.step_kind.tolist()))
+        _log(f"  {name}: T={B.num_tiles} chunks={plan.num_rest_chunks} kinds={kinds} "
+             f"segments={plan.segments.n_seg} split_runs={plan.segments.n_fin} err {err:.3g}")
+
+    A = _random_graph(3001, False, seed=31, isolated=11)
+    net = GATModel(32, 16, 7, nheads=4, generator=torch.Generator().manual_seed(0)).to(device).eval()
+    x = torch.randn(3001, 32, generator=gen, device=device)
+    with torch.no_grad():
+        ref = net(prepare_adjacency(A, method="xla", device=device), x)
+        for kw, kern in ((dict(), FG.flash_gat_forward),
+                         (dict(gat_tb=128, gat_rest_thresh=40), FG.flash_gat_hybrid_forward)):
+            before = kern.launches
+            out = net(prepare_adjacency(A, method="xla", for_gat=True, device=device, **kw), x)
+            if kern.launches != before + 2:
+                raise AssertionError(f"small GAT: {kern.__name__} launched {kern.launches - before} times")
+            e = _check(f"small GAT {kern.__name__} vs edge path", out, ref, 5e-2)
+            _log(f"  small GAT (3001 nodes) {kern.__name__} route vs f32 edge path: max err {e:.3g}")
 
 
 def _slice_weights(rng, F, hidden, C):
@@ -185,14 +288,18 @@ def _slice_weights(rng, F, hidden, C):
     }
 
 
-def phase_slice_prepare(device, cfg=SLICE):
+def _slice_graph(cfg):
+    """The power-law graph, sym_norm (fill-0 self-loops), degree order."""
     t0 = time.perf_counter()
     data = powerlaw_node_classification(**cfg)
     A = sym_norm(data.edge_index, data.num_nodes)
     perm = degree_order(A)
     A, _ = permute_graph(A, perm)
-    x = data.x[perm]
-    gen_s = time.perf_counter() - t0
+    return A, data.x[perm], time.perf_counter() - t0
+
+
+def phase_slice_prepare(device, cfg=SLICE):
+    A, x, gen_s = _slice_graph(cfg)
     t0 = time.perf_counter()
     prep = prepare_adjacency(A, method="hybrid", build_transpose=False, device=device)
     prep_s = time.perf_counter() - t0
@@ -288,6 +395,156 @@ def phase_slice_serve(A, x, prep, device, cfg=SLICE):
     return launches
 
 
+def _gat_weights(rng, F, hidden, H, C):
+    """Xavier-uniform (gain 1.414) GAT weights [in, out] and attention
+    vectors [2*out, 1], and a linear head."""
+    def xavier(fan_in, fan_out):
+        a = 1.414 * np.sqrt(6.0 / (fan_in + fan_out))
+        return torch.from_numpy(rng.uniform(-a, a, (fan_in, fan_out)).astype(np.float32))
+
+    b = 1.0 / np.sqrt(hidden)
+    return {
+        "conv1.weight": xavier(F, hidden * H),
+        "conv1.attention": xavier(2 * hidden * H, 1),
+        "conv2.weight": xavier(hidden * H, hidden),
+        "conv2.attention": xavier(2 * hidden, 1),
+        "head.weight": torch.from_numpy(rng.uniform(-b, b, (C, hidden)).astype(np.float32)),
+        "head.bias": torch.from_numpy(rng.uniform(-b, b, C).astype(np.float32)),
+    }
+
+
+def phase_gat_prepare(A, device, label):
+    """for_gat prepare (the port's fixed rule) and its layout."""
+    t0 = time.perf_counter()
+    prep = prepare_adjacency(A, method="xla", for_gat=True, device=device)
+    prep_s = time.perf_counter() - t0
+    B, plan = prep.flash_tiles, prep.gat_plan
+    msg = (f"{label} GAT prepare: {prep_s:.1f} s tb={B.tb} tiles={B.num_tiles} "
+           f"form={B.tiles.dtype}{list(B.tiles.shape[1:])}")
+    if plan is not None:
+        msg += (f" hybrid: rest_edges={prep.gat_rest.nnz} rest_chunks={plan.num_rest_chunks} "
+                f"K={plan.K} steps={plan.num_steps} segments={plan.segments.n_seg} "
+                f"split_runs={plan.segments.n_fin}")
+    else:
+        msg += f" full cover: segments={B.segments.n_seg} split_runs={B.segments.n_fin}"
+    _log(msg)
+    return prep
+
+
+def phase_gat_kernels_slice(prep, device):
+    """K6 on the slice's plan and K3 on its tile set at H=4, F=64: error
+    and times against the plain versions."""
+    gen = torch.Generator(device=device).manual_seed(2)
+    s1, s2, Wh = _scores(prep.A.n_cols, GAT_HEADS, GAT_HIDDEN, gen, device)
+    rec = {}
+    plan = prep.gat_plan
+    for name, kern, plain, op in (
+        ("flash_gat_hybrid_forward", FG.flash_gat_hybrid_forward, FG.flash_gat_hybrid_forward_plain, plan),
+        ("flash_gat_forward", FG.flash_gat_forward, FG.flash_gat_forward_plain, plan.B),
+    ):
+        err = _check(f"{name} at slice shapes", kern(op, s1, s2, Wh), plain(op, s1, s2, Wh), GAT_TOL)
+        ms = _cuda_ms(lambda: kern(op, s1, s2, Wh))
+        plain_ms = _cuda_ms(lambda: plain(op, s1, s2, Wh))
+        rec[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+        _log(f"{name} at slice shapes [n={prep.A.n_rows}, H={GAT_HEADS}, F={GAT_HIDDEN}]: "
+             f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, max abs err {err:.3g}")
+    return rec
+
+
+def _plain_gat_forward(net, prep, x):
+    """The GAT model's forward with its attention on the plain kernel of
+    the prep's route (K6 with a hybrid plan, else K3)."""
+    h = x
+    for conv, relu in ((net.conv1, True), (net.conv2, False)):
+        F, H = conv.out_features, conv.nheads
+        Wh = torch.matmul(h, conv.weight).view(-1, H, F)
+        a = conv.attention.view(-1)
+        s1 = torch.einsum("nhf,hf->nh", Wh, a[: F * H].view(H, F))
+        s2 = torch.einsum("nhf,hf->nh", Wh, a[F * H:].view(H, F))
+        if prep.gat_plan is not None:
+            h = FG.flash_gat_hybrid_forward_plain(prep.gat_plan, s1, s2, Wh)
+        else:
+            h = FG.flash_gat_forward_plain(prep.flash_tiles, s1, s2, Wh)
+        h = h.reshape(-1, F * H)
+        if relu:
+            h = relu_hw(h)
+    return net.head(h)
+
+
+def _profile_forward(fn, label):
+    """One forward under torch.profiler: wall ms, device-busy ms (kernel
+    intervals on the one stream), idle share, and the kernels by time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+    busy = sum(by_name.values())
+    _log(f"{label} profiler window (1 forward): wall {wall_ms:.3f} ms, device busy {busy:.3f} ms, "
+         f"idle share {max(0.0, 1 - busy / wall_ms):.3f}")
+    for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
+        _log(f"  {ms:9.4f} ms  {100 * ms / max(busy, 1e-9):5.1f}%  {name[:110]}")
+
+
+def phase_gat_serve(A, x, prep, device, kern, label, cfg=SLICE):
+    """GATModel answers REQUESTS forwards through ``kern``; launches, times,
+    peak memory; logits against the plain-attention forward."""
+    F, C = cfg["num_features"], cfg["num_classes"]
+    net = GATModel(F, GAT_HIDDEN, C, nheads=GAT_HEADS)
+    net.load_state_dict(_gat_weights(np.random.default_rng(0), F, GAT_HIDDEN, GAT_HEADS, C))
+    net = net.to(device).eval()
+    x = torch.from_numpy(x).to(device)
+    kernels = (K1.bsr_spmm, K2.bsr_spmm_fused, FG.flash_gat_forward, FG.flash_gat_hybrid_forward)
+    with torch.no_grad():
+        net(prep, x)  # warm-up: cuBLAS handles, allocator
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for k in kernels:
+            k.launches = 0
+        ms, per_request = [], []
+        for _ in range(REQUESTS):
+            before = kern.launches
+            t0 = time.perf_counter()
+            logits = net(prep, x)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            per_request.append(kern.launches - before)
+        launches = {k.__name__: k.launches for k in kernels}
+        peak = torch.cuda.max_memory_allocated()
+    _log(f"{label} GAT forwards ({kern.__name__}): " + ", ".join(f"{m:.3f}" for m in ms) + " ms")
+    _log(f"launches in the {label} GAT serving run: {launches} (per request: {per_request})")
+    _log(f"peak device memory in the {label} GAT serving run: {peak / 2**30:.3f} GiB")
+    if per_request != [2] * REQUESTS or sum(launches.values()) != 2 * REQUESTS:
+        raise AssertionError(f"{kern.__name__} launches per request {per_request}, expected 2 each "
+                             f"and no other kernel: {launches}")
+    with torch.no_grad():
+        _profile_forward(lambda: net(prep, x), f"{label} GAT")
+        ref = _plain_gat_forward(net, prep, x)
+    if logits.shape != (A.n_rows, C):
+        raise AssertionError(f"logits shape {tuple(logits.shape)}")
+    e = _check(f"{label} GAT logits vs plain-attention forward", logits, ref, GAT_TOL)
+    _log(f"{label} GAT logits: max abs err {e:.3g} (|logits| max {float(ref.abs().max()):.3g})")
+    return launches[kern.__name__]
+
+
+def phase_gat_small(device, cfg=GAT_SMALL):
+    """The n=8192 graph: full-cover flash tiles, served through K3."""
+    A, x, gen_s = _slice_graph(cfg)
+    _log(f"small GAT graph: n={A.n_rows} nnz={A.nnz} generate {gen_s:.1f} s")
+    prep = phase_gat_prepare(A, device, "small")
+    if prep.gat_plan is not None:
+        raise AssertionError("n=8192 must prepare full-cover flash tiles")
+    return phase_gat_serve(A, x, prep, device, FG.flash_gat_forward, "small", cfg)
+
+
 def main() -> None:
     phase_device()
     phase_build()
@@ -296,9 +553,21 @@ def main() -> None:
     A, x, prep = phase_slice_prepare(device)
     rec = phase_kernels_slice(prep, device)
     launches = phase_slice_serve(A, x, prep, device)
+    del prep
+    torch.cuda.empty_cache()
+    gat_prep = phase_gat_prepare(A, device, "slice")
+    rec.update(phase_gat_kernels_slice(gat_prep, device))
+    launches["flash_gat_hybrid_forward"] = phase_gat_serve(
+        A, x, gat_prep, device, FG.flash_gat_hybrid_forward, "slice")
+    del gat_prep
+    torch.cuda.empty_cache()
+    launches["flash_gat_forward"] = phase_gat_small(device)
     sources = {
         "bsr_spmm_fused": ("sgracex1_tpu_torch/csrc/fused_agg.cu", "sgracex1_tpu/ops/fused_agg.py:622"),
         "bsr_spmm": ("sgracex1_tpu_torch/csrc/bsr_spmm.cu", "sgracex1_tpu/ops/bsr.py:589"),
+        "flash_gat_forward": ("sgracex1_tpu_torch/csrc/flash_gat.cu", "sgracex1_tpu/ops/flash_gat.py:422"),
+        "flash_gat_hybrid_forward": ("sgracex1_tpu_torch/csrc/flash_gat.cu",
+                                     "sgracex1_tpu/ops/flash_gat.py:1139"),
     }
     kernels = [
         dict(name=name, route="cuda", source=src, replaces=rep, launches=launches[name], **rec[name])

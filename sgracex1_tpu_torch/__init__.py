@@ -8,7 +8,10 @@ hand-written CUDA kernel per Pallas kernel on the ported path:
 
 - ``ops/bsr.bsr_spmm`` (K1, ``csrc/bsr_spmm.cu``): tile SpMM;
 - ``ops/fused_agg.bsr_spmm_fused`` (K2, ``csrc/fused_agg.cu``): tiles +
-  remainder chunks + rank-1 scalings in one pass.
+  remainder chunks + rank-1 scalings in one pass;
+- ``ops/flash_gat.flash_gat_forward`` (K3) and ``flash_gat_hybrid_forward``
+  (K6, both ``csrc/flash_gat.cu``): GAT attention aggregation over mask
+  tiles, K6 with remainder chunk steps in the same row softmax.
 
 Kernels build with nvcc at first use; on CPU tensors each wrapper runs its
 plain PyTorch version. This package never imports jax.
@@ -18,7 +21,7 @@ __version__ = "0.1.0"
 
 from sgracex1_tpu_torch.graph.csr import SparseMatrix
 from sgracex1_tpu_torch.graph.normalize import sym_norm
-from sgracex1_tpu_torch.nn.models import GCNModel
+from sgracex1_tpu_torch.nn.models import GATModel, GCNModel
 from sgracex1_tpu_torch.ops.dispatch import agg_matmul, prepare_adjacency
 from sgracex1_tpu_torch.ops.fused_gnn import gnn_layer
 
@@ -27,6 +30,7 @@ __all__ = [
     "sym_norm",
     "gnn_layer",
     "GCNModel",
+    "GATModel",
     "prepare_adjacency",
     "agg_matmul",
 ]

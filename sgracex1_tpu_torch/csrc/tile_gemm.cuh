@@ -1,8 +1,10 @@
-// Shared device code of the block-sparse aggregation kernels (bsr_spmm.cu,
-// fused_agg.cu): a CTA computes one BM x BN block of ``acc = sum of
-// A_step @ B_step`` over a segment of schedule steps, with bf16 operands
-// staged in shared memory and f32 accumulation on the tensor cores (WMMA
-// 16x16x16, which lowers to mma.sync). A step is either a dense adjacency
+// Shared device code of the block-sparse kernels: the decoding of the tile
+// layouts (tile_mask8 serves flash_gat.cu) and, for the aggregation
+// kernels (bsr_spmm.cu, fused_agg.cu), a CTA that computes one BM x BN
+// block of ``acc = sum of A_step @ B_step`` over a segment of schedule
+// steps, with bf16 operands staged in shared memory and f32 accumulation
+// on the tensor cores (WMMA 16x16x16, which lowers to mma.sync). A step is
+// either a dense adjacency
 // tile times a tb-row block of H, or a one-hot remainder chunk times K
 // gathered rows of H.
 //
@@ -126,6 +128,43 @@ __device__ __forceinline__ void load_a_tile(Smem& s, const void* tiles, long til
     for (int e = 0; e < 16; ++e) v[e] = (float)((b[e] >> plane) & 1);
   }
   store16_bf16(s.a + r * A_LD + c0, v);
+}
+
+// The edge mask of eight consecutive entries (columns c .. c+8, c % 8 == 0)
+// of local row lr of a tile, as bits (bit q: column c + q), in the layouts
+// load_a_tile reads: int8 masks hold {0,1}; packed tiles hold byte i,
+// bit j of a row at column j*(tb/8) + i (needs tb % 64 == 0); value tiles
+// mask on > 0.
+template <int MODE>
+__device__ __forceinline__ unsigned tile_mask8(const void* tiles, long tile, int tb, int lr,
+                                               int c) {
+  const long row = tile * tb + lr;
+  unsigned bits = 0;
+  if constexpr (MODE == TILE_I8) {
+    uint2 u = *reinterpret_cast<const uint2*>(static_cast<const int8_t*>(tiles) + row * tb + c);
+    const int8_t* b = reinterpret_cast<const int8_t*>(&u);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) bits |= (unsigned)(b[e] != 0) << e;
+  } else if constexpr (MODE == TILE_BF16) {
+    uint4 u = *reinterpret_cast<const uint4*>(static_cast<const __nv_bfloat16*>(tiles) + row * tb + c);
+    const __nv_bfloat16* b = reinterpret_cast<const __nv_bfloat16*>(&u);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) bits |= (unsigned)(__bfloat162float(b[e]) > 0.f) << e;
+  } else if constexpr (MODE == TILE_F32) {
+    const float4* s4 = reinterpret_cast<const float4*>(static_cast<const float*>(tiles) + row * tb + c);
+    float4 a = s4[0], b = s4[1];
+    const float v[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+#pragma unroll
+    for (int e = 0; e < 8; ++e) bits |= (unsigned)(v[e] > 0.f) << e;
+  } else {  // TILE_BITS
+    const int nb = tb >> 3;
+    const int plane = c / nb;
+    uint2 u = *reinterpret_cast<const uint2*>(static_cast<const uint8_t*>(tiles) + row * nb + (c % nb));
+    const uint8_t* b = reinterpret_cast<const uint8_t*>(&u);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) bits |= (unsigned)((b[e] >> plane) & 1) << e;
+  }
+  return bits;
 }
 
 // B stage from the H block of column block cb: rows k0..k0+BK, features

@@ -1,5 +1,5 @@
 from sgracex1_tpu_torch.nn.convert import params_from_jax
-from sgracex1_tpu_torch.nn.layers import GCNConv, ReluHW
-from sgracex1_tpu_torch.nn.models import GCNModel
+from sgracex1_tpu_torch.nn.layers import GATConv, GCNConv, ReluHW
+from sgracex1_tpu_torch.nn.models import GATModel, GCNModel
 
-__all__ = ["GCNConv", "ReluHW", "GCNModel", "params_from_jax"]
+__all__ = ["GATConv", "GCNConv", "ReluHW", "GATModel", "GCNModel", "params_from_jax"]

@@ -11,10 +11,11 @@ import torch
 
 
 def params_from_jax(params: Mapping) -> "OrderedDict[str, torch.Tensor]":
-    """Map a flax ``GCNModel`` variable tree (numpy or JAX arrays) onto
-    ``sgracex1_tpu_torch.nn.GCNModel``'s ``state_dict``.
+    """Map a flax ``GCNModel`` or ``GATModel`` variable tree (numpy or JAX
+    arrays) onto the port's model of the same name's ``state_dict``.
 
-    ``params/conv{i}/weight`` [in, out] loads as ``conv{i}.weight``
+    ``params/conv{i}/weight`` [in, out] loads as ``conv{i}.weight`` and
+    ``params/conv{i}/attention`` [2*F*H, 1] as ``conv{i}.attention``,
     unchanged; ``params/Dense_0/kernel`` [hidden, C] is transposed into
     ``head.weight`` and ``params/Dense_0/bias`` becomes ``head.bias``.
     Collections other than ``params`` (the ``telemetry`` that ``init``
@@ -26,6 +27,8 @@ def params_from_jax(params: Mapping) -> "OrderedDict[str, torch.Tensor]":
         leaf = tree[name]
         if re.fullmatch(r"conv\d+", name):
             out[f"{name}.weight"] = t(leaf["weight"])
+            if "attention" in leaf:
+                out[f"{name}.attention"] = t(leaf["attention"])
             if "bias" in leaf:
                 out[f"{name}.bias"] = t(leaf["bias"])
         elif name == "Dense_0":

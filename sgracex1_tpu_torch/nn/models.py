@@ -1,4 +1,4 @@
-"""GCN node-classification model as a ``torch.nn.Module``."""
+"""GCN and GAT node-classification models as ``torch.nn.Module``s."""
 
 from __future__ import annotations
 
@@ -7,7 +7,7 @@ from typing import Optional
 import torch
 from torch import nn
 
-from sgracex1_tpu_torch.nn.layers import GCNConv
+from sgracex1_tpu_torch.nn.layers import GATConv, GCNConv
 
 
 class GCNModel(nn.Module):
@@ -45,8 +45,53 @@ class GCNModel(nn.Module):
         for i in range(self.num_layers):
             conv = getattr(self, f"conv{i + 1}")
             x = conv(A, x, relu=i < self.num_layers - 1)
-        if self.training and self.dropout > 0:
-            keep = 1.0 - self.dropout
-            mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
-            x = torch.where(mask, x / keep, torch.zeros_like(x))
-        return self.head(x)
+        return self.head(_dropout(self, x, generator))
+
+
+def _dropout(model: nn.Module, x: torch.Tensor, generator) -> torch.Tensor:
+    """Inverted dropout at rate ``model.dropout`` in training mode, drawn
+    from ``generator``; identity in eval mode."""
+    if not model.training or model.dropout <= 0:
+        return x
+    keep = 1.0 - model.dropout
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros_like(x))
+
+
+class GATModel(nn.Module):
+    """2-layer GAT node classifier: ``conv1`` with ``nheads`` heads and
+    ReLU, ``conv2`` with one head, dropout, a linear head (the JAX
+    ``GATModel``).
+
+    Parameters are named ``conv{1,2}.weight``, ``conv{1,2}.attention``,
+    ``head.weight``, ``head.bias`` (see ``nn/convert.params_from_jax``)."""
+
+    def __init__(
+        self,
+        num_features: int,
+        hidden_channels: int,
+        num_classes: int,
+        *,
+        nheads: int = 1,
+        alpha: float = 0.2,
+        dropout: float = 0.5,
+        generator: Optional[torch.Generator] = None,
+    ):
+        super().__init__()
+        self.dropout = dropout
+        self.conv1 = GATConv(
+            num_features, hidden_channels, nheads=nheads, alpha=alpha,
+            generator=generator,
+        )
+        self.conv2 = GATConv(
+            hidden_channels * nheads, hidden_channels, nheads=1, alpha=alpha,
+            generator=generator,
+        )
+        self.head = nn.Linear(hidden_channels, num_classes)
+
+    def forward(
+        self, A, x: torch.Tensor, *, generator: Optional[torch.Generator] = None
+    ) -> torch.Tensor:
+        x = self.conv1(A, x, relu=True)
+        x = self.conv2(A, x)
+        return self.head(_dropout(self, x, generator))

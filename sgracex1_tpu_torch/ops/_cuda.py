@@ -1,6 +1,7 @@
 """Build and load the hand-written CUDA kernels (``csrc/*.cu``).
 
-The sources compile with ``nvcc`` for ``sm_90a`` into one shared library
+Each source compiles with its own ``nvcc`` for ``sm_90a``, all started
+together, and one more ``nvcc`` links the objects into a shared library
 with a plain C interface, loaded with ctypes. The build runs at first use,
 never at import, into ``sgracex1_tpu_torch/_build/`` under a name keyed by
 the hash of the sources and flags, so an edited source never loads a
@@ -24,7 +25,7 @@ _CSRC = os.path.join(_PKG, "csrc")
 _BUILD = os.path.join(_PKG, "_build")
 _FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
 _lock = threading.Lock()
@@ -58,16 +59,43 @@ def _lib_path() -> str:
 def _build(path: str) -> None:
     global build_log, build_seconds
     os.makedirs(_BUILD, exist_ok=True)
-    tmp = f"{path}.tmp{os.getpid()}"
-    cmd = [_nvcc(), *_FLAGS, "-o", tmp, *_sources()]
+    tag = f"tmp{os.getpid()}"
+    nvcc = _nvcc()
+    objs = [
+        os.path.join(_BUILD, os.path.basename(src)[:-3] + f".{tag}.o")
+        for src in _sources()
+    ]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
+    procs = [
+        subprocess.Popen(
+            [nvcc, *_FLAGS, "-c", "-o", obj, src],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        )
+        for src, obj in zip(_sources(), objs)
+    ]
+    logs, failed = [], False
+    for proc in procs:
+        out, _ = proc.communicate(timeout=900)
+        logs.append(out)
+        failed |= proc.returncode != 0
+    tmp = f"{path}.{tag}"
+    if not failed:
+        link = subprocess.run(
+            [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
+             "-o", tmp, *objs],
+            capture_output=True, text=True, timeout=300,
+        )
+        logs.append(link.stdout + link.stderr)
+        failed = link.returncode != 0
     build_seconds = time.perf_counter() - t0
-    build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
+    build_log = "".join(logs)
+    for obj in objs:
+        if os.path.exists(obj):
+            os.unlink(obj)
+    if failed:
         if os.path.exists(tmp):
             os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{build_log}")
+        raise RuntimeError(f"nvcc failed:\n{build_log}")
     os.replace(tmp, path)  # atomic against a concurrent build
 
 
@@ -89,6 +117,18 @@ def _declare(lib: ctypes.CDLL) -> None:
         p, p,  # colscale, rowscale
         p, i, i, i, i,  # H, h_bf16, n_cols, P, vec
         p, p, i, p,  # out, partial, n_rows, stream
+    ]
+    lib.sg_flash_gat.restype = i
+    lib.sg_flash_gat.argtypes = [
+        p, i, i, i, p, p, p, p,  # tiles, mode, tb, n_seg, seg_rb/lo/hi/part
+        i, p, p, p,  # n_fin, fin_rb/p0/np
+        p,  # tile_cb (K3)
+        p, p, p, p,  # step_cb/tile/chunk/kind (K6)
+        p, p, i,  # lrow, slot_col, K
+        p, i, p, i,  # s1, n_s1, s2, n_s2
+        p, i, i, i, ctypes.c_float,  # Wh (bf16), wvec, H, F, alpha
+        p, i, p, p,  # out, n_rows, m_out, l_out
+        p, p, p, p,  # pm, pl, pacc, stream
     ]
 
 

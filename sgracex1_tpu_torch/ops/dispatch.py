@@ -21,6 +21,13 @@ calibrated on the TPU. Those constants do not carry over, so here
 ``dense_max_bytes``, else ``hybrid`` at ``DEFAULT_TB`` / ``DEFAULT_REST_THRESH``
 — unmeasured starting points, to be calibrated on the H100.
 
+``for_gat=True`` also attaches the flash-GAT layout that ``GATConv`` reads
+(``flash_tiles``; ``gat_plan`` for the hybrid split). The JAX package picks
+it with a TPU cost model (``_choose_flash_plan``); here it is a fixed rule:
+full-cover int8 mask tiles at tb=256 up to 8192 nodes (the JAX rule
+there), else the hybrid split at ``DEFAULT_GAT_TB`` /
+``DEFAULT_GAT_REST_THRESH`` — unmeasured starting points.
+
 Inference only for now: ``agg_matmul`` raises on an input that requires
 grad; the backward through the transposed plans comes with training.
 """
@@ -45,6 +52,7 @@ from sgracex1_tpu_torch.ops.bsr import (
     bsr_transpose,
 )
 from sgracex1_tpu_torch.ops.fused_agg import (
+    DEFAULT_K,
     FusedAggPlan,
     build_fused_plan,
     bsr_spmm_fused,
@@ -54,6 +62,9 @@ from sgracex1_tpu_torch.ops.spmm import spmm, spmm_into
 DENSE_MAX_BYTES = 512 << 20  # dense bf16 adjacency budget
 DEFAULT_TB = 256  # hybrid/bsr tile size: unmeasured starting point
 DEFAULT_REST_THRESH = 64  # edges a tile needs to stay a tile: unmeasured
+GAT_FULL_COVER_MAX_N = 8192  # full-cover flash tiles up to here (JAX rule)
+DEFAULT_GAT_TB = 256  # hybrid flash-GAT tile size: unmeasured starting point
+DEFAULT_GAT_REST_THRESH = 64  # edges a flash tile needs to stay a tile
 
 
 @dataclasses.dataclass(frozen=True)
@@ -64,7 +75,9 @@ class PreparedAdjacency:
     forward/transposed tiles, ``rest`` the hybrid remainder, ``r1_row`` /
     ``r1_col`` the rank-1 factors when the tiles are masks, and
     ``fused``/``fused_t`` the fused schedules that ``agg_matmul`` prefers
-    when present."""
+    when present. ``gat_bsr`` holds flash-GAT mask tiles (``for_gat``);
+    with the hybrid attention split, ``gat_plan`` is the value-mode fused
+    schedule over them plus the remainder ``gat_rest`` as chunks."""
 
     A: SparseMatrix
     kind: str = "xla"
@@ -76,6 +89,20 @@ class PreparedAdjacency:
     r1_col: Optional[torch.Tensor] = None
     fused: Optional[FusedAggPlan] = None
     fused_t: Optional[FusedAggPlan] = None
+    gat_bsr: Optional[BSRMatrix] = None
+    gat_rest: Optional[SparseMatrix] = None
+    gat_plan: Optional[FusedAggPlan] = None
+
+    @property
+    def flash_tiles(self) -> Optional[BSRMatrix]:
+        """Tiles for the flash-GAT kernels: the dedicated mask tiles when
+        attached (``for_gat``), else a ``bsr`` prep's tiles, which hold the
+        whole adjacency. The hybrid kind's partial ``bsr`` is not a valid
+        mask, and with ``gat_plan`` set ``gat_bsr`` holds only the dense
+        attention tiles (the remainder rides the plan's chunks)."""
+        if self.gat_bsr is not None:
+            return self.gat_bsr
+        return self.bsr if self.kind == "bsr" else None
 
 
 def split_by_tile_density(
@@ -125,6 +152,9 @@ def prepare_adjacency(
     rank1: bool = True,
     build_transpose: bool = True,
     fuse: bool = True,
+    for_gat: bool = False,
+    gat_tb: Optional[int] = None,
+    gat_rest_thresh: Optional[int] = None,
     device="cpu",
 ) -> PreparedAdjacency:
     """Prepare ``A`` for one backend, with its tensors on ``device``.
@@ -134,20 +164,33 @@ def prepare_adjacency(
     ``build_transpose=False`` skips the transposed plans that only a
     backward reads. ``fuse=False`` runs the tile kernel K1 plus a remainder
     scatter instead of the fused kernel K2; it keeps f32 accumulation where
-    K2 writes bf16."""
+    K2 writes bf16.
+
+    ``for_gat`` attaches the flash-GAT layout unless the prep's own tiles
+    already serve (``flash_tiles``). ``gat_tb`` / ``gat_rest_thresh``
+    override the fixed rule; an explicit ``gat_rest_thresh`` asks for the
+    hybrid split at any size."""
     n = max(A.n_rows, A.n_cols)
     if method == "auto":
         method = "dense" if n * n * 2 <= dense_max_bytes else "hybrid"
     if method not in ("dense", "bsr", "hybrid", "xla"):
         raise ValueError(f"unknown method {method!r}")
     A_dev = A.to(device)
+
+    def finish(prep: PreparedAdjacency) -> PreparedAdjacency:
+        if not for_gat or prep.flash_tiles is not None:
+            return prep
+        return dataclasses.replace(
+            prep, **_gat_layout(A, n, gat_tb, gat_rest_thresh, device)
+        )
+
     if method == "xla":
-        return PreparedAdjacency(A=A_dev, kind="xla")
+        return finish(PreparedAdjacency(A=A_dev, kind="xla"))
     if method == "dense":
         d = torch.from_numpy(A.to_dense().astype(np.float32))
-        return PreparedAdjacency(
+        return finish(PreparedAdjacency(
             A=A_dev, kind="dense", dense=d.to(torch.bfloat16).to(device)
-        )
+        ))
 
     tb = DEFAULT_TB if tb is None else tb
     fac = rank1_factor(A) if rank1 else None
@@ -201,17 +244,46 @@ def prepare_adjacency(
         rest = rest if rest.nnz else None
         B, Bt = tiles_pair(part)
         fused, fused_t = fused_pair(B, Bt, part, rest)
-        return PreparedAdjacency(
+        return finish(PreparedAdjacency(
             A=A_dev, kind="hybrid", bsr=B, bsr_t=Bt,
             rest=rest.to(device) if rest is not None else None,
             fused=fused, fused_t=fused_t, **r1,
-        )
+        ))
     B, Bt = tiles_pair(A)
     fused, fused_t = fused_pair(B, Bt, A, None)
-    return PreparedAdjacency(
+    return finish(PreparedAdjacency(
         A=A_dev, kind="bsr", bsr=B, bsr_t=Bt, fused=fused, fused_t=fused_t,
         **r1,
-    )
+    ))
+
+
+def _gat_layout(
+    A: SparseMatrix, n: int, tb: Optional[int], thresh: Optional[int], device
+) -> dict:
+    """The flash-GAT fields of a prep (``_finish`` of the JAX prepare).
+
+    Hybrid split: the tiles holding >= ``thresh`` edges become int8 (or,
+    at tb % 1024 == 0, packed) mask tiles covering every row and column
+    block; the remainder, without its zero-valued edges (GAT masks on
+    val > 0), rides the chunks of a value-mode fused plan. Full cover
+    (small graphs, or a degenerate split): mask tiles of the whole
+    adjacency."""
+    hybrid = thresh is not None or n > GAT_FULL_COVER_MAX_N
+    tb = tb if tb is not None else (DEFAULT_GAT_TB if hybrid else 256)
+    build = bsr_bitmask_from_sparse if _packs(tb) else bsr_mask_from_sparse
+    if hybrid:
+        thresh = DEFAULT_GAT_REST_THRESH if thresh is None else thresh
+        part, grest = split_by_tile_density(A, tb, thresh)
+        grest = _drop_zero_val_edges(grest)
+        if part.nnz and grest.nnz:
+            cover = dict(cover_rows=True, cover_cols=True)
+            tiles = build(part, tb=tb, device=device, **cover)
+            plan = build_fused_plan(
+                tiles, grest, K=DEFAULT_K, attach_chunks=True,
+                tile_keys=bsr_tile_keys(part, tb, **cover),
+            )
+            return dict(gat_bsr=tiles, gat_rest=grest.to(device), gat_plan=plan)
+    return dict(gat_bsr=build(A, tb=tb, device=device))
 
 
 def agg_matmul(prep: PreparedAdjacency, H: torch.Tensor) -> torch.Tensor:

@@ -13,6 +13,7 @@ import sgracex1_tpu_torch as pt
 from sgracex1_tpu_torch.graph.csr import SparseMatrix
 from sgracex1_tpu_torch.ops import bsr as K1
 from sgracex1_tpu_torch.ops import fused_agg as K2
+from sgracex1_tpu_torch.ops import flash_gat as FG
 from sgracex1_tpu_torch.ops.dispatch import split_by_tile_density
 
 # one intra-op thread: the suite runs several pytest workers side by side
@@ -113,6 +114,79 @@ def test_kernel_wrappers_reject_bad_operands(cuda_device):
         K1.bsr_spmm(B, torch.randn(600, 8, device=cuda_device))
 
 
+def _scores(n, H, F, device, seed=0):
+    g = torch.Generator(device=device).manual_seed(seed)
+    s1 = torch.randn(n, H, generator=g, device=device) * 2
+    s2 = torch.randn(n, H, generator=g, device=device) * 2
+    return s1, s2, torch.randn(n, H, F, generator=g, device=device)
+
+
+def _check_flash(res, ref):
+    """out within 2e-2 (bf16(p) rounds against each segment's running
+    max); m exact (the same f32 ops); l within 1e-3 (fast exp)."""
+    torch.cuda.synchronize()
+    (out, m, l), (out_r, m_r, l_r) = res, ref
+    assert torch.isfinite(out).all()
+    torch.testing.assert_close(out, out_r, rtol=2e-2, atol=2e-2)
+    torch.testing.assert_close(m, m_r, rtol=0, atol=0)
+    torch.testing.assert_close(l, l_r, rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "form,tb,n,H,F",
+    [("int8", 128, 3001, 4, 64), ("int8", 256, 3001, 1, 40), ("packed", 1024, 5000, 2, 16),
+     ("values", 256, 2100, 4, 8), ("int8", 128, 3001, 2, 100), ("int8", 256, 3001, 3, 20)],
+)
+def test_flash_kernel_matches_plain(cuda_device, form, tb, n, H, F):
+    A = _graph(n, weighted=form == "values", seed=5)
+    if form == "packed":
+        B = K1.bsr_bitmask_from_sparse(A, tb=tb, device=cuda_device)
+    else:
+        B = K1.bsr_from_sparse(A, tb=tb, mask=form == "int8", device=cuda_device)
+    if tb == 128:
+        assert B.segments.n_fin > 0  # the hub row blocks' runs split
+    s1, s2, Wh = _scores(n, H, F, cuda_device)
+    before = FG.flash_gat_forward.launches
+    res = FG.flash_gat_forward(B, s1, s2, Wh, return_stats=True)
+    assert FG.flash_gat_forward.launches == before + 1
+    _check_flash(res, FG.flash_gat_forward_plain(B, s1, s2, Wh, return_stats=True))
+    out = FG.flash_gat_forward(B, s1, s2, Wh.to(torch.bfloat16))  # bf16 Wh, no stats
+    torch.testing.assert_close(out, res[0], rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("attach,H", [(True, 4), (False, 4), (True, 1)])
+def test_flash_hybrid_kernel_matches_plain(cuda_device, attach, H):
+    A = _graph(3001, weighted=False, seed=6)
+    part, rest = split_by_tile_density(A, 128, 40)
+    rest = pt.ops.dispatch._drop_zero_val_edges(rest)
+    B = K1.bsr_mask_from_sparse(part, tb=128, cover_rows=True, cover_cols=True, device=cuda_device)
+    plan = K2.build_fused_plan(B, rest, attach_chunks=attach)
+    assert plan.num_rest_chunks > 0 and plan.segments.n_fin > 0
+    s1, s2, Wh = _scores(3001, H, 64, cuda_device, seed=1)
+    before = FG.flash_gat_hybrid_forward.launches
+    res = FG.flash_gat_hybrid_forward(plan, s1, s2, Wh, return_stats=True)
+    assert FG.flash_gat_hybrid_forward.launches == before + 1
+    _check_flash(res, FG.flash_gat_hybrid_forward_plain(plan, s1, s2, Wh, return_stats=True))
+
+
+@pytest.mark.cuda
+def test_gat_forward_through_kernels(cuda_device):
+    A = _graph(3001, weighted=False, seed=7)
+    net = pt.GATModel(32, 16, 7, nheads=4, generator=torch.Generator().manual_seed(0)).to(cuda_device).eval()
+    x = torch.randn(3001, 32, device=cuda_device)
+    with torch.no_grad():
+        ref = net(pt.prepare_adjacency(A, method="xla", device=cuda_device), x)
+        for kw, kern in ((dict(), FG.flash_gat_forward),
+                         (dict(gat_tb=128, gat_rest_thresh=40), FG.flash_gat_hybrid_forward)):
+            prep = pt.prepare_adjacency(A, method="xla", for_gat=True, device=cuda_device, **kw)
+            before = kern.launches
+            out = net(prep, x)
+            assert kern.launches == before + 2
+            torch.testing.assert_close(out, ref, rtol=5e-2, atol=5e-2)
+
+
 def test_wrappers_run_plain_on_cpu_and_raise_elsewhere():
     A = _graph(600, weighted=True, seed=4)
     B = K1.bsr_from_sparse(A, tb=128, cover_rows=True)
@@ -126,3 +200,9 @@ def test_wrappers_run_plain_on_cpu_and_raise_elsewhere():
         K1.bsr_spmm(B, H.to("meta"))
     with pytest.raises(ValueError):
         K2.bsr_spmm_fused(plan, H.to("meta"))
+    s1, s2, Wh = _scores(600, 2, 8, "cpu")
+    b3 = FG.flash_gat_forward.launches
+    torch.testing.assert_close(FG.flash_gat_forward(B, s1, s2, Wh), FG.flash_gat_forward_plain(B, s1, s2, Wh))
+    assert FG.flash_gat_forward.launches == b3
+    with pytest.raises(ValueError):
+        FG.flash_gat_forward(B, s1, s2, Wh.to("meta"))

@@ -92,7 +92,9 @@ def test_import_leaves_jax_out():
     code = (
         "import sys, sgracex1_tpu_torch, sgracex1_tpu_torch.nn, "
         "sgracex1_tpu_torch.ops.fused_agg, sgracex1_tpu_torch.graph.datasets, "
-        "sgracex1_tpu_torch.graph.reorder; "
+        "sgracex1_tpu_torch.graph.reorder, sgracex1_tpu_torch.ops.flash_gat, "
+        "sgracex1_tpu_torch.ops.sddmm, sgracex1_tpu_torch.nn.models; "
+        "from sgracex1_tpu_torch import GATModel; "
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'sgracex1_tpu')); "
         "print(bad); sys.exit(1 if bad else 0)"
     )
