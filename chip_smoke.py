@@ -1,4 +1,5 @@
-"""Drive the PyTorch port's GCN and GAT serving paths once on one NVIDIA GPU.
+"""Drive the PyTorch port's GCN and GAT serving and training paths once on
+one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -13,25 +14,37 @@ Phases, each raising on failure (so the run exits non-zero):
    value mode, with and without a remainder, ragged n and P, f32 and bf16
    H; a small GCN forward against the f32 edge path.
 4. the slice: 2^20-node power-law graph (avg degree 16, 100 features, 16
-   classes, seed 0), sym_norm, degree order, hybrid prepare; both kernels
+   classes, seed 0), sym_norm, degree order (x, y and the masks permuted
+   with it), one hybrid prepare with the transposed plans; both kernels
    timed against their plain versions at the slice's shapes; then a
    2-layer width-128 GCNModel (random weights from a numpy seed) answers 3
    forward requests through K2 and one through K1 (fuse=False view of the
    same prep), with launch counts, times, peak memory, and the logits held
    against a forward whose aggregations run the plain K2 on the card.
+   Then train_node_classifier trains it for 3 epochs on the same prep (K2
+   on the plan and on its transpose), one step runs through the K1 view
+   (K1 on the tiles and their transpose), with launch counts, times, peak
+   memory, a profiler window, and one step's gradients held against the
+   same step with every kernel on its plain version.
 5. the GAT slice on the same graph: for_gat prepare (hybrid attention
    split); K6 (flash_gat_hybrid_forward) on the plan and K3
    (flash_gat_forward) on its tile set timed against their plain versions
-   at H=4, F=64; then GATModel(100, 64, 16, nheads=4) (random weights from
-   a numpy seed) answers 3 requests through K6, with launch counts, times,
-   peak memory, a profiler window, and the logits held against a forward
-   whose attention runs the plain K6 on the card.
+   at H=4, F=64, and the backward's K4 (flash_gat_bwd_row) and K5
+   (flash_gat_bwd_col) under K6's stats; then GATModel(100, 64, 16,
+   nheads=4) (random weights from a numpy seed) answers 3 requests through
+   K6, with launch counts, times, peak memory, a profiler window, and the
+   logits held against a forward whose attention runs the plain K6 on the
+   card; then it trains for 3 epochs (K6, K4, K5), checked as in phase 4.
 6. the small GAT path: the n=8192 power-law graph, full-cover flash tiles,
-   3 requests through K3, held against the plain K3.
+   3 requests through K3, held against the plain K3, then 3 training
+   epochs through K3, K4 and K5.
 
 Phase 3 also holds K3 and K6 against their plain versions over the tile
 forms, head counts, ragged widths, isolated rows, split runs and chunk
-layouts, and a small GATModel through both against the edge path.
+layouts, and a small GATModel through both against the edge path; K4 and
+K5 over the same forms and under merged hybrid stats; K1 and K2 on
+transposed plans; and small GCN and GAT gradients through the kernels
+against autograd on the f32 edge path.
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.
@@ -39,6 +52,7 @@ The last two lines are the kernels' JSON record and
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import subprocess
@@ -48,16 +62,21 @@ import time
 import numpy as np
 import torch
 
-from sgracex1_tpu_torch import GATModel, GCNModel, agg_matmul, prepare_adjacency, sym_norm
+from sgracex1_tpu_torch import (
+    GATModel, GCNModel, SGRACEConfig, agg_matmul, prepare_adjacency, sym_norm,
+    train_node_classifier,
+)
 from sgracex1_tpu_torch.graph.csr import SparseMatrix
-from sgracex1_tpu_torch.graph.datasets import powerlaw_node_classification
+from sgracex1_tpu_torch.graph.datasets import NodeClassificationData, powerlaw_node_classification
 from sgracex1_tpu_torch.graph.reorder import degree_order, permute_graph
 from sgracex1_tpu_torch.ops import _cuda
 from sgracex1_tpu_torch.ops import bsr as K1
 from sgracex1_tpu_torch.ops import fused_agg as K2
 from sgracex1_tpu_torch.ops import flash_gat as FG
 from sgracex1_tpu_torch.ops.fused_gnn import relu_hw
+from sgracex1_tpu_torch.ops import dispatch as D
 from sgracex1_tpu_torch.ops.dispatch import _drop_zero_val_edges, split_by_tile_density
+from sgracex1_tpu_torch.train.loop import _masked_xent
 
 SLICE = dict(n=1 << 20, avg_degree=16, num_features=100, num_classes=16, seed=0)
 HIDDEN = 128
@@ -67,6 +86,13 @@ K1_TOL = 1e-3  # identical bf16 operands, f32 sums in another order
 GAT_TOL = 2e-2  # bf16(p) rounds against each CTA segment's running max
 GAT_HIDDEN, GAT_HEADS = 64, 4  # examples/ppi_gat.py: 4 heads x 64, then 1 x 64
 GAT_SMALL = dict(SLICE, n=8192)
+TRAIN_EPOCHS = 3
+# one step's gradients against the plain-kernel step, relative to each
+# gradient's largest entry: the same bf16 operands, but p rounds to bf16
+# against each segment's running max and through the fast exp
+GRAD_TOL = 2e-2
+KERNELS = (K1.bsr_spmm, K2.bsr_spmm_fused, FG.flash_gat_forward, FG.flash_gat_bwd_row,
+           FG.flash_gat_bwd_col, FG.flash_gat_hybrid_forward)
 
 
 def _log(msg: str) -> None:
@@ -190,6 +216,7 @@ def phase_kernels_small(device):
     e = _check("small GCN K2 vs edge path", out, ref, 5e-2)
     _log(f"  small GCN (3001 nodes) K2 route vs f32 edge path: max err {e:.3g}")
     _gat_kernels_small(device, gen)
+    _bwd_kernels_small(device, gen)
 
 
 def _scores(n, H, F, gen, device):
@@ -273,6 +300,95 @@ def _gat_kernels_small(device, gen):
             _log(f"  small GAT (3001 nodes) {kern.__name__} route vs f32 edge path: max err {e:.3g}")
 
 
+def _check_bwd(name, B, s1, s2, m, l, Wh, gO) -> float:
+    """K4 and K5 against their plain versions (K5 on the plain t)."""
+    got = FG.flash_gat_bwd_row(B, s1, s2, m, l, Wh, gO)
+    ref = FG.flash_gat_bwd_row_plain(B, s1, s2, m, l, Wh, gO)
+    err = max(_check(f"K4 {name} {k}", g, r, GAT_TOL) for k, g, r in zip(("t", "u1", "u2"), got, ref))
+    got = FG.flash_gat_bwd_col(B, s1, s2, m, l, ref[0], Wh, gO)
+    plain = FG.flash_gat_bwd_col_plain(B, s1, s2, m, l, ref[0], Wh, gO)
+    return max(err, *(_check(f"K5 {name} {k}", g, r, GAT_TOL) for k, g, r in zip(("dWh", "ds2"), got, plain)))
+
+
+def _bwd_kernels_small(device, gen):
+    """K4/K5 against their plain versions over the tile forms, split row
+    and column runs and merged hybrid stats; K1/K2 on transposed plans;
+    small GCN and GAT gradients through the kernels against the f32 edge
+    path."""
+    cases = [
+        # name, n, prepare keywords, H, F
+        ("int8-tb128-hub-H4-F64", 3001, dict(method="xla", gat_tb=128), 4, 64),
+        ("packed-tb1024-H2-F16", 5000, dict(method="xla", gat_tb=1024), 2, 16),
+        ("bf16-values-bsr-H1-F40", 2100, dict(method="bsr", rank1=False, tb=256), 1, 40),
+        ("int8-tb128-H2-F100-two-feature-slices", 3001, dict(method="xla", gat_tb=128), 2, 100),
+        ("int8-tb256-H3-F20-unaligned-rows", 3001, dict(method="xla"), 3, 20),
+    ]
+    for i, (name, n, kw, H, F) in enumerate(cases):
+        A = _random_graph(n, "values" in name, seed=40 + i, isolated=7)
+        B = prepare_adjacency(A, for_gat=True, build_transpose=False, device=device, **kw).flash_tiles
+        s1, s2, Wh = _scores(n, H, F, gen, device)
+        gO = _scores(n, H, F, gen, device)[2]
+        _, m, l = FG.flash_gat_forward_plain(B, s1, s2, Wh, return_stats=True)
+        err = _check_bwd(name, B, s1, s2, m, l, Wh, gO)
+        _log(f"  K4/K5 {name}: T={B.num_tiles} row segments={B.segments.n_seg} "
+             f"split={B.segments.n_fin} col segments={B.col_segments.n_seg} "
+             f"split={B.col_segments.n_fin} err {err:.3g}")
+        if "hub" in name and not (B.segments.n_fin and B.col_segments.n_fin):
+            raise AssertionError("the hub case must split a row run and a column run")
+
+    A = _random_graph(3001, False, seed=50)
+    part, rest = split_by_tile_density(A, 128, 40)
+    B = K1.bsr_mask_from_sparse(part, tb=128, cover_rows=True, cover_cols=True, device=device)
+    plan = K2.build_fused_plan(B, _drop_zero_val_edges(rest), attach_chunks=True)
+    s1, s2, Wh = _scores(3001, 4, 64, gen, device)
+    gO = _scores(3001, 4, 64, gen, device)[2]
+    _, m, l = FG.flash_gat_hybrid_forward_plain(plan, s1, s2, Wh, return_stats=True)
+    err = _check_bwd("hybrid-merged-stats", B, s1, s2, m, l, Wh, gO)
+    _log(f"  K4/K5 under merged hybrid stats (H=4, F=64): err {err:.3g}")
+
+    for i, weighted in enumerate((False, True)):
+        A = _random_graph(2600, weighted, seed=60 + i)
+        prep = prepare_adjacency(A, method="hybrid", tb=128, rest_thresh=40, device=device)
+        g = torch.randn(A.n_rows, 64, generator=gen, device=device)
+        gb = g.to(torch.bfloat16)  # the cotangent of K2's bf16 output
+        e2 = _check("K2 on fused_t", K2.bsr_spmm_fused(prep.fused_t, gb),
+                    K2.bsr_spmm_fused_plain(prep.fused_t, gb), K2_TOL)
+        e1 = _check("K1 on bsr_t", K1.bsr_spmm(prep.bsr_t, g), K1.bsr_spmm_plain(prep.bsr_t, g), K1_TOL)
+        _log(f"  transposed plans ({'values' if weighted else 'rank-1'}): K2 on fused_t err {e2:.3g}, "
+             f"K1 on bsr_t err {e1:.3g}")
+
+    A = _random_graph(3001, False, seed=70)
+    x = torch.randn(3001, 32, generator=gen, device=device)
+    edge = prepare_adjacency(A, method="xla", device=device)
+
+    def grads(net, prep):
+        net.zero_grad(set_to_none=True)
+        net(prep, x).square().mean().backward()
+        return {k: p.grad.clone() for k, p in net.named_parameters()}
+
+    gcn = GCNModel(32, 64, 7, dropout=0.0, generator=torch.Generator().manual_seed(0)).to(device)
+    gat = GATModel(32, 16, 7, nheads=4, dropout=0.0, generator=torch.Generator().manual_seed(0)).to(device)
+    runs = [("GCN K2 + K2 on fused_t", gcn,
+             prepare_adjacency(A, method="hybrid", tb=128, rest_thresh=40, device=device), K2.bsr_spmm_fused),
+            ("GAT K3 + K4/K5", gat, prepare_adjacency(A, method="xla", for_gat=True, device=device),
+             FG.flash_gat_bwd_col),
+            ("GAT K6 + K4/K5", gat, prepare_adjacency(A, method="xla", for_gat=True, gat_tb=128,
+                                                      gat_rest_thresh=40, device=device), FG.flash_gat_bwd_col)]
+    for name, net, prep, kern in runs:
+        ref = grads(net, edge)
+        before = kern.launches
+        got = grads(net, prep)
+        if kern.launches == before:
+            raise AssertionError(f"small {name}: {kern.__name__} was not launched")
+        err = 0.0
+        for k, r in ref.items():
+            scale = float(r.abs().max())
+            torch.testing.assert_close(got[k], r, rtol=5e-2, atol=5e-2 * scale,
+                                       msg=lambda mm: f"small {name} {k}: {mm}")
+            err = max(err, float((got[k] - r).abs().max()) / max(scale, 1e-30))
+        _log(f"  small {name} (3001 nodes) gradients vs f32 edge path: max err / max |grad| {err:.3g}")
+
+
 def _slice_weights(rng, F, hidden, C):
     """Xavier-uniform (gain 1.414) conv weights [in, out] and a linear head."""
     def xavier(fan_in, fan_out):
@@ -289,29 +405,38 @@ def _slice_weights(rng, F, hidden, C):
 
 
 def _slice_graph(cfg):
-    """The power-law graph, sym_norm (fill-0 self-loops), degree order."""
+    """The power-law graph, sym_norm (fill-0 self-loops), degree order;
+    the data (edges, x, y, masks) renumbered in the same order."""
     t0 = time.perf_counter()
     data = powerlaw_node_classification(**cfg)
     A = sym_norm(data.edge_index, data.num_nodes)
     perm = degree_order(A)
-    A, _ = permute_graph(A, perm)
-    return A, data.x[perm], time.perf_counter() - t0
+    A, inv = permute_graph(A, perm)
+    data = NodeClassificationData(
+        inv[data.edge_index], data.x[perm], data.y[perm], data.train_mask[perm],
+        data.val_mask[perm], data.test_mask[perm],
+    )
+    return A, data, time.perf_counter() - t0
 
 
 def phase_slice_prepare(device, cfg=SLICE):
-    A, x, gen_s = _slice_graph(cfg)
+    """One prepare for serving and training: serving reads the forward
+    plans, training also the transposed ones."""
+    A, data, gen_s = _slice_graph(cfg)
     t0 = time.perf_counter()
-    prep = prepare_adjacency(A, method="hybrid", build_transpose=False, device=device)
+    prep = prepare_adjacency(A, method="hybrid", device=device)
     prep_s = time.perf_counter() - t0
-    f = prep.fused
+    f, ft = prep.fused, prep.fused_t
     _log(f"slice graph: n={A.n_rows} nnz={A.nnz} (incl. zero-valued self-loops) "
          f"generate+sym_norm+degree-order {gen_s:.1f} s")
-    _log(f"slice prepare: {prep_s:.1f} s kind={prep.kind} tb={prep.bsr.tb} "
+    _log(f"slice prepare (forward and transposed plans; the forward plans alone took 5.4 s in earlier runs): "
+         f"{prep_s:.1f} s kind={prep.kind} tb={prep.bsr.tb} "
          f"tiles={prep.bsr.num_tiles} form={prep.bsr.tiles.dtype}{list(prep.bsr.tiles.shape[1:])} "
          f"rank1={prep.r1_row is not None} rest_edges={prep.rest.nnz if prep.rest is not None else 0} "
          f"rest_chunks={f.num_rest_chunks} K={f.K} steps={f.num_steps} "
-         f"segments={f.segments.n_seg} split_runs={f.segments.n_fin}")
-    return A, x, prep
+         f"segments={f.segments.n_seg} split_runs={f.segments.n_fin}; "
+         f"fused_t: steps={ft.num_steps} segments={ft.segments.n_seg} split_runs={ft.segments.n_fin}")
+    return A, data, prep
 
 
 def phase_kernels_slice(prep, device):
@@ -344,11 +469,8 @@ def _plain_forward(net, prep, x):
 
 
 def phase_slice_serve(A, x, prep, device, cfg=SLICE):
-    F, C = cfg["num_features"], cfg["num_classes"]
-    net = GCNModel(F, HIDDEN, C)
-    net.load_state_dict({k: torch.from_numpy(v) for k, v in
-                         _slice_weights(np.random.default_rng(0), F, HIDDEN, C).items()})
-    net = net.to(device).eval()
+    C = cfg["num_classes"]
+    net = _gcn_net(cfg).to(device).eval()
     x = torch.from_numpy(x).to(device)
     prep_k1 = dataclasses.replace(prep, fused=None, fused_t=None)  # fuse=False view
     with torch.no_grad():
@@ -448,6 +570,21 @@ def phase_gat_kernels_slice(prep, device):
         rec[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
         _log(f"{name} at slice shapes [n={prep.A.n_rows}, H={GAT_HEADS}, F={GAT_HIDDEN}]: "
              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, max abs err {err:.3g}")
+    # the backward passes on the plan's tiles under K6's merged stats
+    _, m, l = FG.flash_gat_hybrid_forward(plan, s1, s2, Wh, return_stats=True)
+    gO = torch.randn(Wh.shape, generator=gen, device=device)
+    B = plan.B
+    t = FG.flash_gat_bwd_row_plain(B, s1, s2, m, l, Wh, gO)[0]
+    for name, kern, plain, args in (
+        ("flash_gat_bwd_row", FG.flash_gat_bwd_row, FG.flash_gat_bwd_row_plain, (B, s1, s2, m, l, Wh, gO)),
+        ("flash_gat_bwd_col", FG.flash_gat_bwd_col, FG.flash_gat_bwd_col_plain, (B, s1, s2, m, l, t, Wh, gO)),
+    ):
+        err = max(_check(f"{name} at slice shapes", g, r, GAT_TOL) for g, r in zip(kern(*args), plain(*args)))
+        ms = _cuda_ms(lambda: kern(*args))
+        plain_ms = _cuda_ms(lambda: plain(*args), reps=3)
+        rec[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+        _log(f"{name} at slice shapes [n={prep.A.n_rows}, T={B.num_tiles}, H={GAT_HEADS}, F={GAT_HIDDEN}]: "
+             f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (median of 3), max abs err {err:.3g}")
     return rec
 
 
@@ -471,9 +608,10 @@ def _plain_gat_forward(net, prep, x):
     return net.head(h)
 
 
-def _profile_forward(fn, label):
-    """One forward under torch.profiler: wall ms, device-busy ms (kernel
-    intervals on the one stream), idle share, and the kernels by time."""
+def _profile_forward(fn, label, what="1 forward"):
+    """One call of ``fn`` (a forward or a training step) under
+    torch.profiler: wall ms, device-busy ms (kernel intervals on the one
+    stream), idle share, and the kernels by time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -488,19 +626,17 @@ def _profile_forward(fn, label):
         if e.device_type == DeviceType.CUDA:
             by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
     busy = sum(by_name.values())
-    _log(f"{label} profiler window (1 forward): wall {wall_ms:.3f} ms, device busy {busy:.3f} ms, "
+    _log(f"{label} profiler window ({what}): wall {wall_ms:.3f} ms, device busy {busy:.3f} ms, "
          f"idle share {max(0.0, 1 - busy / wall_ms):.3f}")
-    for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
+    for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]:
         _log(f"  {ms:9.4f} ms  {100 * ms / max(busy, 1e-9):5.1f}%  {name[:110]}")
 
 
 def phase_gat_serve(A, x, prep, device, kern, label, cfg=SLICE):
     """GATModel answers REQUESTS forwards through ``kern``; launches, times,
     peak memory; logits against the plain-attention forward."""
-    F, C = cfg["num_features"], cfg["num_classes"]
-    net = GATModel(F, GAT_HIDDEN, C, nheads=GAT_HEADS)
-    net.load_state_dict(_gat_weights(np.random.default_rng(0), F, GAT_HIDDEN, GAT_HEADS, C))
-    net = net.to(device).eval()
+    C = cfg["num_classes"]
+    net = _gat_net(cfg).to(device).eval()
     x = torch.from_numpy(x).to(device)
     kernels = (K1.bsr_spmm, K2.bsr_spmm_fused, FG.flash_gat_forward, FG.flash_gat_hybrid_forward)
     with torch.no_grad():
@@ -535,14 +671,166 @@ def phase_gat_serve(A, x, prep, device, kern, label, cfg=SLICE):
     return launches[kern.__name__]
 
 
+@contextlib.contextmanager
+def _plain_kernels():
+    """Every kernel wrapper on the training path swapped for its plain
+    version where the autograd Functions call it: the reference step."""
+    swaps = [(D, "bsr_spmm_fused", K2.bsr_spmm_fused_plain), (D, "bsr_spmm", K1.bsr_spmm_plain),
+             (FG, "flash_gat_forward", FG.flash_gat_forward_plain),
+             (FG, "flash_gat_hybrid_forward", FG.flash_gat_hybrid_forward_plain),
+             (FG, "flash_gat_bwd_row", FG.flash_gat_bwd_row_plain),
+             (FG, "flash_gat_bwd_col", FG.flash_gat_bwd_col_plain)]
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
+    for mod, name, fn in swaps:
+        setattr(mod, name, fn)
+    try:
+        yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def _step(net, prep, x, y, mask, opt=None, seed=0):
+    """One training step as train_node_classifier takes it: train mode,
+    dropout from a generator seeded with ``seed``, masked cross-entropy,
+    backward, and the Adam update when ``opt`` is given."""
+    net.train()
+    net.zero_grad(set_to_none=True)
+    gen = torch.Generator(device=x.device).manual_seed(seed)
+    loss = _masked_xent(net(prep, x, generator=gen), y, mask)
+    loss.backward()
+    if opt is not None:
+        opt.step()
+    return loss
+
+
+def _counts() -> dict:
+    return {k.__name__: k.launches for k in KERNELS}
+
+
+def _reset_counts() -> None:
+    for k in KERNELS:
+        k.launches = 0
+
+
+def phase_train(data, prep, net, device, label, per_epoch, k1_view=False):
+    """train_node_classifier for TRAIN_EPOCHS epochs on ``prep`` (the main
+    path: counts reset just before, read just after, each kernel launched
+    ``per_epoch[name]`` times an epoch); then timed steps, a profiler
+    window over one step, optionally one step through the K1 view of the
+    prep, and one step's gradients against the plain-kernel step."""
+    x = torch.from_numpy(data.x).to(device)
+    y = torch.from_numpy(data.y).to(device).long()
+    mask = torch.from_numpy(data.train_mask).to(device).float()
+    net = net.to(device)
+    # warm-up: cuBLAS handles, the allocator, the first optimizer step of
+    # the process and the evaluation's reductions (lr=0 leaves the weights)
+    t0 = time.perf_counter()
+    _step(net, prep, x, y, mask, torch.optim.Adam(net.parameters(), lr=0.0))
+    with torch.no_grad():
+        net.eval()(prep, x).argmax(dim=-1)
+    torch.cuda.synchronize()
+    _log(f"{label} warm-up step and evaluation: {(time.perf_counter() - t0) * 1e3:.3f} ms")
+    torch.cuda.reset_peak_memory_stats()
+    cfg = SGRACEConfig(num_epochs=TRAIN_EPOCHS, learning_rate=0.01)
+    _reset_counts()
+    t0 = time.perf_counter()
+    state, hist = train_node_classifier(net, data, cfg, seed=0, prepare=prep, device=device)
+    torch.cuda.synchronize()
+    total_ms = (time.perf_counter() - t0) * 1e3
+    launches = _counts()
+    peak = torch.cuda.max_memory_allocated()
+    _log(f"{label} train_node_classifier: {TRAIN_EPOCHS} epochs in {total_ms:.3f} ms "
+         f"({total_ms / TRAIN_EPOCHS:.3f} ms an epoch: step + evaluation); loss {hist.loss}, "
+         f"train acc {hist.train_acc}, test acc {hist.test_acc}")
+    _log(f"launches in the {label} training run: {launches}")
+    _log(f"peak device memory in the {label} training run: {peak / 2**30:.3f} GiB")
+    want = {k.__name__: TRAIN_EPOCHS * per_epoch.get(k.__name__, 0) for k in KERNELS}
+    if launches != want:
+        raise AssertionError(f"{label} training launches {launches}, expected {want}")
+    if state.step != TRAIN_EPOCHS or not all(np.isfinite(hist.loss)):
+        raise AssertionError(f"{label} training: step {state.step}, losses {hist.loss}")
+
+    opt = state.optimizer
+    ms = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        _step(net, prep, x, y, mask, opt)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    _log(f"{label} training steps (forward + backward + Adam): " + ", ".join(f"{m:.3f}" for m in ms) + " ms")
+    _profile_forward(lambda: _step(net, prep, x, y, mask, opt), f"{label} train", "1 training step")
+    if k1_view:
+        view = dataclasses.replace(prep, fused=None, fused_t=None)  # fuse=False view
+        _reset_counts()
+        t0 = time.perf_counter()
+        _step(net, view, x, y, mask)
+        torch.cuda.synchronize()
+        k1_ms = (time.perf_counter() - t0) * 1e3
+        k1 = _counts()
+        _log(f"{label} training step through the K1 view (fuse=False): {k1_ms:.3f} ms, launches {k1}")
+        if k1["bsr_spmm"] != 4 or sum(k1.values()) != 4:
+            raise AssertionError(f"K1 view step launches {k1}, expected bsr_spmm 4 and nothing else")
+        launches["bsr_spmm"] += k1["bsr_spmm"]
+        got = {k: p.grad.clone() for k, p in net.named_parameters()}
+        with _plain_kernels():
+            _step(net, view, x, y, mask)
+        _check_grads(f"{label} K1 view", net, got)
+
+    _step(net, prep, x, y, mask)
+    got = {k: p.grad.clone() for k, p in net.named_parameters()}
+    with _plain_kernels():
+        _step(net, prep, x, y, mask)
+    _check_grads(label, net, got)
+    return launches
+
+
+def _check_grads(label, net, got):
+    """``got`` against the gradients the last step left on ``net``."""
+    err = 0.0
+    for k, p in net.named_parameters():
+        r = p.grad
+        scale = float(r.abs().max())
+        if not torch.isfinite(got[k]).all():
+            raise AssertionError(f"{label} gradient {k} is not finite")
+        torch.testing.assert_close(got[k], r, rtol=GRAD_TOL, atol=GRAD_TOL * scale,
+                                   msg=lambda m: f"{label} gradient {k}: {m}")
+        err = max(err, float((got[k] - r).abs().max()) / max(scale, 1e-30))
+    _log(f"{label} one step's gradients vs the plain-kernel step: max err / max |grad| {err:.3g}")
+
+
 def phase_gat_small(device, cfg=GAT_SMALL):
-    """The n=8192 graph: full-cover flash tiles, served through K3."""
-    A, x, gen_s = _slice_graph(cfg)
+    """The n=8192 graph: full-cover flash tiles, served through K3, then
+    trained through K3, K4 and K5."""
+    A, data, gen_s = _slice_graph(cfg)
     _log(f"small GAT graph: n={A.n_rows} nnz={A.nnz} generate {gen_s:.1f} s")
     prep = phase_gat_prepare(A, device, "small")
     if prep.gat_plan is not None:
         raise AssertionError("n=8192 must prepare full-cover flash tiles")
-    return phase_gat_serve(A, x, prep, device, FG.flash_gat_forward, "small", cfg)
+    launches = {"flash_gat_forward": phase_gat_serve(A, data.x, prep, device, FG.flash_gat_forward, "small", cfg)}
+    per_epoch = {"flash_gat_forward": 4, "flash_gat_bwd_row": 2, "flash_gat_bwd_col": 2}
+    return _add(launches, phase_train(data, prep, _gat_net(cfg), device, "small GAT", per_epoch))
+
+
+def _gat_net(cfg):
+    F, C = cfg["num_features"], cfg["num_classes"]
+    net = GATModel(F, GAT_HIDDEN, C, nheads=GAT_HEADS)
+    net.load_state_dict(_gat_weights(np.random.default_rng(0), F, GAT_HIDDEN, GAT_HEADS, C))
+    return net
+
+
+def _gcn_net(cfg):
+    F, C = cfg["num_features"], cfg["num_classes"]
+    net = GCNModel(F, HIDDEN, C)
+    net.load_state_dict({k: torch.from_numpy(v) for k, v in
+                         _slice_weights(np.random.default_rng(0), F, HIDDEN, C).items()})
+    return net
+
+
+def _add(total: dict, more: dict) -> dict:
+    for k, v in more.items():
+        total[k] = total.get(k, 0) + v
+    return total
 
 
 def main() -> None:
@@ -550,22 +838,28 @@ def main() -> None:
     phase_build()
     device = torch.device("cuda")
     phase_kernels_small(device)
-    A, x, prep = phase_slice_prepare(device)
+    A, data, prep = phase_slice_prepare(device)
     rec = phase_kernels_slice(prep, device)
-    launches = phase_slice_serve(A, x, prep, device)
+    launches = phase_slice_serve(A, data.x, prep, device)
+    _add(launches, phase_train(data, prep, _gcn_net(SLICE), device, "GCN slice",
+                               {"bsr_spmm_fused": 6}, k1_view=True))
     del prep
     torch.cuda.empty_cache()
     gat_prep = phase_gat_prepare(A, device, "slice")
     rec.update(phase_gat_kernels_slice(gat_prep, device))
-    launches["flash_gat_hybrid_forward"] = phase_gat_serve(
-        A, x, gat_prep, device, FG.flash_gat_hybrid_forward, "slice")
+    _add(launches, {"flash_gat_hybrid_forward": phase_gat_serve(
+        A, data.x, gat_prep, device, FG.flash_gat_hybrid_forward, "slice")})
+    per_epoch = {"flash_gat_hybrid_forward": 4, "flash_gat_bwd_row": 2, "flash_gat_bwd_col": 2}
+    _add(launches, phase_train(data, gat_prep, _gat_net(SLICE), device, "GAT slice", per_epoch))
     del gat_prep
     torch.cuda.empty_cache()
-    launches["flash_gat_forward"] = phase_gat_small(device)
+    _add(launches, phase_gat_small(device))
     sources = {
         "bsr_spmm_fused": ("sgracex1_tpu_torch/csrc/fused_agg.cu", "sgracex1_tpu/ops/fused_agg.py:622"),
         "bsr_spmm": ("sgracex1_tpu_torch/csrc/bsr_spmm.cu", "sgracex1_tpu/ops/bsr.py:589"),
         "flash_gat_forward": ("sgracex1_tpu_torch/csrc/flash_gat.cu", "sgracex1_tpu/ops/flash_gat.py:422"),
+        "flash_gat_bwd_row": ("sgracex1_tpu_torch/csrc/flash_gat_bwd.cu", "sgracex1_tpu/ops/flash_gat.py:762"),
+        "flash_gat_bwd_col": ("sgracex1_tpu_torch/csrc/flash_gat_bwd.cu", "sgracex1_tpu/ops/flash_gat.py:847"),
         "flash_gat_hybrid_forward": ("sgracex1_tpu_torch/csrc/flash_gat.cu",
                                      "sgracex1_tpu/ops/flash_gat.py:1139"),
     }

@@ -11,19 +11,26 @@ hand-written CUDA kernel per Pallas kernel on the ported path:
   remainder chunks + rank-1 scalings in one pass;
 - ``ops/flash_gat.flash_gat_forward`` (K3) and ``flash_gat_hybrid_forward``
   (K6, both ``csrc/flash_gat.cu``): GAT attention aggregation over mask
-  tiles, K6 with remainder chunk steps in the same row softmax.
+  tiles, K6 with remainder chunk steps in the same row softmax;
+- ``ops/flash_gat.flash_gat_bwd_row`` (K4) and ``flash_gat_bwd_col`` (K5,
+  both ``csrc/flash_gat_bwd.cu``): the attention backward's row and
+  column passes.
 
-Kernels build with nvcc at first use; on CPU tensors each wrapper runs its
-plain PyTorch version. This package never imports jax.
+Aggregations and attention are differentiable (K1/K2 on the transposed
+plans, K4/K5), and ``train.train_node_classifier`` trains both models on
+the full graph. Kernels build with nvcc at first use; on CPU tensors each
+wrapper runs its plain PyTorch version. This package never imports jax.
 """
 
 __version__ = "0.1.0"
 
+from sgracex1_tpu_torch.config import SGRACEConfig
 from sgracex1_tpu_torch.graph.csr import SparseMatrix
 from sgracex1_tpu_torch.graph.normalize import sym_norm
 from sgracex1_tpu_torch.nn.models import GATModel, GCNModel
-from sgracex1_tpu_torch.ops.dispatch import agg_matmul, prepare_adjacency
+from sgracex1_tpu_torch.ops.dispatch import agg_matmul, prepare_adjacency, prepare_from_config
 from sgracex1_tpu_torch.ops.fused_gnn import gnn_layer
+from sgracex1_tpu_torch.train import train_node_classifier
 
 __all__ = [
     "SparseMatrix",
@@ -32,5 +39,8 @@ __all__ = [
     "GCNModel",
     "GATModel",
     "prepare_adjacency",
+    "prepare_from_config",
     "agg_matmul",
+    "SGRACEConfig",
+    "train_node_classifier",
 ]

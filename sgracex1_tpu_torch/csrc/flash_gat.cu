@@ -88,15 +88,6 @@ struct Args {
 using namespace nvcuda;
 typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> Acc;
 
-// 16 bytes global -> shared, asynchronous; zero-filled when !valid.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
-               "r"(valid ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::); }
-
 // Lane mapping of the score passes: warp w owns rows 16w..16w+15; lane
 // handles rows 16w + (lane >> 3) + 4i (i < 4) and the 8 columns
 // (lane & 7) * 8 of each 64-column chunk. The accumulator mapping: lane

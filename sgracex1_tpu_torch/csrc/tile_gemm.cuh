@@ -1,5 +1,6 @@
 // Shared device code of the block-sparse kernels: the decoding of the tile
-// layouts (tile_mask8 serves flash_gat.cu) and, for the aggregation
+// layouts (tile_mask8 and the cp.async copies serve flash_gat.cu and
+// flash_gat_bwd.cu) and, for the aggregation
 // kernels (bsr_spmm.cu, fused_agg.cu), a CTA that computes one BM x BN
 // block of ``acc = sum of A_step @ B_step`` over a segment of schedule
 // steps, with bf16 operands staged in shared memory and f32 accumulation
@@ -166,6 +167,15 @@ __device__ __forceinline__ unsigned tile_mask8(const void* tiles, long tile, int
   }
   return bits;
 }
+
+// 16 bytes global -> shared, asynchronous; zero-filled when !valid.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
+               "r"(valid ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::); }
 
 // B stage from the H block of column block cb: rows k0..k0+BK, features
 // p0..p0+BN, optionally column-scaled. Thread t loads row t/8, features

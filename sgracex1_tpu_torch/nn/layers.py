@@ -1,8 +1,9 @@
 """GCN and GAT layers as ``torch.nn`` modules.
 
 ``GCNConv`` computes ``ReLU?(A_hat @ (X @ W))``; ``GATConv`` the multi-head
-attention aggregation. Weights are stored ``[in, out]`` as in the JAX
-package, so converted parameters load as they are. The quantized datapath
+attention aggregation; both are differentiable on every adjacency form.
+Weights are stored ``[in, out]`` as in the JAX package, so converted
+parameters load as they are. The quantized datapath
 (``quant``, ``go_quant``) and the amax telemetry of the JAX layers are not
 ported yet (ROADMAP queue 1, item 13) and raise.
 """
@@ -92,10 +93,15 @@ class GATConv(nn.Module):
     uniform with gain 1.414, as the JAX ``GATConv``.
 
     On a ``PreparedAdjacency`` with flash tiles the aggregation runs the
-    flash kernels (K6 on the hybrid split, K3 on full-cover tiles); on a
-    ``SparseMatrix`` (or a prep without flash tiles) it runs the edge path.
-    Forward only so far. ``quant`` and ``exact_gradients=True`` are not
-    ported yet and raise."""
+    flash kernels (K6 on the hybrid split, K3 on full-cover tiles; K4 and
+    K5 in the backward); on a ``SparseMatrix`` (or a prep without flash
+    tiles) it runs the edge path under autograd.
+
+    ``exact_gradients=False`` (the default) is the reference's backward:
+    the scores read ``Wh`` detached, so ``x`` and ``weight`` get no
+    gradient through the attention weights (``attention`` still does).
+    ``True`` differentiates through the score product as well. ``quant``
+    is not ported yet and raises."""
 
     def __init__(
         self,
@@ -113,11 +119,7 @@ class GATConv(nn.Module):
             raise NotImplementedError(
                 "quantized GATConv (quant) is not ported yet (ROADMAP queue 1, item 13)"
             )
-        if exact_gradients:
-            raise NotImplementedError(
-                "GATConv(exact_gradients=True) needs the GAT backward, not "
-                "ported yet (ROADMAP queue 1, item 9)"
-            )
+        self.exact_gradients = exact_gradients
         self.in_features = in_features
         self.out_features = out_features
         self.nheads = nheads
@@ -137,7 +139,8 @@ class GATConv(nn.Module):
         # per-head score halves S1 = Wh_h . a_src_h, S2 = Wh_h . a_dst_h, all
         # heads in one product with the block-diagonal [F*H, 2H] matrix
         a = self.attention.view(2, H, F, 1)
-        S = torch.matmul(Wh, torch.cat([torch.block_diag(*a[0]), torch.block_diag(*a[1])], dim=1))
+        Wh_s = Wh if self.exact_gradients else Wh.detach()
+        S = torch.matmul(Wh_s, torch.cat([torch.block_diag(*a[0]), torch.block_diag(*a[1])], dim=1))
         S1, S2 = S[:, :H].contiguous(), S[:, H:].contiguous()
         Wh = Wh.view(-1, H, F)
         A_e = A.A if isinstance(A, PreparedAdjacency) else A

@@ -130,6 +130,24 @@ def _declare(lib: ctypes.CDLL) -> None:
         p, i, p, p,  # out, n_rows, m_out, l_out
         p, p, p, p,  # pm, pl, pacc, stream
     ]
+    lib.sg_flash_gat_bwd_row.restype = i
+    lib.sg_flash_gat_bwd_row.argtypes = [
+        p, i, i, i, p, p, p, p,  # tiles, mode, tb, n_seg, seg_rb/lo/hi/part
+        i, p, p, p,  # n_fin, fin_rb/p0/np
+        p,  # tile_cb
+        p, p, p, p,  # s1, s2, m, l
+        p, p, i, i, i, ctypes.c_float,  # Wh, gO (bf16), wvec, H, F, alpha
+        p, i, p, p,  # tuu, n_rows_pad, partial, stream
+    ]
+    lib.sg_flash_gat_bwd_col.restype = i
+    lib.sg_flash_gat_bwd_col.argtypes = [
+        p, i, i, i, p, p, p, p,  # tiles, mode, tb, n_seg, seg_cb/lo/hi/part
+        i, p, p, p,  # n_fin, fin_cb/p0/np
+        p, p,  # col_perm, tile_rb
+        p, p, p, p, p,  # s1, s2, m, l, t
+        p, p, i, i, i, ctypes.c_float,  # Wh, gO (bf16), wvec, H, F, alpha
+        p, p, i, p, p, p,  # dwh, ds2, n_cols_pad, pdwh, pds2, stream
+    ]
 
 
 def library() -> ctypes.CDLL:

@@ -107,7 +107,15 @@ class BSRMatrix:
     ``tiles`` is [T, tb, tb] (bf16/f32 values or int8 {0,1} masks) or
     uint8 [T, tb, tb/8] (1-bit packed masks: byte i, bit j of a row holds
     column ``j*(tb/8) + i``). ``segments`` is the K1 launch schedule over
-    the tile runs."""
+    the tile runs.
+
+    ``col_perm`` lists the tiles in column order (stable argsort of
+    ``tile_cb``, the walk of the TPU column pass ``_bwd_col_pass``) and
+    ``col_segments`` cuts its column-block runs as ``segments`` cuts the
+    row-block runs (``seg_rb`` there holds the column block). The flash
+    backward K5 walks them. It reads the tiles as they are: the transposed
+    tile set (``bsr_transpose``) would double the tile memory and cannot
+    be built from packed tiles."""
 
     tiles: torch.Tensor
     tile_rb: torch.Tensor  # int32[T]
@@ -116,6 +124,8 @@ class BSRMatrix:
     n_cols: int
     tb: int
     segments: RunSegments
+    col_perm: torch.Tensor  # int32[T]
+    col_segments: RunSegments
 
     @property
     def num_tiles(self) -> int:
@@ -133,7 +143,23 @@ class BSRMatrix:
         return dataclasses.replace(
             self, tiles=self.tiles.to(device), tile_rb=self.tile_rb.to(device),
             tile_cb=self.tile_cb.to(device), segments=self.segments.to(device),
+            col_perm=self.col_perm.to(device),
+            col_segments=self.col_segments.to(device),
         )
+
+
+def _schedules(tile_rb: np.ndarray, tile_cb: np.ndarray, n_rows: int, n_cols: int,
+               tb: int, device) -> dict:
+    """The row-run and column-run launch schedules of a (rb, cb)-sorted
+    tile set (host)."""
+    col_perm = np.argsort(tile_cb, kind="stable")
+    return dict(
+        segments=run_segments(tile_rb, _round_up(n_rows, tb) // tb, device),
+        col_perm=_tensor(col_perm.astype(np.int32), device),
+        col_segments=run_segments(
+            tile_cb[col_perm], _round_up(n_cols, tb) // tb, device
+        ),
+    )
 
 
 def bsr_tile_keys(
@@ -170,13 +196,12 @@ def _bsr(tiles, uniq, A: SparseMatrix, tb: int, device) -> BSRMatrix:
     if len(uniq) == 0:
         tile_rb = np.zeros(1, np.int32)
         tile_cb = np.zeros(1, np.int32)
-    n_rt = _round_up(A.n_rows, tb) // tb
     return BSRMatrix(
         tiles=tiles.to(device),
         tile_rb=_tensor(tile_rb, device),
         tile_cb=_tensor(tile_cb, device),
         n_rows=A.n_rows, n_cols=A.n_cols, tb=tb,
-        segments=run_segments(tile_rb, n_rt, device),
+        **_schedules(tile_rb, tile_cb, A.n_rows, A.n_cols, tb, device),
     )
 
 
@@ -282,14 +307,13 @@ def bsr_transpose(B: BSRMatrix) -> BSRMatrix:
         )
     order = torch.argsort(B.tile_cb, stable=True)
     tile_rb = B.tile_cb[order]
+    tile_cb = B.tile_rb[order]
     return BSRMatrix(
         tiles=B.tiles.transpose(1, 2)[order].contiguous(),
         tile_rb=tile_rb,
-        tile_cb=B.tile_rb[order],
+        tile_cb=tile_cb,
         n_rows=B.n_cols, n_cols=B.n_rows, tb=B.tb,
-        segments=run_segments(
-            _np(tile_rb), _round_up(B.n_cols, B.tb) // B.tb, B.tiles.device
-        ),
+        **_schedules(_np(tile_rb), _np(tile_cb), B.n_cols, B.n_rows, B.tb, B.tiles.device),
     )
 
 

@@ -28,8 +28,12 @@ full-cover int8 mask tiles at tb=256 up to 8192 nodes (the JAX rule
 there), else the hybrid split at ``DEFAULT_GAT_TB`` /
 ``DEFAULT_GAT_REST_THRESH`` — unmeasured starting points.
 
-Inference only for now: ``agg_matmul`` raises on an input that requires
-grad; the backward through the transposed plans comes with training.
+``agg_matmul`` is differentiable (``_Agg``): on fused preps the gradient
+of ``H`` is K2 on the transposed plan ``fused_t``, with ``fuse=False`` K1
+on the transposed tiles ``bsr_t``; the rank-1 scalings and the remainder
+scatter stay plain torch ops around the tile kernel, as in the JAX
+package. A backward through a prep built with
+``build_transpose=False`` raises.
 """
 
 from __future__ import annotations
@@ -286,15 +290,58 @@ def _gat_layout(
     return dict(gat_bsr=build(A, tb=tb, device=device))
 
 
-def agg_matmul(prep: PreparedAdjacency, H: torch.Tensor) -> torch.Tensor:
-    """out = A @ H through the prepared backend, in H's dtype. On fused
-    preps (bsr/hybrid default) the values round through bf16."""
-    if H.requires_grad and torch.is_grad_enabled():
+def prepare_from_config(
+    A: SparseMatrix, cfg, *, for_gat: bool = False, method: Optional[str] = None,
+    device="cpu",
+) -> PreparedAdjacency:
+    """``prepare_adjacency`` driven by an ``SGRACEConfig``: the port's fixed
+    rule (``method="auto"``) unless ``method`` names a backend, mask tiles
+    with rank-1 scalings unless the config fake-quantizes the adjacency.
+    The ``pallas`` kind and quantization are not ported, so
+    ``use_pallas`` and ``fake_quantization`` raise."""
+    if cfg.use_pallas:
         raise NotImplementedError(
-            "agg_matmul is inference-only so far: its backward through the "
-            "transposed plans comes with the training slice (ROADMAP queue "
-            "1, item 9); run under torch.no_grad() or detach the input"
+            "use_pallas selects the pallas kind, whose kernel K9 is not "
+            "ported yet (ROADMAP queue 1, item 14)"
         )
+    if cfg.fake_quantization:
+        raise NotImplementedError(
+            "fake_quantization (QAT) is not ported yet (ROADMAP queue 1, item 13)"
+        )
+    return prepare_adjacency(
+        A, method=method or "auto", for_gat=for_gat,
+        rank1=not cfg.fake_quantization, device=device,
+    )
+
+
+class _Agg(torch.autograd.Function):
+    """out = A @ H by ``kernel`` on ``op``; grad_H = A^T @ g by the same
+    kernel on the transposed ``op_t``, cast to H's dtype and padded to H's
+    rows (JAX ``dispatch._fused_agg`` with K2, ``_bsr_agg`` with K1)."""
+
+    @staticmethod
+    def forward(ctx, kernel, op, op_t, H):
+        ctx.kernel, ctx.op_t, ctx.n_h, ctx.h_dtype = kernel, op_t, H.shape[0], H.dtype
+        return kernel(op, H)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        if ctx.op_t is None:
+            raise ValueError(
+                "backward through a prep built with build_transpose=False; "
+                "re-prepare with build_transpose=True for training"
+            )
+        gH = ctx.kernel(ctx.op_t, g.contiguous()).to(ctx.h_dtype)
+        if gH.shape[0] < ctx.n_h:
+            gH = torch.cat([gH, gH.new_zeros((ctx.n_h - gH.shape[0], gH.shape[1]))])
+        return None, None, None, gH[: ctx.n_h]
+
+
+def agg_matmul(prep: PreparedAdjacency, H: torch.Tensor) -> torch.Tensor:
+    """out = A @ H through the prepared backend, in H's dtype
+    (differentiable). On fused preps (bsr/hybrid default) the values round
+    through bf16, forward and in grad_H."""
     if prep.kind == "dense":
         out = torch.matmul(
             prep.dense.to(torch.float32), H.to(torch.bfloat16).to(torch.float32)
@@ -302,7 +349,7 @@ def agg_matmul(prep: PreparedAdjacency, H: torch.Tensor) -> torch.Tensor:
         return out[: prep.A.n_rows].to(H.dtype)
     if prep.kind in ("bsr", "hybrid"):
         if prep.fused is not None:
-            return bsr_spmm_fused(prep.fused, H).to(H.dtype)
+            return _Agg.apply(bsr_spmm_fused, prep.fused, prep.fused_t, H).to(H.dtype)
         return _bsr_agg_scaled(prep, H, rest=prep.rest).to(H.dtype)
     return spmm(prep.A, H)
 
@@ -315,15 +362,17 @@ def _bsr_agg_scaled(
     ``A @ H == r1_row * (M @ (r1_col * H) + rest_mask @ (r1_col * H))``.
     The remainder is added in mask space (unit values) before the row
     scaling; in value mode it is a plain scatter-add. Returns f32."""
+    # the remainder adds out of place: K1's output is a custom Function's
+    # and may be a view, which autograd does not let an in-place op change
     if prep.r1_row is None:
-        out = bsr_spmm(prep.bsr, H)
+        out = _Agg.apply(bsr_spmm, prep.bsr, prep.bsr_t, H)
         if rest is not None:
-            out = spmm_into(rest, H, out)
+            out = out + spmm_into(rest, H, torch.zeros_like(out))
         return out
     Hs = H * prep.r1_col[: H.shape[0], None].to(H.dtype)
-    out = bsr_spmm(prep.bsr, Hs)
+    out = _Agg.apply(bsr_spmm, prep.bsr, prep.bsr_t, Hs)
     if rest is not None:
         r = rest.rows[: rest.nnz]
         c = rest.cols[: rest.nnz]
-        out.index_add_(0, r, Hs.index_select(0, c).to(out.dtype))
+        out = out.index_add(0, r, Hs.index_select(0, c).to(out.dtype))
     return out * prep.r1_row[: out.shape[0], None]

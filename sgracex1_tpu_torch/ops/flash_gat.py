@@ -13,16 +13,23 @@ vector ever exists.
 - Kernel K3, ``flash_gat_forward``: tile steps over a ``BSRMatrix``.
 - Kernel K6, ``flash_gat_hybrid_forward``: K3's tile steps plus remainder
   chunk steps of a value-mode ``FusedAggPlan`` in one exact row softmax.
+- Kernels K4, ``flash_gat_bwd_row``, and K5, ``flash_gat_bwd_col``: the
+  backward's row and column passes over the same tiles, recomputing the
+  probabilities from the forward's ``(m, l)``; ``flash_gat_backward``
+  combines them into ``(ds1, ds2, dWh)``.
 - ``gat_attention_agg_fused`` / ``gat_attention_agg_hybrid``: the layer
-  entry points, forward only for now.
+  entry points, ``torch.autograd.Function``s whose backward runs K4 and K5
+  (the hybrid one adds its remainder edges' terms in plain torch).
 
 Scores ``s1``/``s2`` are ``[N, H]`` and features ``Wh`` ``[N, H, F]``
 (heads last, one launch for all heads); 1-D scores with 2-D ``Wh`` are the
 single-head call. On a CUDA tensor each kernel wrapper launches
-``csrc/flash_gat.cu`` or raises; on a CPU tensor it runs its plain PyTorch
-version (``*_plain``), which walks every run's steps in schedule order
+``csrc/flash_gat.cu`` (K3, K6) or ``csrc/flash_gat_bwd.cu`` (K4, K5) or
+raises; on a CPU tensor it runs its plain PyTorch version (``*_plain``)
 with the TPU kernel's rounding points: ``bf16(p) @ bf16(Wh)`` with f32
-sums, f32 ``p`` in ``l``.
+sums and f32 ``p`` in ``l`` forward (every run's steps in schedule order);
+``q = bf16(gO) @ bf16(Wh)^T`` and ``bf16(p)^T @ bf16(gO)`` with f32 sums
+backward.
 """
 
 from __future__ import annotations
@@ -59,15 +66,6 @@ def _norm_heads(s1, s2, Wh):
     if s1.dim() == 1:
         return s1[:, None], s2[:, None], Wh[:, None, :], True
     return s1, s2, Wh, False
-
-
-def _forward_only(name: str, *tensors) -> None:
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise NotImplementedError(
-            f"{name} is forward-only so far: its backward kernels K4/K5 come "
-            "with the training slice (ROADMAP queue 1, item 9); run under "
-            "torch.no_grad() or detach the inputs"
-        )
 
 
 # ------------------------------------------------------------ edge path
@@ -247,6 +245,93 @@ def flash_gat_hybrid_forward_plain(
     return st.result(B.n_rows, squeeze, return_stats)
 
 
+# ------------------------------------------------ plain versions of K4, K5
+
+
+def _grid(x: torch.Tensor, n_blocks: int, tb: int, dtype=torch.float32) -> torch.Tensor:
+    """Head-last ``x`` ([N, H] or [N, H, F]) zero-padded to
+    ``n_blocks * tb`` rows in ``dtype``, contiguous."""
+    rows = n_blocks * tb
+    if x.shape[0] == rows:
+        return x.to(dtype).contiguous()
+    out = torch.zeros((rows, *x.shape[1:]), dtype=dtype, device=x.device)
+    out[: x.shape[0]] = x
+    return out
+
+
+def _head_major(x: torch.Tensor, tb: int) -> torch.Tensor:
+    """[nb*tb, H] -> [nb, H, tb]; [nb*tb, H, F] -> [nb, H, tb, F]."""
+    x = x.view(-1, tb, *x.shape[1:])
+    return x.permute(0, 2, 1) if x.dim() == 3 else x.permute(0, 2, 1, 3)
+
+
+def _bwd_walk(B: BSRMatrix, s1, s2, m, l, Wh, gO, alpha: float, fn) -> None:
+    """Call ``fn(rb, cb, p, lr, q)`` for batches of tiles, with the TPU
+    kernel's per-tile terms (``_tile_probs`` and the cotangent SDDMM)
+    [b, H, tb(rows), tb(cols)]: p = exp(masked e - m) / max(l, 1e-30),
+    lr = LeakyReLU', q = bf16(gO) @ bf16(Wh)^T with f32 sums."""
+    tb, H, F = B.tb, Wh.shape[1], Wh.shape[2]
+    n_rt, n_ct = B.n_row_tiles, _round_up(B.n_cols, tb) // tb
+    S1, M, L = (_head_major(_grid(x, n_rt, tb), tb) for x in (s1, m, l))
+    S2 = _head_major(_grid(s2, n_ct, tb), tb)
+    W = _head_major(_bf16r(_grid(Wh, n_ct, tb)), tb)
+    G = _head_major(_bf16r(_grid(gO, n_rt, tb)), tb)
+    Linv = 1.0 / torch.clamp(L, min=1e-30)
+    batch = max(1, _PLAIN_BATCH_BYTES // (4 * H * tb * (8 * tb + 2 * F)))
+    for b0 in range(0, B.num_tiles, batch):
+        ids = torch.arange(b0, min(B.num_tiles, b0 + batch), device=Wh.device)
+        rb, cb = B.tile_rb[ids].long(), B.tile_cb[ids].long()
+        e_pre = S1[rb][..., :, None] + S2[cb][..., None, :]
+        e = _lrelu_masked(e_pre, _mask01(B.tiles[ids], tb)[:, None], alpha)
+        p = torch.exp(e - M[rb][..., None]) * Linv[rb][..., None]
+        lr = torch.where(e_pre > 0, 1.0, alpha)
+        fn(rb, cb, p, lr, torch.matmul(G[rb], W[cb].transpose(-1, -2)))
+
+
+def flash_gat_bwd_row_plain(B: BSRMatrix, s1, s2, m, l, Wh, gO, *, alpha: float = 0.2):
+    """Plain PyTorch K4 (JAX ``_bwd_row_pass``): the row reductions
+    ``t = sum_c p q``, ``u1 = sum_c p q lr``, ``u2 = sum_c p lr`` over
+    ``B``'s tiles, each f32 [n_rt*tb, H]. ``s1`` [N, H], ``s2`` [M, H],
+    ``Wh`` [M, H, F], ``gO`` [N, H, F] and the stats ``m``, ``l``
+    [<= n_rt*tb, H] are zero-padded to the tile grid."""
+    tb, H = B.tb, Wh.shape[1]
+    n_rt = B.n_row_tiles
+    sums = torch.zeros((3, n_rt, H, tb), dtype=torch.float32, device=Wh.device)
+
+    def add(rb, cb, p, lr, q):
+        pq = p * q
+        for k, v in enumerate((pq, pq * lr, p * lr)):
+            sums[k].index_add_(0, rb, v.sum(dim=-1))
+
+    _bwd_walk(B, s1, s2, m, l, Wh, gO, alpha, add)
+    t, u1, u2 = (x.permute(0, 2, 1).reshape(n_rt * tb, H) for x in sums)
+    return t, u1, u2
+
+
+def flash_gat_bwd_col_plain(B: BSRMatrix, s1, s2, m, l, t, Wh, gO, *, alpha: float = 0.2):
+    """Plain PyTorch K5 (JAX ``_bwd_col_pass``): the column reductions
+    ``dWh = bf16(p)^T @ bf16(gO)`` f32 [n_ct*tb, H, F] and ``ds2 =
+    colsum(p (q - t) lr)`` f32 [n_ct*tb, H]. ``t`` is the full row
+    reduction (tiles plus any other edges of the rows); operands as
+    ``flash_gat_bwd_row_plain``."""
+    tb, H, F = B.tb, Wh.shape[1], Wh.shape[2]
+    n_rt, n_ct = B.n_row_tiles, _round_up(B.n_cols, tb) // tb
+    T = _head_major(_grid(t, n_rt, tb), tb)
+    G = _head_major(_bf16r(_grid(gO, n_rt, tb)), tb)
+    dW = torch.zeros((n_ct, H, tb, F), dtype=torch.float32, device=Wh.device)
+    ds2 = torch.zeros((n_ct, H, tb), dtype=torch.float32, device=Wh.device)
+
+    def add(rb, cb, p, lr, q):
+        dW.index_add_(0, cb, torch.matmul(_bf16r(p).transpose(-1, -2), G[rb]))
+        ds2.index_add_(0, cb, (p * (q - T[rb][..., None]) * lr).sum(dim=-2))
+
+    _bwd_walk(B, s1, s2, m, l, Wh, gO, alpha, add)
+    return (
+        dW.permute(0, 2, 1, 3).reshape(n_ct * tb, H, F),
+        ds2.permute(0, 2, 1).reshape(n_ct * tb, H),
+    )
+
+
 # ------------------------------------------------------------ K3 and K6
 
 
@@ -367,10 +452,212 @@ def flash_gat_hybrid_forward(
 flash_gat_hybrid_forward.launches = 0
 
 
+# ------------------------------------------------------------ K4 and K5
+
+
+def _launch_bwd(name, B: BSRMatrix, s1, s2, m, l, Wh, gO, alpha, t=None):
+    """Launch csrc/flash_gat_bwd.cu on head-last operands: K4 over the
+    row-block runs (``t`` None), else K5 over the column-block runs."""
+    dev = Wh.device
+    tb = B.tb
+    mode = _tile_mode(B.tiles, tb)
+    if tb % 32 or tb > 1024:
+        raise ValueError(f"the flash kernels need tb % 32 == 0 and tb <= 1024, got {tb}")
+    n_rt, n_ct = B.n_row_tiles, _round_up(B.n_cols, tb) // tb
+    if Wh.dim() != 3 or gO.dim() != 3 or gO.shape[1:] != Wh.shape[1:]:
+        raise ValueError(f"want Wh and gO [N, H, F]; got {tuple(Wh.shape)}, {tuple(gO.shape)}")
+    H, F = Wh.shape[1], Wh.shape[2]
+    rows = dict(s1=n_rt, m=n_rt, l=n_rt, t=n_rt, s2=n_ct, Wh=n_ct, gO=n_rt)
+    given = dict(s1=s1, m=m, l=l, t=t, s2=s2, Wh=Wh, gO=gO)
+    for k, x in given.items():
+        if x is None:
+            continue
+        if x.dim() != (3 if k in ("Wh", "gO") else 2) or x.shape[1] != H or x.shape[0] > rows[k] * tb:
+            raise ValueError(f"{k} {tuple(x.shape)} must be [<= {rows[k] * tb}, {H}(, F)]")
+        if x.dtype not in ((torch.float32, torch.bfloat16) if k in ("Wh", "gO") else (torch.float32,)):
+            raise ValueError(f"{k} has dtype {x.dtype}")
+    # padded to the tile grid, Wh and gO rounded to bf16 (the plain version
+    # and the TPU kernel round the same values per tile); no copy where
+    # flash_gat_backward already did both
+    ops = {
+        k: _grid(x, rows[k], tb, torch.bfloat16 if k in ("Wh", "gO") else torch.float32)
+        for k, x in given.items() if x is not None
+    }
+    S = B.segments if t is None else B.col_segments
+    ints = dict(tile_cb=B.tile_cb, tile_rb=B.tile_rb, col_perm=B.col_perm, **S.tensors())
+    _check_cuda_operands(dict(tiles=B.tiles, **ops, **ints), dev)
+    for k, x in ints.items():
+        if x.dtype != torch.int32:
+            raise ValueError(f"{k} must be int32, got {x.dtype}")
+    wvec = int(F % 8 == 0 and ops["Wh"].data_ptr() % 16 == 0 and ops["gO"].data_ptr() % 16 == 0)
+    f32 = dict(dtype=torch.float32, device=dev)
+    n_part = max(S.n_part, 1)
+    common = (
+        _ptr(ops["Wh"]), _ptr(ops["gO"]), wvec, H, F, float(alpha),
+    )
+    stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+    if t is None:
+        tuu = torch.empty((n_rt * tb, 3 * H), **f32)
+        partial = torch.empty((n_part, tb, 3 * H), **f32)
+        err = _cuda.library().sg_flash_gat_bwd_row(
+            _ptr(B.tiles), mode, tb, *_seg_args(S), _ptr(B.tile_cb),
+            _ptr(ops["s1"]), _ptr(ops["s2"]), _ptr(ops["m"]), _ptr(ops["l"]), *common,
+            _ptr(tuu), n_rt * tb, _ptr(partial), stream,
+        )
+        _cuda.check(err, name)
+        return tuu[:, :H], tuu[:, H : 2 * H], tuu[:, 2 * H :]
+    dwh = torch.empty((n_ct * tb, H, F), **f32)
+    ds2 = torch.empty((n_ct * tb, H), **f32)
+    pdwh = torch.empty((n_part, tb, H, F), **f32)
+    pds2 = torch.empty((n_part, tb, H), **f32)
+    err = _cuda.library().sg_flash_gat_bwd_col(
+        _ptr(B.tiles), mode, tb, *_seg_args(S), _ptr(B.col_perm), _ptr(B.tile_rb),
+        _ptr(ops["s1"]), _ptr(ops["s2"]), _ptr(ops["m"]), _ptr(ops["l"]), _ptr(ops["t"]),
+        *common, _ptr(dwh), _ptr(ds2), n_ct * tb, _ptr(pdwh), _ptr(pds2), stream,
+    )
+    _cuda.check(err, name)
+    return dwh, ds2
+
+
+def flash_gat_bwd_row(B: BSRMatrix, s1, s2, m, l, Wh, gO, *, alpha: float = 0.2):
+    """K4: the backward's row reductions ``(t, u1, u2)`` over ``B``'s
+    tiles, each f32 [n_rt*tb, H]. A CPU tensor runs
+    ``flash_gat_bwd_row_plain``; a CUDA tensor launches
+    ``csrc/flash_gat_bwd.cu`` or raises."""
+    if _device_of(Wh, "flash_gat_bwd_row") == "cpu":
+        return flash_gat_bwd_row_plain(B, s1, s2, m, l, Wh, gO, alpha=alpha)
+    res = _launch_bwd("flash_gat_bwd_row", B, s1, s2, m, l, Wh, gO, alpha)
+    flash_gat_bwd_row.launches += 1
+    return res
+
+
+flash_gat_bwd_row.launches = 0
+
+
+def flash_gat_bwd_col(B: BSRMatrix, s1, s2, m, l, t, Wh, gO, *, alpha: float = 0.2):
+    """K5: the backward's column reductions ``(dWh [n_ct*tb, H, F], ds2
+    [n_ct*tb, H])`` over ``B``'s tiles in column order, with ``t`` the full
+    row reduction. A CPU tensor runs ``flash_gat_bwd_col_plain``; a CUDA
+    tensor launches ``csrc/flash_gat_bwd.cu`` or raises."""
+    if _device_of(Wh, "flash_gat_bwd_col") == "cpu":
+        return flash_gat_bwd_col_plain(B, s1, s2, m, l, t, Wh, gO, alpha=alpha)
+    res = _launch_bwd("flash_gat_bwd_col", B, s1, s2, m, l, Wh, gO, alpha, t=t)
+    flash_gat_bwd_col.launches += 1
+    return res
+
+
+flash_gat_bwd_col.launches = 0
+
+
+def _rest_row_terms(rest: SparseMatrix, s1, s2, Wh, gO, m, l, alpha: float):
+    """The remainder edges' part of the row reductions, as JAX
+    ``_halo_agg_bwd`` computes it with ``s2h = s2``, ``halo = Wh``:
+    per-edge ``p`` under the merged stats, f32 ``q = gO[r] . Wh[c]``,
+    LeakyReLU' and the row sums ``(t, u1, u2)`` [n_rows, H]."""
+    rows, cols, vals = (x[: rest.nnz] for x in _edges(rest, Wh.device))
+    rows, cols, mask = rows.long(), cols.long(), (vals > 0)[:, None]
+    e_pre = s1.index_select(0, rows) + s2.index_select(0, cols)
+    lr = torch.where(e_pre > 0, 1.0, alpha)
+    e = torch.maximum(e_pre, alpha * e_pre)
+    p = torch.where(mask, torch.exp(e - m.index_select(0, rows)), 0.0)
+    p = p / torch.clamp(l, min=1e-30).index_select(0, rows)
+    q = (gO.index_select(0, rows) * Wh.index_select(0, cols).float()).sum(dim=-1)
+    nl = rest.n_rows
+    seg = lambda x: torch.zeros((nl, x.shape[1]), dtype=x.dtype, device=x.device).index_add_(0, rows, x)
+    edge = dict(rows=rows, cols=cols, mask=mask, p=p, q=q, lr=lr)
+    return edge, seg(p * q), seg(p * q * lr), seg(p * lr)
+
+
+def _rest_fan_in(edge: dict, gO, t, n_cols: int):
+    """The remainder edges' cotangents of ``s2`` and ``Wh`` [n_cols, H(, F)]
+    once the full row reduction ``t`` is known."""
+    rows, cols, p = edge["rows"], edge["cols"], edge["p"]
+    dE = torch.where(edge["mask"], p * (edge["q"] - t.index_select(0, rows)) * edge["lr"], 0.0)
+    ds2 = torch.zeros((n_cols, p.shape[1]), dtype=p.dtype, device=p.device).index_add_(0, cols, dE)
+    msg = gO.index_select(0, rows) * p[..., None]
+    dWh = torch.zeros((n_cols, *msg.shape[1:]), dtype=msg.dtype, device=msg.device)
+    return ds2, dWh.index_add_(0, cols, msg)
+
+
+def flash_gat_backward(
+    B: BSRMatrix, s1, s2, Wh, gO, m, l, *, alpha: float = 0.2,
+    rest: Optional[SparseMatrix] = None,
+):
+    """``(ds1, ds2, dWh)`` of the flash aggregation from the forward's row
+    stats ``m``, ``l`` [n_rt*tb, H] (the softmax-Jacobian identity of the
+    reference, JAX ``flash_gat_backward``): K4, ``ds1 = u1 - t u2``, then
+    K5. With ``rest``, the hybrid split's remainder edges (the stats are
+    K6's, merged over both) add their terms in plain torch, as JAX
+    ``_hybrid_agg_bwd``: their row sums join ``t`` before K5 subtracts
+    it, their fan-in terms add to ``ds2`` and ``dWh``. 1-D scores with
+    2-D ``Wh`` are the single-head call."""
+    s1, s2, Wh, squeeze = _norm_heads(s1, s2, Wh)
+    n1, n2, nw = s1.shape[0], s2.shape[0], Wh.shape[0]
+    gO = gO.reshape(gO.shape[0], *Wh.shape[1:])
+    nl, tb, n_rt = B.n_rows, B.tb, B.n_row_tiles
+    n_ct = _round_up(B.n_cols, tb) // tb
+    # rows past n_rows hold no edge; their stats pad to (0, 1) as in JAX
+    m_p, l_p = m.clone(), l.clone()
+    m_p[nl:], l_p[nl:] = 0.0, 1.0
+    # K4 and K5 share their operands, padded and rounded to bf16 once
+    # (the remainder terms below read the f32 Wh and gO)
+    ops = dict(
+        s1=_grid(s1, n_rt, tb), s2=_grid(s2, n_ct, tb), m=m_p, l=l_p,
+        Wh=_grid(Wh, n_ct, tb, torch.bfloat16), gO=_grid(gO, n_rt, tb, torch.bfloat16),
+    )
+    t, u1, u2 = (x[:nl] for x in flash_gat_bwd_row(B, **ops, alpha=alpha))
+    edge = None
+    if rest is not None and rest.nnz:
+        edge, t_r, u1_r, u2_r = _rest_row_terms(rest, s1, s2, Wh, gO, m[:nl], l[:nl], alpha)
+        t, u1, u2 = t + t_r, u1 + u1_r, u2 + u2_r
+    ds1 = (u1 - t * u2)[:n1]
+    dWh, ds2 = flash_gat_bwd_col(B, **ops, t=_grid(t, n_rt, tb), alpha=alpha)
+    del ops  # the bf16 copies go before the fan-in sums allocate (peak memory)
+    ds2, dWh = ds2[:n2], dWh[:nw]
+    if edge is not None:
+        ds2h, d_halo = _rest_fan_in(edge, gO, t, nw)
+        ds2, dWh = ds2 + ds2h, dWh + d_halo
+    if squeeze:
+        return ds1[:, 0], ds2[:, 0], dWh[:, 0, :]
+    return ds1, ds2, dWh
+
+
+# ------------------------------------------------- differentiable entries
+
+
+def _needs_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(x.requires_grad for x in tensors)
+
+
+class _Flash(torch.autograd.Function):
+    """``forward`` (K3 on tiles ``op`` or K6 on a plan ``op``) with its
+    stats; ``flash_gat_backward`` on the tiles ``B`` (K4 + K5, plus the
+    remainder ``rest`` of a hybrid split)."""
+
+    @staticmethod
+    def forward(ctx, forward, op, B, rest, alpha, s1, s2, Wh):
+        out, m, l = forward(op, s1, s2, Wh, alpha=alpha, return_stats=True)
+        ctx.B, ctx.rest, ctx.alpha = B, rest, alpha
+        ctx.save_for_backward(s1, s2, Wh, m, l)
+        return out
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, gO):
+        s1, s2, Wh, m, l = ctx.saved_tensors
+        ds1, ds2, dWh = flash_gat_backward(
+            ctx.B, s1, s2, Wh, gO, m, l, alpha=ctx.alpha, rest=ctx.rest
+        )
+        return None, None, None, None, None, ds1, ds2, dWh.to(Wh.dtype)
+
+
 def gat_attention_agg_fused(B: BSRMatrix, s1, s2, Wh, alpha: float = 0.2):
-    """Flash GAT aggregation on full-cover mask tiles (K3). Forward only:
-    raises when an input requires grad."""
-    _forward_only("gat_attention_agg_fused", s1, s2, Wh)
+    """Flash GAT aggregation on full-cover mask tiles, differentiable
+    (JAX ``gat_attention_agg_fused``): K3 forward; under grad it keeps
+    K3's ``(m, l)`` and the backward runs K4 and K5. Gradients flow to
+    ``s1``, ``s2`` and ``Wh``."""
+    if _needs_grad(s1, s2, Wh):
+        return _Flash.apply(flash_gat_forward, B, B, None, alpha, s1, s2, Wh)
     return flash_gat_forward(B, s1, s2, Wh, alpha=alpha)
 
 
@@ -378,9 +665,12 @@ def gat_attention_agg_hybrid(
     plan: FusedAggPlan, rest: Optional[SparseMatrix], s1, s2, Wh,
     alpha: float = 0.2, edges_sorted: bool = False,
 ):
-    """Hybrid flash GAT aggregation: dense tiles and remainder chunks in one
-    pass (K6). ``rest`` and ``edges_sorted`` feed only the backward, which
-    comes with training. Forward only: raises when an input requires
-    grad."""
-    _forward_only("gat_attention_agg_hybrid", s1, s2, Wh)
+    """Hybrid flash GAT aggregation, differentiable (JAX
+    ``gat_attention_agg_hybrid``): dense tiles and remainder chunks in one
+    pass (K6). ``rest`` is the remainder as an edge list, read only by the
+    backward (``flash_gat_backward``). ``edges_sorted`` (rest's rows
+    are sorted) is accepted for the JAX signature; the scatter-adds here
+    do not use it."""
+    if _needs_grad(s1, s2, Wh):
+        return _Flash.apply(flash_gat_hybrid_forward, plan, plan.B, rest, alpha, s1, s2, Wh)
     return flash_gat_hybrid_forward(plan, s1, s2, Wh, alpha=alpha)

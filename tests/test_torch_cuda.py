@@ -187,6 +187,91 @@ def test_gat_forward_through_kernels(cuda_device):
             torch.testing.assert_close(out, ref, rtol=5e-2, atol=5e-2)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "form,tb,n,H,F",
+    [("int8", 128, 3001, 4, 64), ("packed", 1024, 5000, 2, 16), ("values", 256, 2100, 1, 40),
+     ("int8", 128, 3001, 2, 100), ("int8", 256, 3001, 3, 20)],
+)
+def test_flash_bwd_kernels_match_plain(cuda_device, form, tb, n, H, F):
+    """K4 and K5 against their plain versions at 2e-2: bf16 q and dWh
+    operands are identical, p differs in the fast exp and so may round to
+    the neighbouring bf16 value."""
+    A = _graph(n, weighted=form == "values", seed=8)
+    if form == "packed":
+        B = K1.bsr_bitmask_from_sparse(A, tb=tb, device=cuda_device)
+    else:
+        B = K1.bsr_from_sparse(A, tb=tb, mask=form == "int8", device=cuda_device)
+    if tb == 128:
+        assert B.segments.n_fin > 0 and B.col_segments.n_fin > 0  # hub runs split
+    s1, s2, Wh = _scores(n, H, F, cuda_device, seed=2)
+    gO = _scores(n, H, F, cuda_device, seed=3)[2]
+    _, m, l = FG.flash_gat_forward_plain(B, s1, s2, Wh, return_stats=True)
+    before = (FG.flash_gat_bwd_row.launches, FG.flash_gat_bwd_col.launches)
+    got = FG.flash_gat_bwd_row(B, s1, s2, m, l, Wh, gO)
+    ref = FG.flash_gat_bwd_row_plain(B, s1, s2, m, l, Wh, gO)
+    torch.cuda.synchronize()
+    for g, r in zip(got, ref):
+        assert torch.isfinite(g).all()
+        torch.testing.assert_close(g, r, rtol=2e-2, atol=2e-2)
+    got = FG.flash_gat_bwd_col(B, s1, s2, m, l, ref[0], Wh, gO)
+    ref = FG.flash_gat_bwd_col_plain(B, s1, s2, m, l, ref[0], Wh, gO)
+    torch.cuda.synchronize()
+    for g, r in zip(got, ref):
+        torch.testing.assert_close(g, r, rtol=2e-2, atol=2e-2)
+    assert (FG.flash_gat_bwd_row.launches, FG.flash_gat_bwd_col.launches) == (before[0] + 1, before[1] + 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("weighted,fuse", [(False, True), (True, True), (False, False), (True, False)])
+def test_transposed_plans_match_plain(cuda_device, weighted, fuse):
+    """The backward's kernels: K2 on fused_t and K1 on bsr_t."""
+    A = _graph(2600, weighted, seed=9)
+    prep = pt.prepare_adjacency(A, method="hybrid", tb=128, rest_thresh=40, fuse=fuse, device=cuda_device)
+    g = torch.randn(A.n_rows, 64, device=cuda_device)
+    if fuse:
+        gb = g.to(torch.bfloat16)  # the cotangent of K2's bf16 output
+        torch.testing.assert_close(K2.bsr_spmm_fused(prep.fused_t, gb).float(),
+                                   K2.bsr_spmm_fused_plain(prep.fused_t, gb).float(), rtol=2e-2, atol=2e-2)
+    else:
+        torch.testing.assert_close(K1.bsr_spmm(prep.bsr_t, g), K1.bsr_spmm_plain(prep.bsr_t, g),
+                                   rtol=1e-3, atol=1e-3)
+
+
+def _grads(net, prep, x):
+    net.zero_grad(set_to_none=True)
+    net(prep, x).square().mean().backward()
+    return {k: p.grad.clone() for k, p in net.named_parameters()}
+
+
+@pytest.mark.cuda
+def test_model_grads_through_kernels(cuda_device):
+    """One GCN step through K2 (forward plan and fused_t) and one GAT step
+    each through K3/K6 with K4/K5, against autograd on the f32 edge path."""
+    A = _graph(3001, weighted=False, seed=10)
+    x = torch.randn(3001, 32, device=cuda_device)
+    edge = pt.prepare_adjacency(A, method="xla", device=cuda_device)
+    gcn = pt.GCNModel(32, 64, 7, dropout=0.0, generator=torch.Generator().manual_seed(0)).to(cuda_device)
+    prep = pt.prepare_adjacency(A, method="hybrid", tb=128, rest_thresh=40, device=cuda_device)
+    before = K2.bsr_spmm_fused.launches
+    got = _grads(gcn, prep, x)
+    assert K2.bsr_spmm_fused.launches == before + 4
+    runs = [(gcn, got, _grads(gcn, edge, x))]
+    gat = pt.GATModel(32, 16, 7, nheads=4, dropout=0.0, generator=torch.Generator().manual_seed(0)).to(cuda_device)
+    ref = _grads(gat, edge, x)
+    for kw, fwd in ((dict(), FG.flash_gat_forward),
+                    (dict(gat_tb=128, gat_rest_thresh=40), FG.flash_gat_hybrid_forward)):
+        prep = pt.prepare_adjacency(A, method="xla", for_gat=True, device=cuda_device, **kw)
+        kernels = (fwd, FG.flash_gat_bwd_row, FG.flash_gat_bwd_col)
+        before = [k.launches for k in kernels]
+        runs.append((gat, _grads(gat, prep, x), ref))
+        assert [k.launches - b for k, b in zip(kernels, before)] == [2, 2, 2]
+    for net, got, ref in runs:
+        for k, r in ref.items():
+            scale = float(r.abs().max())
+            torch.testing.assert_close(got[k], r, rtol=5e-2, atol=5e-2 * scale, msg=lambda m: f"{k}: {m}")
+
+
 def test_wrappers_run_plain_on_cpu_and_raise_elsewhere():
     A = _graph(600, weighted=True, seed=4)
     B = K1.bsr_from_sparse(A, tb=128, cover_rows=True)

@@ -101,11 +101,13 @@ def test_transposed_plans_and_auto():
 
 
 def test_agg_matmul_is_inference_only():
+    """No longer inference only: grad_H = A^T @ g on the edge list."""
     _, T = _graph("weighted", n=256)
     tp = tdis.prepare_adjacency(T, method="xla")
     H = torch.randn(256, 4, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="training"):
-        tdis.agg_matmul(tp, H)
+    g = torch.randn(256, 4)
+    (tdis.agg_matmul(tp, H) * g).sum().backward()
+    np.testing.assert_allclose(H.grad.numpy(), T.to_scipy().T @ g.numpy(), rtol=1e-5, atol=1e-5)
     with torch.no_grad():
         assert tdis.agg_matmul(tp, H).shape == (256, 4)
 

@@ -148,7 +148,7 @@ def test_flash_forward_plain_matches_pallas(form, tb, n, H, F, weighted):
     assert not has.all() and (out_t.numpy()[~has] == 0).all()
     ref = tfg.gat_attention_agg_ref(T, *_torch(s1, s2, Wh)).numpy()
     np.testing.assert_allclose(out_t.numpy(), ref, rtol=2e-2, atol=2e-2)
-    # the same call without stats, through the forward-only entry point
+    # the same call without stats, through the entry point
     with torch.no_grad():
         np.testing.assert_array_equal(
             tfg.gat_attention_agg_fused(Bt, *_torch(s1, s2, Wh)).numpy(), out_t.numpy()
@@ -197,21 +197,26 @@ def test_hybrid_forward_plain_matches_pallas(attach, H, thresh):
 
 
 def test_forward_only_entry_points_raise_under_grad():
+    """Not forward-only any more: under grad both entry points give the
+    no-grad forward and a gradient for every input."""
     T, _, pt, rest = _hybrid(300, 0.03, 64, 130, True)
     s1, s2, Wh = _torch(*_scores(300, 2, 8, seed=6))
-    Wh.requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        tfg.gat_attention_agg_hybrid(pt, rest, s1, s2, Wh)
     B = tb_.bsr_mask_from_sparse(T, tb=128)
-    with pytest.raises(NotImplementedError, match="forward-only"):
-        tfg.gat_attention_agg_fused(B, s1, s2, Wh)
-    with torch.no_grad():
-        assert tfg.gat_attention_agg_fused(B, s1, s2, Wh).shape == (300, 2, 8)
+    for fn in (lambda *a: tfg.gat_attention_agg_hybrid(pt, rest, *a),
+               lambda *a: tfg.gat_attention_agg_fused(B, *a)):
+        with torch.no_grad():
+            want = fn(s1, s2, Wh)
+        x = [t.clone().requires_grad_(True) for t in (s1, s2, Wh)]
+        out = fn(*x)
+        assert out.requires_grad and out.shape == (300, 2, 8)
+        torch.testing.assert_close(out.detach(), want, rtol=0, atol=0)
+        out.sum().backward()
+        assert all(t.grad is not None and torch.isfinite(t.grad).all() for t in x)
     # a rank-1 plan is not an attention plan; a meta tensor is no device
     with pytest.raises(ValueError, match="value-mode"):
         tfg.flash_gat_hybrid_forward(
             tf.build_fused_plan(B, None, r1_row=np.ones(300, np.float32), r1_col=np.ones(300, np.float32)),
-            s1, s2, Wh.detach(),
+            s1, s2, Wh,
         )
     with pytest.raises(ValueError, match="cpu or cuda"):
-        tfg.flash_gat_forward(B, s1, s2, Wh.detach().to("meta"))
+        tfg.flash_gat_forward(B, s1, s2, Wh.to("meta"))

@@ -1,8 +1,8 @@
 """The GAT serving path at small size: prepare_adjacency(for_gat=True)
 layouts against the JAX package's, and GATModel logits from the flax
 model's parameters (params_from_jax) on full-cover, hybrid and edge-path
-adjacencies. Plus GATConv's attention read-back and its unported
-options."""
+adjacencies. Plus GATConv's attention read-back, its unported options and
+gradients through the flash path."""
 
 import numpy as np
 import pytest
@@ -149,13 +149,14 @@ def test_return_attention_matches_jax(monkeypatch):
 def test_gat_unported_options_raise():
     with pytest.raises(NotImplementedError, match="item 13"):
         GATConv(4, 4, quant=object())
-    with pytest.raises(NotImplementedError, match="item 9"):
-        GATConv(4, 4, exact_gradients=True)
+    assert GATConv(4, 4, exact_gradients=True).exact_gradients  # ported now
     with pytest.raises(NotImplementedError, match="item 13"):
         pt.nn.GCNConv(4, 4, quant=object())
     A = pt.prepare_adjacency(pt.sym_norm(np.array([[0, 1, 2], [1, 2, 0]]), 3), method="xla", for_gat=True)
     net = pt.GATModel(8, 4, 3, nheads=2, generator=torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="training slice"):
-        net(A, torch.ones(3, 8))  # parameters require grad
+    # training works now: the flash path takes gradients (K3 with K4/K5)
+    out = net.eval()(A, torch.ones(3, 8))
+    out.sum().backward()
+    assert all(p.grad is not None and torch.isfinite(p.grad).all() for p in net.parameters())
     with torch.no_grad():
-        assert net.eval()(A, torch.ones(3, 8)).shape == (3, 3)
+        torch.testing.assert_close(net(A, torch.ones(3, 8)), out.detach())

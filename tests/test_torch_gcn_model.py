@@ -1,7 +1,7 @@
 """The serving slice at small size: power-law graph -> sym_norm -> degree
 order -> hybrid prepare -> 2-layer GCNModel, with the JAX model's
 parameters converted by params_from_jax. Plus the package boundary: no
-jax import, inference-only aggregation, unported options raise."""
+jax import, gradients through the aggregation, unported options raise."""
 
 import os
 import subprocess
@@ -93,7 +93,9 @@ def test_import_leaves_jax_out():
         "import sys, sgracex1_tpu_torch, sgracex1_tpu_torch.nn, "
         "sgracex1_tpu_torch.ops.fused_agg, sgracex1_tpu_torch.graph.datasets, "
         "sgracex1_tpu_torch.graph.reorder, sgracex1_tpu_torch.ops.flash_gat, "
-        "sgracex1_tpu_torch.ops.sddmm, sgracex1_tpu_torch.nn.models; "
+        "sgracex1_tpu_torch.ops.sddmm, sgracex1_tpu_torch.nn.models, "
+        "sgracex1_tpu_torch.config, sgracex1_tpu_torch.train, "
+        "sgracex1_tpu_torch.train.loop, sgracex1_tpu_torch.train.checkpoint; "
         "from sgracex1_tpu_torch import GATModel; "
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'sgracex1_tpu')); "
         "print(bad); sys.exit(1 if bad else 0)"
@@ -123,6 +125,8 @@ def test_model_boundaries():
         o1 = a(A, torch.ones(3, 8), generator=torch.Generator().manual_seed(0))
         o2 = a(A, torch.ones(3, 8), generator=torch.Generator().manual_seed(0))
     torch.testing.assert_close(o1, o2)
-    # inference only: a grad-requiring input through agg_matmul raises
-    with pytest.raises(NotImplementedError, match="training slice"):
-        a(A, torch.ones(3, 8))
+    # parameters take gradients through agg_matmul
+    a(A, torch.ones(3, 8), generator=torch.Generator().manual_seed(0)).sum().backward()
+    for name, p in a.named_parameters():
+        assert p.grad is not None and torch.isfinite(p.grad).all(), name
+    assert a.conv1.weight.grad.abs().sum() > 0
