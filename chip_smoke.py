@@ -1,5 +1,6 @@
-"""Drive the PyTorch port's GCN and GAT serving and training paths once on
-one NVIDIA GPU.
+"""Drive the PyTorch port's GCN and GAT serving and training paths, its
+full-integer int8 serving and its fake-quant (QAT) path once on one NVIDIA
+GPU.
 
     python3 chip_smoke.py
 
@@ -8,46 +9,52 @@ Phases, each raising on failure (so the run exits non-zero):
 1. device: require CUDA; print the card's name and power limit
    (nvidia-smi), torch and CUDA versions; TF32 off.
 2. build: compile the hand-written kernels (sgracex1_tpu_torch/csrc/*.cu)
-   with nvcc for sm_90a.
-3. kernels against their plain PyTorch versions on the card: K1
-   (bsr_spmm) and K2 (bsr_spmm_fused) in the three tile forms, rank-1 and
-   value mode, with and without a remainder, ragged n and P, f32 and bf16
-   H; a small GCN forward against the f32 edge path.
-4. the slice: 2^20-node power-law graph (avg degree 16, 100 features, 16
-   classes, seed 0), sym_norm, degree order (x, y and the masks permuted
-   with it), one hybrid prepare with the transposed plans; both kernels
-   timed against their plain versions at the slice's shapes; then a
-   2-layer width-128 GCNModel (random weights from a numpy seed) answers 3
-   forward requests through K2 and one through K1 (fuse=False view of the
-   same prep), with launch counts, times, peak memory, and the logits held
-   against a forward whose aggregations run the plain K2 on the card.
-   Then train_node_classifier trains it for 3 epochs on the same prep (K2
-   on the plan and on its transpose), one step runs through the K1 view
-   (K1 on the tiles and their transpose), with launch counts, times, peak
-   memory, a profiler window, and one step's gradients held against the
-   same step with every kernel on its plain version.
-5. the GAT slice on the same graph: for_gat prepare (hybrid attention
-   split); K6 (flash_gat_hybrid_forward) on the plan and K3
-   (flash_gat_forward) on its tile set timed against their plain versions
-   at H=4, F=64, and the backward's K4 (flash_gat_bwd_row) and K5
-   (flash_gat_bwd_col) under K6's stats; then GATModel(100, 64, 16,
-   nheads=4) (random weights from a numpy seed) answers 3 requests through
-   K6, with launch counts, times, peak memory, a profiler window, and the
-   logits held against a forward whose attention runs the plain K6 on the
-   card; then it trains for 3 epochs (K6, K4, K5), checked as in phase 4.
-6. the small GAT path: the n=8192 power-law graph, full-cover flash tiles,
-   3 requests through K3, held against the plain K3, then 3 training
-   epochs through K3, K4 and K5.
+   with nvcc for sm_90a, one nvcc per source, all started together.
+3. kernels against their plain PyTorch versions on the card at small
+   sizes: K1 (bsr_spmm) and K2 (bsr_spmm_fused) in the three tile forms,
+   rank-1 and value mode, with and without a remainder, ragged n and P,
+   f32 and bf16 H, and on transposed plans; K3 and K6 over the tile forms,
+   head counts, ragged widths, isolated rows, split runs and chunk layouts;
+   K4 and K5 over the same forms and under merged hybrid stats; small GCN
+   and GAT forwards and gradients through the kernels against the f32
+   edge path. K7 (bsr_spmm_int8) and K8 (bsr_spmm_int8_fused) must equal
+   their plain versions and a scipy integer product (tb 128 and 256, P in
+   {8, 16, 100, 128}, a row block without a tile, dead chunk slots, split
+   runs, both attach_chunks modes).
+4. the GCN slice: 2^20-node power-law graph (avg degree 16, 100 features,
+   16 classes, seed 0), sym_norm, degree order, one hybrid prepare with
+   the transposed plans; K1 and K2 timed against their plain versions, with
+   their bound and the library call (torch.sparse.mm on the CSR form)
+   beside them; a 2-layer width-128 GCNModel (random weights from a numpy
+   seed) answers 3 requests through K2 and one through K1, then trains for
+   3 epochs (K2 on the plan and its transpose; one step through the K1
+   view), each held against the plain-kernel versions.
+5. the GAT slice on the same graph: K6, K3, K4 and K5 timed at H=4, F=64
+   with their bounds; GATModel(100, 64, 16, nheads=4) answers 3 requests
+   through K6 and trains for 3 epochs (K6, K4, K5).
+6. the small GAT path (n=8192, full-cover tiles): 3 requests and 3
+   training epochs through K3, K4 and K5.
+7. K8 at full width: the slice's graph quantized to 8 bits,
+   prepare_int8_hybrid (tb 256, threshold 64, K 128), Hq from a numpy
+   seed; int8_hybrid_agg three times, equal to the plain version; K8, and
+   K7 on the plan's dense part, timed.
+8. fake-quant GCN at 2^20, width 128: calibrate() from one float forward
+   with telemetry, the 8-bit GCNModel on a value-tile prep
+   (prepare_from_config with fake_quantization), forwards held against the
+   plain-K1 forward, then 3 training epochs (K1 on bsr and bsr_t).
+9. int8 GCN serving (freeze_gcn2_sparse -> int8_gcn2_sparse_forward, 100
+   -> 128 -> 16) at n=2^16 on a full int8 tile cover: 3 requests, K7 twice
+   each, equal to the plain-K7 forward, on the slice's power-law generator
+   (K7 timed at its shapes; the error against the float forward is
+   printed) and on a bounded-degree banded graph, where the output must
+   lie within 0.08 of the float forward.
+10. one int8 GAT layer on K3 at n=8192 against the plain K3 and, on the
+   rows whose degree the 255 grid resolves, the edge-list int8 layer.
 
-Phase 3 also holds K3 and K6 against their plain versions over the tile
-forms, head counts, ragged widths, isolated rows, split runs and chunk
-layouts, and a small GATModel through both against the edge path; K4 and
-K5 over the same forms and under merged hybrid stats; K1 and K2 on
-transposed plans; and small GCN and GAT gradients through the kernels
-against autograd on the f32 edge path.
-
-The last two lines are the kernels' JSON record and
-``{"ok": true, "device": {...}}``.
+Every main path is driven with the launch counts set to 0 just before it
+and read just after. The last two lines are the kernels' JSON record
+(name, route, source, the TPU kernel replaced, launches, error, kernel /
+plain / bound / library milliseconds) and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -63,8 +70,8 @@ import numpy as np
 import torch
 
 from sgracex1_tpu_torch import (
-    GATModel, GCNModel, SGRACEConfig, agg_matmul, prepare_adjacency, sym_norm,
-    train_node_classifier,
+    GATModel, GCNModel, SGRACEConfig, agg_matmul, prepare_adjacency, prepare_from_config,
+    sym_norm, train_node_classifier,
 )
 from sgracex1_tpu_torch.graph.csr import SparseMatrix
 from sgracex1_tpu_torch.graph.datasets import NodeClassificationData, powerlaw_node_classification
@@ -76,6 +83,10 @@ from sgracex1_tpu_torch.ops import flash_gat as FG
 from sgracex1_tpu_torch.ops.fused_gnn import relu_hw
 from sgracex1_tpu_torch.ops import dispatch as D
 from sgracex1_tpu_torch.ops.dispatch import _drop_zero_val_edges, split_by_tile_density
+from sgracex1_tpu_torch.quant import int8 as Q
+from sgracex1_tpu_torch.quant.affine import QuantConstants, generate_constants
+from sgracex1_tpu_torch.quant.autocal import calibrate
+from sgracex1_tpu_torch.quant.calibration import CalibrationTable
 from sgracex1_tpu_torch.train.loop import _masked_xent
 
 SLICE = dict(n=1 << 20, avg_degree=16, num_features=100, num_classes=16, seed=0)
@@ -92,7 +103,18 @@ TRAIN_EPOCHS = 3
 # against each segment's running max and through the fast exp
 GRAD_TOL = 2e-2
 KERNELS = (K1.bsr_spmm, K2.bsr_spmm_fused, FG.flash_gat_forward, FG.flash_gat_bwd_row,
-           FG.flash_gat_bwd_col, FG.flash_gat_hybrid_forward)
+           FG.flash_gat_bwd_col, FG.flash_gat_hybrid_forward, K1.bsr_spmm_int8,
+           K2.bsr_spmm_int8_fused)
+INT8_GCN = dict(SLICE, n=1 << 16)  # full int8 tile cover: at most 256^2 tiles of 64 KiB
+INT8_TB = 256
+INT8_REL_TOL = 0.08  # int8 2-layer GCN against the float forward, of its largest output
+INT8_GAT_TOL = 0.03  # int8 GAT on K3 against the edge-list int8 GAT, of its largest output
+INT8_GAT_MAX_DEGREE = 32  # rows whose attention weights the edge-list layer's 255 grid resolves
+QAT_TOL = 2e-2  # fake-quant logits against the plain-K1 forward, of the largest logit
+# the card's published peaks: bytes/s of device memory, dense tensor-core
+# operations/s by operand type
+HBM_BYTES_S = 3.35e12
+PEAK_OPS = {"bf16": 989e12, "int8": 1979e12}
 
 
 def _log(msg: str) -> None:
@@ -123,6 +145,53 @@ def _check(name: str, out, ref, tol: float) -> float:
         raise AssertionError(f"{name}: shape {tuple(out.shape)} vs {tuple(ref.shape)} or non-finite")
     torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol, msg=lambda m: f"{name}: {m}")
     return float((out.float() - ref.float()).abs().max())
+
+
+def _nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def _bound(nbytes: float, ops: float, kind: str) -> dict:
+    """The least time the card could take: every input byte read once and
+    every output byte written once at the memory rate, or the operations at
+    the tensor cores' peak for ``kind``, whichever is larger."""
+    by_bytes = nbytes / HBM_BYTES_S * 1e3
+    by_ops = ops / PEAK_OPS[kind] * 1e3
+    return dict(bound_ms=max(by_bytes, by_ops), bound_by="bytes" if by_bytes >= by_ops else "operations")
+
+
+def _seg_bytes(S) -> int:
+    return _nbytes(*S.tensors().values())
+
+
+def _plan_bytes(plan) -> int:
+    """The schedule and chunk arrays a fused-plan kernel reads."""
+    return _nbytes(plan.step_cb, plan.step_tile, plan.step_chunk, plan.step_kind, plan.lrow,
+                   plan.slot_col, plan.slot_scale, plan.colscale, plan.rowscale) + _seg_bytes(plan.segments)
+
+
+def _live_slots(plan) -> int:
+    return int((plan.lrow < plan.B.tb).sum()) if plan.num_rest_chunks else 0
+
+
+def _agg_bound(B, H, out, kind, plan=None) -> dict:
+    """Bound of one aggregation (K1, K2, K7, K8) on this run's tiles and
+    chunks: tile products 2*tb*tb*P each, one multiply-add per live slot
+    and feature."""
+    P = H.shape[1]
+    nbytes = _nbytes(B.tiles, H, out) + (
+        _plan_bytes(plan) if plan is not None else _nbytes(B.tile_cb) + _seg_bytes(B.segments))
+    ops = 2.0 * B.num_tiles * B.tb * B.tb * P + (2.0 * _live_slots(plan) * P if plan is not None else 0.0)
+    return _bound(nbytes, ops, kind)
+
+
+def _flash_bound(B, tensors, H, F, products, plan=None) -> dict:
+    """Bound of a flash-GAT pass: ``products`` tile products of
+    2*tb*tb*F operations per tile and head, bf16 operands."""
+    nbytes = _nbytes(B.tiles, *tensors) + (
+        _plan_bytes(plan) if plan is not None else _nbytes(B.tile_cb) + _seg_bytes(B.segments))
+    ops = products * 2.0 * B.num_tiles * B.tb * B.tb * H * F + (2.0 * _live_slots(plan) * H * F if plan is not None else 0.0)
+    return _bound(nbytes, ops, "bf16")
 
 
 def phase_device():
@@ -389,6 +458,84 @@ def _bwd_kernels_small(device, gen):
         _log(f"  small {name} (3001 nodes) gradients vs f32 edge path: max err / max |grad| {err:.3g}")
 
 
+def _int8_graph(n, seed, empty_rb=None, tb=128):
+    """Weighted edges in (0, 1] plus hub rows: dense tiles and a sparse
+    remainder. With ``empty_rb`` that row block gets no edge at all."""
+    rng = np.random.default_rng(seed)
+    h = np.stack([rng.integers(0, 150, 12 * n), rng.integers(0, n, 12 * n)])
+    ei = np.unique(np.concatenate([rng.integers(0, n, (2, 4 * n)), h, h[::-1]], axis=1), axis=1)
+    if empty_rb is not None:
+        ei = ei[:, ei[0] // tb != empty_rb]
+    v = rng.uniform(0.01, 1.0, ei.shape[1]).astype(np.float32)
+    return SparseMatrix.from_coo(ei[0], ei[1], v, (n, n))
+
+
+def _check_equal(name: str, out, ref) -> float:
+    """int32 results must be identical; returns the max abs difference (0)."""
+    torch.cuda.synchronize()
+    if out.dtype != torch.int32 or out.shape != ref.shape or not torch.equal(out, ref):
+        diff = (out.long() - ref.long()).abs().max().item() if out.shape == ref.shape else "shape"
+        raise AssertionError(f"{name}: kernel differs from its plain version (max abs diff {diff})")
+    return 0.0
+
+
+def phase_int8_kernels_small(device):
+    """K7 and K8 equal to their plain versions and to a scipy integer
+    product made on the host: tb 128 and 256, P in {8, 16, 100, 128}, a
+    row block with no tile, dead chunk slots, split runs, both
+    attach_chunks modes."""
+    import scipy.sparse as sp
+
+    c_a = generate_constants(0.0, 1.0, 8, signed=False, w_qbits=8)
+    cases = [(3001, 128, 8, 2), (3001, 256, 16, None), (2600, 128, 100, 5), (4100, 256, 128, 1)]
+    split = False
+    for i, (n, tb, P, empty_rb) in enumerate(cases):
+        A = _int8_graph(n, 80 + i, empty_rb, tb)
+        aq = Q._quantize_vals(A.vals[: A.nnz], c_a).astype(np.int64)
+        Aq = sp.coo_matrix((aq, (A.rows[: A.nnz], A.cols[: A.nnz])), shape=A.shape).tocsr()
+        Hq_np = np.random.default_rng(i).integers(-127, 128, (n, P)).astype(np.int8)
+        host = torch.from_numpy((Aq @ Hq_np.astype(np.int64)).astype(np.int32)).to(device)
+        Hq = torch.from_numpy(Hq_np).to(device)
+        B = Q.bsr_int8_from_sparse(A, c_a, tb=tb, device=device)
+        out = K1.bsr_spmm_int8(B, Hq)
+        _check_equal(f"K7 n={n} tb={tb} P={P}", out, K1.bsr_spmm_int8_plain(B, Hq))
+        _check_equal(f"K7 n={n} tb={tb} P={P} vs scipy", out[:n], host)
+        if out.shape[0] != B.n_row_tiles * tb or (out[n:] != 0).any():
+            raise AssertionError("K7 writes every row of every row block, zeros past n_rows")
+        msg = (f"  K7/K8 n={n} tb={tb} P={P}: K7 tiles={B.num_tiles} segments={B.segments.n_seg} "
+               f"split_runs={B.segments.n_fin} empty_rb={empty_rb};")
+        part, rest = split_by_tile_density(A, tb, 40 * (tb // 128) ** 2)
+        B8 = Q.bsr_int8_from_sparse(part, c_a, tb=tb, cover_cols=True, device=device)
+        rest_q = rest.with_vals(Q._quantize_vals(rest.vals, c_a))
+        for attach in (True, False):
+            plan = K2.build_fused_plan(B8, rest_q, attach_chunks=attach)
+            dead = int((plan.lrow == tb).sum())
+            if not (plan.num_rest_chunks and dead):
+                raise AssertionError("the K8 case needs chunks and dead slots")
+            split |= plan.segments.n_fin > 0
+            out = K2.bsr_spmm_int8_fused(plan, Hq)
+            _check_equal(f"K8 n={n} tb={tb} P={P} attach={attach}", out,
+                         K2.bsr_spmm_int8_fused_plain(plan, Hq))
+            _check_equal(f"K8 n={n} tb={tb} P={P} attach={attach} vs scipy", out, host)
+            msg += (f" K8 attach={attach}: tiles={B8.num_tiles} chunks={plan.num_rest_chunks} "
+                    f"dead_slots={dead} kinds={sorted(set(plan.step_kind.tolist()))} "
+                    f"split_runs={plan.segments.n_fin};")
+        _log(msg + " equal")
+    if not split:
+        raise AssertionError("no K8 case split a run")
+    # the dense integer products that serve X @ W and the score matvecs
+    rng = np.random.default_rng(3)
+    shapes = [(1000, 100, 12), (2000, 100, 32), (17, 8, 2), (3001, 128, 100)]
+    for M, K, N in shapes:
+        us = torch.from_numpy(rng.integers(-128, 128, (M, K)).astype(np.int8)).to(device)
+        sq = torch.from_numpy(rng.integers(-127, 128, (K, N)).astype(np.int8)).to(device)
+        got = Q.matmul_unsigned_x_signed(us, sq)
+        ref = (us.cpu().long() + 128) @ sq.cpu().long()
+        if got.dtype != torch.int32 or not torch.equal(got.cpu().long(), ref):
+            raise AssertionError(f"matmul_unsigned_x_signed {M}x{K}x{N} differs from the host integer product")
+    _log(f"  matmul_unsigned_x_signed equals the host integer product at [M, K, N] in {shapes}")
+
+
 def _slice_weights(rng, F, hidden, C):
     """Xavier-uniform (gain 1.414) conv weights [in, out] and a linear head."""
     def xavier(fan_in, fan_out):
@@ -439,22 +586,44 @@ def phase_slice_prepare(device, cfg=SLICE):
     return A, data, prep
 
 
-def phase_kernels_slice(prep, device):
-    """Both kernels at the slice's shapes (P = 128): error and times."""
+def phase_kernels_slice(A, prep, device):
+    """Both kernels at the slice's shapes (P = 128): error and times, the
+    bound, and the library call beside them."""
     gen = torch.Generator(device=device).manual_seed(1)
     H = torch.randn(prep.A.n_cols, HIDDEN, generator=gen, device=device)
+    lib_ms, lib = _sparse_mm_ms(A, H)
+    e = _check("agg_matmul (K2) against torch.sparse.mm", agg_matmul(prep, H), lib, K2_TOL)
+    _log(f"agg_matmul (K2, bf16) against the library product (f32): max abs err {e:.3g}")
     rec = {}
     for name, kern, plain, op, tol in (
         ("bsr_spmm_fused", K2.bsr_spmm_fused, K2.bsr_spmm_fused_plain, prep.fused, K2_TOL),
         ("bsr_spmm", K1.bsr_spmm, K1.bsr_spmm_plain, prep.bsr, K1_TOL),
     ):
-        err = _check(f"{name} at slice shapes", kern(op, H), plain(op, H), tol)
+        out = kern(op, H)
+        err = _check(f"{name} at slice shapes", out, plain(op, H), tol)
         ms = _cuda_ms(lambda: kern(op, H))
-        plain_ms = _cuda_ms(lambda: plain(op, H))
-        rec[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+        plain_ms = _cuda_ms(lambda: plain(op, H), reps=5)
+        bound = _agg_bound(prep.bsr, H, out, "bf16", plan=op if op is prep.fused else None)
+        rec[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, **bound, library_ms=lib_ms)
         _log(f"{name} at slice shapes [n={prep.A.n_rows}, P={HIDDEN}]: kernel {ms:.4f} ms, "
-             f"plain {plain_ms:.4f} ms, max abs err {err:.3g}")
+             f"plain {plain_ms:.4f} ms (median of 5), bound {bound['bound_ms']:.4f} ms by {bound['bound_by']}, "
+             f"max abs err {err:.3g}")
     return rec
+
+
+def _sparse_mm_ms(A, H) -> tuple:
+    """The library yardstick of K1/K2: one ``torch.sparse.mm`` on the CSR
+    form of the same normalised adjacency with the same H (float32). Timed
+    here and used nowhere in the package. Returns (ms, the product)."""
+    rows = A.rows[: A.nnz].astype(np.int64)
+    crow = torch.from_numpy(np.searchsorted(rows, np.arange(A.n_rows + 1))).to(H.device)
+    csr = torch.sparse_csr_tensor(
+        crow, torch.from_numpy(A.cols[: A.nnz].astype(np.int64)).to(H.device),
+        torch.from_numpy(A.vals[: A.nnz].astype(np.float32)).to(H.device), size=A.shape)
+    ref = torch.sparse.mm(csr, H)
+    ms = _cuda_ms(lambda: torch.sparse.mm(csr, H))
+    _log(f"library call torch.sparse.mm (CSR, f32, nnz={A.nnz}) on [n={A.n_rows}, P={H.shape[1]}]: {ms:.4f} ms")
+    return ms, ref
 
 
 def _plain_forward(net, prep, x):
@@ -564,12 +733,16 @@ def phase_gat_kernels_slice(prep, device):
         ("flash_gat_hybrid_forward", FG.flash_gat_hybrid_forward, FG.flash_gat_hybrid_forward_plain, plan),
         ("flash_gat_forward", FG.flash_gat_forward, FG.flash_gat_forward_plain, plan.B),
     ):
-        err = _check(f"{name} at slice shapes", kern(op, s1, s2, Wh), plain(op, s1, s2, Wh), GAT_TOL)
+        out = kern(op, s1, s2, Wh)
+        err = _check(f"{name} at slice shapes", out, plain(op, s1, s2, Wh), GAT_TOL)
         ms = _cuda_ms(lambda: kern(op, s1, s2, Wh))
-        plain_ms = _cuda_ms(lambda: plain(op, s1, s2, Wh))
-        rec[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+        plain_ms = _cuda_ms(lambda: plain(op, s1, s2, Wh), reps=3)
+        bound = _flash_bound(plan.B, (s1, s2, Wh, out), GAT_HEADS, GAT_HIDDEN, 1,
+                             plan=plan if op is plan else None)
+        rec[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, **bound, library_ms=None)
         _log(f"{name} at slice shapes [n={prep.A.n_rows}, H={GAT_HEADS}, F={GAT_HIDDEN}]: "
-             f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, max abs err {err:.3g}")
+             f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (median of 3), bound {bound['bound_ms']:.4f} ms "
+             f"by {bound['bound_by']}, max abs err {err:.3g}")
     # the backward passes on the plan's tiles under K6's merged stats
     _, m, l = FG.flash_gat_hybrid_forward(plan, s1, s2, Wh, return_stats=True)
     gO = torch.randn(Wh.shape, generator=gen, device=device)
@@ -579,12 +752,16 @@ def phase_gat_kernels_slice(prep, device):
         ("flash_gat_bwd_row", FG.flash_gat_bwd_row, FG.flash_gat_bwd_row_plain, (B, s1, s2, m, l, Wh, gO)),
         ("flash_gat_bwd_col", FG.flash_gat_bwd_col, FG.flash_gat_bwd_col_plain, (B, s1, s2, m, l, t, Wh, gO)),
     ):
-        err = max(_check(f"{name} at slice shapes", g, r, GAT_TOL) for g, r in zip(kern(*args), plain(*args)))
+        outs = kern(*args)
+        err = max(_check(f"{name} at slice shapes", g, r, GAT_TOL) for g, r in zip(outs, plain(*args)))
         ms = _cuda_ms(lambda: kern(*args))
         plain_ms = _cuda_ms(lambda: plain(*args), reps=3)
-        rec[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+        # K4: the q product; K5: the q product and p^T @ gO
+        bound = _flash_bound(B, (*args[1:], *outs), GAT_HEADS, GAT_HIDDEN, 1 if name.endswith("row") else 2)
+        rec[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, **bound, library_ms=None)
         _log(f"{name} at slice shapes [n={prep.A.n_rows}, T={B.num_tiles}, H={GAT_HEADS}, F={GAT_HIDDEN}]: "
-             f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (median of 3), max abs err {err:.3g}")
+             f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (median of 3), bound {bound['bound_ms']:.4f} ms "
+             f"by {bound['bound_by']}, max abs err {err:.3g}")
     return rec
 
 
@@ -833,13 +1010,311 @@ def _add(total: dict, more: dict) -> dict:
     return total
 
 
+def phase_int8_hybrid_slice(A, device):
+    """K8 at full width: the slice's graph quantized to 8 bits, the hybrid
+    split (tb 256, threshold 64, K 128), Hq from a numpy seed. The main
+    path is ``int8_hybrid_agg`` three times; then K8 and K7 (on the plan's
+    dense part) are timed against their plain versions and must equal
+    them."""
+    c_a = QuantConstants(s_o=1.0, s=max(float(A.vals[: A.nnz].max()), 1e-8) / 255.0, z=0, qbits=8, signed=False)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    plan = Q.prepare_int8_hybrid(A, c_a, tb=INT8_TB, rest_thresh=D.DEFAULT_REST_THRESH, K=K2.DEFAULT_K,
+                                 device=device)
+    torch.cuda.synchronize()
+    prep_s = time.perf_counter() - t0
+    B = plan.B
+    _log(f"int8 hybrid prepare: {prep_s:.1f} s tb={B.tb} tiles={B.num_tiles} "
+         f"({_nbytes(B.tiles) / 1e9:.3f} GB {B.tiles.dtype}) rest_edges={_live_slots(plan)} "
+         f"rest_chunks={plan.num_rest_chunks} K={plan.K} steps={plan.num_steps} "
+         f"segments={plan.segments.n_seg} split_runs={plan.segments.n_fin}")
+    Hq = torch.from_numpy(np.random.default_rng(0).integers(-127, 127, (A.n_cols, HIDDEN)).astype(np.int8)).to(device)
+    _reset_counts()
+    for _ in range(REQUESTS):
+        out = Q.int8_hybrid_agg(plan, Hq)
+    torch.cuda.synchronize()
+    launches = _counts()
+    if launches["bsr_spmm_int8_fused"] != REQUESTS or sum(launches.values()) != REQUESTS:
+        raise AssertionError(f"int8 hybrid aggregation launches {launches}, expected K8 x{REQUESTS} only")
+    if out.shape != (A.n_rows, HIDDEN):
+        raise AssertionError(f"int8 hybrid aggregation shape {tuple(out.shape)}")
+    rec = {}
+    err = _check_equal("K8 at slice shapes", out, K2.bsr_spmm_int8_fused_plain(plan, Hq))
+    ms = _cuda_ms(lambda: K2.bsr_spmm_int8_fused(plan, Hq))
+    plain_ms = _cuda_ms(lambda: K2.bsr_spmm_int8_fused_plain(plan, Hq), reps=5)
+    bound = _agg_bound(B, Hq, out, "int8", plan=plan)
+    rec["bsr_spmm_int8_fused"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, **bound, library_ms=None)
+    _log(f"bsr_spmm_int8_fused at slice shapes [n={A.n_rows}, P={HIDDEN}]: kernel {ms:.4f} ms "
+         f"({A.nnz / (ms * 1e-3) / 1e6:.1f} M edges/s), plain {plain_ms:.4f} ms (median of 5), "
+         f"bound {bound['bound_ms']:.4f} ms by {bound['bound_by']}, equal to the plain version")
+    out7 = K1.bsr_spmm_int8(B, Hq)
+    _check_equal("K7 on the hybrid plan's dense part", out7, K1.bsr_spmm_int8_plain(B, Hq))
+    ms7 = _cuda_ms(lambda: K1.bsr_spmm_int8(B, Hq))
+    plain7 = _cuda_ms(lambda: K1.bsr_spmm_int8_plain(B, Hq), reps=5)
+    b7 = _agg_bound(B, Hq, out7, "int8")
+    _log(f"bsr_spmm_int8 on the same dense part [T={B.num_tiles}, P={HIDDEN}]: kernel {ms7:.4f} ms, "
+         f"plain {plain7:.4f} ms (median of 5), bound {b7['bound_ms']:.4f} ms by {b7['bound_by']}, equal")
+    _log(f"peak device memory in the int8 hybrid phase: {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    return rec, launches
+
+
+def _banded_graph(n, extra, seed):
+    """Sym-normalised banded + random graph (bands +-1 and +-2, ``extra``
+    random edges): bounded degrees, the shape the int8 accuracy limit is
+    defined on."""
+    rng = np.random.default_rng(seed)
+    rows, cols = [], []
+    for d in (-2, -1, 1, 2):
+        i = np.arange(max(0, -d), min(n, n - d))
+        rows.append(i)
+        cols.append(i + d)
+    rows.append(rng.integers(0, n, extra))
+    cols.append(rng.integers(0, n, extra))
+    k = np.unique(np.concatenate(rows).astype(np.int64) * n + np.concatenate(cols))
+    return sym_norm(np.stack([k // n, k % n]), n)
+
+
+def _int8_gcn_serve(A, label, device, cfg, rel_limit):
+    """Freeze the 100 -> 128 -> 16 net on ``A`` (weights uniform +-0.5 and
+    features uniform [0, 1] from a numpy seed, a_max from the adjacency,
+    activation ranges from one float forward on the host), answer REQUESTS
+    requests through K7, hold the output against the same forward on the
+    plain K7 (equal) and the float forward (``rel_limit`` of its largest
+    output, where given). Returns (net, launches)."""
+    n, F, C = A.n_rows, cfg["num_features"], cfg["num_classes"]
+    T = len(K1.bsr_tile_keys(A, INT8_TB, cover_rows=True))
+    _log(f"int8 GCN {label}: n={n} nnz={A.nnz}; full cover at tb={INT8_TB}: {T} tiles, "
+         f"{T * INT8_TB * INT8_TB / 1e9:.3f} GB int8")
+    rng = np.random.default_rng(0)
+    W1 = rng.uniform(-0.5, 0.5, (F, HIDDEN)).astype(np.float32)
+    W2 = rng.uniform(-0.5, 0.5, (HIDDEN, C)).astype(np.float32)
+    X = rng.uniform(0.0, 1.0, (n, F)).astype(np.float32)
+    a_max = float(A.vals[: A.nnz].max()) or 1.0
+    cal = CalibrationTable.for_qbits(8, dict(w_min=-0.5, w_max=0.5, w_min2=-0.5, w_max2=0.5,
+                                             f_min=0.0, f_max=1.0, a_min=0.0, a_max=a_max))
+    amax = Q.collect_amax_gcn2_sparse(A, X, W1, W2)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    net = Q.freeze_gcn2_sparse(W1, W2, A, cal, tb=INT8_TB, device=device, **amax)
+    torch.cuda.synchronize()
+    _log(f"freeze_gcn2_sparse ({label}): {time.perf_counter() - t0:.1f} s tiles={net.a_bsr.num_tiles} "
+         f"segments={net.a_bsr.segments.n_seg} split_runs={net.a_bsr.segments.n_fin} amax={amax}")
+    xs = Q.quantize_unsigned_shifted(torch.from_numpy(X).to(device), cal.features)
+    Q.int8_gcn2_sparse_forward(net, xs)  # warm-up: cuBLASLt handles, allocator
+    torch.cuda.synchronize()
+    _reset_counts()
+    ms, per_request = [], []
+    for _ in range(REQUESTS):
+        before = _counts()["bsr_spmm_int8"]
+        t0 = time.perf_counter()
+        out = Q.int8_gcn2_sparse_forward(net, xs)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        per_request.append(_counts()["bsr_spmm_int8"] - before)
+    launches = _counts()
+    _log(f"int8 GCN requests ({label}, K7 route): " + ", ".join(f"{m:.3f}" for m in ms) + " ms")
+    _log(f"launches in the int8 GCN serving run ({label}): {launches} (K7 per request: {per_request})")
+    if per_request != [2] * REQUESTS or sum(launches.values()) != 2 * REQUESTS:
+        raise AssertionError(f"K7 launches per request {per_request}, expected 2 each and no other kernel")
+    if out.shape != (n, C) or not torch.isfinite(out).all():
+        raise AssertionError(f"int8 GCN output shape {tuple(out.shape)} or non-finite")
+    kern = Q.bsr_spmm_int8
+    Q.bsr_spmm_int8 = K1.bsr_spmm_int8_plain
+    try:
+        ref = Q.int8_gcn2_sparse_forward(net, xs)
+    finally:
+        Q.bsr_spmm_int8 = kern
+    torch.cuda.synchronize()
+    if not torch.equal(out, ref):
+        raise AssertionError("int8 GCN output differs from the same forward on the plain K7")
+    mat = A.to_scipy()
+    flt = mat @ (np.maximum(mat @ (X @ W1), 0.0) @ W2)
+    rel = float(np.abs(out.cpu().numpy() - flt).max() / (np.abs(flt).max() + 1e-9))
+    _log(f"int8 GCN output ({label}): equal to the plain-K7 forward; relative error against the float forward "
+         f"{rel:.4f}" + (f" (limit {rel_limit})" if rel_limit else " (reported, no limit: see the docstring)"))
+    if rel_limit and rel >= rel_limit:
+        raise AssertionError(f"int8 GCN relative error {rel} against the float forward")
+    return net, launches
+
+
+def phase_int8_gcn(device, cfg=INT8_GCN):
+    """Full-integer GCN serving (100 -> 128 -> 16) on a full int8 tile
+    cover at tb 256: ``freeze_gcn2_sparse`` -> ``int8_gcn2_sparse_forward``,
+    K7 twice a request. The full cover is what limits the size: at most
+    (n / 256)^2 tiles of 64 KiB.
+
+    Two graphs of n nodes go through the same entry points. The slice's
+    power-law generator is the main path (launch counts, equality with the
+    plain-K7 forward, K7's times at its shapes); its error against the
+    float forward is printed without a limit, because one 8-bit grid per
+    tensor cannot hold a hub row's range (the hub's layer-1 output sets
+    ``x2_absmax`` some 60 times above an ordinary node's, whose values then
+    round to a few levels; the reference's int8 design has the same
+    limit). The accuracy limit of 0.08 is held on the bounded-degree banded
+    graph on which the reference defines it."""
+    A, _, gen_s = _slice_graph(cfg)
+    n, C = A.n_rows, cfg["num_classes"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    net, launches = _int8_gcn_serve(A, "power-law", device, cfg, None)
+    # K7 at the path's layer-1 shape (P = 128), and its layer-2 shape beside it
+    rng = np.random.default_rng(1)
+    rec = {}
+    for P in (HIDDEN, C):
+        Hq = torch.from_numpy(rng.integers(-127, 128, (n, P)).astype(np.int8)).to(device)
+        o = K1.bsr_spmm_int8(net.a_bsr, Hq)
+        err = _check_equal(f"K7 at the int8 GCN's shapes P={P}", o, K1.bsr_spmm_int8_plain(net.a_bsr, Hq))
+        k_ms = _cuda_ms(lambda: K1.bsr_spmm_int8(net.a_bsr, Hq))
+        p_ms = _cuda_ms(lambda: K1.bsr_spmm_int8_plain(net.a_bsr, Hq), reps=3)
+        bound = _agg_bound(net.a_bsr, Hq, o, "int8")
+        _log(f"bsr_spmm_int8 at the int8 GCN's shapes [n={n}, T={net.a_bsr.num_tiles}, P={P}]: kernel {k_ms:.4f} ms, "
+             f"plain {p_ms:.4f} ms (median of 3), bound {bound['bound_ms']:.4f} ms by {bound['bound_by']}, equal")
+        if P == HIDDEN:
+            rec["bsr_spmm_int8"] = dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms, **bound, library_ms=None)
+    del net
+    torch.cuda.empty_cache()
+    _, more = _int8_gcn_serve(_banded_graph(n, n // 4, 0), "banded", device, cfg, INT8_REL_TOL)
+    _log(f"peak device memory in the int8 GCN phase: {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    return rec, _add(launches, more)
+
+
+def phase_int8_gat(device, cfg=GAT_SMALL):
+    """One int8 GAT layer (100 -> 64, one head) on K3 over full-cover mask
+    tiles at n=8192, against the same layer on the edge list."""
+    A, _, _ = _slice_graph(cfg)
+    n, F = A.n_rows, cfg["num_features"]
+    rng = np.random.default_rng(0)
+    X = rng.uniform(0.0, 1.0, (n, F)).astype(np.float32)
+    W = rng.uniform(-0.5, 0.5, (F, GAT_HIDDEN)).astype(np.float32)
+    att = rng.uniform(-0.5, 0.5, (2 * GAT_HIDDEN, 1)).astype(np.float32)
+    c_x = QuantConstants(s_o=1.0, s=1.0 / 255.0, z=0, qbits=8, signed=False)
+    c_w = QuantConstants(s_o=1.0, s=0.5 / 127.0, z=0, qbits=8, signed=True)
+    layer = Q.freeze_gat_layer(W, att, c_x, c_w, h_absmax=float(np.abs(X @ W).max()), device=device)
+    xs = Q.quantize_unsigned_shifted(torch.from_numpy(X).to(device), c_x)
+    B = K1.bsr_mask_from_sparse(A, tb=256, device=device)
+    Ad = A.to(device)
+    Q.int8_gat_layer_flash(layer, B, xs)  # warm-up
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.perf_counter()
+    acc_f, sc_f = Q.int8_gat_layer_flash(layer, B, xs)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = _counts()
+    if launches["flash_gat_forward"] != 1 or sum(launches.values()) != 1:
+        raise AssertionError(f"int8 GAT layer launches {launches}, expected K3 once")
+    if acc_f.shape != (n, GAT_HIDDEN) or not torch.isfinite(acc_f).all():
+        raise AssertionError(f"int8 GAT layer on K3: shape {tuple(acc_f.shape)} or non-finite")
+    kern = Q.flash_gat_forward
+    Q.flash_gat_forward = FG.flash_gat_forward_plain
+    try:
+        ref = Q.int8_gat_layer_flash(layer, B, xs)[0]
+    finally:
+        Q.flash_gat_forward = kern
+    # h_q reaches +-127, so bf16(p) is held relative to the largest output
+    err = float((acc_f - ref).abs().max())
+    if err > GAT_TOL * float(ref.abs().max()):
+        raise AssertionError(f"int8 GAT layer on K3 differs from the plain K3 by {err}")
+    # the edge-list layer rounds each attention weight to the 255 grid, which
+    # cannot resolve a hub row's weights (1/degree < 1/510 rounds to 0): it is
+    # the yardstick on the rows whose degree the grid resolves
+    acc_e, sc_e = Q.int8_gat_layer(layer, Ad.rows, Ad.cols, Ad.vals > 0, n, xs)
+    deg = torch.zeros(n, device=device).index_add_(0, Ad.rows.long(), (Ad.vals > 0).float())
+    rows = deg <= INT8_GAT_MAX_DEGREE
+    out_f = acc_f.double()[rows] * sc_f
+    out_e = acc_e.double()[rows] * sc_e
+    rel = float((out_f - out_e).abs().max() / (out_e.abs().max() + 1e-9))
+    _log(f"int8 GAT layer on K3 [n={n}, {F} -> {GAT_HIDDEN}, T={B.num_tiles}]: {ms:.3f} ms, launches {launches}; "
+         f"max abs err {err:.3g} against the plain K3; against the edge-list int8 layer {rel:.4f} of its largest "
+         f"output on the {int(rows.sum())} rows of degree <= {INT8_GAT_MAX_DEGREE} (limit {INT8_GAT_TOL})")
+    if rel >= INT8_GAT_TOL:
+        raise AssertionError(f"int8 GAT layer on K3: relative error {rel} against the edge-list layer")
+    return launches
+
+
+def phase_fake_quant(A, data, device, cfg=SLICE):
+    """Fake-quant (QAT) GCN at 2^20, width 128: calibrate from one float
+    forward, the 8-bit model on a value-tile prep (``prepare_from_config``
+    with ``fake_quantization``), one forward against the same forward on
+    the plain K1, then three training epochs (K1 on ``bsr`` and ``bsr_t``;
+    ``map_adjacency_vals`` rewrites both tile sets every layer call)."""
+    qcfg = SGRACEConfig(fake_quantization=True, num_epochs=TRAIN_EPOCHS, learning_rate=0.01)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    prep = prepare_from_config(A, qcfg, device=device)
+    torch.cuda.synchronize()
+    _log(f"fake-quant prepare (value tiles, no rank-1 masks): {time.perf_counter() - t0:.1f} s kind={prep.kind} "
+         f"tiles={prep.bsr.num_tiles} form={prep.bsr.tiles.dtype}{list(prep.bsr.tiles.shape[1:])} "
+         f"({_nbytes(prep.bsr.tiles) / 1e9:.3f} GB a direction) rest_edges={prep.rest.nnz}")
+    if prep.r1_row is not None or prep.bsr.tiles.dtype != torch.bfloat16:
+        raise AssertionError("a fake_quantization prep must hold value tiles")
+    x = torch.from_numpy(data.x).to(device)
+    flt = _gcn_net(cfg).to(device).eval()
+    t0 = time.perf_counter()
+    cal = calibrate(flt, prep, x, qbits=8)
+    torch.cuda.synchronize()
+    _log(f"calibrate (one float forward with telemetry): {(time.perf_counter() - t0) * 1e3:.1f} ms "
+         f"f_max={cal.raw['f_max']:.4g} f_max2={cal.raw['f_max2']:.4g} "
+         f"w_max={cal.raw['w_max']:.4g} w_max2={cal.raw['w_max2']:.4g}")
+    net = GCNModel(cfg["num_features"], HIDDEN, cfg["num_classes"], calibration=cal)
+    net.load_state_dict(flt.state_dict())
+    net = net.to(device).eval()
+    with torch.no_grad():
+        net(prep, x)  # warm-up
+        torch.cuda.synchronize()
+        _reset_counts()
+        ms = []
+        for _ in range(REQUESTS):
+            t0 = time.perf_counter()
+            logits = net(prep, x)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        launches = _counts()
+        if launches["bsr_spmm"] != 2 * REQUESTS or sum(launches.values()) != 2 * REQUESTS:
+            raise AssertionError(f"fake-quant forward launches {launches}, expected K1 x2 a forward only")
+        _profile_forward(lambda: net(prep, x), "fake-quant GCN")
+        with _plain_kernels():
+            ref = net(prep, x)
+    _log("fake-quant GCN forwards (K1 on remapped value tiles): " + ", ".join(f"{m:.3f}" for m in ms) + " ms")
+    scale = float(ref.abs().max())
+    torch.cuda.synchronize()
+    if logits.shape != (A.n_rows, cfg["num_classes"]) or not torch.isfinite(logits).all():
+        raise AssertionError(f"fake-quant logits shape {tuple(logits.shape)} or non-finite")
+    err = float((logits - ref).abs().max())
+    _log(f"fake-quant logits against the plain-K1 forward: max abs err {err:.3g} of |logits| max {scale:.3g}")
+    if err > QAT_TOL * scale:
+        raise AssertionError(f"fake-quant logits differ from the plain-K1 forward by {err} (max {scale})")
+    net.train()
+    _reset_counts()
+    t0 = time.perf_counter()
+    state, hist = train_node_classifier(net, data, qcfg, seed=0, prepare=prep, device=device)
+    torch.cuda.synchronize()
+    total_ms = (time.perf_counter() - t0) * 1e3
+    train_launches = _counts()
+    _log(f"fake-quant train_node_classifier: {TRAIN_EPOCHS} epochs in {total_ms:.3f} ms "
+         f"({total_ms / TRAIN_EPOCHS:.3f} ms an epoch: step + evaluation); loss {hist.loss}, "
+         f"train acc {hist.train_acc}, test acc {hist.test_acc}")
+    _log(f"launches in the fake-quant training run: {train_launches}")
+    # a step: K1 on bsr twice forward, on bsr_t twice backward; an evaluation: K1 twice
+    if train_launches["bsr_spmm"] != 6 * TRAIN_EPOCHS or sum(train_launches.values()) != 6 * TRAIN_EPOCHS:
+        raise AssertionError(f"fake-quant training launches {train_launches}, expected K1 x{6 * TRAIN_EPOCHS} only")
+    if state.step != TRAIN_EPOCHS or not all(np.isfinite(hist.loss)):
+        raise AssertionError(f"fake-quant training: step {state.step}, losses {hist.loss}")
+    _log(f"peak device memory in the fake-quant phase: {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    return _add(launches, train_launches)
+
+
+
 def main() -> None:
     phase_device()
     phase_build()
     device = torch.device("cuda")
     phase_kernels_small(device)
+    phase_int8_kernels_small(device)
     A, data, prep = phase_slice_prepare(device)
-    rec = phase_kernels_slice(prep, device)
+    rec = phase_kernels_slice(A, prep, device)
     launches = phase_slice_serve(A, data.x, prep, device)
     _add(launches, phase_train(data, prep, _gcn_net(SLICE), device, "GCN slice",
                                {"bsr_spmm_fused": 6}, k1_view=True))
@@ -854,6 +1329,18 @@ def main() -> None:
     del gat_prep
     torch.cuda.empty_cache()
     _add(launches, phase_gat_small(device))
+    rec8, more = phase_int8_hybrid_slice(A, device)
+    rec.update(rec8)
+    _add(launches, more)
+    torch.cuda.empty_cache()
+    _add(launches, phase_fake_quant(A, data, device))
+    del A, data
+    torch.cuda.empty_cache()
+    rec7, more = phase_int8_gcn(device)
+    rec.update(rec7)
+    _add(launches, more)
+    torch.cuda.empty_cache()
+    _add(launches, phase_int8_gat(device))
     sources = {
         "bsr_spmm_fused": ("sgracex1_tpu_torch/csrc/fused_agg.cu", "sgracex1_tpu/ops/fused_agg.py:622"),
         "bsr_spmm": ("sgracex1_tpu_torch/csrc/bsr_spmm.cu", "sgracex1_tpu/ops/bsr.py:589"),
@@ -862,6 +1349,9 @@ def main() -> None:
         "flash_gat_bwd_col": ("sgracex1_tpu_torch/csrc/flash_gat_bwd.cu", "sgracex1_tpu/ops/flash_gat.py:847"),
         "flash_gat_hybrid_forward": ("sgracex1_tpu_torch/csrc/flash_gat.cu",
                                      "sgracex1_tpu/ops/flash_gat.py:1139"),
+        "bsr_spmm_int8": ("sgracex1_tpu_torch/csrc/bsr_spmm_int8.cu", "sgracex1_tpu/ops/bsr.py:773"),
+        "bsr_spmm_int8_fused": ("sgracex1_tpu_torch/csrc/fused_agg_int8.cu",
+                                "sgracex1_tpu/ops/fused_agg.py:1054"),
     }
     kernels = [
         dict(name=name, route="cuda", source=src, replaces=rep, launches=launches[name], **rec[name])

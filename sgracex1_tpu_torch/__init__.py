@@ -14,16 +14,26 @@ hand-written CUDA kernel per Pallas kernel on the ported path:
   tiles, K6 with remainder chunk steps in the same row softmax;
 - ``ops/flash_gat.flash_gat_bwd_row`` (K4) and ``flash_gat_bwd_col`` (K5,
   both ``csrc/flash_gat_bwd.cu``): the attention backward's row and
-  column passes.
+  column passes;
+- ``ops/bsr.bsr_spmm_int8`` (K7, ``csrc/bsr_spmm_int8.cu``) and
+  ``ops/fused_agg.bsr_spmm_int8_fused`` (K8, ``csrc/fused_agg_int8.cu``):
+  the exact int32 ``Aq @ Hq`` of full-integer inference, on a full tile
+  cover and on the hybrid split.
 
 Aggregations and attention are differentiable (K1/K2 on the transposed
 plans, K4/K5), and ``train.train_node_classifier`` trains both models on
-the full graph. Kernels build with nvcc at first use; on CPU tensors each
-wrapper runs its plain PyTorch version. This package never imports jax.
+the full graph. ``quant`` holds the adaptive quantization (8/4/2/1 bit):
+the affine math, calibration tables and automatic calibration, the
+fake-quant datapath of the layers (``GCNModel(..., calibration=cal)``) and
+int8 serving (``quant.int8``). Entry points run on the CUDA card unless
+the caller passes ``device="cpu"``. Kernels build with nvcc at first use;
+on CPU tensors each wrapper runs its plain PyTorch version. This package
+never imports jax.
 """
 
 __version__ = "0.1.0"
 
+from sgracex1_tpu_torch import quant
 from sgracex1_tpu_torch.config import SGRACEConfig
 from sgracex1_tpu_torch.graph.csr import SparseMatrix
 from sgracex1_tpu_torch.graph.normalize import sym_norm
@@ -43,4 +53,5 @@ __all__ = [
     "agg_matmul",
     "SGRACEConfig",
     "train_node_classifier",
+    "quant",
 ]

@@ -4,10 +4,10 @@ One frozen dataclass with the JAX package's fields that the port reads,
 under their JAX names and defaults: the training loop's (``num_epochs``,
 ``learning_rate``, ``preload``, ``w_qbits`` through the learning-rate
 rule) and ``prepare_from_config``'s (``use_pallas``,
-``fake_quantization``). The model's widths, heads, dropout and LeakyReLU
-slope are the model's own arguments. A JAX field joins this class with
-the part of the port that reads it (ROADMAP queue 1: Pallas tiling with
-item 14, quantization with item 13, distribution with item 16).
+``fake_quantization``). The model's widths, heads, dropout, LeakyReLU
+slope and calibration table are the model's own arguments. A JAX field
+joins this class with the part of the port that reads it (ROADMAP queue
+1: Pallas tiling with item 14, distribution with item 16).
 """
 
 from __future__ import annotations
@@ -22,7 +22,8 @@ class SGRACEConfig:
 
     # --- quantization ---
     w_qbits: int = 8  # 1 / 2 / 4 / 8; read by the learning-rate rule
-    # raises in prepare_from_config (ROADMAP queue 1, item 13)
+    # QAT: prepare_from_config then keeps value tiles (no rank-1 masks),
+    # whose values the quantized layers remap per call
     fake_quantization: bool = False
 
     # --- kernel choice ---

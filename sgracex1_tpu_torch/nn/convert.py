@@ -1,4 +1,5 @@
-"""Parameters of the JAX package's flax models as ``state_dict``s."""
+"""Parameters of the JAX package's flax models as ``state_dict``s, and its
+frozen int8 layers as the port's."""
 
 from __future__ import annotations
 
@@ -37,3 +38,20 @@ def params_from_jax(params: Mapping) -> "OrderedDict[str, torch.Tensor]":
         else:
             raise KeyError(f"unexpected parameter group {name!r}")
     return out
+
+
+def int8_layer_from_jax(layer, *, device="cpu"):
+    """A frozen ``Int8GCNLayer`` or ``Int8GATLayer`` of the JAX package
+    (read by field name: the int8 arrays ``wq``, ``aq_src``, ``aq_dst`` and
+    the static float scales) as the port's dataclass of the same name, so
+    that both packages run the same frozen net."""
+    from sgracex1_tpu_torch.quant.int8 import Int8GATLayer, Int8GCNLayer
+
+    t = lambda a: torch.from_numpy(np.array(a, dtype=np.int8)).to(device)
+    scales = {k: float(getattr(layer, k)) for k in ("s_x", "s_w", "s_a", "s_h")}
+    if hasattr(layer, "aq_src"):
+        return Int8GATLayer(
+            wq=t(layer.wq), aq_src=t(layer.aq_src), aq_dst=t(layer.aq_dst),
+            alpha=float(layer.alpha), **scales,
+        )
+    return Int8GCNLayer(wq=t(layer.wq), **scales)

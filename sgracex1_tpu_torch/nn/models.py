@@ -8,6 +8,7 @@ import torch
 from torch import nn
 
 from sgracex1_tpu_torch.nn.layers import GATConv, GCNConv
+from sgracex1_tpu_torch.quant.calibration import CalibrationTable
 
 
 class GCNModel(nn.Module):
@@ -16,7 +17,10 @@ class GCNModel(nn.Module):
 
     Parameters are named ``conv1.weight`` ... ``convN.weight``,
     ``head.weight``, ``head.bias`` (see ``nn/convert.params_from_jax``).
-    Dropout draws from the ``generator`` passed to ``forward``."""
+    Dropout draws from the ``generator`` passed to ``forward``. With
+    ``calibration`` the convolutions run the fake-quant datapath: conv1
+    on the table's layer-1 constants, every later one on its layer-2
+    constants."""
 
     def __init__(
         self,
@@ -24,6 +28,7 @@ class GCNModel(nn.Module):
         hidden_channels: int,
         num_classes: int,
         *,
+        calibration: Optional[CalibrationTable] = None,
         dropout: float = 0.5,
         num_layers: int = 2,
         generator: Optional[torch.Generator] = None,
@@ -33,9 +38,10 @@ class GCNModel(nn.Module):
         self.num_layers = num_layers
         for i in range(num_layers):
             f_in = num_features if i == 0 else hidden_channels
+            q = calibration.layer_params(i) if calibration else None
             self.add_module(
                 f"conv{i + 1}",
-                GCNConv(f_in, hidden_channels, generator=generator),
+                GCNConv(f_in, hidden_channels, quant=q, generator=generator),
             )
         self.head = nn.Linear(hidden_channels, num_classes)
 
@@ -64,7 +70,8 @@ class GATModel(nn.Module):
     ``GATModel``).
 
     Parameters are named ``conv{1,2}.weight``, ``conv{1,2}.attention``,
-    ``head.weight``, ``head.bias`` (see ``nn/convert.params_from_jax``)."""
+    ``head.weight``, ``head.bias`` (see ``nn/convert.params_from_jax``).
+    ``calibration`` as in ``GCNModel``."""
 
     def __init__(
         self,
@@ -74,18 +81,21 @@ class GATModel(nn.Module):
         *,
         nheads: int = 1,
         alpha: float = 0.2,
+        calibration: Optional[CalibrationTable] = None,
         dropout: float = 0.5,
         generator: Optional[torch.Generator] = None,
     ):
         super().__init__()
         self.dropout = dropout
+        q1 = calibration.layer_params(0) if calibration else None
+        q2 = calibration.layer_params(1) if calibration else None
         self.conv1 = GATConv(
             num_features, hidden_channels, nheads=nheads, alpha=alpha,
-            generator=generator,
+            quant=q1, generator=generator,
         )
         self.conv2 = GATConv(
             hidden_channels * nheads, hidden_channels, nheads=1, alpha=alpha,
-            generator=generator,
+            quant=q2, generator=generator,
         )
         self.head = nn.Linear(hidden_channels, num_classes)
 

@@ -1,6 +1,7 @@
 from sgracex1_tpu_torch.ops.dispatch import (
     PreparedAdjacency,
     agg_matmul,
+    map_adjacency_vals,
     prepare_adjacency,
     prepare_from_config,
 )
@@ -10,6 +11,7 @@ from sgracex1_tpu_torch.ops.spmm import spmm, spmm_into, spmm_t
 __all__ = [
     "PreparedAdjacency",
     "agg_matmul",
+    "map_adjacency_vals",
     "prepare_adjacency",
     "prepare_from_config",
     "gnn_layer",

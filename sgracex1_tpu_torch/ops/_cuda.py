@@ -118,6 +118,22 @@ def _declare(lib: ctypes.CDLL) -> None:
         p, i, i, i, i,  # H, h_bf16, n_cols, P, vec
         p, p, i, p,  # out, partial, n_rows, stream
     ]
+    lib.sg_bsr_spmm_int8.restype = i
+    lib.sg_bsr_spmm_int8.argtypes = [
+        p, i, i, p, p, p, p,  # tiles, tb, n_seg, seg_rb/lo/hi/part
+        i, p, p, p,  # n_fin, fin_rb/p0/np
+        p, p, i, i, i, i, i,  # tile_cb, Hq, n_h, n_ct, P, vec, vec4
+        p, p, p, i, p,  # colsum, out, partial, n_out, stream
+    ]
+    lib.sg_fused_agg_int8.restype = i
+    lib.sg_fused_agg_int8.argtypes = [
+        p, i, i, p, p, p, p,  # tiles, tb, n_seg, seg_rb/lo/hi/part
+        i, p, p, p,  # n_fin, fin_rb/p0/np
+        p, p, p, p,  # step_cb/tile/chunk/kind
+        p, p, p, i,  # lrow, slot_col, slot_scale (edge values), K
+        p, i, i, i, i, i,  # Hq, n_h, n_ct, P, vec, vec4
+        p, p, p, i, p,  # colsum, out, partial, n_out, stream
+    ]
     lib.sg_flash_gat.restype = i
     lib.sg_flash_gat.argtypes = [
         p, i, i, i, p, p, p, p,  # tiles, mode, tb, n_seg, seg_rb/lo/hi/part

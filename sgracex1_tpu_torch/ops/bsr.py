@@ -10,6 +10,11 @@ Kernel K1, ``bsr_spmm``: out = A @ H in f32 with bf16 operands, as
 ``sgracex1_tpu.ops.bsr.bsr_spmm_pallas``. On a CUDA tensor it launches the
 hand-written kernel in ``csrc/bsr_spmm.cu``; on a CPU tensor it runs
 ``bsr_spmm_plain``, the plain PyTorch version of the same function.
+
+Kernel K7, ``bsr_spmm_int8``: the exact int32 ``Aq @ Hq`` over shifted-int8
+value tiles (``quant/int8.bsr_int8_from_sparse``), as
+``sgracex1_tpu.ops.bsr.bsr_spmm_int8``: ``csrc/bsr_spmm_int8.cu`` on a CUDA
+tensor, ``bsr_spmm_int8_plain`` on a CPU tensor.
 """
 
 from __future__ import annotations
@@ -208,11 +213,14 @@ def _bsr(tiles, uniq, A: SparseMatrix, tb: int, device) -> BSRMatrix:
 def bsr_from_sparse(
     A: SparseMatrix, *, tb: int = 256, dtype=torch.bfloat16,
     cover_rows: bool = False, cover_cols: bool = False, mask: bool = False,
-    device="cpu",
+    shift: float = 0.0, device="cpu",
 ) -> BSRMatrix:
     """Densify each nonempty (rb, cb) tile on the host: duplicate edges sum
     in f32, then cast to ``dtype``, or threshold ``> 0`` to int8 {0,1} with
-    ``mask`` (zero-valued edges vanish from masks).
+    ``mask`` (zero-valued edges vanish from masks). ``shift`` is subtracted
+    from every position of every tile, absent ones and cover tiles
+    included, in f32 before the cast (the shifted-int8 form stores the
+    0..255 grid minus 128).
 
     ``cover_rows`` adds a zero tile at (rb, 0) for every row block without
     nonzeros, so the kernel writes every output row; ``cover_cols`` does
@@ -226,7 +234,7 @@ def bsr_from_sparse(
     key = (r // tb).astype(np.int64) << 32 | (c // tb).astype(np.int64)
     uniq = bsr_tile_keys(A, tb, cover_rows=cover_rows, cover_cols=cover_cols)
     T = max(len(uniq), 1)
-    tiles = torch.zeros((T, tb, tb), dtype=dtype)
+    tiles = torch.full((T, tb, tb), -shift if shift else 0, dtype=dtype)
     if len(v):
         # duplicate-safe scatter in bounded f32 batches of tiles
         inv = np.searchsorted(uniq, key)
@@ -246,7 +254,7 @@ def bsr_from_sparse(
             st = np.flatnonzero(np.r_[True, bi[1:] != bi[:-1]])
             buf[bi[st]] = np.add.reduceat(sv[lo:hi], st)
             buf = torch.from_numpy(buf.reshape(b1 - b0, tb, tb))
-            tiles[b0:b1] = (buf > 0).to(dtype) if mask else buf.to(dtype)
+            tiles[b0:b1] = (buf > 0).to(dtype) if mask else (buf - shift).to(dtype)
     return _bsr(tiles, uniq, A, tb, device)
 
 
@@ -448,3 +456,107 @@ def bsr_spmm(B: BSRMatrix, H: torch.Tensor) -> torch.Tensor:
 
 
 bsr_spmm.launches = 0
+
+
+# ------------------------------------------------------------- kernel K7
+
+
+def _hq_blocks(Hq: torch.Tensor, n_ct: int, tb: int) -> tuple:
+    """Signed int8 Hq as float [n_ct, tb, P] (zero rows past its own), and
+    the int32 column sums [n_ct, P] of its blocks. The float type holds
+    every partial sum of one shifted tile product exactly:
+    ``tb * 128 * 128 <= 2**24`` up to tb = 1024, float64 beyond."""
+    dt = torch.float32 if tb <= 1024 else torch.float64
+    Hb = torch.zeros((n_ct * tb, Hq.shape[1]), dtype=dt, device=Hq.device)
+    Hb[: Hq.shape[0]] = Hq[: n_ct * tb].to(dt)
+    Hb = Hb.view(n_ct, tb, -1)
+    return Hb, Hb.sum(dim=1).to(torch.int32)
+
+
+def _tile_products_int8(tiles, tb, tile_ids, rb, cb, Hblk, colsum, acc) -> None:
+    """acc[rb] += (tile + 128) @ Hq[cb] for the listed shifted tiles, as
+    ``tile @ Hq[cb] + 128 * colsum[cb]``: each tile product in float (exact,
+    see ``_hq_blocks``; CUDA has no integer matmul in torch), cast to int32
+    and summed in int32."""
+    batch = max(1, _PLAIN_BATCH_BYTES // (tb * (tb + 2 * Hblk.shape[2]) * Hblk.element_size()))
+    for b0 in range(0, tile_ids.shape[0], batch):
+        sl = slice(b0, b0 + batch)
+        prod = torch.bmm(tiles[tile_ids[sl]].to(Hblk.dtype), Hblk[cb[sl]]).to(torch.int32)
+        acc.index_add_(0, rb[sl], prod + 128 * colsum[cb[sl]][:, None, :])
+
+
+def _check_int8_operands(B: BSRMatrix, Hq: torch.Tensor) -> None:
+    if B.tiles.dtype != torch.int8 or B.packed or B.tiles.dim() != 3 or B.tiles.shape[1] != B.tb:
+        raise ValueError(
+            f"tiles must be shifted int8 [T, tb, tb], got {B.tiles.dtype} {tuple(B.tiles.shape)}"
+        )
+    if Hq.dim() != 2 or Hq.dtype != torch.int8:
+        raise ValueError(f"Hq must be int8 [N, P], got {Hq.dtype} {tuple(Hq.shape)}")
+
+
+def bsr_spmm_int8_plain(B: BSRMatrix, Hq: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch K7: exact ``Aq @ Hq``, int32 [n_rt * tb, P] (not
+    sliced to ``n_rows``, as the JAX kernel)."""
+    _check_int8_operands(B, Hq)
+    tb, P = B.tb, Hq.shape[1]
+    n_ct = _round_up(B.n_cols, tb) // tb
+    Hblk, colsum = _hq_blocks(Hq, n_ct, tb)
+    acc = torch.zeros((B.n_row_tiles, tb, P), dtype=torch.int32, device=Hq.device)
+    ids = torch.arange(B.num_tiles, device=Hq.device)
+    _tile_products_int8(
+        B.tiles, tb, ids, B.tile_rb.long(), B.tile_cb.long(), Hblk, colsum, acc
+    )
+    return acc.view(-1, P)
+
+
+def _int8_launch_args(B: BSRMatrix, S: RunSegments, Hq: torch.Tensor, n_out: int) -> tuple:
+    """Checks and scratch shared by the K7 and K8 launches: (vec, vec4,
+    colsum, out, partial). The kernels guard the feature dimension: any P
+    runs, 16-byte loads of Hq rows when P % 16 == 0."""
+    _check_int8_operands(B, Hq)
+    if B.tb % 32:
+        raise ValueError(f"the CUDA kernels need tb % 32 == 0, got tb={B.tb}")
+    if not Hq.is_contiguous():
+        raise ValueError("Hq must be contiguous")
+    P, dev = Hq.shape[1], Hq.device
+    n_ct = _round_up(B.n_cols, B.tb) // B.tb
+    aligned = lambda m: int(P % m == 0 and Hq.data_ptr() % m == 0)
+    i32 = lambda *shape: torch.empty(shape, dtype=torch.int32, device=dev)
+    return (
+        aligned(16), aligned(4), i32(n_ct, P), i32(n_out, P),
+        i32(max(S.n_part, 1), B.tb, P),
+    )
+
+
+def bsr_spmm_int8(B: BSRMatrix, Hq: torch.Tensor) -> torch.Tensor:
+    """K7: the exact int32 ``Aq @ Hq`` over shifted-int8 value tiles
+    (the 0..255 grid stored minus 128; absent positions and cover tiles
+    hold -128). ``Hq`` is signed int8 [N, P], rows past N read as zero; any
+    P runs (the kernel guards the feature dimension, nothing is padded).
+    Returns int32 [n_rt * tb, P]. A CPU tensor runs
+    ``bsr_spmm_int8_plain``; a CUDA tensor launches
+    ``csrc/bsr_spmm_int8.cu`` or raises."""
+    if Hq.device.type == "cpu":
+        return bsr_spmm_int8_plain(B, Hq)
+    if Hq.device.type != "cuda":
+        raise ValueError(f"bsr_spmm_int8 runs on cpu or cuda, not {Hq.device}")
+    S = B.segments
+    n_out = B.n_row_tiles * B.tb
+    vec, vec4, colsum, out, partial = _int8_launch_args(B, S, Hq, n_out)
+    ints = dict(tile_cb=B.tile_cb, **S.tensors())
+    _check_cuda_operands(dict(tiles=B.tiles, **ints), Hq.device)
+    for name, t in ints.items():
+        if t.dtype != torch.int32:
+            raise ValueError(f"{name} must be int32, got {t.dtype}")
+    err = _cuda.library().sg_bsr_spmm_int8(
+        _ptr(B.tiles), B.tb, *_seg_args(S), _ptr(B.tile_cb), _ptr(Hq),
+        Hq.shape[0], colsum.shape[0], Hq.shape[1], vec, vec4, _ptr(colsum),
+        _ptr(out), _ptr(partial), n_out,
+        ctypes.c_void_p(torch.cuda.current_stream(Hq.device).cuda_stream),
+    )
+    _cuda.check(err, "bsr_spmm_int8")
+    bsr_spmm_int8.launches += 1
+    return out
+
+
+bsr_spmm_int8.launches = 0

@@ -28,6 +28,10 @@ full-cover int8 mask tiles at tb=256 up to 8192 nodes (the JAX rule
 there), else the hybrid split at ``DEFAULT_GAT_TB`` /
 ``DEFAULT_GAT_REST_THRESH`` — unmeasured starting points.
 
+``map_adjacency_vals`` remaps the values of every representation (the
+quantized layers' adjacency quantizer); it needs value tiles, which
+``prepare_from_config`` keeps for ``fake_quantization`` configs.
+
 ``agg_matmul`` is differentiable (``_Agg``): on fused preps the gradient
 of ``H`` is K2 on the transposed plan ``fused_t``, with ``fuse=False`` K1
 on the transposed tiles ``bsr_t``; the rank-1 scalings and the remainder
@@ -39,11 +43,13 @@ package. A backward through a prep built with
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+import warnings
+from typing import Callable, Optional
 
 import numpy as np
 import torch
 
+from sgracex1_tpu_torch._device import resolve_device
 from sgracex1_tpu_torch.graph.csr import SparseMatrix, _np
 from sgracex1_tpu_torch.graph.normalize import rank1_factor
 from sgracex1_tpu_torch.ops.bsr import (
@@ -159,9 +165,11 @@ def prepare_adjacency(
     for_gat: bool = False,
     gat_tb: Optional[int] = None,
     gat_rest_thresh: Optional[int] = None,
-    device="cpu",
+    device=None,
 ) -> PreparedAdjacency:
-    """Prepare ``A`` for one backend, with its tensors on ``device``.
+    """Prepare ``A`` for one backend, with its tensors on ``device``: the
+    CUDA card by default (a ``RuntimeError`` where there is none), the CPU
+    only with ``device="cpu"``.
 
     ``rank1`` detects a diagonal factorization of the edge values
     (``graph/normalize.rank1_factor``) and then stores mask tiles.
@@ -174,6 +182,7 @@ def prepare_adjacency(
     already serve (``flash_tiles``). ``gat_tb`` / ``gat_rest_thresh``
     override the fixed rule; an explicit ``gat_rest_thresh`` asks for the
     hybrid split at any size."""
+    device = resolve_device(device)
     n = max(A.n_rows, A.n_cols)
     if method == "auto":
         method = "dense" if n * n * 2 <= dense_max_bytes else "hybrid"
@@ -292,21 +301,19 @@ def _gat_layout(
 
 def prepare_from_config(
     A: SparseMatrix, cfg, *, for_gat: bool = False, method: Optional[str] = None,
-    device="cpu",
+    device=None,
 ) -> PreparedAdjacency:
     """``prepare_adjacency`` driven by an ``SGRACEConfig``: the port's fixed
     rule (``method="auto"``) unless ``method`` names a backend, mask tiles
-    with rank-1 scalings unless the config fake-quantizes the adjacency.
-    The ``pallas`` kind and quantization are not ported, so
-    ``use_pallas`` and ``fake_quantization`` raise."""
+    with rank-1 scalings unless the config fake-quantizes the adjacency
+    (QAT layers remap the adjacency values per call, which {0,1} mask tiles
+    cannot hold: ``map_adjacency_vals``). The ``pallas`` kind is not
+    ported, so ``use_pallas`` raises. ``device`` as in
+    ``prepare_adjacency``."""
     if cfg.use_pallas:
         raise NotImplementedError(
             "use_pallas selects the pallas kind, whose kernel K9 is not "
             "ported yet (ROADMAP queue 1, item 14)"
-        )
-    if cfg.fake_quantization:
-        raise NotImplementedError(
-            "fake_quantization (QAT) is not ported yet (ROADMAP queue 1, item 13)"
         )
     return prepare_adjacency(
         A, method=method or "auto", for_gat=for_gat,
@@ -376,3 +383,46 @@ def _bsr_agg_scaled(
         c = rest.cols[: rest.nnz]
         out = out.index_add(0, r, Hs.index_select(0, c).to(out.dtype))
     return out * prep.r1_row[: out.shape[0], None]
+
+
+def map_adjacency_vals(
+    prep: PreparedAdjacency, fn: Callable[[torch.Tensor], torch.Tensor]
+) -> PreparedAdjacency:
+    """Apply an elementwise function to the adjacency values of every
+    backend representation (the layers fake-quantize the adjacency with
+    it; ``fn`` must map 0 -> 0 so dense zeros and padding stay zero). It
+    runs on each representation in that one's own dtype, bf16 tiles in
+    bf16, without gradients: the adjacency is data.
+
+    The fused schedules embed tile values and remainder slot scales, so
+    they are dropped and aggregation runs K1 on the remapped value tiles
+    plus the remapped remainder. Flash-GAT mask tiles stay as they are:
+    any 0 -> 0 quantizer keeps ``tile > 0``. On a rank-1 mask-tile prep
+    the remapped values cannot live in {0,1} tiles: this warns and
+    degrades to the edge path for the call (prepare with ``rank1=False``,
+    as ``prepare_from_config`` does for ``fake_quantization``)."""
+    with torch.no_grad():
+        A = prep.A.with_vals(fn(torch.as_tensor(prep.A.vals)))
+        if prep.r1_row is not None:
+            warnings.warn(
+                "map_adjacency_vals on a rank-1 mask-tile backend: remapped "
+                "values cannot live in {0,1} tiles, so plain aggregation falls "
+                "back to the edge path for this layer. Prepare the adjacency "
+                "with prepare_adjacency(..., rank1=False) (or "
+                "prepare_from_config, which does this for fake_quantization "
+                "configs) to keep the tile kernels.",
+                stacklevel=2,
+            )
+            return dataclasses.replace(
+                prep, A=A, dense=None, bsr=None, bsr_t=None, rest=None,
+                r1_row=None, r1_col=None, fused=None, fused_t=None, kind="xla",
+            )
+        tiles = lambda B: None if B is None else dataclasses.replace(B, tiles=fn(B.tiles))
+        rest = prep.rest
+        if rest is not None:
+            rest = rest.with_vals(fn(torch.as_tensor(rest.vals)))
+        return dataclasses.replace(
+            prep, A=A, dense=None if prep.dense is None else fn(prep.dense),
+            bsr=tiles(prep.bsr), bsr_t=tiles(prep.bsr_t), rest=rest,
+            fused=None, fused_t=None,
+        )

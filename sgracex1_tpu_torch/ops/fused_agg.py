@@ -14,6 +14,13 @@ per row block at the end, and the output is written in bf16.
 Kernel K2, ``bsr_spmm_fused``: on a CUDA tensor it launches the
 hand-written kernel in ``csrc/fused_agg.cu``; on a CPU tensor it runs
 ``bsr_spmm_fused_plain``, the plain PyTorch version of the same function.
+
+Kernel K8, ``bsr_spmm_int8_fused``: the exact int32 ``Aq @ Hq`` of a
+value-mode plan whose tiles are shifted int8 and whose slot scales are the
+remainder's 0..255 values (``quant/int8.prepare_int8_hybrid``), as
+``sgracex1_tpu.ops.fused_agg.bsr_spmm_int8_fused``:
+``csrc/fused_agg_int8.cu`` on a CUDA tensor, ``bsr_spmm_int8_fused_plain``
+on a CPU tensor.
 """
 
 from __future__ import annotations
@@ -32,12 +39,15 @@ from sgracex1_tpu_torch.ops.bsr import (
     RunSegments,
     _check_cuda_operands,
     _h_block_rows,
+    _hq_blocks,
+    _int8_launch_args,
     _h_operand,
     _ptr,
     _seg_args,
     _tensor,
     _tile_mode,
     _tile_products,
+    _tile_products_int8,
     run_segments,
 )
 
@@ -345,3 +355,88 @@ def bsr_spmm_fused(plan: FusedAggPlan, H: torch.Tensor) -> torch.Tensor:
 
 
 bsr_spmm_fused.launches = 0
+
+
+# ------------------------------------------------------------- kernel K8
+
+
+def _value_mode(plan: FusedAggPlan) -> None:
+    if plan.colscale is not None or plan.rowscale is not None:
+        raise ValueError("the int8 schedule must be value-mode (no rank-1 scalings)")
+
+
+def bsr_spmm_int8_fused_plain(plan: FusedAggPlan, Hq: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch K8: the tile steps as plain K7 (``kind != 1``), the
+    chunk steps (``kind >= 1``) as int32 ``v * Hq[slot_col]`` scattered on
+    the live slots' rows. Returns int32 [n_rows, P]."""
+    _value_mode(plan)
+    B = plan.B
+    tb, K, P = B.tb, plan.K, Hq.shape[1]
+    n_ct = _round_up(B.n_cols, tb) // tb
+    dev = Hq.device
+    Hblk, colsum = _hq_blocks(Hq, n_ct, tb)
+    acc = torch.zeros((B.n_row_tiles, tb, P), dtype=torch.int32, device=dev)
+    S = plan.num_steps
+    rb = plan.step_rb[:S].long()
+    kind = plan.step_kind
+    t = kind != 1
+    _tile_products_int8(
+        B.tiles, tb, plan.step_tile[t].long(), rb[t], plan.step_cb[t].long(),
+        Hblk, colsum, acc,
+    )
+    c = kind >= 1
+    chunk = plan.step_chunk[c].long()
+    slots = (chunk[:, None] * K + torch.arange(K, device=dev)).reshape(-1)
+    lrow = plan.lrow.reshape(-1)[slots].long()
+    rows = rb[c].repeat_interleave(K) * tb + lrow
+    live = lrow < tb
+    slots, rows = slots[live], rows[live]
+    G = Hq[plan.slot_col[slots].long()].to(torch.int32)
+    acc.view(-1, P).index_add_(0, rows, G * plan.slot_scale[slots].to(torch.int32)[:, None])
+    return acc.view(-1, P)[: B.n_rows]
+
+
+def bsr_spmm_int8_fused(plan: FusedAggPlan, Hq: torch.Tensor) -> torch.Tensor:
+    """K8: the exact int32 ``Aq @ Hq`` of a hybrid full-integer plan:
+    shifted-int8 tiles plus remainder chunks whose ``slot_scale`` holds the
+    edges' 0..255 values. ``Hq`` is signed int8 [N, P] with
+    N >= n_cols; any P runs (the kernel guards the feature dimension).
+    Returns int32 [n_rows, P]. A CPU tensor runs
+    ``bsr_spmm_int8_fused_plain``; a CUDA tensor launches
+    ``csrc/fused_agg_int8.cu`` or raises."""
+    if Hq.device.type == "cpu":
+        return bsr_spmm_int8_fused_plain(plan, Hq)
+    if Hq.device.type != "cuda":
+        raise ValueError(f"bsr_spmm_int8_fused runs on cpu or cuda, not {Hq.device}")
+    _value_mode(plan)
+    B, S = plan.B, plan.segments
+    vec, vec4, colsum, out, partial = _int8_launch_args(B, S, Hq, B.n_rows)
+    if Hq.shape[0] < B.n_cols:
+        raise ValueError(f"Hq must be [>= {B.n_cols}, P], got {tuple(Hq.shape)}")
+    ints = dict(
+        step_cb=plan.step_cb, step_tile=plan.step_tile,
+        step_chunk=plan.step_chunk, step_kind=plan.step_kind,
+        lrow=plan.lrow, slot_col=plan.slot_col, **S.tensors(),
+    )
+    _check_cuda_operands(dict(tiles=B.tiles, slot_scale=plan.slot_scale, **ints), Hq.device)
+    for name, t in ints.items():
+        if t.dtype != torch.int32:
+            raise ValueError(f"{name} must be int32, got {t.dtype}")
+    if plan.slot_scale.dtype != torch.float32:
+        raise ValueError(f"slot_scale must be float32, got {plan.slot_scale.dtype}")
+    if plan.lrow.shape != (plan.num_chunks, plan.K):
+        raise ValueError(f"lrow must be [R, K], got {tuple(plan.lrow.shape)}")
+    err = _cuda.library().sg_fused_agg_int8(
+        _ptr(B.tiles), B.tb, *_seg_args(S),
+        _ptr(plan.step_cb), _ptr(plan.step_tile), _ptr(plan.step_chunk),
+        _ptr(plan.step_kind), _ptr(plan.lrow), _ptr(plan.slot_col),
+        _ptr(plan.slot_scale), plan.K, _ptr(Hq), Hq.shape[0], colsum.shape[0],
+        Hq.shape[1], vec, vec4, _ptr(colsum), _ptr(out), _ptr(partial), B.n_rows,
+        ctypes.c_void_p(torch.cuda.current_stream(Hq.device).cuda_stream),
+    )
+    _cuda.check(err, "bsr_spmm_int8_fused")
+    bsr_spmm_int8_fused.launches += 1
+    return out
+
+
+bsr_spmm_int8_fused.launches = 0

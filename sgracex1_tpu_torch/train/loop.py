@@ -20,6 +20,7 @@ from typing import List, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from sgracex1_tpu_torch._device import resolve_device
 from sgracex1_tpu_torch.config import SGRACEConfig
 from sgracex1_tpu_torch.graph.datasets import NodeClassificationData
 from sgracex1_tpu_torch.graph.normalize import sym_norm
@@ -87,18 +88,19 @@ def train_node_classifier(
     seed: int = 12345,
     log_every: int = 0,
     prepare="auto",
-    device="cpu",
+    device=None,
 ) -> Tuple[TrainState, History]:
     """Full-graph node classification for ``cfg.num_epochs`` epochs.
 
     ``model`` comes initialised (``GCNModel`` / ``GATModel``) and is moved
-    to ``device``; with ``cfg.preload`` its weights are first replaced by
-    that checkpoint's. The optimizer is ``torch.optim.Adam(lr, betas=(0.9,
+    to ``device``: the CUDA card by default (a ``RuntimeError`` where there
+    is none), the CPU only with ``device="cpu"``. With ``cfg.preload`` its
+    weights are first replaced by that checkpoint's. The optimizer is ``torch.optim.Adam(lr, betas=(0.9,
     0.999), eps=1e-8)``, optax's ``adam``. Dropout draws from one
     ``torch.Generator(device)`` seeded with ``seed``. ``prepare`` is as in
     ``_prepare_backend``. Returns the final state and the per-epoch
     history (loss of each step, train and test accuracy after it)."""
-    device = torch.device(device)
+    device = resolve_device(device)
     A = _prepare_backend(data, cfg, model, prepare, device)
     x = torch.as_tensor(data.x, device=device)
     y = torch.as_tensor(data.y, device=device).long()

@@ -55,7 +55,7 @@ def model_pair(kind, n=512, F=16, C=4, hidden=16, H=2, monkeypatch=None):
     T = pt.sym_norm(e.edge_index, n)
     if kind == "gcn":
         jp = jdis.prepare_adjacency(J, method="hybrid", tb=128)
-        tp = tdis.prepare_adjacency(T, method="hybrid", tb=128, rest_thresh=jax_thresh(128, True))
+        tp = tdis.prepare_adjacency(T, method="hybrid", tb=128, rest_thresh=jax_thresh(128, True), device="cpu")
         assert tp.fused_t is not None and tp.rest is not None
         model = JGCN(num_features=F, hidden_channels=hidden, num_classes=C, dropout=0.0)
         net = pt.GCNModel(F, hidden, C, dropout=0.0)
@@ -64,7 +64,7 @@ def model_pair(kind, n=512, F=16, C=4, hidden=16, H=2, monkeypatch=None):
         if forced is not None:
             monkeypatch.setattr(jdis, "_choose_flash_plan", lambda A, n, hybrid=True, train=True: forced)
         jp = jdis.prepare_adjacency(J, method="xla", for_gat=True)
-        tp = tdis.prepare_adjacency(T, method="xla", for_gat=True, **kw)
+        tp = tdis.prepare_adjacency(T, method="xla", for_gat=True, **kw, device="cpu")
         assert (tp.gat_plan is not None) == (kind == "gat-hybrid")
         model = JGAT(num_features=F, hidden_channels=hidden, num_classes=C, nheads=H, dropout=0.0)
         net = pt.GATModel(F, hidden, C, nheads=H, dropout=0.0)

@@ -15,6 +15,8 @@ from sgracex1_tpu_torch.ops import bsr as K1
 from sgracex1_tpu_torch.ops import fused_agg as K2
 from sgracex1_tpu_torch.ops import flash_gat as FG
 from sgracex1_tpu_torch.ops.dispatch import split_by_tile_density
+from sgracex1_tpu_torch.quant import int8 as Q
+from sgracex1_tpu_torch.quant.affine import generate_constants
 
 # one intra-op thread: the suite runs several pytest workers side by side
 torch.set_num_threads(1)
@@ -270,6 +272,72 @@ def test_model_grads_through_kernels(cuda_device):
         for k, r in ref.items():
             scale = float(r.abs().max())
             torch.testing.assert_close(got[k], r, rtol=5e-2, atol=5e-2 * scale, msg=lambda m: f"{k}: {m}")
+
+
+def _int8_graph(n, seed, empty_rb=None, tb=128):
+    rng = np.random.default_rng(seed)
+    hub = np.stack([rng.integers(0, 150, 12 * n), rng.integers(0, n, 12 * n)])
+    ei = np.unique(np.concatenate([rng.integers(0, n, (2, 4 * n)), hub, hub[::-1]], axis=1), axis=1)
+    if empty_rb is not None:
+        ei = ei[:, ei[0] // tb != empty_rb]
+    v = rng.uniform(0.01, 1.0, ei.shape[1]).astype(np.float32)
+    return SparseMatrix.from_coo(ei[0], ei[1], v, (n, n))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,tb,P,empty_rb", [(3001, 128, 8, 2), (3001, 256, 16, None), (2600, 128, 100, 5),
+                                             (4100, 256, 128, 1)])
+def test_bsr_spmm_int8_kernel_equals_plain(cuda_device, n, tb, P, empty_rb):
+    """K7 is an exact integer product: equal to its plain version, bit for bit."""
+    A = _int8_graph(n, 11, empty_rb, tb)
+    c_a = generate_constants(0.0, 1.0, 8, signed=False, w_qbits=8)
+    B = Q.bsr_int8_from_sparse(A, c_a, tb=tb, device=cuda_device)
+    Hq = torch.randint(-127, 128, (n, P), dtype=torch.int8, device=cuda_device)
+    before = K1.bsr_spmm_int8.launches
+    out = K1.bsr_spmm_int8(B, Hq)
+    torch.cuda.synchronize()
+    assert K1.bsr_spmm_int8.launches == before + 1
+    assert out.dtype == torch.int32 and out.shape == (B.n_row_tiles * tb, P)
+    assert torch.equal(out, K1.bsr_spmm_int8_plain(B, Hq))
+    assert torch.equal(out.cpu(), K1.bsr_spmm_int8_plain(B.to("cpu"), Hq.cpu()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tb,attach,P", [(128, True, 8), (128, False, 100), (256, True, 128), (256, False, 16)])
+def test_fused_int8_kernel_equals_plain(cuda_device, tb, attach, P):
+    """K8 equal to its plain version: tile steps, chunk steps with dead
+    slots, both attach modes."""
+    A = _int8_graph(3001, 12)
+    c_a = generate_constants(0.0, 1.0, 8, signed=False, w_qbits=8)
+    part, rest = split_by_tile_density(A, tb, 40 * (tb // 128) ** 2)
+    B8 = Q.bsr_int8_from_sparse(part, c_a, tb=tb, cover_cols=True, device=cuda_device)
+    plan = K2.build_fused_plan(B8, rest.with_vals(Q._quantize_vals(rest.vals, c_a)), attach_chunks=attach)
+    assert plan.num_rest_chunks > 0 and (plan.lrow == tb).any()
+    Hq = torch.randint(-127, 128, (3001, P), dtype=torch.int8, device=cuda_device)
+    before = K2.bsr_spmm_int8_fused.launches
+    out = Q.int8_hybrid_agg(plan, Hq)
+    torch.cuda.synchronize()
+    assert K2.bsr_spmm_int8_fused.launches == before + 1
+    assert out.dtype == torch.int32 and torch.equal(out, K2.bsr_spmm_int8_fused_plain(plan, Hq))
+
+
+@pytest.mark.cuda
+def test_int8_gcn_forward_through_k7(cuda_device):
+    rng = np.random.default_rng(13)
+    n = 2000
+    A = _int8_graph(n, 13)
+    X = rng.uniform(0, 1, (n, 100)).astype(np.float32)
+    W1 = rng.uniform(-0.5, 0.5, (100, 32)).astype(np.float32)
+    W2 = rng.uniform(-0.5, 0.5, (32, 16)).astype(np.float32)
+    cal = pt.quant.CalibrationTable.for_qbits(8, dict(w_min=-0.5, w_max=0.5, w_min2=-0.5, w_max2=0.5))
+    amax = Q.collect_amax_gcn2_sparse(A, X, W1, W2)
+    net = Q.freeze_gcn2_sparse(W1, W2, A, cal, tb=128, device=cuda_device, **amax)
+    xs = Q.quantize_unsigned_shifted(torch.from_numpy(X).to(cuda_device), cal.features)
+    before = K1.bsr_spmm_int8.launches
+    out = Q.int8_gcn2_sparse_forward(net, xs)
+    assert K1.bsr_spmm_int8.launches == before + 2
+    cpu = Q.freeze_gcn2_sparse(W1, W2, A, cal, tb=128, device="cpu", **amax)
+    torch.testing.assert_close(out.cpu(), Q.int8_gcn2_sparse_forward(cpu, xs.cpu()), rtol=0, atol=0)
 
 
 def test_wrappers_run_plain_on_cpu_and_raise_elsewhere():

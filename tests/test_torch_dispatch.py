@@ -66,7 +66,7 @@ def test_agg_matmul_matches_jax(method, fuse, graph):
     jp = jdis.prepare_adjacency(J, method=method, tb=tb, fuse=fuse, build_transpose=False)
     thresh = _jax_thresh(tb, jp.r1_row is not None) if method == "hybrid" else None
     tp = tdis.prepare_adjacency(
-        T, method=method, tb=tb, rest_thresh=thresh, fuse=fuse, build_transpose=False
+        T, method=method, tb=tb, rest_thresh=thresh, fuse=fuse, build_transpose=False, device="cpu"
     )
     assert tp.kind == jp.kind == method
     if method in ("bsr", "hybrid"):
@@ -87,23 +87,23 @@ def test_agg_matmul_matches_jax(method, fuse, graph):
 
 def test_transposed_plans_and_auto():
     J, T = _graph("symnorm", n=1024)
-    tp = tdis.prepare_adjacency(T, method="hybrid", tb=128)
+    tp = tdis.prepare_adjacency(T, method="hybrid", tb=128, device="cpu")
     assert tp.bsr_t is not None and tp.fused_t is not None
     assert tp.fused_t.B.n_rows == T.n_cols
     Hg = torch.randn(T.n_rows, 8, generator=torch.Generator().manual_seed(1))
     out = tdis.bsr_spmm_fused(tp.fused_t, Hg).float().numpy()
     np.testing.assert_allclose(out, T.to_scipy().T @ Hg.numpy(), rtol=5e-2, atol=5e-2)
-    assert tdis.prepare_adjacency(T).kind == "dense"
-    auto = tdis.prepare_adjacency(T, dense_max_bytes=0, build_transpose=False)
+    assert tdis.prepare_adjacency(T, device="cpu").kind == "dense"
+    auto = tdis.prepare_adjacency(T, dense_max_bytes=0, build_transpose=False, device="cpu")
     assert auto.kind == "hybrid" and auto.bsr.tb == tdis.DEFAULT_TB
     with pytest.raises(ValueError):
-        tdis.prepare_adjacency(T, method="pallas")
+        tdis.prepare_adjacency(T, method="pallas", device="cpu")
 
 
 def test_agg_matmul_is_inference_only():
     """No longer inference only: grad_H = A^T @ g on the edge list."""
     _, T = _graph("weighted", n=256)
-    tp = tdis.prepare_adjacency(T, method="xla")
+    tp = tdis.prepare_adjacency(T, method="xla", device="cpu")
     H = torch.randn(256, 4, requires_grad=True)
     g = torch.randn(256, 4)
     (tdis.agg_matmul(tp, H) * g).sum().backward()

@@ -54,7 +54,7 @@ def _preps(layout, monkeypatch, method="xla"):
     if forced is not None:
         monkeypatch.setattr(jdis, "_choose_flash_plan", lambda A, n, hybrid=True, train=True: forced)
     jp = jdis.prepare_adjacency(J, method=method, for_gat=True)
-    tp = pt.prepare_adjacency(T, method=method, for_gat=True, **kw)
+    tp = pt.prepare_adjacency(T, method=method, for_gat=True, **kw, device="cpu")
     return jp, tp, x
 
 
@@ -87,15 +87,15 @@ def test_for_gat_layout_identical(layout, monkeypatch):
 def test_for_gat_rule_and_reuse():
     _, T, _ = _graphs(2048)
     # a bsr prep's own tiles serve the flash kernels: nothing is attached
-    bsr = pt.prepare_adjacency(T, method="bsr", rank1=False, for_gat=True, build_transpose=False)
+    bsr = pt.prepare_adjacency(T, method="bsr", rank1=False, for_gat=True, build_transpose=False, device="cpu")
     assert bsr.gat_bsr is None and bsr.flash_tiles is bsr.bsr and bsr.bsr.tiles.dtype == torch.bfloat16
     # the fixed rule: full cover at tb=256 up to 8192 nodes, else hybrid
-    small = pt.prepare_adjacency(T, method="xla", for_gat=True)
+    small = pt.prepare_adjacency(T, method="xla", for_gat=True, device="cpu")
     assert small.gat_plan is None and small.gat_bsr.tb == 256
-    hyb = pt.prepare_adjacency(T, method="xla", for_gat=True, gat_rest_thresh=8)
+    hyb = pt.prepare_adjacency(T, method="xla", for_gat=True, gat_rest_thresh=8, device="cpu")
     assert hyb.gat_plan is not None and hyb.gat_bsr.tb == pt.ops.dispatch.DEFAULT_GAT_TB
     # a hybrid GCN prep's partial tiles are no mask: the layout is attached
-    h = pt.prepare_adjacency(T, method="hybrid", tb=128, for_gat=True, build_transpose=False)
+    h = pt.prepare_adjacency(T, method="hybrid", tb=128, for_gat=True, build_transpose=False, device="cpu")
     assert h.gat_bsr is not None and h.flash_tiles is h.gat_bsr
 
 
@@ -147,12 +147,18 @@ def test_return_attention_matches_jax(monkeypatch):
 
 
 def test_gat_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="item 13"):
-        GATConv(4, 4, quant=object())
+    # the quantized datapath is ported: quant= is kept and changes the output
+    q = pt.quant.CalibrationTable.for_qbits(8).layer_params(0)
+    conv = GATConv(4, 4, quant=q, generator=torch.Generator().manual_seed(1))
+    plain = GATConv(4, 4)
+    plain.load_state_dict(conv.state_dict())
+    A3 = pt.sym_norm(np.array([[0, 1, 2], [1, 2, 0]]), 3)
+    x3 = torch.rand(3, 4, generator=torch.Generator().manual_seed(2))
+    with torch.no_grad():
+        assert not torch.allclose(conv(A3, x3), plain(A3, x3))
     assert GATConv(4, 4, exact_gradients=True).exact_gradients  # ported now
-    with pytest.raises(NotImplementedError, match="item 13"):
-        pt.nn.GCNConv(4, 4, quant=object())
-    A = pt.prepare_adjacency(pt.sym_norm(np.array([[0, 1, 2], [1, 2, 0]]), 3), method="xla", for_gat=True)
+    assert pt.nn.GCNConv(4, 4, quant=q).quant is q
+    A = pt.prepare_adjacency(pt.sym_norm(np.array([[0, 1, 2], [1, 2, 0]]), 3), method="xla", for_gat=True, device="cpu")
     net = pt.GATModel(8, 4, 3, nheads=2, generator=torch.Generator().manual_seed(0))
     # training works now: the flash path takes gradients (K3 with K4/K5)
     out = net.eval()(A, torch.ones(3, 8))

@@ -47,7 +47,7 @@ def _slice(n=2048, F=32, hidden=64, C=16, tb=128):
     tperm = t_reorder.degree_order(T)
     T, _ = t_reorder.permute_graph(T, tperm)
     tp = pt.prepare_adjacency(
-        T, method="hybrid", tb=tb, rest_thresh=thresh, build_transpose=False
+        T, method="hybrid", tb=tb, rest_thresh=thresh, build_transpose=False, device="cpu"
     )
     x = d.x[perm]
     model = JGCN(num_features=F, hidden_channels=hidden, num_classes=C)
@@ -71,7 +71,7 @@ def test_slice_logits_match_jax():
     np.testing.assert_allclose(logits_t.numpy(), logits_j, rtol=2e-2, atol=2e-2)
     # the fused K2 route against the f32 edge path (the always-correct spec)
     with torch.no_grad():
-        ref = net(pt.prepare_adjacency(tp.A, method="xla"), torch.from_numpy(tx))
+        ref = net(pt.prepare_adjacency(tp.A, method="xla", device="cpu"), torch.from_numpy(tx))
     np.testing.assert_allclose(logits_t.numpy(), ref.numpy(), rtol=5e-2, atol=5e-2)
 
 
@@ -109,17 +109,20 @@ def test_import_leaves_jax_out():
 
 
 def test_model_boundaries():
-    with pytest.raises(NotImplementedError, match="not ported"):
-        GCNConv(4, 4, quant=object())
-    with pytest.raises(NotImplementedError):
-        GCNConv(4, 4, telemetry=True)
+    # quant= and telemetry= are ported: a telemetry layer records its ranges
+    conv = GCNConv(4, 4, telemetry=True, generator=torch.Generator().manual_seed(0))
+    A3 = pt.sym_norm(np.array([[0, 1, 2], [1, 2, 0]]), 3)
+    conv(A3, torch.full((3, 4), 0.5))
+    assert set(conv.telemetry_stats) == {"x_amax", "w_absmax", "wh_absmax"}
+    assert float(conv.telemetry_stats["x_amax"]) == 0.5
+    assert GCNConv(4, 4).telemetry_stats == {}
     x = torch.tensor([-1.0, 0.0, 2.0])
     assert ReluHW()(x).tolist() == [0.0, 0.0, 2.0]
     # same seed -> same weights; training-mode dropout draws from the generator
     a = pt.GCNModel(8, 4, 3, generator=torch.Generator().manual_seed(3))
     b = pt.GCNModel(8, 4, 3, generator=torch.Generator().manual_seed(3))
     torch.testing.assert_close(a.conv1.weight, b.conv1.weight)
-    A = pt.prepare_adjacency(pt.sym_norm(np.array([[0, 1, 2], [1, 2, 0]]), 3), method="xla")
+    A = pt.prepare_adjacency(pt.sym_norm(np.array([[0, 1, 2], [1, 2, 0]]), 3), method="xla", device="cpu")
     a.train()
     with torch.no_grad():
         o1 = a(A, torch.ones(3, 8), generator=torch.Generator().manual_seed(0))

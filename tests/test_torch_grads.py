@@ -33,7 +33,7 @@ def test_agg_matmul_grads_match_jax(method, fuse, values):
     J, T = graph(values)
     jp = jdis.prepare_adjacency(J, method=method, tb=128, fuse=fuse)
     thresh = jax_thresh(128, jp.r1_row is not None) if method == "hybrid" else None
-    tp = tdis.prepare_adjacency(T, method=method, tb=128, rest_thresh=thresh, fuse=fuse)
+    tp = tdis.prepare_adjacency(T, method=method, tb=128, rest_thresh=thresh, fuse=fuse, device="cpu")
     assert tp.kind == jp.kind == method
     if method in ("bsr", "hybrid"):
         assert (tp.fused_t is not None) == fuse and tp.bsr_t is not None
@@ -55,7 +55,7 @@ def test_agg_matmul_grads_match_jax(method, fuse, values):
 def test_backward_without_transpose_raises(fuse):
     _, T = graph("symnorm", n=384)
     tp = tdis.prepare_adjacency(T, method="hybrid", tb=128, rest_thresh=8, fuse=fuse,
-                                build_transpose=False)
+                                build_transpose=False, device="cpu")
     H = torch.randn(384, 4, requires_grad=True)
     out = tdis.agg_matmul(tp, H)  # the forward needs no transpose
     with pytest.raises(ValueError, match="build_transpose"):

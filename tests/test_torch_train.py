@@ -25,7 +25,7 @@ def test_train_node_classifier_tracks_jax(kind, monkeypatch):
     d, e, jp, tp, model, variables, net = model_pair(kind, monkeypatch=monkeypatch)
     cfg = dict(num_epochs=5, learning_rate=0.01)
     _, hj = jloop.train_node_classifier(model, d, JConfig(**cfg), prepare=jp)
-    state, ht = tloop.train_node_classifier(net, e, pt.SGRACEConfig(**cfg), prepare=tp)
+    state, ht = tloop.train_node_classifier(net, e, pt.SGRACEConfig(**cfg), prepare=tp, device="cpu")
     assert state.step == 5 and len(ht.loss) == 5
     # bf16 aggregations in both packages; Adam steps amplify the last bits
     np.testing.assert_allclose(ht.loss, hj.loss, rtol=1e-2, atol=1e-2)
@@ -45,7 +45,7 @@ def test_dropout_runs_repeat_from_one_seed():
     def run(seed):
         net = pt.GCNModel(data.num_features, 16, 3, dropout=0.5)
         net.load_state_dict(init)
-        return tloop.train_node_classifier(net, data, cfg, seed=seed, prepare="xla")[1]
+        return tloop.train_node_classifier(net, data, cfg, seed=seed, prepare="xla", device="cpu")[1]
 
     a, b = run(7), run(7)
     assert a.loss == b.loss and a.train_acc == b.train_acc and a.test_acc == b.test_acc
@@ -56,7 +56,7 @@ def test_checkpoints_and_preload_rule(tmp_path):
     data = t_ds.sbm_node_classification(n=150, num_classes=2, seed=5)
     cfg = pt.SGRACEConfig(num_epochs=3, learning_rate=0.01)
     net = pt.GATModel(data.num_features, 8, 2, nheads=2, generator=torch.Generator().manual_seed(2))
-    state, hist = tloop.train_node_classifier(net, data, cfg, prepare="auto")
+    state, hist = tloop.train_node_classifier(net, data, cfg, prepare="auto", device="cpu")
     path = str(tmp_path / "ck" / "best.pt")
     tck.save_checkpoint(path, hist.best_params)
     sd = tck.load_checkpoint(path, net.state_dict())
@@ -84,7 +84,7 @@ def test_checkpoints_and_preload_rule(tmp_path):
     assert ft.replace(learning_rate=0.5).resolved_learning_rate() == 0.5
     assert pt.SGRACEConfig(w_qbits=2).resolved_learning_rate() == 0.1
     net2 = pt.GATModel(data.num_features, 8, 2, nheads=2, generator=torch.Generator().manual_seed(9))
-    st2, h2 = tloop.train_node_classifier(net2, data, ft.replace(num_epochs=0), prepare="auto")
+    st2, h2 = tloop.train_node_classifier(net2, data, ft.replace(num_epochs=0), prepare="auto", device="cpu")
     for k, v in hist.best_params.items():
         torch.testing.assert_close(st2.model.state_dict()[k], v, rtol=0, atol=0)
     assert st2.optimizer.param_groups[0]["lr"] == 1e-4
@@ -93,14 +93,15 @@ def test_checkpoints_and_preload_rule(tmp_path):
 def test_prepare_from_config_rule():
     _, T = graph("symnorm", n=256)
     cfg = pt.SGRACEConfig()
-    assert tdis.prepare_from_config(T, cfg).kind == "dense"
-    p = tdis.prepare_from_config(T, cfg, method="hybrid", for_gat=True)
+    assert tdis.prepare_from_config(T, cfg, device="cpu").kind == "dense"
+    p = tdis.prepare_from_config(T, cfg, method="hybrid", for_gat=True, device="cpu")
     assert p.kind == "hybrid" and p.r1_row is not None and p.fused_t is not None
     assert p.flash_tiles is not None
     with pytest.raises(NotImplementedError, match="item 14"):
-        tdis.prepare_from_config(T, cfg.replace(use_pallas=True))
-    with pytest.raises(NotImplementedError, match="item 13"):
-        tdis.prepare_from_config(T, cfg.replace(fake_quantization=True))
+        tdis.prepare_from_config(T, cfg.replace(use_pallas=True), device="cpu")
+    # QAT remaps the adjacency values per call: value tiles, no rank-1 masks
+    qp = tdis.prepare_from_config(T, cfg.replace(fake_quantization=True), method="hybrid", device="cpu")
+    assert qp.r1_row is None and qp.bsr.tiles.dtype == torch.bfloat16 and qp.fused.colscale is None
     # model settings are the model's arguments, not config fields
     with pytest.raises(TypeError):
         pt.SGRACEConfig(dropout=0.1)
