@@ -51,6 +51,28 @@ Phases, each raising on failure (so the run exits non-zero):
 10. one int8 GAT layer on K3 at n=8192 against the plain K3 and, on the
    rows whose degree the 255 grid resolves, the edge-list int8 layer.
 
+11. K9-K12 against their plain versions at small sizes: K9
+   (spmm_plan) over rb/cb 128, 256 and 1024, be 1024 and 2048, P in {16, 33,
+   100, 128}, f32 and bf16 H, ragged n, a row block without a group, the
+   empty matrix, H with spare rows, weighted and rank-1 values, a split hub
+   row, plan_with_vals and plan_t; K10 (bsr_spmm_rowloop) in the tile forms
+   with an empty row block, also against K1; K11 (bsr_spmm_fused_k) at k 2
+   and 4 in both attach_chunks modes, with and without scalings, also
+   against K2 on the unpadded plan; K12 (flash_gat_forward_subskip) on int8
+   and value tiles with isolated rows at sb 64, 128 and 256, equal to K3.
+12. the pallas kind at full width on the GCN slice's graph:
+   prepare_from_config with SGRACEConfig(use_pallas=True, row_block=1024,
+   col_block=1024, edge_block=1024); K9 timed at P = 128 against its plain
+   version, its bound and torch.sparse.mm; the width-128 GCNModel answers 3
+   requests through K9 (logits against the plain-K9 forward and the K2
+   forward) and trains for 3 epochs (K9 on plan and plan_t); one
+   agg_matmul_with_vals forward and backward with random positive values;
+   K9 alone at the config's default tiling (128 / 128 / 2048).
+13. the variants at the slice's shapes, each through its own entry point:
+   K10 on the slice's tiles and on a banded graph beside K1, K11 on the
+   slice's split at k 2 and 4 beside K2, K12 at H = 1, F = 64 on the
+   slice's attention tiles and at n=8192 beside K3.
+
 Every main path is driven with the launch counts set to 0 just before it
 and read just after. The last two lines are the kernels' JSON record
 (name, route, source, the TPU kernel replaced, launches, error, kernel /
@@ -80,9 +102,10 @@ from sgracex1_tpu_torch.ops import _cuda
 from sgracex1_tpu_torch.ops import bsr as K1
 from sgracex1_tpu_torch.ops import fused_agg as K2
 from sgracex1_tpu_torch.ops import flash_gat as FG
+from sgracex1_tpu_torch.ops import pallas_spmm as K9
 from sgracex1_tpu_torch.ops.fused_gnn import relu_hw
 from sgracex1_tpu_torch.ops import dispatch as D
-from sgracex1_tpu_torch.ops.dispatch import _drop_zero_val_edges, split_by_tile_density
+from sgracex1_tpu_torch.ops.dispatch import _drop_zero_val_edges, agg_matmul_with_vals, split_by_tile_density
 from sgracex1_tpu_torch.quant import int8 as Q
 from sgracex1_tpu_torch.quant.affine import QuantConstants, generate_constants
 from sgracex1_tpu_torch.quant.autocal import calibrate
@@ -104,7 +127,12 @@ TRAIN_EPOCHS = 3
 GRAD_TOL = 2e-2
 KERNELS = (K1.bsr_spmm, K2.bsr_spmm_fused, FG.flash_gat_forward, FG.flash_gat_bwd_row,
            FG.flash_gat_bwd_col, FG.flash_gat_hybrid_forward, K1.bsr_spmm_int8,
-           K2.bsr_spmm_int8_fused)
+           K2.bsr_spmm_int8_fused, K9.spmm_plan, K1.bsr_spmm_rowloop, K2.bsr_spmm_fused_k,
+           FG.flash_gat_forward_subskip)
+K9_TOL = 1e-3  # identical roundings, f32 sums in another order (as K1)
+PALLAS_LOGIT_TOL = 2e-2  # two K9 layers: the second rounds the first's sums to bf16
+# the pallas kind at the tiling prepare_adjacency defaults to
+PALLAS_CFG = dict(use_pallas=True, row_block=1024, col_block=1024, edge_block=1024)
 INT8_GCN = dict(SLICE, n=1 << 16)  # full int8 tile cover: at most 256^2 tiles of 64 KiB
 INT8_TB = 256
 INT8_REL_TOL = 0.08  # int8 2-layer GCN against the float forward, of its largest output
@@ -114,7 +142,7 @@ QAT_TOL = 2e-2  # fake-quant logits against the plain-K1 forward, of the largest
 # the card's published peaks: bytes/s of device memory, dense tensor-core
 # operations/s by operand type
 HBM_BYTES_S = 3.35e12
-PEAK_OPS = {"bf16": 989e12, "int8": 1979e12}
+PEAK_OPS = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
 
 
 def _log(msg: str) -> None:
@@ -154,7 +182,8 @@ def _nbytes(*tensors) -> int:
 def _bound(nbytes: float, ops: float, kind: str) -> dict:
     """The least time the card could take: every input byte read once and
     every output byte written once at the memory rate, or the operations at
-    the tensor cores' peak for ``kind``, whichever is larger."""
+    the tensor cores' peak for ``kind`` (``f32``: outside the tensor
+    cores), whichever is larger."""
     by_bytes = nbytes / HBM_BYTES_S * 1e3
     by_ops = ops / PEAK_OPS[kind] * 1e3
     return dict(bound_ms=max(by_bytes, by_ops), bound_by="bytes" if by_bytes >= by_ops else "operations")
@@ -683,7 +712,7 @@ def phase_slice_serve(A, x, prep, device, cfg=SLICE):
     e1 = _check("slice logits K1 route vs plain-K2 forward", logits_k1, ref, K2_TOL)
     _log(f"slice logits: max abs err K2 {e2:.3g}, K1 route {e1:.3g} "
          f"(|logits| max {float(ref.abs().max()):.3g})")
-    return launches
+    return launches, logits
 
 
 def _gat_weights(rng, F, hidden, H, C):
@@ -853,6 +882,7 @@ def _plain_kernels():
     """Every kernel wrapper on the training path swapped for its plain
     version where the autograd Functions call it: the reference step."""
     swaps = [(D, "bsr_spmm_fused", K2.bsr_spmm_fused_plain), (D, "bsr_spmm", K1.bsr_spmm_plain),
+             (D, "spmm_plan", K9.spmm_plan_plain),
              (FG, "flash_gat_forward", FG.flash_gat_forward_plain),
              (FG, "flash_gat_hybrid_forward", FG.flash_gat_hybrid_forward_plain),
              (FG, "flash_gat_bwd_row", FG.flash_gat_bwd_row_plain),
@@ -890,7 +920,7 @@ def _reset_counts() -> None:
         k.launches = 0
 
 
-def phase_train(data, prep, net, device, label, per_epoch, k1_view=False):
+def phase_train(data, prep, net, device, label, per_epoch, k1_view=False, cfg_kw=None):
     """train_node_classifier for TRAIN_EPOCHS epochs on ``prep`` (the main
     path: counts reset just before, read just after, each kernel launched
     ``per_epoch[name]`` times an epoch); then timed steps, a profiler
@@ -909,7 +939,7 @@ def phase_train(data, prep, net, device, label, per_epoch, k1_view=False):
     torch.cuda.synchronize()
     _log(f"{label} warm-up step and evaluation: {(time.perf_counter() - t0) * 1e3:.3f} ms")
     torch.cuda.reset_peak_memory_stats()
-    cfg = SGRACEConfig(num_epochs=TRAIN_EPOCHS, learning_rate=0.01)
+    cfg = SGRACEConfig(num_epochs=TRAIN_EPOCHS, learning_rate=0.01, **(cfg_kw or {}))
     _reset_counts()
     t0 = time.perf_counter()
     state, hist = train_node_classifier(net, data, cfg, seed=0, prepare=prep, device=device)
@@ -986,7 +1016,8 @@ def phase_gat_small(device, cfg=GAT_SMALL):
         raise AssertionError("n=8192 must prepare full-cover flash tiles")
     launches = {"flash_gat_forward": phase_gat_serve(A, data.x, prep, device, FG.flash_gat_forward, "small", cfg)}
     per_epoch = {"flash_gat_forward": 4, "flash_gat_bwd_row": 2, "flash_gat_bwd_col": 2}
-    return _add(launches, phase_train(data, prep, _gat_net(cfg), device, "small GAT", per_epoch))
+    _add(launches, phase_train(data, prep, _gat_net(cfg), device, "small GAT", per_epoch))
+    return _add(launches, phase_subskip(prep.flash_tiles, A, device, "n=8192 full-cover")[1])
 
 
 def _gat_net(cfg):
@@ -1306,6 +1337,395 @@ def phase_fake_quant(A, data, device, cfg=SLICE):
     return _add(launches, train_launches)
 
 
+def _empty_graph(n):
+    z = np.zeros(0, np.int64)
+    return SparseMatrix.from_coo(z, z, np.zeros(0, np.float32), (n, n))
+
+
+def phase_variant_kernels_small(device):
+    """K9, K10, K11 and K12 against their plain versions over their forms."""
+    gen = torch.Generator(device=device).manual_seed(5)
+    randn = lambda *shape: torch.randn(*shape, generator=gen, device=device)
+
+    # ---- K9: name, graph, rb = cb, be, P, H dtype
+    k9_cases = [
+        ("rank1-128-P16", _random_graph(3001, False, 100), 128, 1024, 16, torch.float32),
+        ("weighted-256-be2048-P100", _random_graph(3001, True, 101), 256, 2048, 100, torch.float32),
+        ("rank1-1024-P128", _random_graph(5000, False, 102), 1024, 1024, 128, torch.float32),
+        ("weighted-128-be2048-P128-bf16H", _random_graph(2500, True, 103), 128, 2048, 128, torch.bfloat16),
+        ("weighted-256-P33-unaligned", _random_graph(2100, True, 104), 256, 1024, 33, torch.float32),
+        ("empty-row-block-256-P100", _int8_graph(2600, 105, empty_rb=2, tb=256), 256, 1024, 100, torch.float32),
+        ("empty-matrix-128-P16", _empty_graph(300), 128, 1024, 16, torch.float32),
+    ]
+    split = False
+    for name, A, blk, be, P, hdt in k9_cases:
+        n = A.n_rows
+        prep = prepare_adjacency(A, method="pallas", rb=blk, cb=blk, be=be, device=device)
+        plan, plan_t = prep.plan, prep.plan_t
+        split |= plan.segments.n_fin > 0
+        H = randn(n + 37, P).to(hdt)  # spare rows of H are never read
+        out = K9.spmm_plan(plan, H)
+        err = _check(f"K9 {name}", out, K9.spmm_plan_plain(plan, H), K9_TOL)
+        if "empty" in name:
+            rows = slice(2 * blk, 3 * blk) if "block" in name else slice(None)
+            if (out[rows] != 0).any():
+                raise AssertionError(f"K9 {name}: rows without an edge must come out exactly 0")
+        g = randn(n, P).to(hdt)
+        err_t = _check(f"K9 {name} on plan_t", K9.spmm_plan(plan_t, g), K9.spmm_plan_plain(plan_t, g), K9_TOL)
+        vals = torch.rand(A.vals.shape[0], generator=gen, device=device) + 0.1
+        pv = K9.plan_with_vals(plan, vals)
+        err_v = _check(f"K9 {name} plan_with_vals", K9.spmm_plan(pv, H), K9.spmm_plan_plain(pv, H), K9_TOL)
+        live = int((plan.perm >= 0).sum())
+        _log(f"  K9 {name}: n={n} nnz={A.nnz} groups={plan.num_groups} be={plan.be} "
+             f"fill={live / max(plan.perm.numel(), 1):.3f} row segments={plan.segments.n_seg} "
+             f"split_rows={plan.segments.n_fin} err {err:.3g} plan_t {err_t:.3g} with_vals {err_v:.3g}")
+    if not split:
+        raise AssertionError("no K9 case split a hub row (finalize pass)")
+
+    # ---- K10: the tile forms, a row block without a tile in the value form
+    k10_cases = [
+        ("bf16-values-empty-rb", _int8_graph(2600, 110, empty_rb=2, tb=128),
+         lambda A: K1.bsr_from_sparse(A, tb=128, device=device), 100, torch.float32),
+        ("f32-values-tb256", _random_graph(2100, True, 111),
+         lambda A: K1.bsr_from_sparse(A, tb=256, dtype=torch.float32, device=device), 128, torch.bfloat16),
+        ("int8-mask-tb256", _random_graph(3001, False, 112),
+         lambda A: K1.bsr_mask_from_sparse(A, tb=256, device=device), 40, torch.float32),
+        ("packed-tb1024", _random_graph(5000, False, 113),
+         lambda A: K1.bsr_bitmask_from_sparse(A, tb=1024, device=device), 72, torch.float32),
+        ("packed-tb128-P33", _random_graph(1500, False, 114),
+         lambda A: K1.bsr_bitmask_from_sparse(A, tb=128, device=device), 33, torch.float32),
+    ]
+    for name, A, build, P, hdt in k10_cases:
+        B = build(A)
+        H = randn(A.n_cols, P).to(hdt)
+        out = K1.bsr_spmm_rowloop(B, H)
+        err = _check(f"K10 {name}", out, K1.bsr_spmm_rowloop_plain(B, H), K1_TOL)
+        err1 = _check(f"K10 {name} against K1", out, K1.bsr_spmm(B, H), K1_TOL)
+        if "empty" in name:
+            if 2 in B.tile_rb.tolist() or (out[256:384] != 0).any():
+                raise AssertionError("K10: the empty row block must come out exactly 0")
+        longest = int(torch.bincount(B.tile_rb.long()).max())
+        _log(f"  K10 {name}: T={B.num_tiles} tiles {tuple(B.tiles.shape[1:])} {B.tiles.dtype} "
+             f"longest run={longest} err {err:.3g} against K1 {err1:.3g}")
+
+    # ---- K11: k 2 and 4, both attach modes, rank-1 scalings and value mode
+    for weighted in (False, True):
+        A = _random_graph(2600, weighted, 120 + weighted)
+        prep = prepare_adjacency(A, method="hybrid", tb=128, rest_thresh=24, build_transpose=False,
+                                 device=device)
+        H = randn(2600, 100)
+        r1 = {} if weighted else dict(r1_row=prep.r1_row.cpu().numpy(), r1_col=prep.r1_col.cpu().numpy())
+        for attach in (True, False):
+            base = K2.build_fused_plan(prep.bsr, prep.rest, attach_chunks=attach, **r1)
+            ref2 = K2.bsr_spmm_fused(base, H)
+            for k in (2, 4):
+                plan = K2.build_fused_plan(prep.bsr, prep.rest, attach_chunks=attach, k_steps=k, **r1)
+                out = K2.bsr_spmm_fused_k(plan, H)
+                err = _check(f"K11 k={k}", out, K2.bsr_spmm_fused_k_plain(plan, H), K2_TOL)
+                err2 = _check(f"K11 k={k} against K2 on the unpadded plan", out, ref2, K2_TOL)
+                _log(f"  K11 {'values' if weighted else 'rank-1'} attach={attach} k={k}: steps {base.num_steps} -> "
+                     f"{plan.num_steps} kinds={sorted(set(plan.step_kind.tolist()))} "
+                     f"segments={plan.segments.n_seg} split_runs={plan.segments.n_fin} "
+                     f"err {err:.3g} against K2 {err2:.3g}")
+
+    # ---- K12: int8 and value tiles, isolated rows, sb 64 / 128 / 256
+    for name, weighted, kw in (("int8-tb256", False, dict(method="xla")),
+                               ("bf16-values-tb256", True, dict(method="bsr", rank1=False, tb=256))):
+        A = _random_graph(3001, weighted, 130 + weighted, isolated=7)
+        prep = prepare_adjacency(A, for_gat=True, build_transpose=False, device=device, **kw)
+        B = prep.flash_tiles
+        s1, s2, Wh = (x[:, 0] for x in _scores(3001, 1, 40, gen, device))
+        k3 = FG.flash_gat_forward(B, s1, s2, Wh)
+        has = torch.zeros(3001, dtype=torch.bool, device=device)
+        has[prep.A.rows[: A.nnz][prep.A.vals[: A.nnz] > 0].long()] = True
+        for sb in (64, 128, 256):
+            pop = FG.subblock_pop_bitmap(B, A, sb)
+            out = FG.flash_gat_forward_subskip(B, pop, s1, s2, Wh, sb=sb)
+            err = _check(f"K12 {name} sb={sb}", out,
+                         FG.flash_gat_forward_subskip_plain(B, pop, s1, s2, Wh, sb=sb), GAT_TOL)
+            # what K12 skips adds exact zeros in K3, in the same order
+            if not torch.equal(out, k3):
+                raise AssertionError(f"K12 {name} sb={sb} differs from K3 on the same tiles")
+            if has.all() or (out[~has] != 0).any():
+                raise AssertionError(f"K12 {name}: rows without an edge must come out exactly 0")
+            bits = _pop_bits(pop)
+            _log(f"  K12 {name} sb={sb}: T={B.num_tiles} populated sub-blocks {bits} of "
+                 f"{B.num_tiles * (B.tb // sb) ** 2} err {err:.3g}, equal to K3")
+
+
+def _k9_bound(plan, H, out) -> dict:
+    """Bound of K9: the live slots' 12 bytes of plan (slot_idx, lcol, val),
+    the group and segment arrays, H and out once; two f32 operations per
+    live slot and feature, outside the tensor cores."""
+    live = plan.slot_idx.numel()
+    nbytes = 12 * live + _nbytes(plan.tile_cb, H, out) + _seg_bytes(plan.segments)
+    return _bound(nbytes, 2.0 * live * H.shape[1], "f32")
+
+
+def _plan_bytes_k9(plan) -> int:
+    return _nbytes(plan.lrow, plan.lcol, plan.val, plan.perm)
+
+
+def phase_pallas_slice(A, data, device, k2_logits, cfg=SLICE):
+    """The pallas kind at full width: prepare_from_config, K9 timed, the
+    GCN served and trained through K9, agg_matmul_with_vals, and K9 at the
+    config's default tiling."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    prep = prepare_from_config(A, SGRACEConfig(**PALLAS_CFG), device=device)
+    torch.cuda.synchronize()
+    prep_s = time.perf_counter() - t0
+    plan, plan_t = prep.plan, prep.plan_t
+    if prep.kind != "pallas" or plan is None or plan_t is None:
+        raise AssertionError(f"use_pallas must prepare the pallas kind, got {prep.kind}")
+    _log(f"pallas prepare (plan and plan_t): {prep_s:.1f} s rb={plan.rb} cb={plan.cb} be={plan.be} "
+         f"groups={plan.num_groups} fill={plan.nnz / plan.perm.numel():.3f} "
+         f"plan bytes {_plan_bytes_k9(plan) / 1e9:.3f} GB a direction; row segments={plan.segments.n_seg} "
+         f"split_rows={plan.segments.n_fin} partials={plan.segments.n_part}; "
+         f"plan_t: groups={plan_t.num_groups} split_rows={plan_t.segments.n_fin}")
+
+    gen = torch.Generator(device=device).manual_seed(1)
+    H = torch.randn(A.n_cols, HIDDEN, generator=gen, device=device)
+    lib_ms, lib = _sparse_mm_ms(A, H)
+    out = K9.spmm_plan(plan, H)
+    err = _check("spmm_plan at slice shapes", out, K9.spmm_plan_plain(plan, H), K9_TOL)
+    e_lib = _check("spmm_plan against torch.sparse.mm", out, lib, K2_TOL)
+    del lib
+    ms = _cuda_ms(lambda: K9.spmm_plan(plan, H))
+    plain_ms = _cuda_ms(lambda: K9.spmm_plan_plain(plan, H), reps=3)
+    bound = _k9_bound(plan, H, out)
+    rec = {"spmm_plan": dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, **bound, library_ms=lib_ms)}
+    _log(f"spmm_plan at slice shapes [n={A.n_rows}, P={HIDDEN}]: kernel {ms:.4f} ms "
+         f"({A.nnz / (ms * 1e-3) / 1e6:.1f} M edges/s), plain {plain_ms:.4f} ms (median of 3), "
+         f"bound {bound['bound_ms']:.4f} ms by {bound['bound_by']}, max abs err {err:.3g}; "
+         f"against the library product (f32 operands) {e_lib:.3g}")
+    g = torch.randn(A.n_rows, HIDDEN, generator=gen, device=device)
+    err_t = _check("spmm_plan on plan_t at slice shapes", K9.spmm_plan(plan_t, g),
+                   K9.spmm_plan_plain(plan_t, g), K9_TOL)
+    ms_t = _cuda_ms(lambda: K9.spmm_plan(plan_t, g))
+    _log(f"spmm_plan on plan_t: kernel {ms_t:.4f} ms, max abs err {err_t:.3g}")
+    del out, g
+
+    # ---- serving: 3 requests, 2 launches each
+    C = cfg["num_classes"]
+    net = _gcn_net(cfg).to(device).eval()
+    x = torch.from_numpy(data.x).to(device)
+    with torch.no_grad():
+        net(prep, x)  # warm-up
+        torch.cuda.synchronize()
+        _reset_counts()
+        times, per_request = [], []
+        for _ in range(REQUESTS):
+            before = K9.spmm_plan.launches
+            t0 = time.perf_counter()
+            logits = net(prep, x)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            per_request.append(K9.spmm_plan.launches - before)
+        launches = _counts()
+        _profile_forward(lambda: net(prep, x), "pallas GCN")
+        with _plain_kernels():
+            ref = net(prep, x)
+        H1 = torch.matmul(x, net.conv1.weight)
+        agg_ms = _cuda_ms(lambda: agg_matmul(prep, H1))
+    _log("pallas GCN forwards (K9 route): " + ", ".join(f"{m:.3f}" for m in times) + " ms")
+    _log(f"launches in the pallas serving run: {launches} (K9 per request: {per_request})")
+    _log(f"pallas aggregation (layer-1 input, K9): {agg_ms:.4f} ms")
+    if per_request != [2] * REQUESTS or sum(launches.values()) != 2 * REQUESTS:
+        raise AssertionError(f"K9 launches per request {per_request}, expected 2 each and no other kernel")
+    if logits.shape != (A.n_rows, C):
+        raise AssertionError(f"logits shape {tuple(logits.shape)}")
+    # layer 2 rounds its input to bf16: a last-bit difference in layer 1's
+    # f32 sums flips some of those roundings, and a hub row adds up 10^5 of them
+    e9 = _check("pallas logits vs plain-K9 forward", logits, ref, PALLAS_LOGIT_TOL)
+    e2 = _check("pallas logits vs the K2 forward", logits, k2_logits, K2_TOL)
+    _log(f"pallas logits: max abs err {e9:.3g} against the plain-K9 forward (tolerance {PALLAS_LOGIT_TOL}), "
+         f"{e2:.3g} against the K2 forward, which writes bf16 (tolerance {K2_TOL}); "
+         f"|logits| max {float(ref.abs().max()):.3g}")
+    del ref, logits
+
+    # ---- training: 3 epochs, K9 twice forward, twice backward, twice in the evaluation
+    _add(launches, phase_train(data, prep, _gcn_net(cfg), device, "pallas GCN", {"spmm_plan": 6},
+                               cfg_kw=PALLAS_CFG))
+
+    # ---- runtime edge values: forward and both gradients against the plain version
+    vals = torch.rand(prep.A.vals.shape[0], generator=gen, device=device) * (prep.A.vals != 0)
+    Hs = torch.randn(A.n_cols, HIDDEN, generator=gen, device=device)
+    R = torch.randn(A.n_rows, HIDDEN, generator=gen, device=device)
+
+    def with_vals():
+        v, h = vals.clone().requires_grad_(True), Hs.clone().requires_grad_(True)
+        o = agg_matmul_with_vals(prep, v, h)
+        (o * R).sum().backward()
+        return o.detach(), v.grad, h.grad
+
+    with_vals()  # warm-up: the allocator grows by the gathers' scratch
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.perf_counter()
+    got = with_vals()
+    torch.cuda.synchronize()
+    wv_ms = (time.perf_counter() - t0) * 1e3
+    wv = _counts()
+    if wv["spmm_plan"] != 2 or sum(wv.values()) != 2:
+        raise AssertionError(f"agg_matmul_with_vals launches {wv}, expected K9 forward and backward")
+    with _plain_kernels():
+        want = with_vals()
+    errs = [_check(f"agg_matmul_with_vals {k}", a, b, K9_TOL)
+            for k, a, b in zip(("out", "grad_vals", "grad_H"), got, want)]
+    _log(f"agg_matmul_with_vals at 2^20 (P={HIDDEN}, random positive values): forward + backward {wv_ms:.3f} ms, "
+         f"launches {wv}; max abs err out {errs[0]:.3g}, grad_vals {errs[1]:.3g}, grad_H {errs[2]:.3g} "
+         f"against the plain version")
+    _add(launches, wv)
+    _log(f"peak device memory in the pallas phase: {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    del prep, plan, plan_t, got, want, vals, Hs, R
+    torch.cuda.empty_cache()
+
+    # ---- K9 alone at the config's own default tiling
+    dflt = SGRACEConfig()
+    t0 = time.perf_counter()
+    small = prepare_adjacency(A, method="pallas", rb=dflt.row_block, cb=dflt.col_block,
+                              be=dflt.edge_block, build_transpose=False, device=device).plan
+    torch.cuda.synchronize()
+    prep_s = time.perf_counter() - t0
+    out = K9.spmm_plan(small, H)
+    err = _check("spmm_plan at the default tiling", out, K9.spmm_plan_plain(small, H), K9_TOL)
+    ms_d = _cuda_ms(lambda: K9.spmm_plan(small, H))
+    b_d = _k9_bound(small, H, out)
+    _log(f"spmm_plan at the config's default tiling (forward plan only): prepare {prep_s:.1f} s "
+         f"rb={small.rb} cb={small.cb} be={small.be} groups={small.num_groups} "
+         f"fill={small.nnz / small.perm.numel():.3f} plan bytes {_plan_bytes_k9(small) / 1e9:.3f} GB; "
+         f"kernel {ms_d:.4f} ms, bound {b_d['bound_ms']:.4f} ms by {b_d['bound_by']}, max abs err {err:.3g}")
+    return rec, launches
+
+
+def _timed_variant(name, kern, plain, args, tol, reps_plain=3):
+    """Drive one variant through its entry point REQUESTS times with the
+    counts reset (its main path), hold it against its plain version, and
+    time both (the plain version once with ``reps_plain`` 1). Returns (out,
+    record without the bound, launches)."""
+    _reset_counts()
+    for _ in range(REQUESTS):
+        out = kern(*args)
+    torch.cuda.synchronize()
+    launches = _counts()
+    if launches[kern.__name__] != REQUESTS or sum(launches.values()) != REQUESTS:
+        raise AssertionError(f"{name} launches {launches}, expected {kern.__name__} x{REQUESTS} only")
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    e0.record()
+    ref = plain(*args)
+    e1.record()
+    err = _check(name, out, ref, tol)
+    ms = _cuda_ms(lambda: kern(*args))
+    # a slow plain version is timed once, on the call that made ``ref``
+    plain_ms = e0.elapsed_time(e1) if reps_plain <= 1 else _cuda_ms(lambda: plain(*args), reps=reps_plain)
+    return out, dict(max_abs_err=err, ms=ms, plain_ms=plain_ms), launches
+
+
+def phase_variants_agg_slice(A, prep, device, lib_ms):
+    """K10 and K11 at the slice's shapes (P = 128) beside K1 and K2 on the
+    same tiles, and K10 beside K1 on a banded graph."""
+    gen = torch.Generator(device=device).manual_seed(3)
+    H = torch.randn(prep.A.n_cols, HIDDEN, generator=gen, device=device)
+    rec, launches = {}, {}
+    B = prep.bsr
+
+    def k10_bound(B, H, out):
+        nbytes = _nbytes(B.tiles, B.tile_cb, H, out) + 4 * (B.n_row_tiles + 1)
+        return _bound(nbytes, 2.0 * B.num_tiles * B.tb * B.tb * H.shape[1], "bf16")
+
+    out, r, n = _timed_variant("bsr_spmm_rowloop at slice shapes", K1.bsr_spmm_rowloop,
+                               K1.bsr_spmm_rowloop_plain, (B, H), K1_TOL)
+    k1_ms = _cuda_ms(lambda: K1.bsr_spmm(B, H))
+    bound = k10_bound(B, H, out)
+    rec["bsr_spmm_rowloop"] = dict(**r, **bound, library_ms=lib_ms)
+    _add(launches, n)
+    longest = int(torch.bincount(B.tile_rb.long()).max())
+    _log(f"bsr_spmm_rowloop on the slice's tiles [T={B.num_tiles}, longest run {longest} tiles, P={HIDDEN}]: "
+         f"kernel {r['ms']:.4f} ms, K1 on the same tiles {k1_ms:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+         f"bound {bound['bound_ms']:.4f} ms by {bound['bound_by']}, max abs err {r['max_abs_err']:.3g}")
+
+    band = _banded_graph(A.n_rows, A.n_rows // 4, 0)
+    bp = prepare_adjacency(band, method="hybrid", build_transpose=False, device=device)
+    Bb = bp.bsr
+    ob = K1.bsr_spmm_rowloop(Bb, H)
+    eb = _check("bsr_spmm_rowloop on the banded graph", ob, K1.bsr_spmm_rowloop_plain(Bb, H), K1_TOL)
+    ms_b = _cuda_ms(lambda: K1.bsr_spmm_rowloop(Bb, H))
+    k1_b = _cuda_ms(lambda: K1.bsr_spmm(Bb, H))
+    bb = k10_bound(Bb, H, ob)
+    _log(f"bsr_spmm_rowloop on the banded graph's tiles [n={band.n_rows}, T={Bb.num_tiles}, "
+         f"longest run {int(torch.bincount(Bb.tile_rb.long()).max())} tiles]: kernel {ms_b:.4f} ms, "
+         f"K1 {k1_b:.4f} ms, bound {bb['bound_ms']:.4f} ms by {bb['bound_by']}, max abs err {eb:.3g}")
+    del bp, Bb, ob
+
+    k2_ms = _cuda_ms(lambda: K2.bsr_spmm_fused(prep.fused, H))
+    r1 = dict(r1_row=prep.r1_row.cpu().numpy(), r1_col=prep.r1_col.cpu().numpy())
+    for k in (2, 4):
+        t0 = time.perf_counter()
+        plan = K2.build_fused_plan(B, prep.rest, attach_chunks=True, k_steps=k, **r1)
+        build_s = time.perf_counter() - t0
+        out, r, n = _timed_variant(f"bsr_spmm_fused_k k={k} at slice shapes", K2.bsr_spmm_fused_k,
+                                   K2.bsr_spmm_fused_k_plain, (plan, H), K2_TOL)
+        e2 = _check(f"bsr_spmm_fused_k k={k} against K2", out, K2.bsr_spmm_fused(prep.fused, H), K2_TOL)
+        bound = _agg_bound(B, H, out, "bf16", plan=plan)
+        _add(launches, n)
+        _log(f"bsr_spmm_fused_k k={k} on the slice's split [steps {prep.fused.num_steps} -> {plan.num_steps}, "
+             f"plan build {build_s:.1f} s]: kernel {r['ms']:.4f} ms, K2 on the unpadded plan {k2_ms:.4f} ms, "
+             f"plain {r['plain_ms']:.4f} ms, bound {bound['bound_ms']:.4f} ms by {bound['bound_by']}, "
+             f"max abs err {r['max_abs_err']:.3g}, against K2 {e2:.3g}")
+        if k == 2 or r["ms"] < rec["bsr_spmm_fused_k"]["ms"]:
+            rec["bsr_spmm_fused_k"] = dict(**r, **bound, library_ms=lib_ms)
+    return rec, launches
+
+
+def _pop_bits(pop) -> int:
+    """Populated sub-blocks in a K12 bitmap."""
+    return int(sum(((pop >> j) & 1).sum() for j in range(32)))
+
+
+def _k12_bound(B, pop, sb, tensors, F) -> dict:
+    """Bound of K12 on this run's bitmap: the mask bytes and the product of
+    the populated sub-blocks only."""
+    bits = _pop_bits(pop)
+    nbytes = bits * sb * sb * B.tiles.element_size() + _nbytes(*tensors, B.tile_cb) + pop.nbytes + _seg_bytes(B.segments)
+    return _bound(nbytes, 2.0 * bits * sb * sb * F, "bf16")
+
+
+def phase_subskip(B, edges, device, label, record=False):
+    """K12 at H = 1, F = 64 on tiles ``B`` (whose edges are ``edges``)
+    beside K3 on the same tiles, at every sb the tile size allows."""
+    gen = torch.Generator(device=device).manual_seed(4)
+    n = B.n_cols
+    s1, s2, Wh = (x[:, 0] for x in _scores(n, 1, GAT_HIDDEN, gen, device))
+    k3 = FG.flash_gat_forward(B, s1, s2, Wh)
+    k3_ms = _cuda_ms(lambda: FG.flash_gat_forward(B, s1, s2, Wh))
+    rec, launches = {}, {}
+    for sb in (64, 128, 256):
+        if B.tb % sb:
+            continue
+        pop = FG.subblock_pop_bitmap(B, edges, sb)
+        pop_t = torch.from_numpy(pop).to(device)
+        kern = lambda *a: FG.flash_gat_forward_subskip(*a, sb=sb)
+        kern.__name__ = "flash_gat_forward_subskip"
+        plain = lambda *a: FG.flash_gat_forward_subskip_plain(*a, sb=sb)
+        out, r, n_l = _timed_variant(f"K12 sb={sb} ({label})", kern, plain, (B, pop_t, s1, s2, Wh),
+                                     GAT_TOL, reps_plain=1)
+        err, ms, plain_ms = r["max_abs_err"], r["ms"], r["plain_ms"]
+        if not torch.equal(out, k3):
+            raise AssertionError(f"K12 sb={sb} ({label}) differs from K3 on the same tiles")
+        bound = _k12_bound(B, pop, sb, (s1, s2, Wh, out), GAT_HIDDEN)
+        bits = _pop_bits(pop)
+        _add(launches, n_l)
+        _log(f"flash_gat_forward_subskip sb={sb} on the {label} tiles [T={B.num_tiles}, tb={B.tb}, H=1, "
+             f"F={GAT_HIDDEN}, populated sub-blocks {bits} of {B.num_tiles * (B.tb // sb) ** 2}]: "
+             f"kernel {ms:.4f} ms, K3 at H=1 on the same tiles {k3_ms:.4f} ms, plain {plain_ms:.4f} ms, "
+             f"bound {bound['bound_ms']:.4f} ms by {bound['bound_by']}, max abs err {err:.3g}, equal to K3")
+        if record and (not rec or ms < rec["flash_gat_forward_subskip"]["ms"]):
+            rec["flash_gat_forward_subskip"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, **bound,
+                                                    library_ms=None)
+    return rec, launches
+
 
 def main() -> None:
     phase_device()
@@ -1313,15 +1733,29 @@ def main() -> None:
     device = torch.device("cuda")
     phase_kernels_small(device)
     phase_int8_kernels_small(device)
+    phase_variant_kernels_small(device)
     A, data, prep = phase_slice_prepare(device)
     rec = phase_kernels_slice(A, prep, device)
-    launches = phase_slice_serve(A, data.x, prep, device)
+    launches, k2_logits = phase_slice_serve(A, data.x, prep, device)
     _add(launches, phase_train(data, prep, _gcn_net(SLICE), device, "GCN slice",
                                {"bsr_spmm_fused": 6}, k1_view=True))
+    more_rec, more = phase_variants_agg_slice(A, prep, device, rec["bsr_spmm"]["library_ms"])
+    rec.update(more_rec)
+    _add(launches, more)
     del prep
+    torch.cuda.empty_cache()
+    more_rec, more = phase_pallas_slice(A, data, device, k2_logits)
+    rec.update(more_rec)
+    _add(launches, more)
+    del k2_logits
     torch.cuda.empty_cache()
     gat_prep = phase_gat_prepare(A, device, "slice")
     rec.update(phase_gat_kernels_slice(gat_prep, device))
+    dense_part = split_by_tile_density(A, gat_prep.gat_bsr.tb, D.DEFAULT_GAT_REST_THRESH)[0]
+    more_rec, more = phase_subskip(gat_prep.gat_bsr, dense_part, device, "slice's attention", record=True)
+    rec.update(more_rec)
+    _add(launches, more)
+    del dense_part
     _add(launches, {"flash_gat_hybrid_forward": phase_gat_serve(
         A, data.x, gat_prep, device, FG.flash_gat_hybrid_forward, "slice")})
     per_epoch = {"flash_gat_hybrid_forward": 4, "flash_gat_bwd_row": 2, "flash_gat_bwd_col": 2}
@@ -1352,6 +1786,11 @@ def main() -> None:
         "bsr_spmm_int8": ("sgracex1_tpu_torch/csrc/bsr_spmm_int8.cu", "sgracex1_tpu/ops/bsr.py:773"),
         "bsr_spmm_int8_fused": ("sgracex1_tpu_torch/csrc/fused_agg_int8.cu",
                                 "sgracex1_tpu/ops/fused_agg.py:1054"),
+        "spmm_plan": ("sgracex1_tpu_torch/csrc/plan_spmm.cu", "sgracex1_tpu/ops/pallas_spmm.py:232"),
+        "bsr_spmm_rowloop": ("sgracex1_tpu_torch/csrc/bsr_spmm_rowloop.cu", "sgracex1_tpu/ops/bsr.py:693"),
+        "bsr_spmm_fused_k": ("sgracex1_tpu_torch/csrc/fused_agg_k.cu", "sgracex1_tpu/ops/fused_agg.py:871"),
+        "flash_gat_forward_subskip": ("sgracex1_tpu_torch/csrc/flash_gat.cu",
+                                      "sgracex1_tpu/ops/flash_gat.py:343"),
     }
     kernels = [
         dict(name=name, route="cuda", source=src, replaces=rep, launches=launches[name], **rec[name])

@@ -3,11 +3,12 @@
 One frozen dataclass with the JAX package's fields that the port reads,
 under their JAX names and defaults: the training loop's (``num_epochs``,
 ``learning_rate``, ``preload``, ``w_qbits`` through the learning-rate
-rule) and ``prepare_from_config``'s (``use_pallas``,
+rule) and ``prepare_from_config``'s (``use_pallas`` with the tiling
+``row_block`` / ``col_block`` / ``edge_block`` of the ``pallas`` kind,
 ``fake_quantization``). The model's widths, heads, dropout, LeakyReLU
 slope and calibration table are the model's own arguments. A JAX field
 joins this class with the part of the port that reads it (ROADMAP queue
-1: Pallas tiling with item 14, distribution with item 16).
+1: distribution with item 16).
 """
 
 from __future__ import annotations
@@ -26,8 +27,12 @@ class SGRACEConfig:
     # whose values the quantized layers remap per call
     fake_quantization: bool = False
 
-    # --- kernel choice ---
-    # raises in prepare_from_config (ROADMAP queue 1, item 14)
+    # --- kernel tiling of the pallas kind (ops/pallas_spmm.plan_spmm) ---
+    col_block: int = 128  # columns of a tile (at least 128)
+    row_block: int = 128  # rows of a tile (at least 8)
+    edge_block: int = 2048  # slots of an edge group (a multiple of 1024)
+    # prepare_from_config then prepares the pallas kind: the edge-group
+    # plan that kernel K9 (ops/pallas_spmm.spmm_plan) aggregates over
     use_pallas: bool = False
 
     # --- training loop ---

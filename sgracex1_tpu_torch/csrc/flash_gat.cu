@@ -27,6 +27,16 @@
 // merge kernel combines in a fixed order (M = max m_i, weights
 // exp(m_i - M)). No atomics.
 //
+// K12 (sgracex1_tpu/ops/flash_gat.py:flash_gat_forward_subskip, Pallas
+// kernel _flash_gat_kernel_subskip) is K3 with a host-built population
+// bitmap pop[T, nw]: bit (i * ns + j) of tile t says whether the sb x sb
+// sub-block (i, j) holds an edge. The TPU kernel predicates each
+// sub-block's score math on its bit. Here sb is a multiple of the CTA's 64
+// rows and 64-column chunks, so a CTA's rows lie in one sub-block row: a
+// tile whose sub-block row is empty is left before a barrier or a load of
+// s2, and a 64-column chunk in an empty sub-block is skipped before its
+// mask bytes are read (K3 reads every mask byte to learn the same).
+//
 // Bound on the H100: the score work (an add, LeakyReLU, mask, max, exp and
 // sum per tile entry, twice read: a row-max pass and a probability pass)
 // and the tensor-core products 2 * tb * tb * F per tile and head. A first,
@@ -78,6 +88,7 @@ struct Args {
   const int* tile_cb;                                    // K3: step g is tile g
   const int* step_cb; const int* step_tile; const int* step_chunk; const int* step_kind;
   const int* lrow; const int* slot_col; int K;
+  const int* pop; int sb; int nw;                        // K12: sub-block bitmap
   const float* s1; int n_s1; const float* s2; int n_s2;
   const __nv_bfloat16* Wh; int wvec;  // wvec: rows copy as 16-byte pieces
   float alpha;
@@ -97,13 +108,25 @@ struct Lane {
 };
 
 // One step (a tile when CHUNK is false, a remainder chunk otherwise).
-template <int MODE, bool CHUNK>
+template <int MODE, bool CHUNK, bool SUB = false>
 __device__ __forceinline__ void step(Smem& s, const Args& a, const Lane& ln, long id, int cb,
                                      int rb, int row0, int h, int f0, int nf,
                                      const float (&s1r)[4], float (&m)[4], float (&l)[4],
                                      float (&acc)[32]) {
   const int tb = a.tb;
   const int ncols = CHUNK ? a.K : tb;
+  // K12: the population bits of this CTA's sub-block row of tile `id`
+  constexpr bool subskip = SUB && !CHUNK;  // compiled into K12 only
+  const int ns = subskip ? tb / a.sb : 0;
+  auto populated = [&](int sj) -> bool {
+    const int b = (row0 / a.sb) * ns + sj;
+    return (a.pop[id * a.nw + (b >> 5)] >> (b & 31)) & 1;
+  };
+  if constexpr (subskip) {
+    bool any = false;
+    for (int sj = 0; sj < ns; ++sj) any |= populated(sj);
+    if (!any) return;  // the same for every thread of the CTA
+  }
   __syncthreads();  // the previous step is done with s.s2 / s.col / s.lrow
   if (threadIdx.x < MAX_TB / COLS) s.live[threadIdx.x] = 0;
   for (int c = threadIdx.x; c < ncols; c += NTHREADS) {
@@ -129,6 +152,9 @@ __device__ __forceinline__ void step(Smem& s, const Args& a, const Lane& ln, lon
   const int nchunk = (ncols + COLS - 1) / COLS;
   float smax[4] = {-INFINITY, -INFINITY, -INFINITY, -INFINITY};
   for (int kc = 0; kc < nchunk; ++kc) {
+    if constexpr (subskip) {
+      if (!populated(kc * COLS / a.sb)) continue;  // live[kc] stays 0
+    }
     const int c = kc * COLS + ln.g * 8;
     unsigned any = 0;
 #pragma unroll
@@ -267,7 +293,7 @@ __device__ __forceinline__ void step(Smem& s, const Args& a, const Lane& ln, lon
 // 4 CTAs an SM: at most 128 registers a thread (80 bytes spill). The
 // kernel waits on loads more than it computes, and measured 8.6-8.9 ms
 // against 9.2-9.3 ms at 162 registers and 3 CTAs (K6 at the 2^20 slice).
-template <int MODE>
+template <int MODE, bool SUB>
 __global__ void __launch_bounds__(NTHREADS, 4) flash_gat_kernel(Args a) {
   __shared__ Smem s;
   long bid = blockIdx.x;
@@ -299,8 +325,8 @@ __global__ void __launch_bounds__(NTHREADS, 4) flash_gat_kernel(Args a) {
   for (int q = 0; q < 32; ++q) acc[q] = 0.f;
 
   for (int g = a.seg_lo[seg]; g < a.seg_hi[seg]; ++g) {
-    if (a.step_kind == nullptr) {
-      step<MODE, false>(s, a, ln, g, a.tile_cb[g], rb, row0, h, f0, nf, s1r, m, l, acc);
+    if (SUB || a.step_kind == nullptr) {
+      step<MODE, false, SUB>(s, a, ln, g, a.tile_cb[g], rb, row0, h, f0, nf, s1r, m, l, acc);
       continue;
     }
     const int kind = a.step_kind[g];  // 0 tile, 1 chunk, 3 tile then chunk
@@ -391,22 +417,28 @@ static cudaError_t launch(const Args& a, int n_seg, cudaStream_t stream) {
   const long blocks = (long)n_seg * a.n_rg * a.H * a.n_fs;
   if (blocks == 0) return cudaSuccess;
   if (blocks > 0x7fffffffL) return cudaErrorInvalidConfiguration;
-  flash_gat_kernel<MODE><<<(unsigned)blocks, NTHREADS, 0, stream>>>(a);
+  if constexpr (MODE != TILE_BITS) {  // K12 takes unpacked tiles only
+    if (a.pop != nullptr) {
+      flash_gat_kernel<MODE, true><<<(unsigned)blocks, NTHREADS, 0, stream>>>(a);
+      return cudaGetLastError();
+    }
+  }
+  flash_gat_kernel<MODE, false><<<(unsigned)blocks, NTHREADS, 0, stream>>>(a);
   return cudaGetLastError();
 }
 
 }  // namespace flash
 }  // namespace sg
 
-// K3 (step_kind == nullptr: step g is tile g, column block tile_cb[g]) and
-// K6 (steps of a fused plan). Returns the cudaError_t of the launches.
+// K3 (step_kind == nullptr: step g is tile g, column block tile_cb[g]), K12
+// (K3 with the sub-block bitmap pop) and K6 (steps of a fused plan). Returns the cudaError_t of the launches.
 extern "C" int sg_flash_gat(const void* tiles, int tile_mode, int tb, int n_seg,
                             const int* seg_rb, const int* seg_lo, const int* seg_hi,
                             const int* seg_part, int n_fin, const int* fin_rb,
                             const int* fin_p0, const int* fin_np, const int* tile_cb,
                             const int* step_cb, const int* step_tile, const int* step_chunk,
                             const int* step_kind, const int* lrow, const int* slot_col, int K,
-                            const float* s1, int n_s1, const float* s2, int n_s2,
+                            const int* pop, int sb, const float* s1, int n_s1, const float* s2, int n_s2,
                             const void* Wh, int wvec, int H, int F, float alpha,
                             float* out, int n_rows, float* m_out, float* l_out, float* pm,
                             float* pl, float* pacc, void* stream_ptr) {
@@ -414,11 +446,15 @@ extern "C" int sg_flash_gat(const void* tiles, int tile_mode, int tb, int n_seg,
   using namespace sg::flash;
   if (tb % 32 || tb > MAX_TB || K > MAX_K || H < 1 || F < 1)
     return (int)cudaErrorInvalidValue;
+  if (pop != nullptr && (sb < ROWS || sb % ROWS || tb % sb || step_kind != nullptr ||
+                         tile_mode == TILE_BITS))
+    return (int)cudaErrorInvalidValue;
+  const int ns2 = pop != nullptr ? (tb / sb) * (tb / sb) : 0;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   Args a{tiles, tb, (tb + ROWS - 1) / ROWS, (F + FS - 1) / FS, H, F,
          seg_rb, seg_lo, seg_hi, seg_part, tile_cb,
          step_cb, step_tile, step_chunk, step_kind, lrow, slot_col, K,
-         s1, n_s1, s2, n_s2, static_cast<const __nv_bfloat16*>(Wh), wvec, alpha,
+         pop, sb, (ns2 + 31) / 32, s1, n_s1, s2, n_s2, static_cast<const __nv_bfloat16*>(Wh), wvec, alpha,
          out, n_rows, m_out, l_out, pm, pl, pacc};
   cudaError_t err;
   switch (tile_mode) {

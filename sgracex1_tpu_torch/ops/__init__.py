@@ -1,6 +1,7 @@
 from sgracex1_tpu_torch.ops.dispatch import (
     PreparedAdjacency,
     agg_matmul,
+    agg_matmul_with_vals,
     map_adjacency_vals,
     prepare_adjacency,
     prepare_from_config,
@@ -11,6 +12,7 @@ from sgracex1_tpu_torch.ops.spmm import spmm, spmm_into, spmm_t
 __all__ = [
     "PreparedAdjacency",
     "agg_matmul",
+    "agg_matmul_with_vals",
     "map_adjacency_vals",
     "prepare_adjacency",
     "prepare_from_config",

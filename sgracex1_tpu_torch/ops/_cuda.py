@@ -141,10 +141,35 @@ def _declare(lib: ctypes.CDLL) -> None:
         p,  # tile_cb (K3)
         p, p, p, p,  # step_cb/tile/chunk/kind (K6)
         p, p, i,  # lrow, slot_col, K
+        p, i,  # pop, sb (K12)
         p, i, p, i,  # s1, n_s1, s2, n_s2
         p, i, i, i, ctypes.c_float,  # Wh (bf16), wvec, H, F, alpha
         p, i, p, p,  # out, n_rows, m_out, l_out
         p, p, p, p,  # pm, pl, pacc, stream
+    ]
+    lib.sg_plan_spmm.restype = i
+    lib.sg_plan_spmm.argtypes = [
+        p, p, p, i, i, p,  # lcol, val, tile_cb, be, cb, slot_idx
+        i, p, p, p, p,  # n_seg, seg_row/lo/hi/part
+        i, p, p, p,  # n_fin, fin_row/p0/np
+        p, i, i, i, i,  # H, h_bf16, n_h, P, vec
+        p, p, i, p,  # out, partial, n_rows, stream
+    ]
+    lib.sg_bsr_spmm_rowloop.restype = i
+    lib.sg_bsr_spmm_rowloop.argtypes = [
+        p, i, i, i, p, p,  # tiles, mode, tb, n_rt, row_start, tile_cb
+        p, i, i, i, i,  # H, h_bf16, n_cols, P, vec
+        p, i, p,  # out, n_rows, stream
+    ]
+    lib.sg_fused_agg_k.restype = i
+    lib.sg_fused_agg_k.argtypes = [
+        p, i, i, i, i, p, p, p, p,  # tiles, mode, tb, k_steps, n_seg, seg_rb/lo/hi/part
+        i, p, p, p,  # n_fin, fin_rb/p0/np
+        p, p, p, p,  # step_cb/tile/chunk/kind
+        p, p, p, i,  # lrow, slot_col, slot_scale, K
+        p, p,  # colscale, rowscale
+        p, i, i, i, i,  # H, h_bf16, n_cols, P, vec
+        p, p, i, p,  # out, partial, n_rows, stream
     ]
     lib.sg_flash_gat_bwd_row.restype = i
     lib.sg_flash_gat_bwd_row.argtypes = [

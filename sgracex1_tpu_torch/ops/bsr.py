@@ -11,6 +11,11 @@ Kernel K1, ``bsr_spmm``: out = A @ H in f32 with bf16 operands, as
 hand-written kernel in ``csrc/bsr_spmm.cu``; on a CPU tensor it runs
 ``bsr_spmm_plain``, the plain PyTorch version of the same function.
 
+Kernel K10, ``bsr_spmm_rowloop``: K1's product with one CTA per output
+row block and a two-stage ring over that block's tiles, as
+``sgracex1_tpu.ops.bsr.bsr_spmm_rowloop``: ``csrc/bsr_spmm_rowloop.cu`` on a
+CUDA tensor, ``bsr_spmm_rowloop_plain`` on a CPU tensor.
+
 Kernel K7, ``bsr_spmm_int8``: the exact int32 ``Aq @ Hq`` over shifted-int8
 value tiles (``quant/int8.bsr_int8_from_sparse``), as
 ``sgracex1_tpu.ops.bsr.bsr_spmm_int8``: ``csrc/bsr_spmm_int8.cu`` on a CUDA
@@ -83,17 +88,20 @@ class RunSegments:
         )
 
 
-def run_segments(rb_of_step: np.ndarray, n_rt: int, device="cpu") -> RunSegments:
-    """Segments of the runs of a row-block-sorted step array (host)."""
+def run_segments(
+    rb_of_step: np.ndarray, n_rt: int, device="cpu", seg_steps: int = SEG_STEPS
+) -> RunSegments:
+    """Segments of at most ``seg_steps`` steps of the runs of a
+    row-block-sorted step array (host)."""
     rb_of_step = np.asarray(rb_of_step, np.int64)
     start = np.searchsorted(rb_of_step, np.arange(n_rt + 1))
     length = np.diff(start)
-    m = np.maximum(1, -(-length // SEG_STEPS))
+    m = np.maximum(1, -(-length // seg_steps))
     seg_rb = np.repeat(np.arange(n_rt), m)
     first = np.repeat(np.cumsum(m) - m, m)
     i = np.arange(len(seg_rb)) - first
-    lo = start[seg_rb] + i * SEG_STEPS
-    hi = np.minimum(lo + SEG_STEPS, start[seg_rb + 1])
+    lo = start[seg_rb] + i * seg_steps
+    hi = np.minimum(lo + seg_steps, start[seg_rb + 1])
     split = m > 1
     base = np.cumsum(np.where(split, m, 0)) - np.where(split, m, 0)
     part = np.where(split[seg_rb], base[seg_rb] + i, -1)
@@ -456,6 +464,66 @@ def bsr_spmm(B: BSRMatrix, H: torch.Tensor) -> torch.Tensor:
 
 
 bsr_spmm.launches = 0
+
+
+# ------------------------------------------------------------ kernel K10
+
+
+def _row_start(B: BSRMatrix) -> torch.Tensor:
+    """int32 [n_rt + 1]: the first tile of every row block (tiles are
+    sorted by row block)."""
+    blocks = torch.arange(B.n_row_tiles + 1, dtype=B.tile_rb.dtype, device=B.tile_rb.device)
+    return torch.searchsorted(B.tile_rb.contiguous(), blocks).to(torch.int32)
+
+
+def bsr_spmm_rowloop_plain(B: BSRMatrix, H: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch K10: K1's arithmetic with each tile's output block
+    read from the row-start offsets the row-loop kernel walks, f32
+    [n_rows, P]."""
+    tb, P = B.tb, H.shape[1]
+    n_ct = _round_up(B.n_cols, tb) // tb
+    start = _row_start(B).to(H.device).long()
+    rb = torch.repeat_interleave(
+        torch.arange(B.n_row_tiles, device=H.device), start[1:] - start[:-1]
+    )
+    Hblk = _h_block_rows(H, n_ct * tb).view(n_ct, tb, P)
+    acc = torch.zeros((B.n_row_tiles, tb, P), dtype=torch.float32, device=H.device)
+    ids = torch.arange(rb.shape[0], device=H.device)
+    _tile_products(B.tiles, tb, ids, rb, B.tile_cb[: rb.shape[0]].long(), Hblk, acc)
+    return acc.view(-1, P)[: B.n_rows]
+
+
+def bsr_spmm_rowloop(B: BSRMatrix, H: torch.Tensor) -> torch.Tensor:
+    """K10: K1's product with one CTA per output row block that walks the
+    block's tiles through a two-stage ring and writes the block once (JAX
+    ``bsr_spmm_rowloop``). Same tile forms and result as ``bsr_spmm``. A
+    CPU tensor runs ``bsr_spmm_rowloop_plain``; a CUDA tensor launches
+    ``csrc/bsr_spmm_rowloop.cu`` or raises."""
+    if H.device.type == "cpu":
+        return bsr_spmm_rowloop_plain(B, H)
+    if H.device.type != "cuda":
+        raise ValueError(f"bsr_spmm_rowloop runs on cpu or cuda, not {H.device}")
+    mode = _tile_mode(B.tiles, B.tb)
+    is_bf16, vec = _h_operand(H, B.n_cols, B.tb)
+    ints = dict(tile_rb=B.tile_rb, tile_cb=B.tile_cb)
+    _check_cuda_operands(dict(tiles=B.tiles, **ints), H.device)
+    for name, t in ints.items():
+        if t.dtype != torch.int32:
+            raise ValueError(f"{name} must be int32, got {t.dtype}")
+    row_start = _row_start(B)
+    P = H.shape[1]
+    out = torch.empty((B.n_rows, P), dtype=torch.float32, device=H.device)
+    err = _cuda.library().sg_bsr_spmm_rowloop(
+        _ptr(B.tiles), mode, B.tb, B.n_row_tiles, _ptr(row_start), _ptr(B.tile_cb),
+        _ptr(H), int(is_bf16), B.n_cols, P, vec, _ptr(out), B.n_rows,
+        ctypes.c_void_p(torch.cuda.current_stream(H.device).cuda_stream),
+    )
+    _cuda.check(err, "bsr_spmm_rowloop")
+    bsr_spmm_rowloop.launches += 1
+    return out
+
+
+bsr_spmm_rowloop.launches = 0
 
 
 # ------------------------------------------------------------- kernel K7

@@ -8,6 +8,10 @@ Kinds, as in ``sgracex1_tpu.ops.dispatch``:
 - ``hybrid``: tiles holding at least ``rest_thresh`` edges stay tiles; the
   sparse remainder rides chunk steps of the fused kernel (``ops/fused_agg``)
   or, with ``fuse=False``, a scatter-add after the tile kernel.
+- ``pallas``: the edges sorted into (row block, column block) groups
+  (``ops/pallas_spmm``, kernel K9). The only kind whose values can be
+  substituted per call for the price of a gather
+  (``agg_matmul_with_vals``); ``method="auto"`` never picks it.
 - ``xla``: gather + scatter-add on the edge list (``ops/spmm``), the
   always-correct spec.
 
@@ -34,7 +38,7 @@ quantized layers' adjacency quantizer); it needs value tiles, which
 
 ``agg_matmul`` is differentiable (``_Agg``): on fused preps the gradient
 of ``H`` is K2 on the transposed plan ``fused_t``, with ``fuse=False`` K1
-on the transposed tiles ``bsr_t``; the rank-1 scalings and the remainder
+on the transposed tiles ``bsr_t``, on the ``pallas`` kind K9 on ``plan_t``; the rank-1 scalings and the remainder
 scatter stay plain torch ops around the tile kernel, as in the JAX
 package. A backward through a prep built with
 ``build_transpose=False`` raises.
@@ -67,6 +71,7 @@ from sgracex1_tpu_torch.ops.fused_agg import (
     build_fused_plan,
     bsr_spmm_fused,
 )
+from sgracex1_tpu_torch.ops.pallas_spmm import SpMMPlan, plan_spmm, plan_with_vals, spmm_plan
 from sgracex1_tpu_torch.ops.spmm import spmm, spmm_into
 
 DENSE_MAX_BYTES = 512 << 20  # dense bf16 adjacency budget
@@ -81,7 +86,9 @@ DEFAULT_GAT_REST_THRESH = 64  # edges a flash tile needs to stay a tile
 class PreparedAdjacency:
     """An adjacency prepared for one aggregation backend, on one device.
 
-    ``A`` (the edge list) is always present. ``bsr``/``bsr_t`` are the
+    ``A`` (the edge list) is always present. ``plan``/``plan_t`` are the
+    forward/transposed edge-group plans of the ``pallas`` kind.
+    ``bsr``/``bsr_t`` are the
     forward/transposed tiles, ``rest`` the hybrid remainder, ``r1_row`` /
     ``r1_col`` the rank-1 factors when the tiles are masks, and
     ``fused``/``fused_t`` the fused schedules that ``agg_matmul`` prefers
@@ -92,6 +99,8 @@ class PreparedAdjacency:
     A: SparseMatrix
     kind: str = "xla"
     dense: Optional[torch.Tensor] = None
+    plan: Optional[SpMMPlan] = None
+    plan_t: Optional[SpMMPlan] = None
     bsr: Optional[BSRMatrix] = None
     bsr_t: Optional[BSRMatrix] = None
     rest: Optional[SparseMatrix] = None
@@ -157,6 +166,9 @@ def prepare_adjacency(
     *,
     method: str = "auto",
     dense_max_bytes: int = DENSE_MAX_BYTES,
+    rb: int = 1024,
+    cb: int = 1024,
+    be: int = 1024,
     tb: Optional[int] = None,
     rest_thresh: Optional[int] = None,
     rank1: bool = True,
@@ -170,6 +182,9 @@ def prepare_adjacency(
     """Prepare ``A`` for one backend, with its tensors on ``device``: the
     CUDA card by default (a ``RuntimeError`` where there is none), the CPU
     only with ``device="cpu"``.
+
+    ``rb`` / ``cb`` / ``be`` are the ``pallas`` kind's row block, column
+    block and edge-group size (``plan_spmm``; the JAX defaults).
 
     ``rank1`` detects a diagonal factorization of the edge values
     (``graph/normalize.rank1_factor``) and then stores mask tiles.
@@ -186,7 +201,7 @@ def prepare_adjacency(
     n = max(A.n_rows, A.n_cols)
     if method == "auto":
         method = "dense" if n * n * 2 <= dense_max_bytes else "hybrid"
-    if method not in ("dense", "bsr", "hybrid", "xla"):
+    if method not in ("dense", "bsr", "hybrid", "pallas", "xla"):
         raise ValueError(f"unknown method {method!r}")
     A_dev = A.to(device)
 
@@ -199,6 +214,12 @@ def prepare_adjacency(
 
     if method == "xla":
         return finish(PreparedAdjacency(A=A_dev, kind="xla"))
+    if method == "pallas":
+        tiling = dict(rb=rb, cb=cb, be=be, device=device)
+        return finish(PreparedAdjacency(
+            A=A_dev, kind="pallas", plan=plan_spmm(A, **tiling),
+            plan_t=plan_spmm(A.transpose(), **tiling) if build_transpose else None,
+        ))
     if method == "dense":
         d = torch.from_numpy(A.to_dense().astype(np.float32))
         return finish(PreparedAdjacency(
@@ -303,28 +324,29 @@ def prepare_from_config(
     A: SparseMatrix, cfg, *, for_gat: bool = False, method: Optional[str] = None,
     device=None,
 ) -> PreparedAdjacency:
-    """``prepare_adjacency`` driven by an ``SGRACEConfig``: the port's fixed
-    rule (``method="auto"``) unless ``method`` names a backend, mask tiles
-    with rank-1 scalings unless the config fake-quantizes the adjacency
-    (QAT layers remap the adjacency values per call, which {0,1} mask tiles
-    cannot hold: ``map_adjacency_vals``). The ``pallas`` kind is not
-    ported, so ``use_pallas`` raises. ``device`` as in
+    """``prepare_adjacency`` driven by an ``SGRACEConfig``: ``method`` when
+    it names a backend, else the ``pallas`` kind with ``cfg.use_pallas``,
+    else the port's fixed rule (``method="auto"``). The config's tiling
+    (``row_block`` / ``col_block`` / ``edge_block``) reaches the ``pallas``
+    kind clamped as in the JAX package: at least 8 rows, 128 columns and
+    1024 edges, the edge block rounded up to a multiple of 1024. Mask
+    tiles with rank-1 scalings unless the config fake-quantizes the
+    adjacency (QAT layers remap the adjacency values per call, which {0,1}
+    mask tiles cannot hold: ``map_adjacency_vals``). ``device`` as in
     ``prepare_adjacency``."""
-    if cfg.use_pallas:
-        raise NotImplementedError(
-            "use_pallas selects the pallas kind, whose kernel K9 is not "
-            "ported yet (ROADMAP queue 1, item 14)"
-        )
+    be = (max(cfg.edge_block, 1024) + 1023) // 1024 * 1024
     return prepare_adjacency(
-        A, method=method or "auto", for_gat=for_gat,
-        rank1=not cfg.fake_quantization, device=device,
+        A, method=method or ("pallas" if cfg.use_pallas else "auto"),
+        rb=max(cfg.row_block, 8), cb=max(cfg.col_block, 128), be=be,
+        for_gat=for_gat, rank1=not cfg.fake_quantization, device=device,
     )
 
 
 class _Agg(torch.autograd.Function):
     """out = A @ H by ``kernel`` on ``op``; grad_H = A^T @ g by the same
     kernel on the transposed ``op_t``, cast to H's dtype and padded to H's
-    rows (JAX ``dispatch._fused_agg`` with K2, ``_bsr_agg`` with K1)."""
+    rows (JAX ``dispatch._fused_agg`` with K2, ``_bsr_agg`` with K1,
+    ``_pallas_agg`` with K9)."""
 
     @staticmethod
     def forward(ctx, kernel, op, op_t, H):
@@ -354,11 +376,69 @@ def agg_matmul(prep: PreparedAdjacency, H: torch.Tensor) -> torch.Tensor:
             prep.dense.to(torch.float32), H.to(torch.bfloat16).to(torch.float32)
         )
         return out[: prep.A.n_rows].to(H.dtype)
+    if prep.kind == "pallas":
+        return _Agg.apply(spmm_plan, prep.plan, prep.plan_t, H).to(H.dtype)
     if prep.kind in ("bsr", "hybrid"):
         if prep.fused is not None:
             return _Agg.apply(bsr_spmm_fused, prep.fused, prep.fused_t, H).to(H.dtype)
         return _bsr_agg_scaled(prep, H, rest=prep.rest).to(H.dtype)
     return spmm(prep.A, H)
+
+
+_SDDMM_EDGES = 1 << 20  # edges per batch of the cotangent SDDMM
+
+
+class _AggVals(torch.autograd.Function):
+    """out = A(vals) @ H by K9 on ``plan`` with the values substituted
+    (JAX ``dispatch._pallas_agg_vals``): grad_H = A(vals)^T @ g by K9 on
+    ``plan_t`` with the same values, grad_vals[e] = g[row_e] . H[col_e] in
+    torch ops on the edge list."""
+
+    @staticmethod
+    def forward(ctx, A, plan, plan_t, vals, H):
+        ctx.A, ctx.plan_t = A, plan_t
+        ctx.save_for_backward(vals, H)
+        return spmm_plan(plan_with_vals(plan, vals), H)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        vals, H = ctx.saved_tensors
+        A, g = ctx.A, g.contiguous()
+        gH = gv = None
+        if ctx.needs_input_grad[4]:
+            if ctx.plan_t is None:
+                raise ValueError(
+                    "backward through a prep built with build_transpose=False; "
+                    "re-prepare with build_transpose=True for training"
+                )
+            gH = spmm_plan(plan_with_vals(ctx.plan_t, vals), g).to(H.dtype)
+            if gH.shape[0] < H.shape[0]:
+                gH = torch.cat([gH, gH.new_zeros((H.shape[0] - gH.shape[0], gH.shape[1]))])
+            gH = gH[: H.shape[0]]
+        if ctx.needs_input_grad[3]:
+            rows, cols = torch.as_tensor(A.rows).long(), torch.as_tensor(A.cols).long()
+            gv = torch.empty(rows.shape[0], dtype=torch.float32, device=g.device)
+            for e0 in range(0, rows.shape[0], _SDDMM_EDGES):  # bounded scratch
+                e = slice(e0, e0 + _SDDMM_EDGES)
+                gv[e] = (g.index_select(0, rows[e]) * H.index_select(0, cols[e])).sum(dim=1)
+            gv = gv.to(vals.dtype)
+        return None, None, None, gv, gH
+
+
+def agg_matmul_with_vals(
+    prep: PreparedAdjacency, vals: torch.Tensor, H: torch.Tensor
+) -> torch.Tensor:
+    """out = A(vals) @ H with runtime edge values (attention weights) in
+    ``prep.A``'s edge order, differentiable in ``vals`` and ``H``.
+
+    Only the ``pallas`` kind substitutes values for the price of a gather
+    (the plan stores the edge values in its group layout, a permutation);
+    rebuilding value tiles per call would write and read the whole tile
+    set, so every other kind takes the edge path."""
+    if prep.kind == "pallas":
+        return _AggVals.apply(prep.A, prep.plan, prep.plan_t, vals, H).to(H.dtype)
+    return spmm(prep.A.with_vals(vals), H)
 
 
 def _bsr_agg_scaled(
@@ -414,15 +494,17 @@ def map_adjacency_vals(
                 stacklevel=2,
             )
             return dataclasses.replace(
-                prep, A=A, dense=None, bsr=None, bsr_t=None, rest=None,
-                r1_row=None, r1_col=None, fused=None, fused_t=None, kind="xla",
+                prep, A=A, dense=None, plan=None, plan_t=None, bsr=None,
+                bsr_t=None, rest=None, r1_row=None, r1_col=None, fused=None,
+                fused_t=None, kind="xla",
             )
         tiles = lambda B: None if B is None else dataclasses.replace(B, tiles=fn(B.tiles))
+        plan = lambda p: None if p is None else dataclasses.replace(p, val=fn(p.val))
         rest = prep.rest
         if rest is not None:
             rest = rest.with_vals(fn(torch.as_tensor(rest.vals)))
         return dataclasses.replace(
             prep, A=A, dense=None if prep.dense is None else fn(prep.dense),
-            bsr=tiles(prep.bsr), bsr_t=tiles(prep.bsr_t), rest=rest,
+            plan=plan(prep.plan), plan_t=plan(prep.plan_t), bsr=tiles(prep.bsr), bsr_t=tiles(prep.bsr_t), rest=rest,
             fused=None, fused_t=None,
         )

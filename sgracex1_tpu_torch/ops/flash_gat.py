@@ -11,6 +11,9 @@ vector ever exists.
 - ``gat_attention_agg_ref``: the edge-path spec (sddmm + edge softmax +
   weighted scatter-add).
 - Kernel K3, ``flash_gat_forward``: tile steps over a ``BSRMatrix``.
+- Kernel K12, ``flash_gat_forward_subskip``: K3 for one head with a
+  host-built bitmap (``subblock_pop_bitmap``) that lets it skip empty
+  ``sb x sb`` sub-blocks of a tile.
 - Kernel K6, ``flash_gat_hybrid_forward``: K3's tile steps plus remainder
   chunk steps of a value-mode ``FusedAggPlan`` in one exact row softmax.
 - Kernels K4, ``flash_gat_bwd_row``, and K5, ``flash_gat_bwd_col``: the
@@ -35,12 +38,13 @@ backward.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 from typing import Optional
 
 import numpy as np
 import torch
 
-from sgracex1_tpu_torch.graph.csr import SparseMatrix, _round_up
+from sgracex1_tpu_torch.graph.csr import SparseMatrix, _np, _round_up
 from sgracex1_tpu_torch.ops import _cuda
 from sgracex1_tpu_torch.ops.bsr import (
     BSRMatrix,
@@ -335,9 +339,11 @@ def flash_gat_bwd_col_plain(B: BSRMatrix, s1, s2, m, l, t, Wh, gO, *, alpha: flo
 # ------------------------------------------------------------ K3 and K6
 
 
-def _launch(name, B, S: RunSegments, s1, s2, Wh, alpha, return_stats, plan=None):
+def _launch(name, B, S: RunSegments, s1, s2, Wh, alpha, return_stats, plan=None,
+            pop=None, sb=0):
     """Launch csrc/flash_gat.cu over run segments ``S``: K3 on ``B``'s
-    tiles, or K6 on ``plan``'s steps."""
+    tiles (K12 with the sub-block bitmap ``pop``), or K6 on ``plan``'s
+    steps."""
     s1, s2, Wh, squeeze = _norm_heads(s1, s2, Wh)
     dev = Wh.device
     tb = B.tb
@@ -369,6 +375,8 @@ def _launch(name, B, S: RunSegments, s1, s2, Wh, alpha, return_stats, plan=None)
             step_chunk=plan.step_chunk, step_kind=plan.step_kind,
             lrow=plan.lrow, slot_col=plan.slot_col,
         )
+    if pop is not None:
+        ints.update(pop=pop)
     _check_cuda_operands(dict(tiles=B.tiles, s1=s1, s2=s2, Wh=Wh, **ints), dev)
     for k, t in ints.items():
         if t.dtype != torch.int32:
@@ -394,7 +402,7 @@ def _launch(name, B, S: RunSegments, s1, s2, Wh, alpha, return_stats, plan=None)
     wvec = int(F % 8 == 0 and Whb.data_ptr() % 16 == 0)
     err = _cuda.library().sg_flash_gat(
         _ptr(B.tiles), mode, tb, *_seg_args(S), _ptr(B.tile_cb), *chunk_args,
-        _ptr(s1), s1.shape[0], _ptr(s2), s2.shape[0],
+        _ptr(pop), sb, _ptr(s1), s1.shape[0], _ptr(s2), s2.shape[0],
         _ptr(Whb), wvec, H, F, float(alpha),
         _ptr(out), B.n_rows, _ptr(m), _ptr(l), _ptr(pm), _ptr(pl), _ptr(pacc),
         ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream),
@@ -425,6 +433,101 @@ def flash_gat_forward(
 
 
 flash_gat_forward.launches = 0
+
+
+# ----------------------------------------------------------------- K12
+
+
+def subblock_pop_bitmap(B: BSRMatrix, A: SparseMatrix, sb: int) -> np.ndarray:
+    """int32 [T, ceil((tb/sb)^2 / 32)] population bits of every tile's
+    ``sb x sb`` sub-blocks, from the host edge list (JAX
+    ``subblock_pop_bitmap``): bit ``i * (tb/sb) + j`` of tile t is set when
+    sub-block (i, j) holds an edge of positive value."""
+    tb = B.tb
+    ns = tb // sb
+    r = _np(A.rows)[: A.nnz].astype(np.int64)
+    c = _np(A.cols)[: A.nnz].astype(np.int64)
+    v = _np(A.vals)[: A.nnz]
+    r, c = r[v > 0], c[v > 0]
+    key_of_tile = _np(B.tile_rb).astype(np.int64) << 32 | _np(B.tile_cb).astype(np.int64)
+    t_of_e = np.searchsorted(key_of_tile, (r // tb) << 32 | (c // tb))
+    sub = ((r // sb) % ns) * ns + (c // sb) % ns
+    pop = np.zeros((B.num_tiles, -(-(ns * ns) // 32)), np.int32)
+    np.bitwise_or.at(pop, (t_of_e, sub // 32), (1 << (sub % 32)).astype(np.int32))
+    return pop
+
+
+def _subskip_operands(B: BSRMatrix, pop, s1, sb: int, device) -> torch.Tensor:
+    """The checks of the JAX entry point; ``pop`` as an int32 tensor."""
+    if s1.dim() != 1 and s1.shape[1] != 1:
+        raise AssertionError("subskip experiment is single-head")
+    if B.packed:
+        raise NotImplementedError("subskip consumes unpacked tiles only")
+    ns = B.tb // sb if sb > 0 and B.tb % sb == 0 else 0
+    pop = torch.as_tensor(pop, device=device)
+    if ns == 0 or pop.dtype != torch.int32 or pop.shape != (B.num_tiles, -(-(ns * ns) // 32)):
+        raise ValueError(
+            f"want sb dividing tb={B.tb} and pop int32 [T, ceil((tb/sb)^2/32)]; "
+            f"got sb={sb}, pop {pop.dtype} {tuple(pop.shape)}"
+        )
+    return pop.contiguous()
+
+
+def flash_gat_forward_subskip_plain(
+    B: BSRMatrix, pop, s1, s2, Wh, *, alpha: float = 0.2, sb: int = 128
+):
+    """Plain PyTorch K12: each tile folds into the row softmax one
+    ``sb``-column strip at a time, as the TPU kernel walks its sub-blocks,
+    on the tile's mask with every sub-block whose bit in ``pop`` is 0
+    cleared (the kernel never looks at such a sub-block; a strip without an
+    edge in a row leaves that row's state exactly as it was)."""
+    pop = _subskip_operands(B, pop, s1, sb, Wh.device)
+    s1, s2, Wh, squeeze = _norm_heads(s1, s2, Wh)
+    tb, ns, F = B.tb, B.tb // sb, Wh.shape[2]
+    n_rt, n_ct = B.n_row_tiles, _round_up(B.n_cols, tb) // tb
+    S1, S2, W = _padded(s1, s2, Wh, n_rt, n_ct, tb)
+    st = _Online(n_rt, 1, tb, F, Wh.device)
+    tile_cb = B.tile_cb.long()
+    bit = torch.arange(ns * ns, device=Wh.device)
+
+    def update(rb, t):
+        keep = ((pop[t][:, bit // 32] >> (bit % 32)) & 1).view(-1, ns, ns)
+        keep = keep.repeat_interleave(sb, 1).repeat_interleave(sb, 2)
+        m01 = (_mask01(B.tiles[t], tb) * keep)[:, None]  # [b, 1, tb, tb]
+        cb = tile_cb[t]
+        for j in range(ns):
+            cj = slice(j * sb, (j + 1) * sb)
+            e = S1[rb][..., :, None] + S2[cb][..., None, cj]
+            st.update(rb, _lrelu_masked(e, m01[..., cj], alpha), W[cb][:, :, cj])
+
+    _walk_runs(B.tile_rb, n_rt, 4 * tb * (5 * tb + 2 * F), update)
+    return st.result(B.n_rows, squeeze, False)
+
+
+def flash_gat_forward_subskip(
+    B: BSRMatrix, pop, s1, s2, Wh, *, alpha: float = 0.2, sb: int = 128
+):
+    """K12: ``flash_gat_forward`` for one head that skips every ``sb x sb``
+    sub-block whose bit in the host-built bitmap ``pop``
+    (``subblock_pop_bitmap``) is 0: its mask bytes, scores, exps and
+    product (JAX ``flash_gat_forward_subskip``). int8 or value tiles only.
+    A CPU tensor runs ``flash_gat_forward_subskip_plain``; a CUDA tensor
+    launches ``csrc/flash_gat.cu`` (``sb`` a multiple of 64 there) or
+    raises."""
+    if _device_of(Wh, "flash_gat_forward_subskip") == "cpu":
+        return flash_gat_forward_subskip_plain(B, pop, s1, s2, Wh, alpha=alpha, sb=sb)
+    pop = _subskip_operands(B, pop, s1, sb, Wh.device)
+    if sb % 64:
+        raise ValueError(f"the CUDA kernel needs sb % 64 == 0, got {sb}")
+    res = _launch(
+        "flash_gat_forward_subskip", B, B.segments, s1, s2, Wh, alpha, False,
+        pop=pop, sb=sb,
+    )
+    flash_gat_forward_subskip.launches += 1
+    return res
+
+
+flash_gat_forward_subskip.launches = 0
 
 
 def flash_gat_hybrid_forward(

@@ -15,6 +15,11 @@ Kernel K2, ``bsr_spmm_fused``: on a CUDA tensor it launches the
 hand-written kernel in ``csrc/fused_agg.cu``; on a CPU tensor it runs
 ``bsr_spmm_fused_plain``, the plain PyTorch version of the same function.
 
+Kernel K11, ``bsr_spmm_fused_k``: K2 taking ``plan.k_steps`` schedule
+entries per loop iteration on a plan built with ``k_steps=k``, as
+``sgracex1_tpu.ops.fused_agg.bsr_spmm_fused_k``: ``csrc/fused_agg_k.cu`` on
+a CUDA tensor, ``bsr_spmm_fused_k_plain`` on a CPU tensor.
+
 Kernel K8, ``bsr_spmm_int8_fused``: the exact int32 ``Aq @ Hq`` of a
 value-mode plan whose tiles are shifted int8 and whose slot scales are the
 remainder's 0..255 values (``quant/int8.prepare_int8_hybrid``), as
@@ -48,6 +53,7 @@ from sgracex1_tpu_torch.ops.bsr import (
     _tile_mode,
     _tile_products,
     _tile_products_int8,
+    SEG_STEPS,
     run_segments,
 )
 
@@ -84,6 +90,9 @@ class FusedAggPlan:
     K: int
     num_rest_chunks: int  # true remainder chunks (0 without a remainder)
     segments: RunSegments
+    # schedule entries per loop iteration of ``bsr_spmm_fused_k``: every
+    # row-block run is padded to a multiple of it with dead chunk steps
+    k_steps: int = 1
 
     @property
     def num_steps(self) -> int:
@@ -99,7 +108,7 @@ class FusedAggPlan:
         return dataclasses.replace(self, **{
             f.name: mv(getattr(self, f.name))
             for f in dataclasses.fields(self)
-            if f.name not in ("K", "num_rest_chunks")
+            if f.name not in ("K", "num_rest_chunks", "k_steps")
         })
 
 
@@ -112,6 +121,7 @@ def build_fused_plan(
     K: int = DEFAULT_K,
     tile_keys: Optional[np.ndarray] = None,
     attach_chunks: bool = False,
+    k_steps: int = 1,
 ) -> FusedAggPlan:
     """Host-side schedule build (numpy), moved to ``B``'s device.
 
@@ -123,7 +133,11 @@ def build_fused_plan(
 
     Without ``attach_chunks`` a row block's steps are [first tile][its
     chunks][remaining tiles]; with it, chunks ride the block's tile steps
-    (kind 3) and only the overflow gets chunk-only steps."""
+    (kind 3) and only the overflow gets chunk-only steps.
+
+    ``k_steps > 1`` pads every row-block run to a multiple of ``k_steps``
+    with dead chunk steps (kind 1 on one extra chunk whose ``lrow`` is all
+    ``tb``), for ``bsr_spmm_fused_k``; every kernel reads such a plan."""
     if tile_keys is not None:
         tile_rb = (tile_keys >> 32).astype(np.int64)
         tile_cb = (tile_keys & 0xFFFFFFFF).astype(np.int64)
@@ -239,6 +253,28 @@ def build_fused_plan(
         raise AssertionError(f"schedule length {pos} != {S}")
     s_rb[S] = n_rt  # sentinel
 
+    if k_steps > 1:
+        run_starts = np.flatnonzero(np.r_[True, s_rb[1:S] != s_rb[: S - 1]])
+        run_ends = np.r_[run_starts[1:], S]
+        pads = (-(run_ends - run_starts)) % k_steps
+        if pads.sum():
+            # the dead chunk: all-sentinel rows, column 0, scale 0
+            lrow = np.concatenate([lrow, np.full((1, K), tb, np.int32)])
+            slot_col = np.concatenate([slot_col, np.zeros(K, np.int64)])
+            slot_scale = np.concatenate([slot_scale, np.zeros(K, np.float32)])
+            # every step, then the pads of its run: a dead step repeats the
+            # run's last step with kind 1 on the dead chunk
+            last = np.repeat(run_ends - 1, pads)
+            src = np.concatenate([np.arange(S), last])
+            is_pad = np.r_[np.zeros(S, bool), np.ones(len(last), bool)]
+            order = np.argsort(src, kind="stable")
+            src, is_pad = src[order], is_pad[order]
+            s_cb, s_tile = s_cb[src], s_tile[src]
+            s_chunk = np.where(is_pad, R_pad, s_chunk[src]).astype(np.int32)
+            s_kind = np.where(is_pad, 1, s_kind[src]).astype(np.int32)
+            s_rb = np.r_[s_rb[src], np.int32(n_rt)].astype(np.int32)
+            S = len(src)
+
     device = B.tiles.device
     colscale = rowscale = None
     if rank1:
@@ -261,7 +297,12 @@ def build_fused_plan(
         rowscale=rowscale,
         K=K,
         num_rest_chunks=R,
-        segments=run_segments(s_rb[:S], n_rt, device),
+        # segments are cut on multiples of k_steps
+        segments=run_segments(
+            s_rb[:S], n_rt, device,
+            seg_steps=max(SEG_STEPS // k_steps, 1) * k_steps,
+        ),
+        k_steps=k_steps,
     )
 
 
@@ -305,14 +346,9 @@ def bsr_spmm_fused_plain(plan: FusedAggPlan, H: torch.Tensor) -> torch.Tensor:
     return out[: B.n_rows].to(torch.bfloat16)
 
 
-def bsr_spmm_fused(plan: FusedAggPlan, H: torch.Tensor) -> torch.Tensor:
-    """K2: out = A @ H for the plan's tiles, remainder and scalings, bf16
-    [n_rows, P]. A CPU tensor runs ``bsr_spmm_fused_plain``; a CUDA tensor
-    launches ``csrc/fused_agg.cu`` or raises."""
-    if H.device.type == "cpu":
-        return bsr_spmm_fused_plain(plan, H)
-    if H.device.type != "cuda":
-        raise ValueError(f"bsr_spmm_fused runs on cpu or cuda, not {H.device}")
+def _launch_fused(name: str, plan: FusedAggPlan, H: torch.Tensor, k_steps: int) -> torch.Tensor:
+    """Check the operands and launch K2 (``k_steps`` 1, csrc/fused_agg.cu)
+    or K11 (csrc/fused_agg_k.cu) on a CUDA tensor."""
     B = plan.B
     mode = _tile_mode(B.tiles, B.tb)
     is_bf16, vec = _h_operand(H, B.n_cols, B.tb)
@@ -327,12 +363,12 @@ def bsr_spmm_fused(plan: FusedAggPlan, H: torch.Tensor) -> torch.Tensor:
         rowscale=plan.rowscale,
     )
     _check_cuda_operands(dict(tiles=B.tiles, **ints, **floats), H.device)
-    for name, t in ints.items():
+    for k, t in ints.items():
         if t.dtype != torch.int32:
-            raise ValueError(f"{name} must be int32, got {t.dtype}")
-    for name, t in floats.items():
+            raise ValueError(f"{k} must be int32, got {t.dtype}")
+    for k, t in floats.items():
         if t is not None and t.dtype != torch.float32:
-            raise ValueError(f"{name} must be float32, got {t.dtype}")
+            raise ValueError(f"{k} must be float32, got {t.dtype}")
     if plan.K % 32 or plan.lrow.shape != (plan.num_chunks, plan.K):
         raise ValueError(f"lrow must be [R, K] with K % 32 == 0, got {tuple(plan.lrow.shape)}")
     P = H.shape[1]
@@ -340,8 +376,10 @@ def bsr_spmm_fused(plan: FusedAggPlan, H: torch.Tensor) -> torch.Tensor:
     partial = torch.empty(
         (max(S.n_part, 1), B.tb, P), dtype=torch.float32, device=H.device
     )
-    err = _cuda.library().sg_fused_agg(
-        _ptr(B.tiles), mode, B.tb, *_seg_args(S),
+    lib = _cuda.library()
+    head = [_ptr(B.tiles), mode, B.tb] + ([k_steps] if k_steps > 1 else [])
+    err = (lib.sg_fused_agg_k if k_steps > 1 else lib.sg_fused_agg)(
+        *head, *_seg_args(S),
         _ptr(plan.step_cb), _ptr(plan.step_tile), _ptr(plan.step_chunk),
         _ptr(plan.step_kind), _ptr(plan.lrow), _ptr(plan.slot_col),
         _ptr(plan.slot_scale), plan.K, _ptr(plan.colscale), _ptr(plan.rowscale),
@@ -349,12 +387,79 @@ def bsr_spmm_fused(plan: FusedAggPlan, H: torch.Tensor) -> torch.Tensor:
         B.n_rows,
         ctypes.c_void_p(torch.cuda.current_stream(H.device).cuda_stream),
     )
-    _cuda.check(err, "bsr_spmm_fused")
+    _cuda.check(err, name)
+    return out
+
+
+def bsr_spmm_fused(plan: FusedAggPlan, H: torch.Tensor) -> torch.Tensor:
+    """K2: out = A @ H for the plan's tiles, remainder and scalings, bf16
+    [n_rows, P]. A CPU tensor runs ``bsr_spmm_fused_plain``; a CUDA tensor
+    launches ``csrc/fused_agg.cu`` or raises."""
+    if H.device.type == "cpu":
+        return bsr_spmm_fused_plain(plan, H)
+    if H.device.type != "cuda":
+        raise ValueError(f"bsr_spmm_fused runs on cpu or cuda, not {H.device}")
+    out = _launch_fused("bsr_spmm_fused", plan, H, 1)
     bsr_spmm_fused.launches += 1
     return out
 
 
 bsr_spmm_fused.launches = 0
+
+
+# ------------------------------------------------------------ kernel K11
+
+
+def _check_k_plan(plan: FusedAggPlan, runs: bool) -> int:
+    """``plan.k_steps``, after checking that the schedule is a multiple of
+    it long (a kernel reads ``k_steps`` entries at a time) and, with
+    ``runs``, that no group of ``k_steps`` entries straddles two row
+    blocks (a comparison on the plan's device)."""
+    k = plan.k_steps
+    S = plan.num_steps
+    ok = S % k == 0
+    if ok and runs:
+        ok = bool((plan.step_rb[:S].view(-1, k) == plan.step_rb[:S:k, None]).all())
+    if not ok:
+        raise ValueError(
+            f"the plan's runs are not padded to multiples of k_steps={k}; "
+            "build it with build_fused_plan(..., k_steps=k)"
+        )
+    return k
+
+
+def bsr_spmm_fused_k_plain(plan: FusedAggPlan, H: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch K11: K2's arithmetic on the padded plan (its dead
+    chunk steps point at the all-sentinel chunk and add nothing), bf16
+    [n_rows, P]."""
+    _check_k_plan(plan, runs=True)
+    return bsr_spmm_fused_plain(plan, H)
+
+
+def bsr_spmm_fused_k(plan: FusedAggPlan, H: torch.Tensor) -> torch.Tensor:
+    """K11: ``bsr_spmm_fused`` taking ``plan.k_steps`` schedule entries per
+    loop iteration (JAX ``bsr_spmm_fused_k``; build the plan with
+    ``k_steps=k``, 2 or 4 on the card). The same function as K2;
+    ``k_steps == 1`` is K2 itself. A CPU tensor runs
+    ``bsr_spmm_fused_k_plain``; a CUDA tensor launches
+    ``csrc/fused_agg_k.cu`` or raises."""
+    if plan.k_steps == 1:
+        return bsr_spmm_fused(plan, H)
+    if H.device.type == "cpu":
+        return bsr_spmm_fused_k_plain(plan, H)
+    if H.device.type != "cuda":
+        raise ValueError(f"bsr_spmm_fused_k runs on cpu or cuda, not {H.device}")
+    # the run check would wait for the device on every launch; a plan from
+    # build_fused_plan holds it, and the plain version checks it
+    k = _check_k_plan(plan, runs=False)
+    if k not in (2, 4):
+        raise ValueError(f"the CUDA kernel takes k_steps 2 or 4, got {k}")
+    out = _launch_fused("bsr_spmm_fused_k", plan, H, k)
+    bsr_spmm_fused_k.launches += 1
+    return out
+
+
+bsr_spmm_fused_k.launches = 0
 
 
 # ------------------------------------------------------------- kernel K8

@@ -53,7 +53,13 @@ def model_pair(kind, n=512, F=16, C=4, hidden=16, H=2, monkeypatch=None):
     e = t_ds.powerlaw_node_classification(n=n, num_features=F, num_classes=C, seed=0)
     J = j_norm.sym_norm(d.edge_index, n)
     T = pt.sym_norm(e.edge_index, n)
-    if kind == "gcn":
+    if kind == "gcn-pallas":
+        jp = jdis.prepare_adjacency(J, method="pallas", rb=256, cb=256)
+        tp = tdis.prepare_adjacency(T, method="pallas", rb=256, cb=256, device="cpu")
+        assert tp.plan_t is not None
+        model = JGCN(num_features=F, hidden_channels=hidden, num_classes=C, dropout=0.0)
+        net = pt.GCNModel(F, hidden, C, dropout=0.0)
+    elif kind == "gcn":
         jp = jdis.prepare_adjacency(J, method="hybrid", tb=128)
         tp = tdis.prepare_adjacency(T, method="hybrid", tb=128, rest_thresh=jax_thresh(128, True), device="cpu")
         assert tp.fused_t is not None and tp.rest is not None

@@ -14,6 +14,7 @@ from sgracex1_tpu_torch.graph.csr import SparseMatrix
 from sgracex1_tpu_torch.ops import bsr as K1
 from sgracex1_tpu_torch.ops import fused_agg as K2
 from sgracex1_tpu_torch.ops import flash_gat as FG
+from sgracex1_tpu_torch.ops import pallas_spmm as K9
 from sgracex1_tpu_torch.ops.dispatch import split_by_tile_density
 from sgracex1_tpu_torch.quant import int8 as Q
 from sgracex1_tpu_torch.quant.affine import generate_constants
@@ -340,6 +341,135 @@ def test_int8_gcn_forward_through_k7(cuda_device):
     torch.testing.assert_close(out.cpu(), Q.int8_gcn2_sparse_forward(cpu, xs.cpu()), rtol=0, atol=0)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "weighted,blk,be,P,hdtype",
+    [(False, 128, 1024, 16, torch.float32), (True, 256, 2048, 100, torch.float32),
+     (False, 1024, 1024, 128, torch.bfloat16), (True, 128, 1024, 33, torch.float32)],
+)
+def test_plan_spmm_kernel_matches_plain(cuda_device, weighted, blk, be, P, hdtype):
+    """K9 on plan and plan_t, with substituted values, spare rows of H and
+    a split hub row: 1e-3 (identical roundings, f32 sums in another order)."""
+    A = _graph(3001, weighted, seed=14)
+    prep = pt.prepare_adjacency(A, method="pallas", rb=blk, cb=blk, be=be, device=cuda_device)
+    assert prep.plan.segments.n_fin > 0  # hub rows split over several workers
+    H = torch.randn(A.n_cols + 5, P, device=cuda_device).to(hdtype)
+    before = K9.spmm_plan.launches
+    out = K9.spmm_plan(prep.plan, H)
+    torch.cuda.synchronize()
+    assert K9.spmm_plan.launches == before + 1
+    assert out.dtype == torch.float32 and out.shape == (A.n_rows, P)
+    torch.testing.assert_close(out, K9.spmm_plan_plain(prep.plan, H), rtol=1e-3, atol=1e-3)
+    g = torch.randn(A.n_rows, P, device=cuda_device)
+    torch.testing.assert_close(K9.spmm_plan(prep.plan_t, g), K9.spmm_plan_plain(prep.plan_t, g),
+                               rtol=1e-3, atol=1e-3)
+    pv = K9.plan_with_vals(prep.plan, torch.rand(A.vals.shape[0], device=cuda_device))
+    torch.testing.assert_close(K9.spmm_plan(pv, H), K9.spmm_plan_plain(pv, H), rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.cuda
+def test_plan_spmm_kernel_empty_blocks(cuda_device):
+    A = _int8_graph(2600, 15, empty_rb=2, tb=256)
+    plan = K9.plan_spmm(A, rb=256, cb=256, device=cuda_device)
+    H = torch.randn(2600, 40, device=cuda_device)
+    out = K9.spmm_plan(plan, H)
+    torch.testing.assert_close(out, K9.spmm_plan_plain(plan, H), rtol=1e-3, atol=1e-3)
+    assert (out[512:768] == 0).all()
+    z = np.zeros(0, np.int64)
+    empty = K9.plan_spmm(SparseMatrix.from_coo(z, z, np.zeros(0, np.float32), (300, 300)), device=cuda_device)
+    assert (K9.spmm_plan(empty, H[:300]) == 0).all()
+
+
+@pytest.mark.cuda
+def test_pallas_kind_grads_through_k9(cuda_device):
+    """A GCN step on the pallas kind (K9 on plan and plan_t) and
+    agg_matmul_with_vals against autograd on the f32 edge path."""
+    A = _graph(3001, weighted=False, seed=16)
+    x = torch.randn(3001, 32, device=cuda_device)
+    edge = pt.prepare_adjacency(A, method="xla", device=cuda_device)
+    prep = pt.prepare_adjacency(A, method="pallas", rb=256, cb=256, device=cuda_device)
+    gcn = pt.GCNModel(32, 64, 7, dropout=0.0, generator=torch.Generator().manual_seed(0)).to(cuda_device)
+    before = K9.spmm_plan.launches
+    got = _grads(gcn, prep, x)
+    assert K9.spmm_plan.launches == before + 4
+    for k, r in _grads(gcn, edge, x).items():
+        torch.testing.assert_close(got[k], r, rtol=5e-2, atol=5e-2 * float(r.abs().max()), msg=lambda m: f"{k}: {m}")
+    from sgracex1_tpu_torch.ops.dispatch import agg_matmul_with_vals
+    vals = torch.rand(A.vals.shape[0], device=cuda_device) * (prep.A.vals != 0)
+    res = []
+    for p in (prep, edge):
+        v, h = vals.clone().requires_grad_(True), x.clone().requires_grad_(True)
+        agg_matmul_with_vals(p, v, h).square().sum().backward()
+        res.append((v.grad, h.grad))
+    for a, b in zip(*res):
+        torch.testing.assert_close(a, b, rtol=5e-2, atol=5e-2 * float(b.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "form,tb,P,hdtype",
+    [("values", 128, 100, torch.float32), ("int8", 256, 128, torch.bfloat16),
+     ("packed", 1024, 72, torch.float32), ("f32", 128, 33, torch.float32), ("packed", 128, 40, torch.float32)],
+)
+def test_rowloop_kernel_matches_plain_and_k1(cuda_device, form, tb, P, hdtype):
+    """K10 in the tile forms, without cover tiles (row blocks without a
+    tile are written as zeros)."""
+    A = _int8_graph(3001, 17, empty_rb=3, tb=tb) if form in ("values", "f32") else _graph(3001, False, seed=17)
+    if form == "packed":
+        B = K1.bsr_bitmask_from_sparse(A, tb=tb, device=cuda_device)
+    else:
+        B = K1.bsr_from_sparse(A, tb=tb, mask=form == "int8",
+                               dtype=torch.float32 if form == "f32" else torch.bfloat16, device=cuda_device)
+    H = torch.randn(A.n_cols, P, device=cuda_device).to(hdtype)
+    before = K1.bsr_spmm_rowloop.launches
+    out = K1.bsr_spmm_rowloop(B, H)
+    torch.cuda.synchronize()
+    assert K1.bsr_spmm_rowloop.launches == before + 1
+    torch.testing.assert_close(out, K1.bsr_spmm_rowloop_plain(B, H), rtol=1e-3, atol=1e-3)
+    torch.testing.assert_close(out, K1.bsr_spmm(B, H), rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("weighted,attach,k", [(False, True, 2), (False, False, 4), (True, True, 4), (True, False, 2)])
+def test_fused_k_kernel_matches_plain_and_k2(cuda_device, weighted, attach, k):
+    A = _graph(2600, weighted, seed=18)
+    prep = pt.prepare_adjacency(A, method="hybrid", tb=128, rest_thresh=40, build_transpose=False,
+                                device=cuda_device)
+    r1 = {} if weighted else dict(r1_row=prep.r1_row.cpu().numpy(), r1_col=prep.r1_col.cpu().numpy())
+    plan = K2.build_fused_plan(prep.bsr, prep.rest, attach_chunks=attach, k_steps=k, **r1)
+    base = K2.build_fused_plan(prep.bsr, prep.rest, attach_chunks=attach, **r1)
+    assert plan.k_steps == k and plan.num_steps % k == 0 and plan.num_steps > base.num_steps
+    H = torch.randn(A.n_cols, 100, device=cuda_device)
+    before = K2.bsr_spmm_fused_k.launches
+    out = K2.bsr_spmm_fused_k(plan, H)
+    torch.cuda.synchronize()
+    assert K2.bsr_spmm_fused_k.launches == before + 1 and out.dtype == torch.bfloat16
+    torch.testing.assert_close(out.float(), K2.bsr_spmm_fused_k_plain(plan, H).float(), rtol=2e-2, atol=2e-2)
+    torch.testing.assert_close(out.float(), K2.bsr_spmm_fused(base, H).float(), rtol=2e-2, atol=2e-2)
+    with pytest.raises(ValueError, match="k_steps 2 or 4"):
+        K2.bsr_spmm_fused_k(K2.build_fused_plan(prep.bsr, prep.rest, k_steps=3, **r1), H)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form,sb", [("int8", 64), ("int8", 128), ("int8", 256), ("values", 64)])
+def test_subskip_kernel_matches_plain_and_k3(cuda_device, form, sb):
+    """K12 against its plain version at 2e-2 (bf16(p) rounds against another
+    running max) and equal to K3: what it skips adds exact zeros there."""
+    A = _graph(3001, weighted=form == "values", seed=19)
+    B = K1.bsr_from_sparse(A, tb=256, mask=form == "int8", device=cuda_device)
+    s1, s2, Wh = (t[:, 0] for t in _scores(3001, 1, 40, cuda_device, seed=4))
+    pop = FG.subblock_pop_bitmap(B, A, sb)
+    before = FG.flash_gat_forward_subskip.launches
+    out = FG.flash_gat_forward_subskip(B, pop, s1, s2, Wh, sb=sb)
+    torch.cuda.synchronize()
+    assert FG.flash_gat_forward_subskip.launches == before + 1
+    torch.testing.assert_close(out, FG.flash_gat_forward_subskip_plain(B, pop, s1, s2, Wh, sb=sb),
+                               rtol=2e-2, atol=2e-2)
+    assert torch.equal(out, FG.flash_gat_forward(B, s1, s2, Wh))
+    with pytest.raises(ValueError, match="sb % 64"):
+        FG.flash_gat_forward_subskip(B, FG.subblock_pop_bitmap(B, A, 32), s1, s2, Wh, sb=32)
+
+
 def test_wrappers_run_plain_on_cpu_and_raise_elsewhere():
     A = _graph(600, weighted=True, seed=4)
     B = K1.bsr_from_sparse(A, tb=128, cover_rows=True)
@@ -359,3 +489,29 @@ def test_wrappers_run_plain_on_cpu_and_raise_elsewhere():
     assert FG.flash_gat_forward.launches == b3
     with pytest.raises(ValueError):
         FG.flash_gat_forward(B, s1, s2, Wh.to("meta"))
+
+
+def test_variant_wrappers_run_plain_on_cpu_and_raise_elsewhere():
+    """K9-K12: a CPU tensor takes the plain version and counts nothing;
+    any other device raises."""
+    A = _graph(600, weighted=True, seed=4)
+    B = K1.bsr_from_sparse(A, tb=128, cover_rows=True)
+    H = torch.randn(600, 8)
+    plan9 = K9.plan_spmm(A, rb=128, cb=128)
+    plan11 = K2.build_fused_plan(B, None, k_steps=2)
+    pop = FG.subblock_pop_bitmap(B, A, 64)
+    s1, s2, Wh = (t[:, 0] for t in _scores(600, 1, 8, "cpu"))
+    cases = [
+        (K9.spmm_plan, K9.spmm_plan_plain, (plan9, H), 1),
+        (K1.bsr_spmm_rowloop, K1.bsr_spmm_rowloop_plain, (B, H), 1),
+        (K2.bsr_spmm_fused_k, K2.bsr_spmm_fused_k_plain, (plan11, H), 1),
+        (lambda *a: FG.flash_gat_forward_subskip(*a, sb=64),
+         lambda *a: FG.flash_gat_forward_subskip_plain(*a, sb=64), (B, pop, s1, s2, Wh), 4),
+    ]
+    counters = (K9.spmm_plan, K1.bsr_spmm_rowloop, K2.bsr_spmm_fused_k, FG.flash_gat_forward_subskip)
+    before = [k.launches for k in counters]
+    for kern, plain, args, i in cases:
+        torch.testing.assert_close(kern(*args), plain(*args), rtol=0, atol=0)
+        with pytest.raises(ValueError, match="cpu or cuda"):
+            kern(*args[:i], args[i].to("meta"), *args[i + 1:])
+    assert [k.launches for k in counters] == before

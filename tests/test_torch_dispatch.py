@@ -11,10 +11,14 @@ import torch
 from sgracex1_tpu.graph.csr import SparseMatrix as JSparse
 from sgracex1_tpu.ops import dispatch as jdis
 from sgracex1_tpu.ops import fused_gnn as jgnn
+from sgracex1_tpu.quant import affine as ja
+from sgracex1_tpu.quant.calibration import CalibrationTable as JCal
 from sgracex1_tpu_torch.graph.csr import SparseMatrix as TSparse
 from sgracex1_tpu_torch.graph.normalize import sym_norm
 from sgracex1_tpu_torch.ops import dispatch as tdis
 from sgracex1_tpu_torch.ops import fused_gnn as tgnn
+from sgracex1_tpu_torch.quant import affine as ta
+from sgracex1_tpu_torch.quant.calibration import CalibrationTable as TCal
 
 # one intra-op thread: the suite runs several pytest workers side by side
 torch.set_num_threads(1)
@@ -96,8 +100,13 @@ def test_transposed_plans_and_auto():
     assert tdis.prepare_adjacency(T, device="cpu").kind == "dense"
     auto = tdis.prepare_adjacency(T, dense_max_bytes=0, build_transpose=False, device="cpu")
     assert auto.kind == "hybrid" and auto.bsr.tb == tdis.DEFAULT_TB
-    with pytest.raises(ValueError):
-        tdis.prepare_adjacency(T, method="pallas", device="cpu")
+    # the pallas kind is prepared on request, never by the fixed rule
+    pp = tdis.prepare_adjacency(T, method="pallas", device="cpu")
+    assert pp.kind == "pallas" and pp.plan is not None and pp.plan_t is not None
+    assert (pp.plan.rb, pp.plan.cb, pp.plan.be) == (1024, 1024, 1024)  # the JAX defaults
+    assert pp.bsr is None and pp.fused is None and pp.dense is None
+    with pytest.raises(ValueError, match="unknown method"):
+        tdis.prepare_adjacency(T, method="mosaic", device="cpu")
 
 
 def test_agg_matmul_is_inference_only():
@@ -148,3 +157,73 @@ def test_gnn_layer_matches_jax(sparse_x, relu):
     np.testing.assert_allclose(out_t, out_j, rtol=1e-4, atol=1e-4)
     if relu:
         assert (out_t >= 0).all()
+
+
+PLAN = 1e-4  # the pallas kind: the same bf16 roundings in both, f32 sums in another order
+
+
+def _same_plan(tp, jp):
+    for name in ("lrow", "lcol", "val", "perm"):
+        np.testing.assert_array_equal(
+            getattr(tp, name).numpy(), np.asarray(getattr(jp, name)).reshape(-1, jp.be), err_msg=name)
+    for name in ("tile_rb", "tile_cb"):
+        np.testing.assert_array_equal(getattr(tp, name).numpy(), np.asarray(getattr(jp, name)), err_msg=name)
+
+
+@pytest.mark.parametrize("graph", ["symnorm", "weighted"])
+@pytest.mark.parametrize("rb,cb,be", [(1024, 1024, 1024), (128, 256, 2048)])
+def test_agg_matmul_pallas_matches_jax(graph, rb, cb, be):
+    J, T = _graph(graph, n=1500)
+    jp = jdis.prepare_adjacency(J, method="pallas", rb=rb, cb=cb, be=be)
+    tp = tdis.prepare_adjacency(T, method="pallas", rb=rb, cb=cb, be=be, device="cpu")
+    assert tp.kind == jp.kind == "pallas"
+    _same_plan(tp.plan, jp.plan)
+    _same_plan(tp.plan_t, jp.plan_t)
+    assert tdis.prepare_adjacency(T, method="pallas", build_transpose=False, device="cpu").plan_t is None
+    H = np.random.default_rng(15).standard_normal((T.n_cols, 40)).astype(np.float32)
+    out_j = np.asarray(jdis.agg_matmul(jp, jnp.asarray(H)))
+    out_t = tdis.agg_matmul(tp, torch.from_numpy(H))
+    assert out_t.dtype == torch.float32 and out_t.shape == (T.n_rows, 40)
+    np.testing.assert_allclose(out_t.numpy(), out_j, rtol=PLAN, atol=PLAN)
+    np.testing.assert_allclose(out_t.numpy(), T.to_scipy() @ H, rtol=5e-2, atol=5e-2)
+    # in H's dtype, as every kind
+    assert tdis.agg_matmul(tp, torch.from_numpy(H).to(torch.bfloat16)).dtype == torch.bfloat16
+
+
+@pytest.mark.parametrize("kind", ["pallas", "hybrid", "xla"])
+def test_agg_matmul_with_vals_matches_jax(kind):
+    """Runtime edge values in the source edge order: K9's plan takes them by
+    a gather, every other kind runs the edge path."""
+    J, T = _graph("weighted", n=1024)
+    kw = dict(tb=128) if kind == "hybrid" else {}
+    jp = jdis.prepare_adjacency(J, method=kind, **kw)
+    tp = tdis.prepare_adjacency(T, method=kind, device="cpu", **kw)
+    rng = np.random.default_rng(16)
+    vals = (rng.uniform(0.1, 1.0, T.vals.shape[0]) * (T.vals != 0)).astype(np.float32)
+    H = rng.standard_normal((T.n_cols, 24)).astype(np.float32)
+    out_j = np.asarray(jdis.agg_matmul_with_vals(jp, jnp.asarray(vals), jnp.asarray(H)))
+    out_t = tdis.agg_matmul_with_vals(tp, torch.from_numpy(vals), torch.from_numpy(H))
+    np.testing.assert_allclose(out_t.numpy(), out_j, rtol=PLAN, atol=PLAN)
+    want = T.with_vals(vals).to_scipy() @ H
+    np.testing.assert_allclose(out_t.numpy(), want, rtol=5e-2 if kind == "pallas" else 1e-4, atol=5e-2 if kind == "pallas" else 1e-4)
+
+
+@pytest.mark.parametrize("qbits", [8, 2])
+def test_map_adjacency_vals_on_pallas_prep(qbits):
+    J, T = _graph("weighted", n=1024)
+    ov = dict(a_max=float(np.max(T.vals)))
+    calj, calt = JCal.for_qbits(qbits, ov), TCal.for_qbits(qbits, ov)
+    jp = jdis.prepare_adjacency(J, method="pallas", rb=256, cb=256)
+    tp = tdis.prepare_adjacency(T, method="pallas", rb=256, cb=256, device="cpu")
+    mj = jdis.map_adjacency_vals(jp, lambda v: ja.fake_quant_unsigned(v, calj.adjacency, qbits))
+    mt = tdis.map_adjacency_vals(tp, lambda v: ta.fake_quant_unsigned(v, calt.adjacency, qbits))
+    assert mt.kind == mj.kind == "pallas"
+    _same_plan(mt.plan, mj.plan)
+    _same_plan(mt.plan_t, mj.plan_t)
+    assert not torch.equal(mt.plan.val, tp.plan.val)  # the quantizer acted
+    assert mt.plan.segments is tp.plan.segments  # the launch schedule is the plan's, not the values'
+    np.testing.assert_array_equal(mt.A.vals.numpy(), np.asarray(mj.A.vals))
+    H = np.random.default_rng(17).standard_normal((T.n_cols, 16)).astype(np.float32)
+    np.testing.assert_allclose(
+        tdis.agg_matmul(mt, torch.from_numpy(H)).numpy(), np.asarray(jdis.agg_matmul(mj, jnp.asarray(H))),
+        rtol=PLAN, atol=PLAN)

@@ -75,6 +75,32 @@ def test_slice_logits_match_jax():
     np.testing.assert_allclose(logits_t.numpy(), ref.numpy(), rtol=5e-2, atol=5e-2)
 
 
+@pytest.mark.parametrize("blocks", [(1024, 1024, 1024), (128, 128, 2048)])
+def test_slice_logits_on_the_pallas_kind_match_jax(blocks):
+    """The same slice through prepare_from_config(use_pallas=True) in both
+    packages: K9's roundings are the Pallas kernel's, so 1e-4 (relative to
+    the logits' size) where the K2 route needs 2e-2."""
+    from sgracex1_tpu.config import SGRACEConfig as JConfig
+
+    model, variables, jp, tp, x, tx = _slice(n=1024)
+    kw = dict(use_pallas=True, row_block=blocks[0], col_block=blocks[1], edge_block=blocks[2])
+    jpp = jdis.prepare_from_config(jp.A, JConfig(**kw))
+    tpp = pt.prepare_from_config(tp.A, pt.SGRACEConfig(**kw), device="cpu")
+    assert tpp.kind == jpp.kind == "pallas" and tpp.plan.be == blocks[2]
+    logits_j = np.asarray(model.apply(variables, jpp, jnp.asarray(x)))
+    net = pt.GCNModel(32, 64, 16)
+    net.load_state_dict(params_from_jax(jax.tree_util.tree_map(np.asarray, variables)))
+    net.eval()
+    with torch.no_grad():
+        logits_t = net(tpp, torch.from_numpy(tx))
+    assert logits_t.shape == (1024, 16) and torch.isfinite(logits_t).all()
+    scale = float(np.abs(logits_j).max())
+    np.testing.assert_allclose(logits_t.numpy(), logits_j, rtol=1e-4, atol=1e-4 * max(scale, 1.0))
+    with torch.no_grad():
+        ref = net(pt.prepare_adjacency(tp.A, method="xla", device="cpu"), torch.from_numpy(tx))
+    np.testing.assert_allclose(logits_t.numpy(), ref.numpy(), rtol=5e-2, atol=5e-2)
+
+
 def test_params_from_jax_layout():
     model = JGCN(num_features=8, hidden_channels=4, num_classes=3, num_layers=3)
     A = j_norm.sym_norm(np.array([[0, 1], [1, 0]]), 2)
@@ -93,6 +119,7 @@ def test_import_leaves_jax_out():
         "import sys, sgracex1_tpu_torch, sgracex1_tpu_torch.nn, "
         "sgracex1_tpu_torch.ops.fused_agg, sgracex1_tpu_torch.graph.datasets, "
         "sgracex1_tpu_torch.graph.reorder, sgracex1_tpu_torch.ops.flash_gat, "
+        "sgracex1_tpu_torch.ops.pallas_spmm, "
         "sgracex1_tpu_torch.ops.sddmm, sgracex1_tpu_torch.nn.models, "
         "sgracex1_tpu_torch.config, sgracex1_tpu_torch.train, "
         "sgracex1_tpu_torch.train.loop, sgracex1_tpu_torch.train.checkpoint; "

@@ -22,12 +22,14 @@ torch.set_num_threads(1)
 
 FUSED = 2e-2  # K2 rounds forward and grad_H through bf16
 EXACT = 1e-3  # identical bf16 operands (K1) or f32 paths; sums in another order
+PLAN = 1e-4  # K9 on plan_t: the same bf16 roundings in both packages, f32 sums
 
 
 @pytest.mark.parametrize(
     "method,fuse,values",
     [("hybrid", True, "symnorm"), ("hybrid", True, "weighted"), ("hybrid", False, "symnorm"),
-     ("bsr", False, "weighted"), ("dense", True, "symnorm"), ("xla", True, "weighted")],
+     ("bsr", False, "weighted"), ("dense", True, "symnorm"), ("xla", True, "weighted"),
+     ("pallas", True, "symnorm"), ("pallas", True, "weighted")],
 )
 def test_agg_matmul_grads_match_jax(method, fuse, values):
     J, T = graph(values)
@@ -45,7 +47,7 @@ def test_agg_matmul_grads_match_jax(method, fuse, values):
     want = jax.grad(lambda h: jnp.vdot(jdis.agg_matmul(jp, h), jnp.asarray(R)))(jnp.asarray(H))
     Ht = torch.from_numpy(H).requires_grad_(True)
     (tdis.agg_matmul(tp, Ht) * torch.from_numpy(R)).sum().backward()
-    tol = FUSED if fuse and method in ("bsr", "hybrid") else EXACT
+    tol = FUSED if fuse and method in ("bsr", "hybrid") else PLAN if method == "pallas" else EXACT
     np.testing.assert_allclose(Ht.grad.numpy(), np.asarray(want), rtol=tol, atol=tol)
     # A^T @ R, the gradient's definition
     np.testing.assert_allclose(Ht.grad.numpy(), T.to_scipy().T @ R, rtol=5e-2, atol=5e-2)
@@ -60,6 +62,42 @@ def test_backward_without_transpose_raises(fuse):
     out = tdis.agg_matmul(tp, H)  # the forward needs no transpose
     with pytest.raises(ValueError, match="build_transpose"):
         out.sum().backward()
+
+
+def test_pallas_backward_without_transpose_raises():
+    _, T = graph("weighted", n=384)
+    tp = tdis.prepare_adjacency(T, method="pallas", rb=128, cb=128, build_transpose=False, device="cpu")
+    H = torch.randn(384, 4, requires_grad=True)
+    vals = torch.as_tensor(T.vals).clone().requires_grad_(True)
+    for out in (tdis.agg_matmul(tp, H), tdis.agg_matmul_with_vals(tp, vals, H)):
+        with pytest.raises(ValueError, match="build_transpose"):
+            out.sum().backward()
+
+
+@pytest.mark.parametrize("kind", ["pallas", "hybrid"])
+def test_agg_matmul_with_vals_grads_match_jax(kind):
+    """Both gradients of A(vals) @ H against jax.grad at 1e-4: grad_H by K9
+    on plan_t with the same values, grad_vals the SDDMM of the cotangent;
+    the hybrid kind runs the f32 edge path in both packages."""
+    J, T = graph("weighted")
+    kw = dict(tb=128) if kind == "hybrid" else dict(rb=256, cb=256)
+    jp = jdis.prepare_adjacency(J, method=kind, **kw)
+    tp = tdis.prepare_adjacency(T, method=kind, device="cpu", **kw)
+    rng = np.random.default_rng(25)
+    vals = (rng.uniform(0.1, 1.0, T.vals.shape[0]) * (T.vals != 0)).astype(np.float32)
+    H = rng.standard_normal((T.n_cols, 24)).astype(np.float32)
+    R = rng.standard_normal((T.n_rows, 24)).astype(np.float32)
+    gv, gh = jax.grad(
+        lambda v, h: jnp.vdot(jdis.agg_matmul_with_vals(jp, v, h), jnp.asarray(R)), argnums=(0, 1)
+    )(jnp.asarray(vals), jnp.asarray(H))
+    vt = torch.from_numpy(vals).requires_grad_(True)
+    Ht = torch.from_numpy(H).requires_grad_(True)
+    out = tdis.agg_matmul_with_vals(tp, vt, Ht)
+    (out * torch.from_numpy(R)).sum().backward()
+    live = slice(0, T.nnz)  # padding entries carry no edge
+    np.testing.assert_allclose(vt.grad.numpy()[live], np.asarray(gv)[live], rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(Ht.grad.numpy(), np.asarray(gh), rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(Ht.grad.numpy(), T.with_vals(vals).to_scipy().T @ R, rtol=5e-2, atol=5e-2)
 
 
 @pytest.mark.parametrize("exact", [False, True])
@@ -86,7 +124,7 @@ def test_gatconv_grads_match_flax(exact):
         np.testing.assert_allclose(getattr(conv, k).grad.numpy(), want[k], rtol=1e-4, atol=1e-5, err_msg=k)
 
 
-@pytest.mark.parametrize("kind", ["gcn", "gat-full", "gat-hybrid"])
+@pytest.mark.parametrize("kind", ["gcn", "gat-full", "gat-hybrid", "gcn-pallas"])
 def test_model_param_grads_match_flax(kind, monkeypatch):
     d, e, jp, tp, model, variables, net = model_pair(kind, monkeypatch=monkeypatch)
     R = np.random.default_rng(24).standard_normal((d.x.shape[0], 4)).astype(np.float32)
@@ -104,4 +142,5 @@ def test_model_param_grads_match_flax(kind, monkeypatch):
         # bf16 rounding error scales with each leaf's own largest gradient
         scale = float(np.abs(w.numpy()).max())
         assert scale > 0, k
-        np.testing.assert_allclose(g, w.numpy(), rtol=FUSED, atol=FUSED * scale, err_msg=k)
+        tol = PLAN if kind == "gcn-pallas" else FUSED
+        np.testing.assert_allclose(g, w.numpy(), rtol=tol, atol=tol * scale, err_msg=k)

@@ -141,7 +141,7 @@ def test_gcnconv_go_quant_matches_flax():
     assert np.abs(Wt.grad.numpy() - exact).max() > 1e-3
 
 
-KINDS = ["dense", "bsr", "hybrid", "xla"]
+KINDS = ["dense", "bsr", "hybrid", "xla", "pallas"]
 
 
 @pytest.mark.parametrize("kind", KINDS)
@@ -168,6 +168,9 @@ def test_map_adjacency_vals_matches_jax(kind, qbits):
     if kind == "hybrid":
         assert mt.rest.nnz == mj.rest.nnz > 0
         np.testing.assert_array_equal(mt.rest.vals.numpy(), f32(mj.rest.vals))
+    if kind == "pallas":
+        for p, q in ((mt.plan, mj.plan), (mt.plan_t, mj.plan_t)):
+            np.testing.assert_array_equal(p.val.numpy(), f32(q.val).reshape(-1, q.be))
     # a quantized layer on the mapped backend against flax on the same backend
     x, R = _inputs(T, 16)
     tol = FWD if kind == "xla" else BF16

@@ -7,6 +7,7 @@ import pytest
 import torch
 
 from sgracex1_tpu.config import SGRACEConfig as JConfig
+from sgracex1_tpu.ops import dispatch as jdis
 from sgracex1_tpu.train import loop as jloop
 import sgracex1_tpu_torch as pt
 from sgracex1_tpu_torch.graph import datasets as t_ds
@@ -20,7 +21,7 @@ from _torch_common import graph, model_pair
 torch.set_num_threads(1)
 
 
-@pytest.mark.parametrize("kind", ["gcn", "gat-full"])
+@pytest.mark.parametrize("kind", ["gcn", "gat-full", "gcn-pallas"])
 def test_train_node_classifier_tracks_jax(kind, monkeypatch):
     d, e, jp, tp, model, variables, net = model_pair(kind, monkeypatch=monkeypatch)
     cfg = dict(num_epochs=5, learning_rate=0.01)
@@ -97,8 +98,11 @@ def test_prepare_from_config_rule():
     p = tdis.prepare_from_config(T, cfg, method="hybrid", for_gat=True, device="cpu")
     assert p.kind == "hybrid" and p.r1_row is not None and p.fused_t is not None
     assert p.flash_tiles is not None
-    with pytest.raises(NotImplementedError, match="item 14"):
-        tdis.prepare_from_config(T, cfg.replace(use_pallas=True), device="cpu")
+    # use_pallas selects the pallas kind at the config's tiling, as in the JAX package
+    pp = tdis.prepare_from_config(T, cfg.replace(use_pallas=True), device="cpu")
+    assert pp.kind == "pallas" and pp.plan is not None and pp.plan_t is not None
+    assert (pp.plan.rb, pp.plan.cb, pp.plan.be) == (128, 128, 2048)
+    assert tdis.prepare_from_config(T, cfg.replace(use_pallas=True), method="xla", device="cpu").kind == "xla"
     # QAT remaps the adjacency values per call: value tiles, no rank-1 masks
     qp = tdis.prepare_from_config(T, cfg.replace(fake_quantization=True), method="hybrid", device="cpu")
     assert qp.r1_row is None and qp.bsr.tiles.dtype == torch.bfloat16 and qp.fused.colscale is None
@@ -106,3 +110,43 @@ def test_prepare_from_config_rule():
     with pytest.raises(TypeError):
         pt.SGRACEConfig(dropout=0.1)
     assert tloop._uses_attention(pt.GATModel(4, 4, 2)) and not tloop._uses_attention(pt.GCNModel(4, 4, 2))
+
+
+@pytest.mark.parametrize(
+    "blocks,want",
+    [((128, 128, 2048), (128, 128, 2048)), ((4, 64, 100), (8, 128, 1024)),
+     ((1024, 1024, 1025), (1024, 1024, 2048)), ((256, 512, 3000), (256, 512, 3072))],
+)
+def test_prepare_from_config_clamps_the_tiling(blocks, want):
+    """row_block >= 8, col_block >= 128, edge_block >= 1024 and rounded up
+    to a multiple of 1024: the plans of both packages are identical."""
+    J, T = graph("symnorm", n=300)
+    kw = dict(use_pallas=True, row_block=blocks[0], col_block=blocks[1], edge_block=blocks[2])
+    tp = tdis.prepare_from_config(T, pt.SGRACEConfig(**kw), device="cpu")
+    jp = jdis.prepare_from_config(J, JConfig(**kw))
+    assert tp.kind == jp.kind == "pallas"
+    for p, q in ((tp.plan, jp.plan), (tp.plan_t, jp.plan_t)):
+        assert (p.rb, p.cb, p.be) == (q.rb, q.cb, q.be) == want
+        np.testing.assert_array_equal(p.perm.numpy(), np.asarray(q.perm).reshape(-1, q.be))
+    # the defaults are the JAX package's
+    assert (pt.SGRACEConfig().row_block, pt.SGRACEConfig().col_block, pt.SGRACEConfig().edge_block) == (
+        JConfig().row_block, JConfig().col_block, JConfig().edge_block)
+
+
+def test_use_pallas_trains_through_k9(monkeypatch):
+    """SGRACEConfig(use_pallas=True) and prepare="pallas" both reach the
+    plan kernel: two aggregations forward, two backward (on plan_t), two
+    in the evaluation, every epoch."""
+    calls = []
+    kernel = tdis.spmm_plan
+    monkeypatch.setattr(tdis, "spmm_plan", lambda plan, H: (calls.append(plan), kernel(plan, H))[1])
+    data = t_ds.sbm_node_classification(n=200, num_classes=3, seed=6)
+    for cfg, prepare in ((pt.SGRACEConfig(num_epochs=2, use_pallas=True), "auto"),
+                         (pt.SGRACEConfig(num_epochs=2), "pallas")):
+        calls.clear()
+        net = pt.GCNModel(data.num_features, 8, 3, generator=torch.Generator().manual_seed(3))
+        state, hist = tloop.train_node_classifier(net, data, cfg, prepare=prepare, device="cpu")
+        assert state.step == 2 and np.isfinite(hist.loss).all()
+        assert len(calls) == 12
+        plans = {id(p) for p in calls}
+        assert len(plans) == 2  # plan forward, plan_t backward
