@@ -13,7 +13,10 @@ Phases, each raising on failure (so the run exits non-zero):
 3. kernels against their plain PyTorch versions on the card at small
    sizes: K1 (bsr_spmm) and K2 (bsr_spmm_fused) in the three tile forms,
    rank-1 and value mode, with and without a remainder, ragged n and P,
-   f32 and bf16 H, and on transposed plans; K3 and K6 over the tile forms,
+   f32 and bf16 H, and on transposed plans, each case through the kernel
+   its shape selects (the ring kernels for int8 and bf16 tiles of height
+   64-256 at P % 8 == 0, else the single-stage ones) and, where both take
+   it, through the other as well; K3 and K6 over the tile forms,
    head counts, ragged widths, isolated rows, split runs and chunk layouts;
    K4 and K5 over the same forms and under merged hybrid stats; small GCN
    and GAT forwards and gradients through the kernels against the f32
@@ -23,12 +26,16 @@ Phases, each raising on failure (so the run exits non-zero):
    runs, both attach_chunks modes).
 4. the GCN slice: 2^20-node power-law graph (avg degree 16, 100 features,
    16 classes, seed 0), sym_norm, degree order, one hybrid prepare with
-   the transposed plans; K1 and K2 timed against their plain versions, with
-   their bound and the library call (torch.sparse.mm on the CSR form)
-   beside them; a 2-layer width-128 GCNModel (random weights from a numpy
-   seed) answers 3 requests through K2 and one through K1, then trains for
-   3 epochs (K2 on the plan and its transpose; one step through the K1
-   view), each held against the plain-kernel versions.
+   the transposed plans; K1 and K2 (the ring kernels) timed against their
+   plain versions, with their bound and the library call (torch.sparse.mm
+   on the CSR form) beside them, the single-stage kernels in the same run
+   through their private entries, on all steps, on the live steps alone
+   and reading H staged once in bf16, the ring kernels on the transposed
+   plans and over RING_SEG_STEPS 8/16/32/64; a 2-layer width-128 GCNModel
+   (random weights from a numpy seed) answers 3 requests through K2 and
+   one through K1, then trains for 3 epochs (K2 on the plan and its
+   transpose; one step through the K1 view), each held against the
+   plain-kernel versions; every launch of these runs must be a ring kernel.
 5. the GAT slice on the same graph: K6, K3, K4 and K5 timed at H=4, F=64
    with their bounds; GATModel(100, 64, 16, nheads=4) answers 3 requests
    through K6 and trains for 3 epochs (K6, K4, K5).
@@ -41,7 +48,9 @@ Phases, each raising on failure (so the run exits non-zero):
 8. fake-quant GCN at 2^20, width 128: calibrate() from one float forward
    with telemetry, the 8-bit GCNModel on a value-tile prep
    (prepare_from_config with fake_quantization), forwards held against the
-   plain-K1 forward, then 3 training epochs (K1 on bsr and bsr_t).
+   plain-K1 forward, the adjacency quantizer's cost for what a forward
+   reads and for every representation, then 3 training epochs (the ring K1
+   on bsr and bsr_t).
 9. int8 GCN serving (freeze_gcn2_sparse -> int8_gcn2_sparse_forward, 100
    -> 128 -> 16) at n=2^16 on a full int8 tile cover: 3 requests, K7 twice
    each, equal to the plain-K7 forward, on the slice's power-law generator
@@ -62,7 +71,8 @@ Phases, each raising on failure (so the run exits non-zero):
    and value tiles with isolated rows at sb 64, 128 and 256, equal to K3.
 12. the pallas kind at full width on the GCN slice's graph:
    prepare_from_config with SGRACEConfig(use_pallas=True, row_block=1024,
-   col_block=1024, edge_block=1024); K9 timed at P = 128 against its plain
+   col_block=1024, edge_block=1024); the seconds and bytes plan_t adds to a
+   prep made with build_transpose=False; K9 timed at P = 128 against its plain
    version, its bound and torch.sparse.mm; the width-128 GCNModel answers 3
    requests through K9 (logits against the plain-K9 forward and the K2
    forward) and trains for 3 epochs (K9 on plan and plan_t); one
@@ -84,6 +94,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -107,7 +118,7 @@ from sgracex1_tpu_torch.ops.fused_gnn import relu_hw
 from sgracex1_tpu_torch.ops import dispatch as D
 from sgracex1_tpu_torch.ops.dispatch import _drop_zero_val_edges, agg_matmul_with_vals, split_by_tile_density
 from sgracex1_tpu_torch.quant import int8 as Q
-from sgracex1_tpu_torch.quant.affine import QuantConstants, generate_constants
+from sgracex1_tpu_torch.quant.affine import QuantConstants, fake_quant_unsigned, generate_constants
 from sgracex1_tpu_torch.quant.autocal import calibrate
 from sgracex1_tpu_torch.quant.calibration import CalibrationTable
 from sgracex1_tpu_torch.train.loop import _masked_xent
@@ -245,6 +256,14 @@ def phase_build():
     for line in _cuda.build_log.splitlines():
         if "registers" in line or "spill" in line:
             _log("  " + line.strip())
+    # the ring kernels by name: tile mode 2 int8 / 0 bf16, fused (K2) or not (K1)
+    ring = re.findall(r"Function properties for \S*agg_ring_kernelILi(\d)ELb(\d)E\S*\n\s*(.*)\n.*Used (\d+) registers",
+                      _cuda.build_log)
+    for mode, fused, spills, regs in ring:
+        _log(f"  ring kernel {'K2' if fused == '1' else 'K1'} {'int8' if mode == '2' else 'bf16'} tiles: "
+             f"{regs} registers at entry (consumers raise to 232, the producer drops to 40), {spills.strip()}")
+    if _cuda.build_log and len(ring) != 4:  # no log when the library was built by an earlier run
+        raise AssertionError(f"expected the four ring kernels in the build log, found {len(ring)}")
 
 
 def _random_graph(n, weighted, seed, isolated=None):
@@ -272,8 +291,12 @@ def phase_kernels_small(device):
         ("bf16-values-hybrid", 2500, 128, True, "hybrid", 128, 24, torch.float32),
         ("int8-rank1-bsr", 4100, 40, False, "bsr", 128, None, torch.float32),
         ("bf16-values-bsr-P200", 2100, 200, True, "bsr", 256, None, torch.float32),
+        ("int8-rank1-hybrid-tb64-P8", 1500, 8, False, "hybrid", 64, 8, torch.float32),
+        ("bf16-values-hybrid-tb192-P64-bf16H", 2000, 64, True, "hybrid", 192, 40, torch.bfloat16),
+        ("int8-rank1-hybrid-tb256-P264", 3001, 264, False, "hybrid", 256, 100, torch.float32),
     ]
     gen = torch.Generator(device=device).manual_seed(0)
+    took = {True: 0, False: 0}
     for i, (name, n, P, weighted, method, tb, thr, hdt) in enumerate(cases):
         A = _random_graph(n, weighted, seed=i)
         prep = prepare_adjacency(
@@ -281,14 +304,31 @@ def phase_kernels_small(device):
             device=device,
         )
         H = torch.randn(n, P, generator=gen, device=device).to(hdt)
-        e2 = _check(f"K2 {name}", K2.bsr_spmm_fused(prep.fused, H),
-                    K2.bsr_spmm_fused_plain(prep.fused, H), K2_TOL)
-        e1 = _check(f"K1 {name}", K1.bsr_spmm(prep.bsr, H), K1.bsr_spmm_plain(prep.bsr, H), K1_TOL)
+        ref2, ref1 = K2.bsr_spmm_fused_plain(prep.fused, H), K1.bsr_spmm_plain(prep.bsr, H)
+        _reset_counts()
+        e2 = _check(f"K2 {name}", K2.bsr_spmm_fused(prep.fused, H), ref2, K2_TOL)
+        e1 = _check(f"K1 {name}", K1.bsr_spmm(prep.bsr, H), ref1, K1_TOL)
+        # the kernel is chosen by tile form and shape alone
+        ring = prep.bsr.tiles.dtype in (torch.int8, torch.bfloat16) and tb % 64 == 0 and tb <= 256 and P % 8 == 0
+        if ring != K1.ring_shape_ok(K1._tile_mode(prep.bsr.tiles, tb), tb, P, prep.fused.K):
+            raise AssertionError(f"{name}: ring_shape_ok disagrees with the rule")
+        for k in (K1.bsr_spmm, K2.bsr_spmm_fused):
+            if (k.launches_ring, k.launches_single) != (int(ring), int(not ring)):
+                raise AssertionError(f"{name}: {k.__name__} took the wrong kernel for its shape")
+        took[ring] += 1
+        if ring:  # the single-stage kernels take every shape: hold them too
+            _check(f"K2 single-stage {name}", K2._bsr_spmm_fused_single(prep.fused, H), ref2, K2_TOL)
+            _check(f"K1 single-stage {name}", K1._bsr_spmm_single(prep.bsr, H), ref1, K1_TOL)
         rest = prep.rest.nnz if prep.rest is not None else 0
-        _log(f"  {name}: T={prep.bsr.num_tiles} tiles {tuple(prep.bsr.tiles.shape[1:])} "
+        L = prep.fused.ring
+        _log(f"  {name} [{'ring' if ring else 'single-stage'} kernels]: T={prep.bsr.num_tiles} "
+             f"(live {int(prep.bsr.live.sum())}) tiles {tuple(prep.bsr.tiles.shape[1:])} "
              f"{prep.bsr.tiles.dtype} rest={rest} chunks={prep.fused.num_rest_chunks} "
-             f"segments={prep.fused.segments.n_seg} split_runs={prep.fused.segments.n_fin} "
+             f"steps={prep.fused.num_steps} live steps={L.step.shape[0]} "
+             f"ring segments={L.segments.n_seg} split_runs={L.segments.n_fin} "
              f"K2 err {e2:.3g} K1 err {e1:.3g}")
+    if not (took[True] and took[False]):
+        raise AssertionError("the small cases must reach both the ring and the single-stage kernels")
 
     # f32 value tiles and non-attached chunk steps (kind 1), built directly
     A = _random_graph(2600, True, seed=9)
@@ -612,31 +652,147 @@ def phase_slice_prepare(device, cfg=SLICE):
          f"rest_chunks={f.num_rest_chunks} K={f.K} steps={f.num_steps} "
          f"segments={f.segments.n_seg} split_runs={f.segments.n_fin}; "
          f"fused_t: steps={ft.num_steps} segments={ft.segments.n_seg} split_runs={ft.segments.n_fin}")
+    for name, B, L in (("fused", prep.bsr, f.ring), ("fused_t", prep.bsr_t, ft.ring),
+                       ("bsr", prep.bsr, prep.bsr.ring), ("bsr_t", prep.bsr_t, prep.bsr_t.ring)):
+        S = L.segments
+        dead = B.num_tiles - int(B.live.sum())
+        _log(f"ring schedule of {name}: {dead} of {B.num_tiles} tiles are empty cover tiles "
+             f"({dead / B.num_tiles:.3f}); tile products kept {L.n_tile_steps}, skipped {L.n_dead_tile_steps}; "
+             f"live steps {L.step.shape[0]}, work items {S.n_seg} at RING_SEG_STEPS={K1.RING_SEG_STEPS} "
+             f"(longest {int((S.seg_hi - S.seg_lo).max())} steps), split runs {S.n_fin}, partials {S.n_part}")
+    for B in (prep.bsr, prep.bsr_t):
+        nonzero = B.tiles.view(B.num_tiles, -1).any(dim=1)
+        if (nonzero & ~B.live).any():
+            raise AssertionError("a tile with a nonzero must be flagged live")
+        if (B.live & ~nonzero).any():
+            _log(f"  {int((B.live & ~nonzero).sum())} live-flagged tiles hold no nonzero (allowed: extra work only)")
     return A, data, prep
+
+
+def _live_plan(plan):
+    """``plan`` for the single-stage K2 with the steps that do no work
+    taken out (what the ring schedule drops): a tile step on an empty tile
+    goes, a tile + chunk step on one keeps its chunk."""
+    S = plan.num_steps
+    live = plan.B.live[plan.step_tile.long()]
+    tile_part = (plan.step_kind != 1) & live
+    chunk_part = plan.step_kind >= 1
+    keep = tile_part | chunk_part
+    kind = torch.where(tile_part & chunk_part, 3, torch.where(tile_part, 0, 1)).to(torch.int32)
+    rb = plan.step_rb[:S][keep]
+    return dataclasses.replace(
+        plan, step_rb=torch.cat([rb, plan.step_rb[S:]]), step_cb=plan.step_cb[keep].contiguous(),
+        step_tile=plan.step_tile[keep].contiguous(), step_chunk=plan.step_chunk[keep].contiguous(),
+        step_kind=kind[keep].contiguous(),
+        segments=K1.run_segments(rb.cpu().numpy(), plan.B.n_row_tiles, plan.B.tiles.device),
+    )
+
+
+def _live_tiles(B):
+    """``B`` for the single-stage K1 with the empty cover tiles taken out."""
+    live = B.live
+    rb = B.tile_rb[live].contiguous()
+    return dataclasses.replace(
+        B, tiles=B.tiles[live].contiguous(), tile_rb=rb, tile_cb=B.tile_cb[live].contiguous(),
+        segments=K1.run_segments(rb.cpu().numpy(), B.n_row_tiles, B.tiles.device),
+    )
 
 
 def phase_kernels_slice(A, prep, device):
     """Both kernels at the slice's shapes (P = 128): error and times, the
-    bound, and the library call beside them."""
+    bound, and the library call beside them; the single-stage kernels in
+    the same run (through their private entries) on every step, on the live
+    steps alone (step 1 of the redesign) and on H staged once in bf16
+    (steps 1-2); the ring kernels on the transposed plans and over
+    RING_SEG_STEPS."""
     gen = torch.Generator(device=device).manual_seed(1)
     H = torch.randn(prep.A.n_cols, HIDDEN, generator=gen, device=device)
     lib_ms, lib = _sparse_mm_ms(A, H)
     e = _check("agg_matmul (K2) against torch.sparse.mm", agg_matmul(prep, H), lib, K2_TOL)
     _log(f"agg_matmul (K2, bf16) against the library product (f32): max abs err {e:.3g}")
+    del lib
+    B, plan = prep.bsr, prep.fused
+    n_ct_rows = -(-B.n_cols // B.tb) * B.tb
+    stage_ms = {
+        "bsr_spmm_fused": _cuda_ms(lambda: K1._stage_h(H, plan.colscale, n_ct_rows, B.n_cols)),
+        "bsr_spmm": _cuda_ms(lambda: K1._stage_h(H, None, n_ct_rows, B.n_cols)),
+    }
+    _log(f"pre-pass (H rounded to bf16 once, [n={n_ct_rows}, P={HIDDEN}]): with the column scale "
+         f"{stage_ms['bsr_spmm_fused']:.4f} ms, without {stage_ms['bsr_spmm']:.4f} ms (inside the ring kernels' times)")
+    live_plan, live_B = _live_plan(plan), _live_tiles(B)
+    # the staged operand of the single-stage K2: scales already applied
+    staged_plan = dataclasses.replace(live_plan, colscale=None, slot_scale=torch.ones_like(plan.slot_scale))
     rec = {}
-    for name, kern, plain, op, tol in (
-        ("bsr_spmm_fused", K2.bsr_spmm_fused, K2.bsr_spmm_fused_plain, prep.fused, K2_TOL),
-        ("bsr_spmm", K1.bsr_spmm, K1.bsr_spmm_plain, prep.bsr, K1_TOL),
+    for name, kern, single, plain, op, live_op, staged_op, cs, tol in (
+        ("bsr_spmm_fused", K2.bsr_spmm_fused, K2._bsr_spmm_fused_single, K2.bsr_spmm_fused_plain,
+         plan, live_plan, staged_plan, plan.colscale, K2_TOL),
+        ("bsr_spmm", K1.bsr_spmm, K1._bsr_spmm_single, K1.bsr_spmm_plain, B, live_B, live_B, None, K1_TOL),
     ):
+        ref = plain(op, H)
+        _reset_counts()
         out = kern(op, H)
-        err = _check(f"{name} at slice shapes", out, plain(op, H), tol)
-        ms = _cuda_ms(lambda: kern(op, H))
+        err = _check(f"{name} at slice shapes", out, ref, tol)
+        _all_ring(f"{name} at slice shapes")
+        staged = lambda: single(staged_op, K1._stage_h(H, cs, n_ct_rows, B.n_cols))
+        _check(f"{name} single-stage at slice shapes", single(op, H), ref, tol)
+        _check(f"{name} single-stage on the live steps", single(live_op, H), ref, tol)
+        _check(f"{name} single-stage on the live steps, H staged", staged(), ref, tol)
+        # in turns within one call: ring, single-stage, single-stage, ring
+        ms = [_cuda_ms(lambda: kern(op, H)), 0.0]
+        earlier = [_cuda_ms(lambda: single(op, H)), _cuda_ms(lambda: single(op, H))]
+        ms[1] = _cuda_ms(lambda: kern(op, H))
+        step1_ms = _cuda_ms(lambda: single(live_op, H))
+        step12_ms = _cuda_ms(staged)
         plain_ms = _cuda_ms(lambda: plain(op, H), reps=5)
-        bound = _agg_bound(prep.bsr, H, out, "bf16", plan=op if op is prep.fused else None)
-        rec[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, **bound, library_ms=lib_ms)
-        _log(f"{name} at slice shapes [n={prep.A.n_rows}, P={HIDDEN}]: kernel {ms:.4f} ms, "
+        bound = _agg_bound(B, H, out, "bf16", plan=op if op is plan else None)
+        rec[name] = dict(max_abs_err=err, ms=min(ms), plain_ms=plain_ms, **bound, library_ms=lib_ms,
+                         earlier_ms=min(earlier))
+        _log(f"{name} at slice shapes [n={prep.A.n_rows}, P={HIDDEN}]: ring kernel {ms[0]:.4f} / {ms[1]:.4f} ms "
+             f"(pre-pass included), single-stage kernel {earlier[0]:.4f} / {earlier[1]:.4f} ms, "
              f"plain {plain_ms:.4f} ms (median of 5), bound {bound['bound_ms']:.4f} ms by {bound['bound_by']}, "
-             f"max abs err {err:.3g}")
+             f"library {lib_ms:.4f} ms, max abs err {err:.3g}")
+        _log(f"  steps of the redesign on {name}: single-stage on all steps {min(earlier):.4f} ms; on the live "
+             f"steps alone (step 1) {step1_ms:.4f} ms; live steps and H staged once (steps 1-2) {step12_ms:.4f} ms "
+             f"pre-pass included; ring kernel (steps 1-5) {min(ms):.4f} ms")
+    del live_plan, live_B, staged_plan
+    # where K2's time goes: the same tiles without the remainder chunks, and the kernels by name
+    bare = K2.build_fused_plan(B, None, r1_row=prep.r1_row.cpu().numpy(), r1_col=prep.r1_col.cpu().numpy())
+    _check("bsr_spmm_fused without the remainder", K2.bsr_spmm_fused(bare, H),
+           K2.bsr_spmm_fused_plain(bare, H), K2_TOL)
+    _log(f"bsr_spmm_fused on the same tiles without the {plan.num_rest_chunks} remainder chunks: "
+         f"ring kernel {_cuda_ms(lambda: K2.bsr_spmm_fused(bare, H)):.4f} ms")
+    del bare
+    _profile_forward(lambda: K2.bsr_spmm_fused(plan, H), "bsr_spmm_fused", "1 call")
+    _profile_forward(lambda: K1.bsr_spmm(B, H), "bsr_spmm", "1 call")
+
+    # the transposed plans, as the backward launches them
+    g = torch.randn(prep.A.n_rows, HIDDEN, generator=gen, device=device)
+    gb = g.to(torch.bfloat16)  # the cotangent of K2's bf16 output arrives in f32; both are taken
+    for name, kern, single, plain, op, arg, tol in (
+        ("bsr_spmm_fused on fused_t", K2.bsr_spmm_fused, K2._bsr_spmm_fused_single, K2.bsr_spmm_fused_plain,
+         prep.fused_t, g, K2_TOL),
+        ("bsr_spmm on bsr_t", K1.bsr_spmm, K1._bsr_spmm_single, K1.bsr_spmm_plain, prep.bsr_t, g, K1_TOL),
+        ("bsr_spmm_fused on fused_t, bf16 cotangent", K2.bsr_spmm_fused, K2._bsr_spmm_fused_single,
+         K2.bsr_spmm_fused_plain, prep.fused_t, gb, K2_TOL),
+    ):
+        err = _check(name, kern(op, arg), plain(op, arg), tol)
+        ms_t, single_t = _cuda_ms(lambda: kern(op, arg)), _cuda_ms(lambda: single(op, arg))
+        _log(f"{name}: ring kernel {ms_t:.4f} ms, single-stage kernel {single_t:.4f} ms, max abs err {err:.3g}")
+
+    # RING_SEG_STEPS: the same live steps cut into shorter or longer work items
+    for name, kern, op, sched, tol, ref in (
+        ("bsr_spmm_fused", K2.bsr_spmm_fused, plan, plan.ring, K2_TOL, K2.bsr_spmm_fused_plain(plan, H)),
+        ("bsr_spmm on bsr_t", K1.bsr_spmm, prep.bsr_t, prep.bsr_t.ring, K1_TOL, K1.bsr_spmm_plain(prep.bsr_t, g)),
+    ):
+        arg = H if op is plan else g
+        times = []
+        for seg in (8, 16, 32, 64):
+            L = K1.recut_live_schedule(sched, op.B.n_row_tiles if op is plan else op.n_row_tiles, seg)
+            cut = dataclasses.replace(op, ring=L)
+            _check(f"{name} at RING_SEG_STEPS={seg}", kern(cut, arg), ref, tol)
+            times.append(f"{seg}: {_cuda_ms(lambda: kern(cut, arg)):.4f} ms ({L.segments.n_seg} items, "
+                         f"{L.segments.n_part} partials)")
+        _log(f"{name} over RING_SEG_STEPS (chosen {K1.RING_SEG_STEPS}): " + "; ".join(times))
     return rec
 
 
@@ -675,8 +831,7 @@ def phase_slice_serve(A, x, prep, device, cfg=SLICE):
         net(prep, x)  # warm-up: cuBLAS handles, allocator
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        K2.bsr_spmm_fused.launches = 0
-        K1.bsr_spmm.launches = 0
+        _reset_counts()
         ms, per_request = [], []
         for _ in range(REQUESTS):
             before = K2.bsr_spmm_fused.launches
@@ -690,10 +845,11 @@ def phase_slice_serve(A, x, prep, device, cfg=SLICE):
         torch.cuda.synchronize()
         k1_ms = (time.perf_counter() - t0) * 1e3
         launches = {"bsr_spmm_fused": K2.bsr_spmm_fused.launches, "bsr_spmm": K1.bsr_spmm.launches}
+        _all_ring("slice serving")
         peak = torch.cuda.max_memory_allocated()
     _log("slice forwards (K2 route): " + ", ".join(f"{m:.3f}" for m in ms) + " ms")
     _log(f"slice forward (K1 route, fuse=False view): {k1_ms:.3f} ms")
-    _log(f"launches in the serving run: {launches} (K2 per request: {per_request})")
+    _log(f"launches in the serving run: {launches} (K2 per request: {per_request}), all on the ring kernels")
     _log(f"peak device memory in the serving run: {peak / 2**30:.3f} GiB")
     if per_request != [2] * REQUESTS:
         raise AssertionError(f"K2 launches per request {per_request}, expected 2 each")
@@ -701,6 +857,7 @@ def phase_slice_serve(A, x, prep, device, cfg=SLICE):
         raise AssertionError(f"K1 launched {launches['bsr_spmm']} times, expected 2")
 
     with torch.no_grad():
+        _profile_forward(lambda: net(prep, x), "GCN slice")
         H1 = torch.matmul(x, net.conv1.weight)
         agg_ms = _cuda_ms(lambda: agg_matmul(prep, H1))
         ref = _plain_forward(net, prep, x)
@@ -918,6 +1075,17 @@ def _counts() -> dict:
 def _reset_counts() -> None:
     for k in KERNELS:
         k.launches = 0
+    for k in (K1.bsr_spmm, K2.bsr_spmm_fused):
+        k.launches_ring = k.launches_single = 0
+
+
+def _all_ring(label: str) -> None:
+    """Every K1 and K2 launch since the last reset went through the ring
+    kernel."""
+    for k in (K1.bsr_spmm, K2.bsr_spmm_fused):
+        if k.launches_ring != k.launches or k.launches_single:
+            raise AssertionError(f"{label}: {k.__name__} launched {k.launches} times, {k.launches_ring} on the "
+                                 f"ring kernel and {k.launches_single} on the single-stage kernel")
 
 
 def phase_train(data, prep, net, device, label, per_epoch, k1_view=False, cfg_kw=None):
@@ -946,6 +1114,7 @@ def phase_train(data, prep, net, device, label, per_epoch, k1_view=False, cfg_kw
     torch.cuda.synchronize()
     total_ms = (time.perf_counter() - t0) * 1e3
     launches = _counts()
+    _all_ring(f"{label} training")
     peak = torch.cuda.max_memory_allocated()
     _log(f"{label} train_node_classifier: {TRAIN_EPOCHS} epochs in {total_ms:.3f} ms "
          f"({total_ms / TRAIN_EPOCHS:.3f} ms an epoch: step + evaluation); loss {hist.loss}, "
@@ -975,6 +1144,7 @@ def phase_train(data, prep, net, device, label, per_epoch, k1_view=False, cfg_kw
         torch.cuda.synchronize()
         k1_ms = (time.perf_counter() - t0) * 1e3
         k1 = _counts()
+        _all_ring(f"{label} K1 view step")
         _log(f"{label} training step through the K1 view (fuse=False): {k1_ms:.3f} ms, launches {k1}")
         if k1["bsr_spmm"] != 4 or sum(k1.values()) != 4:
             raise AssertionError(f"K1 view step launches {k1}, expected bsr_spmm 4 and nothing else")
@@ -1268,8 +1438,10 @@ def phase_fake_quant(A, data, device, cfg=SLICE):
     """Fake-quant (QAT) GCN at 2^20, width 128: calibrate from one float
     forward, the 8-bit model on a value-tile prep (``prepare_from_config``
     with ``fake_quantization``), one forward against the same forward on
-    the plain K1, then three training epochs (K1 on ``bsr`` and ``bsr_t``;
-    ``map_adjacency_vals`` rewrites both tile sets every layer call)."""
+    the plain K1, then three training epochs (K1, the ring kernel, on
+    ``bsr`` and ``bsr_t``). ``map_adjacency_vals`` remaps a tile set when
+    it is first read: a forward rewrites ``bsr`` and the remainder, the
+    backward ``bsr_t``; the cost of both is timed beside the forward."""
     qcfg = SGRACEConfig(fake_quantization=True, num_epochs=TRAIN_EPOCHS, learning_rate=0.01)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1305,10 +1477,29 @@ def phase_fake_quant(A, data, device, cfg=SLICE):
         launches = _counts()
         if launches["bsr_spmm"] != 2 * REQUESTS or sum(launches.values()) != 2 * REQUESTS:
             raise AssertionError(f"fake-quant forward launches {launches}, expected K1 x2 a forward only")
+        _all_ring("fake-quant forward")
         _profile_forward(lambda: net(prep, x), "fake-quant GCN")
+        # the adjacency quantizer of one layer call: what a forward reads
+        # (bsr, the remainder) and every representation (bsr_t and the edge
+        # values too, which an eager remap rewrote on every call)
+        q = net.conv1.quant
+        fq = lambda v: fake_quant_unsigned(v, q.adjacency, q.w_qbits)
+
+        def remap(names):
+            m = D.map_adjacency_vals(prep, fq)
+            for name in names:
+                getattr(m, name)
+
+        read_ms = _cuda_ms(lambda: remap(("bsr", "rest")), reps=5)
+        all_ms = _cuda_ms(lambda: remap(("bsr", "rest", "bsr_t", "A")), reps=5)
         with _plain_kernels():
             ref = net(prep, x)
     _log("fake-quant GCN forwards (K1 on remapped value tiles): " + ", ".join(f"{m:.3f}" for m in ms) + " ms")
+    fwd = float(np.median(ms))
+    _log(f"map_adjacency_vals a layer call: {read_ms:.3f} ms for what a forward reads (bsr, remainder), "
+         f"{all_ms:.3f} ms for every representation; two layers: {2 * read_ms:.3f} ms of the {fwd:.3f} ms "
+         f"forward ({2 * read_ms / fwd:.2f}); remapping everything would add {2 * (all_ms - read_ms):.3f} ms "
+         f"({2 * all_ms:.3f} of {fwd + 2 * (all_ms - read_ms):.3f} ms, {2 * all_ms / (fwd + 2 * (all_ms - read_ms)):.2f})")
     scale = float(ref.abs().max())
     torch.cuda.synchronize()
     if logits.shape != (A.n_rows, cfg["num_classes"]) or not torch.isfinite(logits).all():
@@ -1324,6 +1515,7 @@ def phase_fake_quant(A, data, device, cfg=SLICE):
     torch.cuda.synchronize()
     total_ms = (time.perf_counter() - t0) * 1e3
     train_launches = _counts()
+    _all_ring("fake-quant training")
     _log(f"fake-quant train_node_classifier: {TRAIN_EPOCHS} epochs in {total_ms:.3f} ms "
          f"({total_ms / TRAIN_EPOCHS:.3f} ms an epoch: step + evaluation); loss {hist.loss}, "
          f"train acc {hist.train_acc}, test acc {hist.test_acc}")
@@ -1484,6 +1676,21 @@ def phase_pallas_slice(A, data, device, k2_logits, cfg=SLICE):
          f"plan bytes {_plan_bytes_k9(plan) / 1e9:.3f} GB a direction; row segments={plan.segments.n_seg} "
          f"split_rows={plan.segments.n_fin} partials={plan.segments.n_part}; "
          f"plan_t: groups={plan_t.num_groups} split_rows={plan_t.segments.n_fin}")
+    # the kind builds plan_t whatever build_transpose says (as the JAX
+    # package): what that adds to a prep made for serving only
+    t0 = time.perf_counter()
+    serve = prepare_adjacency(A, method="pallas", build_transpose=False, device=device)
+    torch.cuda.synchronize()
+    both_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fwd_only = K9.plan_spmm(A, rb=1024, cb=1024, be=1024, device=device)
+    torch.cuda.synchronize()
+    fwd_s = time.perf_counter() - t0
+    if serve.plan_t is None:
+        raise AssertionError("the pallas kind must build plan_t with build_transpose=False too")
+    _log(f"pallas prepare with build_transpose=False: {both_s:.1f} s, of which the forward plan alone {fwd_s:.1f} s; "
+         f"plan_t adds {_plan_bytes_k9(serve.plan_t) / 1e9:.3f} GB of device memory")
+    del serve, fwd_only
 
     gen = torch.Generator(device=device).manual_seed(1)
     H = torch.randn(A.n_cols, HIDDEN, generator=gen, device=device)
@@ -1585,15 +1792,14 @@ def phase_pallas_slice(A, data, device, k2_logits, cfg=SLICE):
     # ---- K9 alone at the config's own default tiling
     dflt = SGRACEConfig()
     t0 = time.perf_counter()
-    small = prepare_adjacency(A, method="pallas", rb=dflt.row_block, cb=dflt.col_block,
-                              be=dflt.edge_block, build_transpose=False, device=device).plan
+    small = K9.plan_spmm(A, rb=dflt.row_block, cb=dflt.col_block, be=dflt.edge_block, device=device)
     torch.cuda.synchronize()
     prep_s = time.perf_counter() - t0
     out = K9.spmm_plan(small, H)
     err = _check("spmm_plan at the default tiling", out, K9.spmm_plan_plain(small, H), K9_TOL)
     ms_d = _cuda_ms(lambda: K9.spmm_plan(small, H))
     b_d = _k9_bound(small, H, out)
-    _log(f"spmm_plan at the config's default tiling (forward plan only): prepare {prep_s:.1f} s "
+    _log(f"spmm_plan at the config's default tiling (forward plan only, plan_spmm): prepare {prep_s:.1f} s "
          f"rb={small.rb} cb={small.cb} be={small.be} groups={small.num_groups} "
          f"fill={small.nnz / small.perm.numel():.3f} plan bytes {_plan_bytes_k9(small) / 1e9:.3f} GB; "
          f"kernel {ms_d:.4f} ms, bound {b_d['bound_ms']:.4f} ms by {b_d['bound_by']}, max abs err {err:.3g}")
@@ -1776,8 +1982,8 @@ def main() -> None:
     torch.cuda.empty_cache()
     _add(launches, phase_int8_gat(device))
     sources = {
-        "bsr_spmm_fused": ("sgracex1_tpu_torch/csrc/fused_agg.cu", "sgracex1_tpu/ops/fused_agg.py:622"),
-        "bsr_spmm": ("sgracex1_tpu_torch/csrc/bsr_spmm.cu", "sgracex1_tpu/ops/bsr.py:589"),
+        "bsr_spmm_fused": ("sgracex1_tpu_torch/csrc/fused_agg_ring.cu", "sgracex1_tpu/ops/fused_agg.py:622"),
+        "bsr_spmm": ("sgracex1_tpu_torch/csrc/bsr_spmm_ring.cu", "sgracex1_tpu/ops/bsr.py:589"),
         "flash_gat_forward": ("sgracex1_tpu_torch/csrc/flash_gat.cu", "sgracex1_tpu/ops/flash_gat.py:422"),
         "flash_gat_bwd_row": ("sgracex1_tpu_torch/csrc/flash_gat_bwd.cu", "sgracex1_tpu/ops/flash_gat.py:762"),
         "flash_gat_bwd_col": ("sgracex1_tpu_torch/csrc/flash_gat_bwd.cu", "sgracex1_tpu/ops/flash_gat.py:847"),

@@ -7,8 +7,11 @@ value tiles, int8 {0,1} mask tiles or 1-bit packed mask tiles, and
 tests compare tiles element for element.
 
 Kernel K1, ``bsr_spmm``: out = A @ H in f32 with bf16 operands, as
-``sgracex1_tpu.ops.bsr.bsr_spmm_pallas``. On a CUDA tensor it launches the
-hand-written kernel in ``csrc/bsr_spmm.cu``; on a CPU tensor it runs
+``sgracex1_tpu.ops.bsr.bsr_spmm_pallas``. On a CUDA tensor it launches a
+hand-written kernel: the ring kernel ``csrc/bsr_spmm_ring.cu`` for int8 and
+bf16 tiles at the shapes ``ring_shape_ok`` names (H staged once in bf16, only
+the live tiles of ``BSRMatrix.ring``, a multi-stage shared-memory ring), else
+the single-stage kernel ``csrc/bsr_spmm.cu``; on a CPU tensor it runs
 ``bsr_spmm_plain``, the plain PyTorch version of the same function.
 
 Kernel K10, ``bsr_spmm_rowloop``: K1's product with one CTA per output
@@ -37,6 +40,12 @@ from sgracex1_tpu_torch.ops import _cuda
 # schedule steps per CTA segment: bounds the work of one CTA so the long
 # runs of hub row blocks spread over many CTAs (a starting point, not tuned)
 SEG_STEPS = 16
+
+# live steps per work item of the ring kernels (csrc/tile_ring.cuh): one
+# persistent CTA per SM walks the work items, so this only bounds how far a
+# hub row block's run spreads over the SMs (swept 8/16/32/64 on the H100 by
+# chip_smoke.py)
+RING_SEG_STEPS = 16
 
 # tile batch bytes of the plain versions' f32 scratch
 _PLAIN_BATCH_BYTES = 256 << 20
@@ -114,13 +123,91 @@ def run_segments(
 
 
 @dataclasses.dataclass(frozen=True)
+class LiveSchedule:
+    """Launch schedule of the ring kernels: the steps that do work.
+
+    ``step`` [n_live, 4] lists, in run order, every schedule step that
+    has a live tile or a chunk: (tile id or -1, column block, chunk id or
+    -1, the chunk's slots up to its last live one); ``rb`` [n_live] is the
+    step's row block. A tile is live when an edge produced it
+    (``BSRMatrix.live``); the zero cover tiles only mark a row or column
+    block as visited, which the GPU kernels do not need, so their products
+    are dropped here. The
+    tiles themselves stay in the ``BSRMatrix``. ``segments`` cuts the runs
+    of the live list (``seg_lo`` / ``seg_hi`` index ``step``), longest
+    segment first; a row block without a live step keeps one empty segment,
+    so its rows are still written (zeros, or the row-scaled chunk sums)."""
+
+    step: torch.Tensor  # int32[n_live, 4]: tile, cb, chunk, chunk slots
+    rb: torch.Tensor  # int32[n_live]
+    segments: RunSegments
+    n_tile_steps: int  # tile products kept
+    n_dead_tile_steps: int  # tile products dropped (empty cover tiles)
+
+    def to(self, device) -> "LiveSchedule":
+        return dataclasses.replace(
+            self, step=self.step.to(device), rb=self.rb.to(device),
+            segments=self.segments.to(device),
+        )
+
+
+def live_schedule(
+    rb_of_step: np.ndarray, tile: np.ndarray, cb: np.ndarray, chunk: np.ndarray,
+    n_rt: int, device="cpu", seg_steps: Optional[int] = None,
+    n_dead_tile_steps: int = 0, chunk_slots: Optional[np.ndarray] = None,
+) -> LiveSchedule:
+    """The ring kernels' schedule from per-step host arrays: row block,
+    live tile id (-1: no tile product), column block, chunk id (-1: no
+    chunk), and how many of the chunk's slots to read. Steps with neither
+    a tile nor a chunk are dropped."""
+    seg_steps = RING_SEG_STEPS if seg_steps is None else seg_steps
+    tile, chunk = np.asarray(tile, np.int64), np.asarray(chunk, np.int64)
+    keep = (tile >= 0) | (chunk >= 0)
+    slots = np.zeros(len(tile), np.int64) if chunk_slots is None else np.asarray(chunk_slots)
+    step = np.stack([tile[keep], np.asarray(cb)[keep], chunk[keep], slots[keep]], axis=1).astype(np.int32)
+    rb = np.asarray(rb_of_step)[keep].astype(np.int32)
+    return LiveSchedule(
+        step=_tensor(step, device), rb=_tensor(rb, device),
+        segments=_live_segments(rb, n_rt, device, seg_steps),
+        n_tile_steps=int((tile >= 0).sum()), n_dead_tile_steps=n_dead_tile_steps,
+    )
+
+
+def _live_segments(rb_of_live: np.ndarray, n_rt: int, device, seg_steps: int) -> RunSegments:
+    """Segments over the live list, longest first: the persistent CTAs take
+    work items in turn, so the long ones should start early."""
+    S = run_segments(rb_of_live, n_rt, "cpu", seg_steps=seg_steps)
+    order = torch.argsort(S.seg_hi - S.seg_lo, descending=True, stable=True)
+    S = dataclasses.replace(
+        S, **{k: getattr(S, k)[order] for k in ("seg_rb", "seg_lo", "seg_hi", "seg_part")}
+    )
+    return S.to(device)
+
+
+def recut_live_schedule(L: LiveSchedule, n_rt: int, seg_steps: int) -> LiveSchedule:
+    """``L`` with its runs cut into segments of at most ``seg_steps`` live
+    steps (the sweep of ``RING_SEG_STEPS``)."""
+    return dataclasses.replace(
+        L, segments=_live_segments(_np(L.rb), n_rt, L.step.device, seg_steps)
+    )
+
+
+@dataclasses.dataclass(frozen=True)
 class BSRMatrix:
     """Nonempty dense tiles of a sparse matrix, sorted by (rb, cb).
 
     ``tiles`` is [T, tb, tb] (bf16/f32 values or int8 {0,1} masks) or
     uint8 [T, tb, tb/8] (1-bit packed masks: byte i, bit j of a row holds
-    column ``j*(tb/8) + i``). ``segments`` is the K1 launch schedule over
-    the tile runs.
+    column ``j*(tb/8) + i``). ``segments`` is the launch schedule over
+    the tile runs, every tile included (K3-K7, K10, K12 and the
+    single-stage K1).
+
+    ``live`` [T] marks the tiles an edge with a value produced; the others
+    are the zero cover tiles of ``cover_rows`` / ``cover_cols``. A set flag
+    promises nothing (values may cancel, a value map may send them to 0);
+    a clear flag promises an all-zero tile, and stays true under any
+    elementwise map with fn(0) == 0 (``map_adjacency_vals``). ``ring`` is
+    the ring K1's schedule over the live tiles alone.
 
     ``col_perm`` lists the tiles in column order (stable argsort of
     ``tile_cb``, the walk of the TPU column pass ``_bwd_col_pass``) and
@@ -139,6 +226,8 @@ class BSRMatrix:
     segments: RunSegments
     col_perm: torch.Tensor  # int32[T]
     col_segments: RunSegments
+    live: torch.Tensor  # bool[T]
+    ring: LiveSchedule
 
     @property
     def num_tiles(self) -> int:
@@ -158,16 +247,25 @@ class BSRMatrix:
             tile_cb=self.tile_cb.to(device), segments=self.segments.to(device),
             col_perm=self.col_perm.to(device),
             col_segments=self.col_segments.to(device),
+            live=self.live.to(device), ring=self.ring.to(device),
         )
 
 
-def _schedules(tile_rb: np.ndarray, tile_cb: np.ndarray, n_rows: int, n_cols: int,
-               tb: int, device) -> dict:
+def _schedules(tile_rb: np.ndarray, tile_cb: np.ndarray, live: np.ndarray, n_rows: int,
+               n_cols: int, tb: int, device) -> dict:
     """The row-run and column-run launch schedules of a (rb, cb)-sorted
-    tile set (host)."""
+    tile set and the live-tile schedule of the ring K1 (host)."""
     col_perm = np.argsort(tile_cb, kind="stable")
+    n_rt = _round_up(n_rows, tb) // tb
+    live = np.asarray(live, bool)
     return dict(
-        segments=run_segments(tile_rb, _round_up(n_rows, tb) // tb, device),
+        live=_tensor(live, device),
+        ring=live_schedule(
+            tile_rb, np.where(live, np.arange(len(tile_rb)), -1), tile_cb,
+            np.full(len(tile_rb), -1), n_rt, device,
+            n_dead_tile_steps=int((~live).sum()),
+        ),
+        segments=run_segments(tile_rb, n_rt, device),
         col_perm=_tensor(col_perm.astype(np.int32), device),
         col_segments=run_segments(
             tile_cb[col_perm], _round_up(n_cols, tb) // tb, device
@@ -203,18 +301,19 @@ def bsr_tile_keys(
     return uniq
 
 
-def _bsr(tiles, uniq, A: SparseMatrix, tb: int, device) -> BSRMatrix:
+def _bsr(tiles, uniq, live, A: SparseMatrix, tb: int, device) -> BSRMatrix:
     tile_rb = (uniq >> 32).astype(np.int32)
     tile_cb = (uniq & 0xFFFFFFFF).astype(np.int32)
     if len(uniq) == 0:
         tile_rb = np.zeros(1, np.int32)
         tile_cb = np.zeros(1, np.int32)
+        live = np.zeros(1, bool)
     return BSRMatrix(
         tiles=tiles.to(device),
         tile_rb=_tensor(tile_rb, device),
         tile_cb=_tensor(tile_cb, device),
         n_rows=A.n_rows, n_cols=A.n_cols, tb=tb,
-        **_schedules(tile_rb, tile_cb, A.n_rows, A.n_cols, tb, device),
+        **_schedules(tile_rb, tile_cb, live, A.n_rows, A.n_cols, tb, device),
     )
 
 
@@ -243,9 +342,12 @@ def bsr_from_sparse(
     uniq = bsr_tile_keys(A, tb, cover_rows=cover_rows, cover_cols=cover_cols)
     T = max(len(uniq), 1)
     tiles = torch.full((T, tb, tb), -shift if shift else 0, dtype=dtype)
+    # shifted tiles hold -shift everywhere: every one of them is live
+    live = np.full(T, bool(shift))
     if len(v):
         # duplicate-safe scatter in bounded f32 batches of tiles
         inv = np.searchsorted(uniq, key)
+        live[inv[v > 0 if mask else v != 0]] = True
         idx = (inv * tb + r % tb) * tb + (c % tb)
         order = np.argsort(idx, kind="stable")
         sidx, sv = idx[order], v[order]
@@ -263,7 +365,7 @@ def bsr_from_sparse(
             buf[bi[st]] = np.add.reduceat(sv[lo:hi], st)
             buf = torch.from_numpy(buf.reshape(b1 - b0, tb, tb))
             tiles[b0:b1] = (buf > 0).to(dtype) if mask else (buf - shift).to(dtype)
-    return _bsr(tiles, uniq, A, tb, device)
+    return _bsr(tiles, uniq, live, A, tb, device)
 
 
 def bsr_mask_from_sparse(
@@ -295,14 +397,16 @@ def bsr_bitmask_from_sparse(
     T = max(len(uniq), 1)
     nb = tb // 8
     packed = np.zeros((T, tb, nb), np.uint8)
+    live = np.zeros(T, bool)
     if len(r):
         inv = np.searchsorted(uniq, (r // tb) << 32 | (c // tb))
+        live[inv] = True
         lc = c % tb
         np.bitwise_or.at(
             packed, (inv, r % tb, lc % nb),
             (np.uint8(1) << (lc // nb).astype(np.uint8)),
         )
-    return _bsr(torch.from_numpy(packed), uniq, A, tb, device)
+    return _bsr(torch.from_numpy(packed), uniq, live, A, tb, device)
 
 
 def unpack_mask01_tile(t: torch.Tensor, tb: int, dtype=torch.float32) -> torch.Tensor:
@@ -329,7 +433,8 @@ def bsr_transpose(B: BSRMatrix) -> BSRMatrix:
         tile_rb=tile_rb,
         tile_cb=tile_cb,
         n_rows=B.n_cols, n_cols=B.n_rows, tb=B.tb,
-        **_schedules(_np(tile_rb), _np(tile_cb), B.n_cols, B.n_rows, B.tb, B.tiles.device),
+        **_schedules(_np(tile_rb), _np(tile_cb), _np(B.live[order]), B.n_cols, B.n_rows,
+                     B.tb, B.tiles.device),
     )
 
 
@@ -432,14 +537,92 @@ def _ptr(t: Optional[torch.Tensor]):
     return ctypes.c_void_p(t.data_ptr() if t is not None else None)
 
 
-def bsr_spmm(B: BSRMatrix, H: torch.Tensor) -> torch.Tensor:
-    """K1: out = A @ H over the tiles of ``B``, f32 [n_rows, P] (bf16
-    operands, f32 accumulation). A CPU tensor runs ``bsr_spmm_plain``; a
-    CUDA tensor launches ``csrc/bsr_spmm.cu`` or raises."""
-    if H.device.type == "cpu":
-        return bsr_spmm_plain(B, H)
-    if H.device.type != "cuda":
-        raise ValueError(f"bsr_spmm runs on cpu or cuda, not {H.device}")
+def ring_shape_ok(mode: int, tb: int, P: int, K: Optional[int] = None) -> bool:
+    """Whether the ring kernels (csrc/tile_ring.cuh) take these operands:
+    int8 or bf16 tiles, a tile height of 64, 128, 192 or 256 (one CTA owns
+    the whole height; a stage is 64 deep), feature rows of whole 16-byte
+    pieces, chunks of whole stages. Everything else goes to the
+    single-stage kernels. The rule reads shapes and the tile form only."""
+    return (
+        mode in (_TILE_MODES[torch.bfloat16], _TILE_MODES[torch.int8])
+        and tb % 64 == 0 and tb <= 256 and P % 8 == 0
+        and (K is None or K % 64 == 0)
+    )
+
+
+def stage_h_plain(
+    H: torch.Tensor, colscale: Optional[torch.Tensor], rows: int, n_valid: int
+) -> torch.Tensor:
+    """Plain PyTorch version of the ring kernels' pre-pass: the B operand
+    rounded once, ``Hs = bf16(bf16(H) * bf16(colscale))`` (``bf16(H)``
+    without a column scale), bf16 [rows, P] with zero rows from
+    ``n_valid`` on."""
+    Hs = torch.zeros((rows, H.shape[1]), dtype=torch.bfloat16, device=H.device)
+    h = H[:n_valid].to(torch.bfloat16)
+    if colscale is not None:
+        cs = colscale[:n_valid].to(torch.bfloat16).to(torch.float32)
+        h = (h.to(torch.float32) * cs[:, None]).to(torch.bfloat16)
+    Hs[:n_valid] = h
+    return Hs
+
+
+def _stage_h(H: torch.Tensor, colscale: Optional[torch.Tensor], rows: int, n_valid: int) -> torch.Tensor:
+    """The ring kernels' B operand on the card: ``stage_h_plain``'s result
+    by the pre-pass kernel of csrc/tile_ring.cuh, or H itself when it
+    already is that matrix (bf16, unscaled, exactly ``rows`` valid rows)."""
+    if H.dtype == torch.bfloat16 and colscale is None and n_valid == rows and H.shape[0] >= rows:
+        return H
+    if H.data_ptr() % 16:
+        raise ValueError("the ring kernels need H aligned to 16 bytes")
+    Hs = torch.empty((rows, H.shape[1]), dtype=torch.bfloat16, device=H.device)
+    err = _cuda.library().sg_stage_h(
+        _ptr(H), int(H.dtype == torch.bfloat16), n_valid, _ptr(colscale), _ptr(Hs), rows,
+        H.shape[1], ctypes.c_void_p(torch.cuda.current_stream(H.device).cuda_stream),
+    )
+    _cuda.check(err, "stage_h")
+    return Hs
+
+
+def _launch_ring(
+    name: str, B: BSRMatrix, L: LiveSchedule, H: torch.Tensor, out_dtype, *,
+    colscale=None, rowscale=None, lrow=None, slot_col=None, slot_scale=None, K: int = 0,
+) -> torch.Tensor:
+    """Stage H and launch the ring kernel ``sg_<name>`` over the live
+    schedule ``L`` (K1: tiles only; K2: with the chunk arrays and
+    scalings). With a column scale the chunk rows are ``Hs`` rows as they
+    are (rank-1 mode: ``slot_scale == colscale[slot_col]``); without one
+    they are scaled by ``slot_scale`` in the kernel."""
+    mode = _tile_mode(B.tiles, B.tb)
+    _h_operand(H, B.n_cols, B.tb)
+    S = L.segments
+    ints = dict(step=L.step, lrow=lrow, slot_col=slot_col, **S.tensors())
+    floats = dict(colscale=colscale, rowscale=rowscale, slot_scale=slot_scale)
+    _check_cuda_operands(dict(tiles=B.tiles, **ints, **floats), H.device)
+    for k, t in ints.items():
+        if t is not None and t.dtype != torch.int32:
+            raise ValueError(f"{k} must be int32, got {t.dtype}")
+    for k, t in floats.items():
+        if t is not None and t.dtype != torch.float32:
+            raise ValueError(f"{k} must be float32, got {t.dtype}")
+    tb, P = B.tb, H.shape[1]
+    n_ct = _round_up(B.n_cols, tb) // tb
+    Hs = _stage_h(H, colscale, n_ct * tb, B.n_cols)
+    out = torch.empty((B.n_rows, P), dtype=out_dtype, device=H.device)
+    partial = torch.empty((max(S.n_part, 1), tb, P), dtype=torch.float32, device=H.device)
+    err = getattr(_cuda.library(), "sg_" + name)(
+        _ptr(B.tiles), mode, tb, B.tiles.shape[0], *_seg_args(S), _ptr(L.step),
+        _ptr(lrow), _ptr(slot_col), _ptr(slot_scale if colscale is None else None), K,
+        _ptr(rowscale), _ptr(Hs), Hs.shape[0], P, _ptr(out), _ptr(partial), B.n_rows,
+        torch.cuda.get_device_properties(H.device).multi_processor_count,
+        ctypes.c_void_p(torch.cuda.current_stream(H.device).cuda_stream),
+    )
+    _cuda.check(err, name)
+    return out
+
+
+def _bsr_spmm_single(B: BSRMatrix, H: torch.Tensor) -> torch.Tensor:
+    """K1 by the single-stage kernel ``csrc/bsr_spmm.cu``: every tile form,
+    every tile of ``B.segments``."""
     mode = _tile_mode(B.tiles, B.tb)
     is_bf16, vec = _h_operand(H, B.n_cols, B.tb)
     S = B.segments
@@ -460,10 +643,36 @@ def bsr_spmm(B: BSRMatrix, H: torch.Tensor) -> torch.Tensor:
     )
     _cuda.check(err, "bsr_spmm")
     bsr_spmm.launches += 1
+    bsr_spmm.launches_single += 1
     return out
 
 
+def _bsr_spmm_ring(B: BSRMatrix, H: torch.Tensor) -> torch.Tensor:
+    """K1 by the ring kernel ``csrc/bsr_spmm_ring.cu`` over ``B.ring``."""
+    out = _launch_ring("bsr_spmm_ring", B, B.ring, H, torch.float32)
+    bsr_spmm.launches += 1
+    bsr_spmm.launches_ring += 1
+    return out
+
+
+def bsr_spmm(B: BSRMatrix, H: torch.Tensor) -> torch.Tensor:
+    """K1: out = A @ H over the tiles of ``B``, f32 [n_rows, P] (bf16
+    operands, f32 accumulation). A CPU tensor runs ``bsr_spmm_plain``; a
+    CUDA tensor launches the ring kernel where ``ring_shape_ok`` holds,
+    else the single-stage kernel, or raises. ``launches`` counts both;
+    ``launches_ring`` / ``launches_single`` each one."""
+    if H.device.type == "cpu":
+        return bsr_spmm_plain(B, H)
+    if H.device.type != "cuda":
+        raise ValueError(f"bsr_spmm runs on cpu or cuda, not {H.device}")
+    if H.dim() == 2 and ring_shape_ok(_tile_mode(B.tiles, B.tb), B.tb, H.shape[1]):
+        return _bsr_spmm_ring(B, H)
+    return _bsr_spmm_single(B, H)
+
+
 bsr_spmm.launches = 0
+bsr_spmm.launches_ring = 0
+bsr_spmm.launches_single = 0
 
 
 # ------------------------------------------------------------ kernel K10

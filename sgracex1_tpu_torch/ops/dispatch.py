@@ -33,15 +33,17 @@ there), else the hybrid split at ``DEFAULT_GAT_TB`` /
 ``DEFAULT_GAT_REST_THRESH`` — unmeasured starting points.
 
 ``map_adjacency_vals`` remaps the values of every representation (the
-quantized layers' adjacency quantizer); it needs value tiles, which
-``prepare_from_config`` keeps for ``fake_quantization`` configs.
+quantized layers' adjacency quantizer), each at its first read; it needs
+value tiles, which ``prepare_from_config`` keeps for ``fake_quantization``
+configs.
 
 ``agg_matmul`` is differentiable (``_Agg``): on fused preps the gradient
 of ``H`` is K2 on the transposed plan ``fused_t``, with ``fuse=False`` K1
 on the transposed tiles ``bsr_t``, on the ``pallas`` kind K9 on ``plan_t``; the rank-1 scalings and the remainder
 scatter stay plain torch ops around the tile kernel, as in the JAX
-package. A backward through a prep built with
-``build_transpose=False`` raises.
+package. A backward through a bsr or hybrid prep built with
+``build_transpose=False`` raises (the ``pallas`` kind always holds
+``plan_t``, as in the JAX package).
 """
 
 from __future__ import annotations
@@ -188,10 +190,11 @@ def prepare_adjacency(
 
     ``rank1`` detects a diagonal factorization of the edge values
     (``graph/normalize.rank1_factor``) and then stores mask tiles.
-    ``build_transpose=False`` skips the transposed plans that only a
-    backward reads. ``fuse=False`` runs the tile kernel K1 plus a remainder
-    scatter instead of the fused kernel K2; it keeps f32 accumulation where
-    K2 writes bf16.
+    ``build_transpose=False`` skips the transposed tiles and fused plans
+    that only a backward reads; the ``pallas`` kind builds ``plan_t``
+    whatever the flag, as the JAX package does. ``fuse=False`` runs the
+    tile kernel K1 plus a remainder scatter instead of the fused kernel K2;
+    it keeps f32 accumulation where K2 writes bf16.
 
     ``for_gat`` attaches the flash-GAT layout unless the prep's own tiles
     already serve (``flash_tiles``). ``gat_tb`` / ``gat_rest_thresh``
@@ -218,7 +221,7 @@ def prepare_adjacency(
         tiling = dict(rb=rb, cb=cb, be=be, device=device)
         return finish(PreparedAdjacency(
             A=A_dev, kind="pallas", plan=plan_spmm(A, **tiling),
-            plan_t=plan_spmm(A.transpose(), **tiling) if build_transpose else None,
+            plan_t=plan_spmm(A.transpose(), **tiling),
         ))
     if method == "dense":
         d = torch.from_numpy(A.to_dense().astype(np.float32))
@@ -344,27 +347,31 @@ def prepare_from_config(
 
 class _Agg(torch.autograd.Function):
     """out = A @ H by ``kernel`` on ``op``; grad_H = A^T @ g by the same
-    kernel on the transposed ``op_t``, cast to H's dtype and padded to H's
+    kernel on the transposed operand, cast to H's dtype and padded to H's
     rows (JAX ``dispatch._fused_agg`` with K2, ``_bsr_agg`` with K1,
-    ``_pallas_agg`` with K9)."""
+    ``_pallas_agg`` with K9). The transposed operand is the field
+    ``name_t`` of ``prep``, read in the backward only: a forward never
+    touches it (a remapped prep computes it at that read)."""
 
     @staticmethod
-    def forward(ctx, kernel, op, op_t, H):
-        ctx.kernel, ctx.op_t, ctx.n_h, ctx.h_dtype = kernel, op_t, H.shape[0], H.dtype
+    def forward(ctx, kernel, op, prep, name_t, H):
+        ctx.kernel, ctx.prep, ctx.name_t = kernel, prep, name_t
+        ctx.n_h, ctx.h_dtype = H.shape[0], H.dtype
         return kernel(op, H)
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, g):
-        if ctx.op_t is None:
+        op_t = getattr(ctx.prep, ctx.name_t)
+        if op_t is None:
             raise ValueError(
                 "backward through a prep built with build_transpose=False; "
                 "re-prepare with build_transpose=True for training"
             )
-        gH = ctx.kernel(ctx.op_t, g.contiguous()).to(ctx.h_dtype)
+        gH = ctx.kernel(op_t, g.contiguous()).to(ctx.h_dtype)
         if gH.shape[0] < ctx.n_h:
             gH = torch.cat([gH, gH.new_zeros((ctx.n_h - gH.shape[0], gH.shape[1]))])
-        return None, None, None, gH[: ctx.n_h]
+        return None, None, None, None, gH[: ctx.n_h]
 
 
 def agg_matmul(prep: PreparedAdjacency, H: torch.Tensor) -> torch.Tensor:
@@ -377,10 +384,10 @@ def agg_matmul(prep: PreparedAdjacency, H: torch.Tensor) -> torch.Tensor:
         )
         return out[: prep.A.n_rows].to(H.dtype)
     if prep.kind == "pallas":
-        return _Agg.apply(spmm_plan, prep.plan, prep.plan_t, H).to(H.dtype)
+        return _Agg.apply(spmm_plan, prep.plan, prep, "plan_t", H).to(H.dtype)
     if prep.kind in ("bsr", "hybrid"):
         if prep.fused is not None:
-            return _Agg.apply(bsr_spmm_fused, prep.fused, prep.fused_t, H).to(H.dtype)
+            return _Agg.apply(bsr_spmm_fused, prep.fused, prep, "fused_t", H).to(H.dtype)
         return _bsr_agg_scaled(prep, H, rest=prep.rest).to(H.dtype)
     return spmm(prep.A, H)
 
@@ -407,11 +414,6 @@ class _AggVals(torch.autograd.Function):
         A, g = ctx.A, g.contiguous()
         gH = gv = None
         if ctx.needs_input_grad[4]:
-            if ctx.plan_t is None:
-                raise ValueError(
-                    "backward through a prep built with build_transpose=False; "
-                    "re-prepare with build_transpose=True for training"
-                )
             gH = spmm_plan(plan_with_vals(ctx.plan_t, vals), g).to(H.dtype)
             if gH.shape[0] < H.shape[0]:
                 gH = torch.cat([gH, gH.new_zeros((H.shape[0] - gH.shape[0], gH.shape[1]))])
@@ -452,12 +454,12 @@ def _bsr_agg_scaled(
     # the remainder adds out of place: K1's output is a custom Function's
     # and may be a view, which autograd does not let an in-place op change
     if prep.r1_row is None:
-        out = _Agg.apply(bsr_spmm, prep.bsr, prep.bsr_t, H)
+        out = _Agg.apply(bsr_spmm, prep.bsr, prep, "bsr_t", H)
         if rest is not None:
             out = out + spmm_into(rest, H, torch.zeros_like(out))
         return out
     Hs = H * prep.r1_col[: H.shape[0], None].to(H.dtype)
-    out = _Agg.apply(bsr_spmm, prep.bsr, prep.bsr_t, Hs)
+    out = _Agg.apply(bsr_spmm, prep.bsr, prep, "bsr_t", Hs)
     if rest is not None:
         r = rest.rows[: rest.nnz]
         c = rest.cols[: rest.nnz]
@@ -465,14 +467,42 @@ def _bsr_agg_scaled(
     return out * prep.r1_row[: out.shape[0], None]
 
 
+class _Pending:
+    """A remapped representation that no one has read yet."""
+
+    __slots__ = ("make",)
+
+    def __init__(self, make: Callable):
+        self.make = make
+
+
+class _RemappedAdjacency(PreparedAdjacency):
+    """The result of ``map_adjacency_vals``: every remapped representation
+    is computed at its first read and kept. Eager PyTorch runs what it is
+    told, so remapping all of them up front would rewrite tile sets that
+    the call never reads (the transposed tiles in a forward, the
+    aggregation tiles under a flash-GAT layer); traced JAX drops those."""
+
+    def __getattribute__(self, name):
+        v = object.__getattribute__(self, name)
+        if type(v) is _Pending:
+            with torch.no_grad():
+                v = v.make()
+            object.__setattr__(self, name, v)  # the dataclass is frozen
+        return v
+
+
 def map_adjacency_vals(
     prep: PreparedAdjacency, fn: Callable[[torch.Tensor], torch.Tensor]
 ) -> PreparedAdjacency:
     """Apply an elementwise function to the adjacency values of every
     backend representation (the layers fake-quantize the adjacency with
-    it; ``fn`` must map 0 -> 0 so dense zeros and padding stay zero). It
-    runs on each representation in that one's own dtype, bf16 tiles in
-    bf16, without gradients: the adjacency is data.
+    it; ``fn`` must map 0 -> 0 so dense zeros and padding stay zero, and
+    the tiles' ``live`` flags stay valid). It runs on each representation
+    in that one's own dtype, bf16 tiles in bf16, without gradients: the
+    adjacency is data. Each representation is remapped when it is first
+    read from the result, and only then: a forward does not pay for the
+    transposed tiles, which the backward reads.
 
     The fused schedules embed tile values and remainder slot scales, so
     they are dropped and aggregation runs K1 on the remapped value tiles
@@ -481,30 +511,36 @@ def map_adjacency_vals(
     the remapped values cannot live in {0,1} tiles: this warns and
     degrades to the edge path for the call (prepare with ``rank1=False``,
     as ``prepare_from_config`` does for ``fake_quantization``)."""
-    with torch.no_grad():
-        A = prep.A.with_vals(fn(torch.as_tensor(prep.A.vals)))
-        if prep.r1_row is not None:
-            warnings.warn(
-                "map_adjacency_vals on a rank-1 mask-tile backend: remapped "
-                "values cannot live in {0,1} tiles, so plain aggregation falls "
-                "back to the edge path for this layer. Prepare the adjacency "
-                "with prepare_adjacency(..., rank1=False) (or "
-                "prepare_from_config, which does this for fake_quantization "
-                "configs) to keep the tile kernels.",
-                stacklevel=2,
-            )
-            return dataclasses.replace(
-                prep, A=A, dense=None, plan=None, plan_t=None, bsr=None,
-                bsr_t=None, rest=None, r1_row=None, r1_col=None, fused=None,
-                fused_t=None, kind="xla",
-            )
-        tiles = lambda B: None if B is None else dataclasses.replace(B, tiles=fn(B.tiles))
-        plan = lambda p: None if p is None else dataclasses.replace(p, val=fn(p.val))
-        rest = prep.rest
-        if rest is not None:
-            rest = rest.with_vals(fn(torch.as_tensor(rest.vals)))
-        return dataclasses.replace(
-            prep, A=A, dense=None if prep.dense is None else fn(prep.dense),
-            plan=plan(prep.plan), plan_t=plan(prep.plan_t), bsr=tiles(prep.bsr), bsr_t=tiles(prep.bsr_t), rest=rest,
-            fused=None, fused_t=None,
+    if prep.r1_row is not None:
+        warnings.warn(
+            "map_adjacency_vals on a rank-1 mask-tile backend: remapped "
+            "values cannot live in {0,1} tiles, so plain aggregation falls "
+            "back to the edge path for this layer. Prepare the adjacency "
+            "with prepare_adjacency(..., rank1=False) (or "
+            "prepare_from_config, which does this for fake_quantization "
+            "configs) to keep the tile kernels.",
+            stacklevel=2,
         )
+        with torch.no_grad():
+            A = prep.A.with_vals(fn(torch.as_tensor(prep.A.vals)))
+        return dataclasses.replace(
+            prep, A=A, dense=None, plan=None, plan_t=None, bsr=None,
+            bsr_t=None, rest=None, r1_row=None, r1_col=None, fused=None,
+            fused_t=None, kind="xla",
+        )
+    remap = {
+        "A": lambda A: A.with_vals(fn(torch.as_tensor(A.vals))),
+        "dense": fn,
+        "plan": lambda p: dataclasses.replace(p, val=fn(p.val)),
+        "plan_t": lambda p: dataclasses.replace(p, val=fn(p.val)),
+        "bsr": lambda B: dataclasses.replace(B, tiles=fn(B.tiles)),
+        "bsr_t": lambda B: dataclasses.replace(B, tiles=fn(B.tiles)),
+        "rest": lambda r: r.with_vals(fn(torch.as_tensor(r.vals))),
+    }
+    fields = {f.name: object.__getattribute__(prep, f.name) for f in dataclasses.fields(prep)}
+    for name, make in remap.items():
+        if fields[name] is not None:
+            # read from ``prep`` when asked: it may itself be pending there
+            fields[name] = _Pending(lambda name=name, make=make: make(getattr(prep, name)))
+    fields.update(fused=None, fused_t=None)
+    return _RemappedAdjacency(**fields)

@@ -11,9 +11,13 @@ remainder edges, each a pre-scaled H row ``G = H[slot_col] * slot_scale``
 landing on local row ``lrow``; kind 3 does both. The row scale applies once
 per row block at the end, and the output is written in bf16.
 
-Kernel K2, ``bsr_spmm_fused``: on a CUDA tensor it launches the
-hand-written kernel in ``csrc/fused_agg.cu``; on a CPU tensor it runs
-``bsr_spmm_fused_plain``, the plain PyTorch version of the same function.
+Kernel K2, ``bsr_spmm_fused``: on a CUDA tensor it launches a hand-written
+kernel: the ring kernel ``csrc/fused_agg_ring.cu`` for int8 and bf16 tiles
+at the shapes ``ops/bsr.ring_shape_ok`` names (the scaled H staged once in
+bf16, only the live steps of ``FusedAggPlan.ring``, a multi-stage
+shared-memory ring), else the single-stage kernel ``csrc/fused_agg.cu``; on a
+CPU tensor it runs ``bsr_spmm_fused_plain``, the plain PyTorch version of
+the same function.
 
 Kernel K11, ``bsr_spmm_fused_k``: K2 taking ``plan.k_steps`` schedule
 entries per loop iteration on a plan built with ``k_steps=k``, as
@@ -41,12 +45,14 @@ from sgracex1_tpu_torch.graph.csr import SparseMatrix, _np, _round_up
 from sgracex1_tpu_torch.ops import _cuda
 from sgracex1_tpu_torch.ops.bsr import (
     BSRMatrix,
+    LiveSchedule,
     RunSegments,
     _check_cuda_operands,
     _h_block_rows,
     _hq_blocks,
     _int8_launch_args,
     _h_operand,
+    _launch_ring,
     _ptr,
     _seg_args,
     _tensor,
@@ -54,6 +60,8 @@ from sgracex1_tpu_torch.ops.bsr import (
     _tile_products,
     _tile_products_int8,
     SEG_STEPS,
+    live_schedule,
+    ring_shape_ok,
     run_segments,
 )
 
@@ -73,8 +81,12 @@ class FusedAggPlan:
     chunk's local output rows (``tb`` marks a dead slot); ``slot_col`` /
     ``slot_scale`` [R*K] drive ``G = H[slot_col] * slot_scale``.
     ``colscale`` [n_ct*tb] / ``rowscale`` [n_rt*tb] are the rank-1
-    scalings (None in value mode). ``segments`` is the K2 launch schedule
-    over the step runs."""
+    scalings (None in value mode); with them ``slot_scale`` equals
+    ``colscale[slot_col]``, which lets the ring K2 read a chunk row from the
+    same scaled H as a tile's block. ``segments`` is the launch schedule
+    over the step runs, every step included (K6, K8, K11 and the
+    single-stage K2); ``ring`` is the ring K2's schedule over the steps
+    that do work: tile products on live tiles and chunks with a live slot."""
 
     B: BSRMatrix
     step_rb: torch.Tensor  # int32[S+1]
@@ -90,6 +102,7 @@ class FusedAggPlan:
     K: int
     num_rest_chunks: int  # true remainder chunks (0 without a remainder)
     segments: RunSegments
+    ring: LiveSchedule
     # schedule entries per loop iteration of ``bsr_spmm_fused_k``: every
     # row-block run is padded to a multiple of it with dead chunk steps
     k_steps: int = 1
@@ -275,6 +288,22 @@ def build_fused_plan(
             s_rb = np.r_[s_rb[src], np.int32(n_rt)].astype(np.int32)
             S = len(src)
 
+    # the ring K2's schedule: a tile product only on a live tile, a chunk
+    # only where a slot is live (the k_steps pads are not) and only up to
+    # its last live slot (the live slots lead, so a chunk that is half full
+    # costs half the reduction depth)
+    live = _np(B.live)[s_tile]
+    tile_step = s_kind != 1
+    slot_live = lrow < tb
+    last_live = np.where(slot_live.any(axis=1), K - np.argmax(slot_live[:, ::-1], axis=1), 0)
+    chunk_live = (last_live[s_chunk] > 0) & (s_kind >= 1)
+    ring = live_schedule(
+        s_rb[:S], np.where(tile_step & live, s_tile, -1), s_cb,
+        np.where(chunk_live, s_chunk, -1), n_rt, B.tiles.device,
+        n_dead_tile_steps=int((tile_step & ~live).sum()),
+        chunk_slots=np.where(chunk_live, last_live[s_chunk], 0),
+    )
+
     device = B.tiles.device
     colscale = rowscale = None
     if rank1:
@@ -302,6 +331,7 @@ def build_fused_plan(
             s_rb[:S], n_rt, device,
             seg_steps=max(SEG_STEPS // k_steps, 1) * k_steps,
         ),
+        ring=ring,
         k_steps=k_steps,
     )
 
@@ -391,20 +421,48 @@ def _launch_fused(name: str, plan: FusedAggPlan, H: torch.Tensor, k_steps: int) 
     return out
 
 
+def _bsr_spmm_fused_single(plan: FusedAggPlan, H: torch.Tensor) -> torch.Tensor:
+    """K2 by the single-stage kernel ``csrc/fused_agg.cu``: every tile
+    form, every step of ``plan.segments``."""
+    out = _launch_fused("bsr_spmm_fused", plan, H, 1)
+    bsr_spmm_fused.launches += 1
+    bsr_spmm_fused.launches_single += 1
+    return out
+
+
+def _bsr_spmm_fused_ring(plan: FusedAggPlan, H: torch.Tensor) -> torch.Tensor:
+    """K2 by the ring kernel ``csrc/fused_agg_ring.cu`` over ``plan.ring``."""
+    if plan.lrow.shape != (plan.num_chunks, plan.K):
+        raise ValueError(f"lrow must be [R, K], got {tuple(plan.lrow.shape)}")
+    out = _launch_ring(
+        "fused_agg_ring", plan.B, plan.ring, H, torch.bfloat16,
+        colscale=plan.colscale, rowscale=plan.rowscale, lrow=plan.lrow,
+        slot_col=plan.slot_col, slot_scale=plan.slot_scale, K=plan.K,
+    )
+    bsr_spmm_fused.launches += 1
+    bsr_spmm_fused.launches_ring += 1
+    return out
+
+
 def bsr_spmm_fused(plan: FusedAggPlan, H: torch.Tensor) -> torch.Tensor:
     """K2: out = A @ H for the plan's tiles, remainder and scalings, bf16
     [n_rows, P]. A CPU tensor runs ``bsr_spmm_fused_plain``; a CUDA tensor
-    launches ``csrc/fused_agg.cu`` or raises."""
+    launches the ring kernel where ``ring_shape_ok`` holds, else the
+    single-stage kernel, or raises. ``launches`` counts both;
+    ``launches_ring`` / ``launches_single`` each one."""
     if H.device.type == "cpu":
         return bsr_spmm_fused_plain(plan, H)
     if H.device.type != "cuda":
         raise ValueError(f"bsr_spmm_fused runs on cpu or cuda, not {H.device}")
-    out = _launch_fused("bsr_spmm_fused", plan, H, 1)
-    bsr_spmm_fused.launches += 1
-    return out
+    B = plan.B
+    if H.dim() == 2 and ring_shape_ok(_tile_mode(B.tiles, B.tb), B.tb, H.shape[1], plan.K):
+        return _bsr_spmm_fused_ring(plan, H)
+    return _bsr_spmm_fused_single(plan, H)
 
 
 bsr_spmm_fused.launches = 0
+bsr_spmm_fused.launches_ring = 0
+bsr_spmm_fused.launches_single = 0
 
 
 # ------------------------------------------------------------ kernel K11

@@ -515,3 +515,170 @@ def test_variant_wrappers_run_plain_on_cpu_and_raise_elsewhere():
         with pytest.raises(ValueError, match="cpu or cuda"):
             kern(*args[:i], args[i].to("meta"), *args[i + 1:])
     assert [k.launches for k in counters] == before
+
+
+# --------------------------------------------------- the ring K1 and K2
+
+
+def _ring_graph(n, tb, weighted, seed):
+    """Hub rows and columns (dense tiles, a run longer than RING_SEG_STEPS
+    in row block 0 at tb <= 128) and random edges (a remainder); block 2
+    and block 5 hold no edge at all (zeros must be written), block 4 only
+    sparse edges (a row block whose work is a chunk alone)."""
+    rng = np.random.default_rng(seed)
+    hub = np.stack([rng.integers(0, 60, 25 * n), rng.integers(0, n, 25 * n)])
+    ei = np.unique(np.concatenate([rng.integers(0, n, (2, 3 * n)), hub, hub[::-1]], axis=1), axis=1)
+    ei = ei[:, (ei // tb != 2).all(axis=0) & (ei // tb != 5).all(axis=0)]
+    ei = ei[:, ~((ei[0] // tb == 4) & (ei[1] < 60)) & ~((ei[1] // tb == 4) & (ei[0] < 60))]
+    if not weighted:
+        return pt.sym_norm(ei, n, fill=0.0)
+    v = rng.uniform(0.5, 2.0, ei.shape[1]).astype(np.float32)
+    return SparseMatrix.from_coo(ei[0], ei[1], v, (n, n))
+
+
+RING_SHAPES = [(64, 8), (64, 200), (128, 64), (128, 128), (256, 128), (256, 200), (192, 8), (256, 264)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tb,P", RING_SHAPES)
+@pytest.mark.parametrize("form", ["int8", "values"])
+def test_ring_k1_matches_plain(cuda_device, form, tb, P):
+    """The ring K1 (and the single-stage K1 on the same operands) against
+    the plain version at 1e-3: each tile mode it takes, tile heights 64 to
+    256, P from one 16-byte piece to three feature slices, a run split over
+    several work items, row blocks without a live tile; forward and
+    transposed; f32 and bf16 H."""
+    n = 20 * tb + 37
+    A = _ring_graph(n, tb, weighted=form == "values", seed=tb + P)
+    B = K1.bsr_from_sparse(A, tb=tb, mask=form == "int8", cover_rows=True, cover_cols=True, device=cuda_device)
+    assert K1.ring_shape_ok(K1._tile_mode(B.tiles, tb), tb, P)
+    assert (~B.live).any() and not B.live[B.tile_rb == 2].any()
+    if tb <= 128:
+        assert B.ring.segments.n_fin > 0  # row block 0's run is longer than RING_SEG_STEPS
+    for M in (B, K1.bsr_transpose(B)):
+        for hdtype in (torch.float32, torch.bfloat16):
+            H = torch.randn(M.n_cols, P, device=cuda_device).to(hdtype)
+            ref = K1.bsr_spmm_plain(M, H)
+            before = (K1.bsr_spmm.launches, K1.bsr_spmm.launches_ring, K1.bsr_spmm.launches_single)
+            out = K1.bsr_spmm(M, H)
+            torch.cuda.synchronize()
+            after = (K1.bsr_spmm.launches, K1.bsr_spmm.launches_ring, K1.bsr_spmm.launches_single)
+            assert after == (before[0] + 1, before[1] + 1, before[2])
+            assert out.dtype == torch.float32 and out.shape == (M.n_rows, P)
+            torch.testing.assert_close(out, ref, rtol=1e-3, atol=1e-3)
+            assert not out[2 * tb: 3 * tb].any()  # the edgeless row block is written, with zeros
+            torch.testing.assert_close(K1._bsr_spmm_single(M, H), ref, rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tb,P", RING_SHAPES)
+@pytest.mark.parametrize("mode", ["rank1", "values"])
+@pytest.mark.parametrize("attach", [True, False])
+def test_ring_k2_matches_plain(cuda_device, mode, attach, tb, P):
+    """The ring K2 (and the single-stage K2) against the plain version at
+    2e-2 (both write bf16): rank-1 mask tiles with scalings and value tiles
+    with scaled chunk rows, chunks attached to tile steps or on their own
+    steps, a row block whose only work is a chunk, one with none, split
+    runs; forward and transposed plans as ``prepare_adjacency`` builds
+    them."""
+    n = 20 * tb + 37
+    A = _ring_graph(n, tb, weighted=mode == "values", seed=3 * tb + P)
+    prep = pt.prepare_adjacency(A, method="hybrid", tb=tb, rest_thresh=tb * tb // 256, device=cuda_device)
+    assert (prep.r1_row is not None) == (mode == "rank1") and prep.rest is not None
+    plans = [prep.fused, prep.fused_t]
+    if not attach:
+        r1 = {} if prep.r1_row is None else dict(r1_row=prep.r1_row.cpu().numpy(), r1_col=prep.r1_col.cpu().numpy())
+        plans = [K2.build_fused_plan(prep.bsr, prep.rest, attach_chunks=False, **r1)]
+    k = K2.bsr_spmm_fused
+    for plan in plans:
+        step = plan.ring.step
+        assert plan.ring.n_dead_tile_steps > 0 and (step[:, 2] >= 0).any()
+        if not attach:  # chunks on steps of their own
+            assert ((step[:, 0] < 0) & (step[:, 2] >= 0)).any()
+        assert K1.ring_shape_ok(K1._tile_mode(plan.B.tiles, tb), tb, P, plan.K)
+        for hdtype in (torch.float32, torch.bfloat16):
+            H = torch.randn(plan.B.n_cols, P, device=cuda_device).to(hdtype)
+            ref = K2.bsr_spmm_fused_plain(plan, H).float()
+            before = (k.launches, k.launches_ring, k.launches_single)
+            out = k(plan, H)
+            torch.cuda.synchronize()
+            assert (k.launches, k.launches_ring, k.launches_single) == (before[0] + 1, before[1] + 1, before[2])
+            assert out.dtype == torch.bfloat16 and out.shape == (plan.B.n_rows, P)
+            torch.testing.assert_close(out.float(), ref, rtol=2e-2, atol=2e-2)
+            assert not out[2 * tb: 3 * tb].any()
+            torch.testing.assert_close(K2._bsr_spmm_fused_single(plan, H).float(), ref, rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seg_steps", [1, 8, 64])
+def test_ring_kernels_over_segment_lengths(cuda_device, seg_steps):
+    """The same live steps cut into work items of 1, 8 and 64 steps."""
+    import dataclasses
+
+    A = _ring_graph(2600, 128, weighted=False, seed=9)
+    prep = pt.prepare_adjacency(A, method="hybrid", tb=128, rest_thresh=40, build_transpose=False,
+                                device=cuda_device)
+    H = torch.randn(2600, 128, device=cuda_device)
+    plan, B = prep.fused, prep.bsr
+    cut = dataclasses.replace(plan, ring=K1.recut_live_schedule(plan.ring, B.n_row_tiles, seg_steps))
+    torch.testing.assert_close(K2.bsr_spmm_fused(cut, H).float(), K2.bsr_spmm_fused_plain(plan, H).float(),
+                               rtol=2e-2, atol=2e-2)
+    cutB = dataclasses.replace(B, ring=K1.recut_live_schedule(B.ring, B.n_row_tiles, seg_steps))
+    torch.testing.assert_close(K1.bsr_spmm(cutB, H), K1.bsr_spmm_plain(B, H), rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.cuda
+def test_stage_h_kernel_equals_plain(cuda_device):
+    """The pre-pass is elementwise: bit-equal to its plain version, f32
+    and bf16 H, with and without the column scale, zero rows past n_valid."""
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    for P in (8, 128, 200):
+        H = torch.randn(1000, P, generator=g, device=cuda_device)
+        cs = torch.rand(1024, generator=g, device=cuda_device)
+        for h in (H, H.to(torch.bfloat16)):
+            for scale in (None, cs):
+                out = K1._stage_h(h, scale, 1024, 990)
+                torch.cuda.synchronize()
+                assert torch.equal(out, K1.stage_h_plain(h, scale, 1024, 990))
+    hb = torch.randn(1024, 64, generator=g, device=cuda_device).to(torch.bfloat16)
+    assert K1._stage_h(hb, None, 1024, 1024) is hb  # already the operand: no pass
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "form,tb,P,K,ring",
+    [("int8", 256, 128, 128, True), ("values", 64, 8, 64, True), ("int8", 128, 100, 128, False),
+     ("f32", 128, 128, 128, False), ("packed", 1024, 128, 128, False), ("int8", 128, 64, 32, False),
+     ("values", 32, 64, 128, False)],
+)
+def test_kernel_choice_reads_shape_and_tile_form_only(cuda_device, form, tb, P, K, ring):
+    """Which kernel a launch takes follows ``ring_shape_ok`` and nothing
+    else; both kernels agree with the plain version wherever they run."""
+    A = _graph(max(8 * tb, 1500), weighted=form in ("values", "f32"), seed=4)
+    part, rest = split_by_tile_density(A, tb, max(tb * tb // 400, 2))
+    cover = dict(tb=tb, cover_rows=True, cover_cols=True, device=cuda_device)
+    if form == "packed":
+        B, r1 = K1.bsr_bitmask_from_sparse(part, **cover), {}
+    else:
+        B = K1.bsr_from_sparse(part, mask=form == "int8",
+                               dtype=torch.float32 if form == "f32" else torch.bfloat16, **cover)
+    fac = pt.graph.normalize.rank1_factor(A) if form in ("int8", "packed") else None
+    r1 = dict(r1_row=fac[0], r1_col=fac[1]) if fac is not None else {}
+    if fac is not None:
+        rest = pt.ops.dispatch._drop_zero_val_edges(rest)
+    plan = K2.build_fused_plan(B, rest, K=K, attach_chunks=True, **r1)
+    assert K1.ring_shape_ok(K1._tile_mode(B.tiles, tb), tb, P, K) == ring
+    H = torch.randn(A.n_cols, P, device=cuda_device)
+    for kern, op, plain, tol in ((K2.bsr_spmm_fused, plan, K2.bsr_spmm_fused_plain, 2e-2),):
+        before = (kern.launches_ring, kern.launches_single)
+        out = kern(op, H)
+        torch.cuda.synchronize()
+        assert (kern.launches_ring - before[0], kern.launches_single - before[1]) == (int(ring), int(not ring))
+        torch.testing.assert_close(out.float(), plain(op, H).float(), rtol=tol, atol=tol)
+    ring1 = K1.ring_shape_ok(K1._tile_mode(B.tiles, tb), tb, P)
+    before = (K1.bsr_spmm.launches_ring, K1.bsr_spmm.launches_single)
+    out = K1.bsr_spmm(B, H)
+    torch.cuda.synchronize()
+    assert (K1.bsr_spmm.launches_ring - before[0], K1.bsr_spmm.launches_single - before[1]) == (
+        int(ring1), int(not ring1))
+    torch.testing.assert_close(out, K1.bsr_spmm_plain(B, H), rtol=1e-3, atol=1e-3)

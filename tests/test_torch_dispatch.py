@@ -179,7 +179,10 @@ def test_agg_matmul_pallas_matches_jax(graph, rb, cb, be):
     assert tp.kind == jp.kind == "pallas"
     _same_plan(tp.plan, jp.plan)
     _same_plan(tp.plan_t, jp.plan_t)
-    assert tdis.prepare_adjacency(T, method="pallas", build_transpose=False, device="cpu").plan_t is None
+    # the kind builds plan_t whatever the flag, as the JAX package
+    jserve = jdis.prepare_adjacency(J, method="pallas", rb=rb, cb=cb, be=be, build_transpose=False)
+    serve = tdis.prepare_adjacency(T, method="pallas", rb=rb, cb=cb, be=be, build_transpose=False, device="cpu")
+    _same_plan(serve.plan_t, jserve.plan_t)
     H = np.random.default_rng(15).standard_normal((T.n_cols, 40)).astype(np.float32)
     out_j = np.asarray(jdis.agg_matmul(jp, jnp.asarray(H)))
     out_t = tdis.agg_matmul(tp, torch.from_numpy(H))

@@ -65,13 +65,29 @@ def test_backward_without_transpose_raises(fuse):
 
 
 def test_pallas_backward_without_transpose_raises():
-    _, T = graph("weighted", n=384)
+    """The name is from when it did: the pallas kind builds ``plan_t``
+    whatever ``build_transpose`` says, as the JAX package, so a prep made
+    for serving trains too. Both backwards against ``jax.grad`` at the
+    pallas tolerance."""
+    J, T = graph("weighted", n=384)
+    jp = jdis.prepare_adjacency(J, method="pallas", rb=128, cb=128, build_transpose=False)
     tp = tdis.prepare_adjacency(T, method="pallas", rb=128, cb=128, build_transpose=False, device="cpu")
-    H = torch.randn(384, 4, requires_grad=True)
-    vals = torch.as_tensor(T.vals).clone().requires_grad_(True)
-    for out in (tdis.agg_matmul(tp, H), tdis.agg_matmul_with_vals(tp, vals, H)):
-        with pytest.raises(ValueError, match="build_transpose"):
-            out.sum().backward()
+    assert tp.plan_t is not None and jp.plan_t is not None
+    rng = np.random.default_rng(23)
+    H = rng.standard_normal((384, 8)).astype(np.float32)
+    R = rng.standard_normal((384, 8)).astype(np.float32)
+    vals = np.asarray(T.vals, np.float32)
+    want = jax.grad(lambda h: jnp.vdot(jdis.agg_matmul(jp, h), jnp.asarray(R)))(jnp.asarray(H))
+    want_v = jax.grad(
+        lambda h: jnp.vdot(jdis.agg_matmul_with_vals(jp, jnp.asarray(vals), h), jnp.asarray(R))
+    )(jnp.asarray(H))
+    for agg, ref in (
+        (lambda h: tdis.agg_matmul(tp, h), want),
+        (lambda h: tdis.agg_matmul_with_vals(tp, torch.from_numpy(vals), h), want_v),
+    ):
+        Ht = torch.from_numpy(H).requires_grad_(True)
+        (agg(Ht) * torch.from_numpy(R)).sum().backward()
+        np.testing.assert_allclose(Ht.grad.numpy(), np.asarray(ref), rtol=PLAN, atol=PLAN)
 
 
 @pytest.mark.parametrize("kind", ["pallas", "hybrid"])

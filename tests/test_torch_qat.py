@@ -179,6 +179,83 @@ def test_map_adjacency_vals_matches_jax(kind, qbits):
                    jp, tp, x, R, fwd=tol, grad=gtol)
 
 
+@pytest.mark.parametrize("case", ["gcn-forward", "gcn-forward-backward", "gat-forward"])
+def test_map_adjacency_vals_remaps_only_what_is_read(case, monkeypatch):
+    """Eager PyTorch runs every remap it is told to, so the port remaps a
+    representation at its first read: a GCN forward the forward tiles and
+    the remainder, its backward the transposed tiles too, a GAT layer on
+    flash tiles the edge values alone. Calls of the quantizer are counted
+    per representation; outputs and gradients against the flax layer."""
+    from sgracex1_tpu_torch.nn import layers as tlayers
+
+    gat = case.startswith("gat")
+    J, T = graph("weighted", n=512)
+    calj, calt = _tables(8, T)
+    jp = jdis.prepare_adjacency(J, method="hybrid", tb=128, rank1=False, for_gat=gat)
+    tp = tdis.prepare_adjacency(T, method="hybrid", tb=128, rest_thresh=jax_thresh(128, False),
+                                rank1=False, for_gat=gat, device="cpu")
+    ptr = lambda v: torch.as_tensor(v).data_ptr()
+    owner = {ptr(tp.A.vals): "A", ptr(tp.bsr.tiles): "bsr", ptr(tp.bsr_t.tiles): "bsr_t",
+             ptr(tp.rest.vals): "rest"}
+    calls = []
+
+    def counting(prep, fn):
+        def counted(v):
+            calls.append(owner[ptr(v)])
+            return fn(v)
+        return tdis.map_adjacency_vals(prep, counted)
+
+    monkeypatch.setattr(tlayers, "map_adjacency_vals", counting)
+    x, R = _inputs(T, 16)
+    if gat:
+        R = np.concatenate([R, R], axis=1)
+        jconv = JGATConv(16, 8, nheads=2, quant=calj.layer_params(1))
+        tconv = GATConv(16, 8, nheads=2, quant=calt.layer_params(1))
+    else:
+        jconv = JGCNConv(16, 8, quant=calj.layer_params(0))
+        tconv = GCNConv(16, 8, quant=calt.layer_params(0))
+    variables = _layer_pair(jconv, tconv, jp, x)
+    out_j = jconv.apply(variables, jp, jnp.asarray(x), relu=True)
+    xt = torch.from_numpy(x).requires_grad_(case.endswith("backward"))
+    with torch.set_grad_enabled(case.endswith("backward")):
+        out_t = tconv(tp, xt, relu=True)
+    np.testing.assert_allclose(out_t.detach().numpy(), np.asarray(out_j), **BF16)
+    if gat:
+        # the flash kernels read the mask tiles; only the edge list is asked for
+        assert sorted(calls) == ["A"]
+        return
+    assert sorted(calls) == ["bsr", "rest"]
+    if case.endswith("backward"):
+        gx = jax.grad(lambda xx: jnp.vdot(jconv.apply(variables, jp, xx, relu=True), jnp.asarray(R)))(jnp.asarray(x))
+        (out_t * torch.from_numpy(R)).sum().backward()
+        np.testing.assert_allclose(xt.grad.numpy(), np.asarray(gx), **BF16)
+        assert sorted(calls) == ["bsr", "bsr_t", "rest"]
+
+
+def test_map_adjacency_vals_is_lazy_and_keeps_what_it_made():
+    """Nothing is remapped until it is read; a second read returns the
+    same object; a map of a map stays lazy."""
+    _, T = graph("weighted", n=512)
+    _, calt = _tables(8, T)
+    tp = tdis.prepare_adjacency(T, method="hybrid", tb=128, rest_thresh=jax_thresh(128, False),
+                                rank1=False, device="cpu")
+    calls = []
+
+    def fn(v):
+        calls.append(tuple(v.shape))
+        return ta.fake_quant_unsigned(v, calt.adjacency, 8)
+
+    mt = tdis.map_adjacency_vals(tdis.map_adjacency_vals(tp, fn), fn)
+    assert isinstance(mt, tdis.PreparedAdjacency) and calls == []
+    assert mt.kind == "hybrid" and mt.fused is None and mt.dense is None and calls == []
+    tiles = mt.bsr_t.tiles
+    assert calls == [tuple(tp.bsr_t.tiles.shape)] * 2  # both maps, this tile set only
+    assert mt.bsr_t.tiles is tiles and len(calls) == 2
+    once = tdis.map_adjacency_vals(tp, fn)
+    torch.testing.assert_close(tiles, fn(once.bsr_t.tiles), rtol=0, atol=0)
+    assert mt.bsr_t.live is tp.bsr_t.live and mt.bsr_t.ring is tp.bsr_t.ring  # fn(0) == 0 keeps the flags
+
+
 def test_map_adjacency_vals_rank1_warns_and_degrades():
     J, T = graph("symnorm", n=512)
     calj, calt = _tables(8, T)
