@@ -17,7 +17,8 @@ Phases, each raising on failure (so the run exits non-zero):
    its shape selects (the ring kernels for int8 and bf16 tiles of height
    64-256 at P % 8 == 0, else the single-stage ones) and, where both take
    it, through the other as well; K3 and K6 over the tile forms,
-   head counts, ragged widths, isolated rows, split runs and chunk layouts;
+   head counts, ragged widths, isolated rows, split runs and chunk layouts,
+   likewise through the kernel flash_ring_shape_ok selects and the other;
    K4 and K5 over the same forms and under merged hybrid stats; small GCN
    and GAT forwards and gradients through the kernels against the f32
    edge path. K7 (bsr_spmm_int8) and K8 (bsr_spmm_int8_fused) must equal
@@ -36,9 +37,11 @@ Phases, each raising on failure (so the run exits non-zero):
    one through K1, then trains for 3 epochs (K2 on the plan and its
    transpose; one step through the K1 view), each held against the
    plain-kernel versions; every launch of these runs must be a ring kernel.
-5. the GAT slice on the same graph: K6, K3, K4 and K5 timed at H=4, F=64
-   with their bounds; GATModel(100, 64, 16, nheads=4) answers 3 requests
-   through K6 and trains for 3 epochs (K6, K4, K5).
+5. the GAT slice on the same graph: K6 and K3 (the ring kernel, with the
+   single-stage kernel timed in turns beside it) at H=4 and H=1, F=64, K4
+   and K5 at H=4, with their bounds; GATModel(100, 64, 16, nheads=4) answers
+   3 requests through K6 and trains for 3 epochs (K6, K4, K5); every K3/K6
+   launch of those runs must be the ring kernel.
 6. the small GAT path (n=8192, full-cover tiles): 3 requests and 3
    training epochs through K3, K4 and K5.
 7. K8 at full width: the slice's graph quantized to 8 bits,
@@ -204,10 +207,21 @@ def _seg_bytes(S) -> int:
     return _nbytes(*S.tensors().values())
 
 
-def _plan_bytes(plan) -> int:
-    """The schedule and chunk arrays a fused-plan kernel reads."""
-    return _nbytes(plan.step_cb, plan.step_tile, plan.step_chunk, plan.step_kind, plan.lrow,
-                   plan.slot_col, plan.slot_scale, plan.colscale, plan.rowscale) + _seg_bytes(plan.segments)
+def _live_tile_bytes(B) -> int:
+    """Bytes of the live tiles (``B.live``). The empty cover tiles are all
+    zero, so the function needs none of their bytes."""
+    return int(B.live.sum()) * (B.tiles.numel() // max(B.num_tiles, 1)) * B.tiles.element_size()
+
+
+def _sched_bytes(L) -> int:
+    """The live schedule (``LiveSchedule``) a kernel walks."""
+    return _nbytes(L.step) + _seg_bytes(L.segments)
+
+
+def _plan_bytes(plan, chunk_arrays=None) -> int:
+    """The live schedule and chunk arrays a fused-plan kernel reads."""
+    chunk_arrays = chunk_arrays or (plan.lrow, plan.slot_col, plan.slot_scale, plan.colscale, plan.rowscale)
+    return _nbytes(*chunk_arrays) + _sched_bytes(plan.ring)
 
 
 def _live_slots(plan) -> int:
@@ -215,22 +229,24 @@ def _live_slots(plan) -> int:
 
 
 def _agg_bound(B, H, out, kind, plan=None) -> dict:
-    """Bound of one aggregation (K1, K2, K7, K8) on this run's tiles and
-    chunks: tile products 2*tb*tb*P each, one multiply-add per live slot
-    and feature."""
+    """Bound of one aggregation (K1, K2, K7, K8) on this run's live tiles
+    and chunks: tile products 2*tb*tb*P each, one multiply-add per live
+    slot and feature."""
     P = H.shape[1]
-    nbytes = _nbytes(B.tiles, H, out) + (
-        _plan_bytes(plan) if plan is not None else _nbytes(B.tile_cb) + _seg_bytes(B.segments))
-    ops = 2.0 * B.num_tiles * B.tb * B.tb * P + (2.0 * _live_slots(plan) * P if plan is not None else 0.0)
+    nbytes = _live_tile_bytes(B) + _nbytes(H, out) + (
+        _plan_bytes(plan) if plan is not None else _sched_bytes(B.ring))
+    ops = 2.0 * int(B.live.sum()) * B.tb * B.tb * P + (2.0 * _live_slots(plan) * P if plan is not None else 0.0)
     return _bound(nbytes, ops, kind)
 
 
 def _flash_bound(B, tensors, H, F, products, plan=None) -> dict:
-    """Bound of a flash-GAT pass: ``products`` tile products of
-    2*tb*tb*F operations per tile and head, bf16 operands."""
-    nbytes = _nbytes(B.tiles, *tensors) + (
-        _plan_bytes(plan) if plan is not None else _nbytes(B.tile_cb) + _seg_bytes(B.segments))
-    ops = products * 2.0 * B.num_tiles * B.tb * B.tb * H * F + (2.0 * _live_slots(plan) * H * F if plan is not None else 0.0)
+    """Bound of a flash-GAT pass on this run's live tiles and chunks:
+    ``products`` tile products of 2*tb*tb*F operations per live tile and
+    head, bf16 operands."""
+    nbytes = _live_tile_bytes(B) + _nbytes(*tensors) + (
+        _plan_bytes(plan, (plan.lrow, plan.slot_col)) if plan is not None else _sched_bytes(B.ring))
+    ops = products * 2.0 * int(B.live.sum()) * B.tb * B.tb * H * F + (
+        2.0 * _live_slots(plan) * H * F if plan is not None else 0.0)
     return _bound(nbytes, ops, "bf16")
 
 
@@ -264,6 +280,14 @@ def phase_build():
              f"{regs} registers at entry (consumers raise to 232, the producer drops to 40), {spills.strip()}")
     if _cuda.build_log and len(ring) != 4:  # no log when the library was built by an earlier run
         raise AssertionError(f"expected the four ring kernels in the build log, found {len(ring)}")
+    # the flash ring kernels (K3/K6) by tile mode and head count
+    flash = re.findall(r"Function properties for \S*flash_ring_kernelILi(\d)ELi(\d)E\S*\n\s*(.*)\n.*Used (\d+) registers",
+                       _cuda.build_log)
+    for mode, heads, spills, regs in flash:
+        _log(f"  flash ring kernel (K3/K6) {'int8' if mode == '2' else 'bf16'} tiles, H={heads}: "
+             f"{regs} registers at entry (consumers raise to 232, the producer drops to 40), {spills.strip()}")
+    if _cuda.build_log and len(flash) != 6:
+        raise AssertionError(f"expected the six flash ring kernels in the build log, found {len(flash)}")
 
 
 def _random_graph(n, weighted, seed, isolated=None):
@@ -372,6 +396,26 @@ def _check_flash(name, res, ref) -> float:
     return err
 
 
+def _flash_ring_rule(B, H, F, K=None) -> bool:
+    """The ring kernel's shape rule, written out here, held against
+    ``FG.flash_ring_shape_ok``."""
+    rule = (B.tiles.dtype in (torch.int8, torch.bfloat16) and B.tiles.shape[-1] == B.tb
+            and B.tb % 64 == 0 and B.tb <= 256 and F == 64 and H in (1, 2, 4) and (K is None or K % 64 == 0))
+    if rule != FG.flash_ring_shape_ok(K1._tile_mode(B.tiles, B.tb), B.tb, H, F, K):
+        raise AssertionError("flash_ring_shape_ok disagrees with the rule")
+    return rule
+
+
+def _flash_route(kern, ring: bool, name: str, fn):
+    """``fn()``, checking that ``kern`` launched the kernel its shape
+    selects (the ring kernel or the single-stage one) exactly once."""
+    before = (kern.launches_ring, kern.launches_single)
+    res = fn()
+    if (kern.launches_ring - before[0], kern.launches_single - before[1]) != (int(ring), int(not ring)):
+        raise AssertionError(f"{name}: {kern.__name__} took the wrong kernel for its shape")
+    return res
+
+
 def _gat_kernels_small(device, gen):
     """K3 and K6 against their plain versions; a small GATModel through
     both against the edge path."""
@@ -384,44 +428,67 @@ def _gat_kernels_small(device, gen):
         ("int8-tb256-H4-F8", 4099, dict(method="xla"), 4, 8, True),
         ("int8-tb128-H2-F100-two-feature-slices", 3001, dict(method="xla", gat_tb=128), 2, 100, True),
         ("int8-tb256-H3-F20-unaligned-rows", 3001, dict(method="xla"), 3, 20, False),
+        ("int8-tb256-H1-F64", 3001, dict(method="xla"), 1, 64, True),
+        ("int8-tb64-H2-F64", 3001, dict(method="xla", gat_tb=64), 2, 64, True),
+        ("int8-tb192-H4-F64-ragged", 2900, dict(method="xla", gat_tb=192), 4, 64, False),
+        ("bf16-values-bsr-tb128-H1-F64", 2100, dict(method="bsr", rank1=False, tb=128), 1, 64, True),
     ]
+    took = {True: 0, False: 0}
     for i, (name, n, kw, H, F, stats) in enumerate(k3_cases):
         A = _random_graph(n, "values" in name, seed=20 + i, isolated=7)
         prep = prepare_adjacency(A, for_gat=True, build_transpose=False, device=device, **kw)
         B = prep.flash_tiles
         s1, s2, Wh = _scores(n, H, F, gen, device)
-        res = FG.flash_gat_forward(B, s1, s2, Wh, return_stats=stats)
+        ring = _flash_ring_rule(B, H, F)
+        res = _flash_route(FG.flash_gat_forward, ring, f"K3 {name}",
+                           lambda: FG.flash_gat_forward(B, s1, s2, Wh, return_stats=stats))
         ref = FG.flash_gat_forward_plain(B, s1, s2, Wh, return_stats=stats)
-        if stats:
-            err = _check_flash(f"K3 {name}", res, ref)
-            out = res[0]
-        else:
-            err = _check(f"K3 {name}", res, ref, GAT_TOL)
-            out = res
+        took[ring] += 1
+        check = (lambda nm, r: _check_flash(nm, r, ref)) if stats else (lambda nm, r: _check(nm, r, ref, GAT_TOL))
+        err = check(f"K3 {name}", res)
+        out = res[0] if stats else res
+        if ring:  # the single-stage kernel takes every shape: hold it too
+            check(f"K3 single-stage {name}", FG._flash_gat_forward_single(B, s1, s2, Wh, return_stats=stats))
         has = torch.zeros(n, dtype=torch.bool, device=device)
         has[prep.A.rows[: A.nnz][prep.A.vals[: A.nnz] > 0].long()] = True
         if has.all() or (out[~has] != 0).any():
             raise AssertionError(f"K3 {name}: rows without an edge must come out exactly 0")
-        _log(f"  K3 {name}: T={B.num_tiles} tiles {tuple(B.tiles.shape[1:])} {B.tiles.dtype} "
-             f"segments={B.segments.n_seg} split_runs={B.segments.n_fin} "
-             f"isolated_rows={int((~has).sum())} err {err:.3g}")
+        L = B.ring
+        _log(f"  K3 {name} [{'ring' if ring else 'single-stage'} kernel]: T={B.num_tiles} (live "
+             f"{int(B.live.sum())}) tiles {tuple(B.tiles.shape[1:])} {B.tiles.dtype} "
+             f"segments={B.segments.n_seg} split_runs={B.segments.n_fin} ring work items={L.segments.n_seg} "
+             f"ring split_runs={L.segments.n_fin} isolated_rows={int((~has).sum())} err {err:.3g}")
         if name.startswith("int8-tb128") and B.segments.n_fin == 0:
             raise AssertionError("the hub case must split a run (merge pass)")
 
-    A = _random_graph(3001, False, seed=30)
-    part, rest = split_by_tile_density(A, 128, 40)
-    rest = _drop_zero_val_edges(rest)
-    B = K1.bsr_mask_from_sparse(part, tb=128, cover_rows=True, cover_cols=True, device=device)
-    for attach, H, stats in ((True, 4, True), (False, 4, False), (True, 1, True)):
-        plan = K2.build_fused_plan(B, rest, attach_chunks=attach)
-        s1, s2, Wh = _scores(3001, H, 64, gen, device)
-        name = f"K6 {'attached' if attach else 'unattached'}-H{H}"
-        res = FG.flash_gat_hybrid_forward(plan, s1, s2, Wh, return_stats=stats)
-        ref = FG.flash_gat_hybrid_forward_plain(plan, s1, s2, Wh, return_stats=stats)
-        err = _check_flash(name, res, ref) if stats else _check(name, res, ref, GAT_TOL)
-        kinds = sorted(set(plan.step_kind.tolist()))
-        _log(f"  {name}: T={B.num_tiles} chunks={plan.num_rest_chunks} kinds={kinds} "
-             f"segments={plan.segments.n_seg} split_runs={plan.segments.n_fin} err {err:.3g}")
+    for tb, thresh in ((128, 40), (256, 100)):
+        A = _random_graph(3001, False, seed=30)
+        part, rest = split_by_tile_density(A, tb, thresh)
+        rest = _drop_zero_val_edges(rest)
+        B = K1.bsr_mask_from_sparse(part, tb=tb, cover_rows=True, cover_cols=True, device=device)
+        cases = ((True, 4, 64, True), (False, 4, 64, False), (True, 1, 64, True), (True, 2, 40, True)) \
+            if tb == 128 else ((True, 2, 64, True), (False, 4, 64, True))
+        for attach, H, F, stats in cases:
+            plan = K2.build_fused_plan(B, rest, attach_chunks=attach)
+            s1, s2, Wh = _scores(3001, H, F, gen, device)
+            name = f"K6 tb{tb} {'attached' if attach else 'unattached'}-H{H}-F{F}"
+            ring = _flash_ring_rule(B, H, F, plan.K)
+            res = _flash_route(FG.flash_gat_hybrid_forward, ring, name,
+                               lambda: FG.flash_gat_hybrid_forward(plan, s1, s2, Wh, return_stats=stats))
+            ref = FG.flash_gat_hybrid_forward_plain(plan, s1, s2, Wh, return_stats=stats)
+            took[ring] += 1
+            check = (lambda nm, r: _check_flash(nm, r, ref)) if stats else (lambda nm, r: _check(nm, r, ref, GAT_TOL))
+            err = check(name, res)
+            if ring:
+                check(f"{name} single-stage",
+                      FG._flash_gat_hybrid_forward_single(plan, s1, s2, Wh, return_stats=stats))
+            kinds = sorted(set(plan.step_kind.tolist()))
+            _log(f"  {name} [{'ring' if ring else 'single-stage'} kernel]: T={B.num_tiles} "
+                 f"chunks={plan.num_rest_chunks} kinds={kinds} segments={plan.segments.n_seg} "
+                 f"split_runs={plan.segments.n_fin} live steps={plan.ring.step.shape[0]} "
+                 f"ring split_runs={plan.ring.segments.n_fin} err {err:.3g}")
+    if not (took[True] and took[False]):
+        raise AssertionError("the small K3/K6 cases must reach both the ring and the single-stage kernels")
 
     A = _random_graph(3001, False, seed=31, isolated=11)
     net = GATModel(32, 16, 7, nheads=4, generator=torch.Generator().manual_seed(0)).to(device).eval()
@@ -909,26 +976,51 @@ def phase_gat_prepare(A, device, label):
 
 
 def phase_gat_kernels_slice(prep, device):
-    """K6 on the slice's plan and K3 on its tile set at H=4, F=64: error
-    and times against the plain versions."""
+    """K6 on the slice's plan and K3 on its tile set at H=4, F=64 (the first
+    GAT layer) and H=1, F=64 (the second): the ring kernel and the
+    single-stage kernel in one run, in turns (ring, single, single, ring),
+    against the plain versions; then K4 and K5 under K6's stats."""
     gen = torch.Generator(device=device).manual_seed(2)
-    s1, s2, Wh = _scores(prep.A.n_cols, GAT_HEADS, GAT_HIDDEN, gen, device)
     rec = {}
     plan = prep.gat_plan
-    for name, kern, plain, op in (
-        ("flash_gat_hybrid_forward", FG.flash_gat_hybrid_forward, FG.flash_gat_hybrid_forward_plain, plan),
-        ("flash_gat_forward", FG.flash_gat_forward, FG.flash_gat_forward_plain, plan.B),
-    ):
-        out = kern(op, s1, s2, Wh)
-        err = _check(f"{name} at slice shapes", out, plain(op, s1, s2, Wh), GAT_TOL)
-        ms = _cuda_ms(lambda: kern(op, s1, s2, Wh))
-        plain_ms = _cuda_ms(lambda: plain(op, s1, s2, Wh), reps=3)
-        bound = _flash_bound(plan.B, (s1, s2, Wh, out), GAT_HEADS, GAT_HIDDEN, 1,
-                             plan=plan if op is plan else None)
-        rec[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, **bound, library_ms=None)
-        _log(f"{name} at slice shapes [n={prep.A.n_rows}, H={GAT_HEADS}, F={GAT_HIDDEN}]: "
-             f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (median of 3), bound {bound['bound_ms']:.4f} ms "
-             f"by {bound['bound_by']}, max abs err {err:.3g}")
+    n = prep.A.n_cols
+    L3, L6 = plan.B.ring, plan.ring
+    _log(f"GAT slice live schedules: K3 {L3.step.shape[0]} live tiles of {plan.B.num_tiles} "
+         f"({L3.n_dead_tile_steps} empty cover tiles dropped), {L3.segments.n_seg} segments, "
+         f"{L3.segments.n_fin} split runs; K6 {L6.step.shape[0]} live steps of {plan.num_steps}, chunk slabs "
+         f"{int(((L6.step[:, 3] + 63) // 64).sum())}, {L6.segments.n_seg} segments, {L6.segments.n_fin} split runs")
+    for H in (GAT_HEADS, 1):
+        s1, s2, Wh = _scores(n, H, GAT_HIDDEN, gen, device)
+        cast_ms = _cuda_ms(lambda: Wh.to(torch.bfloat16))
+        for name, kern, single, plain, op in (
+            ("flash_gat_hybrid_forward", FG.flash_gat_hybrid_forward, FG._flash_gat_hybrid_forward_single,
+             FG.flash_gat_hybrid_forward_plain, plan),
+            ("flash_gat_forward", FG.flash_gat_forward, FG._flash_gat_forward_single, FG.flash_gat_forward_plain,
+             plan.B),
+        ):
+            label = f"{name} at slice shapes H={H}"
+            ref = plain(op, s1, s2, Wh, return_stats=True)
+            res = _flash_route(kern, True, label, lambda: kern(op, s1, s2, Wh, return_stats=True))
+            err = _check_flash(label, res, ref)
+            _check_flash(f"{label}, single-stage kernel", single(op, s1, s2, Wh, return_stats=True), ref)
+            del res
+            ms = [_cuda_ms(lambda: kern(op, s1, s2, Wh)), 0.0]
+            earlier = [_cuda_ms(lambda: single(op, s1, s2, Wh)), _cuda_ms(lambda: single(op, s1, s2, Wh))]
+            ms[1] = _cuda_ms(lambda: kern(op, s1, s2, Wh))
+            out = ref[0]
+            bound = _flash_bound(plan.B, (s1, s2, Wh, out), H, GAT_HIDDEN, 1, plan=plan if op is plan else None)
+            msg = (f"{label} [n={prep.A.n_rows}, F={GAT_HIDDEN}]: ring kernel {ms[0]:.4f} / {ms[1]:.4f} ms "
+                   f"(the Wh cast to bf16, {cast_ms:.4f} ms alone, included), single-stage kernel "
+                   f"{earlier[0]:.4f} / {earlier[1]:.4f} ms, bound {bound['bound_ms']:.4f} ms by {bound['bound_by']}, "
+                   f"max abs err {err:.3g}")
+            if H == GAT_HEADS:
+                plain_ms = _cuda_ms(lambda: plain(op, s1, s2, Wh), reps=3)
+                rec[name] = dict(max_abs_err=err, ms=min(ms), plain_ms=plain_ms, **bound, library_ms=None,
+                                 earlier_ms=min(earlier))
+                msg += f", plain {plain_ms:.4f} ms (median of 3)"
+            _log(msg)
+            del ref, out
+    s1, s2, Wh = _scores(n, GAT_HEADS, GAT_HIDDEN, gen, device)
     # the backward passes on the plan's tiles under K6's merged stats
     _, m, l = FG.flash_gat_hybrid_forward(plan, s1, s2, Wh, return_stats=True)
     gO = torch.randn(Wh.shape, generator=gen, device=device)
@@ -1006,8 +1098,7 @@ def phase_gat_serve(A, x, prep, device, kern, label, cfg=SLICE):
         net(prep, x)  # warm-up: cuBLAS handles, allocator
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        for k in kernels:
-            k.launches = 0
+        _reset_counts()
         ms, per_request = [], []
         for _ in range(REQUESTS):
             before = kern.launches
@@ -1017,8 +1108,9 @@ def phase_gat_serve(A, x, prep, device, kern, label, cfg=SLICE):
             ms.append((time.perf_counter() - t0) * 1e3)
             per_request.append(kern.launches - before)
         launches = {k.__name__: k.launches for k in kernels}
+        _all_ring(f"{label} GAT serving")
         peak = torch.cuda.max_memory_allocated()
-    _log(f"{label} GAT forwards ({kern.__name__}): " + ", ".join(f"{m:.3f}" for m in ms) + " ms")
+    _log(f"{label} GAT forwards ({kern.__name__}, all on the ring kernel): " + ", ".join(f"{m:.3f}" for m in ms) + " ms")
     _log(f"launches in the {label} GAT serving run: {launches} (per request: {per_request})")
     _log(f"peak device memory in the {label} GAT serving run: {peak / 2**30:.3f} GiB")
     if per_request != [2] * REQUESTS or sum(launches.values()) != 2 * REQUESTS:
@@ -1072,17 +1164,20 @@ def _counts() -> dict:
     return {k.__name__: k.launches for k in KERNELS}
 
 
+RING_KERNELS = (K1.bsr_spmm, K2.bsr_spmm_fused, FG.flash_gat_forward, FG.flash_gat_hybrid_forward)
+
+
 def _reset_counts() -> None:
     for k in KERNELS:
         k.launches = 0
-    for k in (K1.bsr_spmm, K2.bsr_spmm_fused):
+    for k in RING_KERNELS:
         k.launches_ring = k.launches_single = 0
 
 
 def _all_ring(label: str) -> None:
-    """Every K1 and K2 launch since the last reset went through the ring
-    kernel."""
-    for k in (K1.bsr_spmm, K2.bsr_spmm_fused):
+    """Every K1, K2, K3 and K6 launch since the last reset went through
+    the ring kernel."""
+    for k in RING_KERNELS:
         if k.launches_ring != k.launches or k.launches_single:
             raise AssertionError(f"{label}: {k.__name__} launched {k.launches} times, {k.launches_ring} on the "
                                  f"ring kernel and {k.launches_single} on the single-stage kernel")
@@ -1627,7 +1722,7 @@ def phase_variant_kernels_small(device):
         prep = prepare_adjacency(A, for_gat=True, build_transpose=False, device=device, **kw)
         B = prep.flash_tiles
         s1, s2, Wh = (x[:, 0] for x in _scores(3001, 1, 40, gen, device))
-        k3 = FG.flash_gat_forward(B, s1, s2, Wh)
+        k3 = FG._flash_gat_forward_single(B, s1, s2, Wh)
         has = torch.zeros(3001, dtype=torch.bool, device=device)
         has[prep.A.rows[: A.nnz][prep.A.vals[: A.nnz] > 0].long()] = True
         for sb in (64, 128, 256):
@@ -1635,14 +1730,14 @@ def phase_variant_kernels_small(device):
             out = FG.flash_gat_forward_subskip(B, pop, s1, s2, Wh, sb=sb)
             err = _check(f"K12 {name} sb={sb}", out,
                          FG.flash_gat_forward_subskip_plain(B, pop, s1, s2, Wh, sb=sb), GAT_TOL)
-            # what K12 skips adds exact zeros in K3, in the same order
+            # what K12 skips adds exact zeros in the single-stage K3, in the same order
             if not torch.equal(out, k3):
-                raise AssertionError(f"K12 {name} sb={sb} differs from K3 on the same tiles")
+                raise AssertionError(f"K12 {name} sb={sb} differs from the single-stage K3 on the same tiles")
             if has.all() or (out[~has] != 0).any():
                 raise AssertionError(f"K12 {name}: rows without an edge must come out exactly 0")
             bits = _pop_bits(pop)
             _log(f"  K12 {name} sb={sb}: T={B.num_tiles} populated sub-blocks {bits} of "
-                 f"{B.num_tiles * (B.tb // sb) ** 2} err {err:.3g}, equal to K3")
+                 f"{B.num_tiles * (B.tb // sb) ** 2} err {err:.3g}, equal to the single-stage K3")
 
 
 def _k9_bound(plan, H, out) -> dict:
@@ -1838,8 +1933,8 @@ def phase_variants_agg_slice(A, prep, device, lib_ms):
     B = prep.bsr
 
     def k10_bound(B, H, out):
-        nbytes = _nbytes(B.tiles, B.tile_cb, H, out) + 4 * (B.n_row_tiles + 1)
-        return _bound(nbytes, 2.0 * B.num_tiles * B.tb * B.tb * H.shape[1], "bf16")
+        nbytes = _live_tile_bytes(B) + _nbytes(B.tile_cb, H, out) + 4 * (B.n_row_tiles + 1)
+        return _bound(nbytes, 2.0 * int(B.live.sum()) * B.tb * B.tb * H.shape[1], "bf16")
 
     out, r, n = _timed_variant("bsr_spmm_rowloop at slice shapes", K1.bsr_spmm_rowloop,
                                K1.bsr_spmm_rowloop_plain, (B, H), K1_TOL)
@@ -1904,8 +1999,11 @@ def phase_subskip(B, edges, device, label, record=False):
     gen = torch.Generator(device=device).manual_seed(4)
     n = B.n_cols
     s1, s2, Wh = (x[:, 0] for x in _scores(n, 1, GAT_HIDDEN, gen, device))
-    k3 = FG.flash_gat_forward(B, s1, s2, Wh)
-    k3_ms = _cuda_ms(lambda: FG.flash_gat_forward(B, s1, s2, Wh))
+    # K12 is the single-stage kernel with a bitmap: held to the single-stage
+    # K3 (the ring K3 rounds bf16(p) against other running maxima)
+    k3 = FG._flash_gat_forward_single(B, s1, s2, Wh)
+    k3_ms = _cuda_ms(lambda: FG._flash_gat_forward_single(B, s1, s2, Wh))
+    k3_ring_ms = _cuda_ms(lambda: FG.flash_gat_forward(B, s1, s2, Wh))
     rec, launches = {}, {}
     for sb in (64, 128, 256):
         if B.tb % sb:
@@ -1919,14 +2017,16 @@ def phase_subskip(B, edges, device, label, record=False):
                                      GAT_TOL, reps_plain=1)
         err, ms, plain_ms = r["max_abs_err"], r["ms"], r["plain_ms"]
         if not torch.equal(out, k3):
-            raise AssertionError(f"K12 sb={sb} ({label}) differs from K3 on the same tiles")
+            raise AssertionError(f"K12 sb={sb} ({label}) differs from the single-stage K3 on the same tiles")
         bound = _k12_bound(B, pop, sb, (s1, s2, Wh, out), GAT_HIDDEN)
         bits = _pop_bits(pop)
         _add(launches, n_l)
         _log(f"flash_gat_forward_subskip sb={sb} on the {label} tiles [T={B.num_tiles}, tb={B.tb}, H=1, "
              f"F={GAT_HIDDEN}, populated sub-blocks {bits} of {B.num_tiles * (B.tb // sb) ** 2}]: "
-             f"kernel {ms:.4f} ms, K3 at H=1 on the same tiles {k3_ms:.4f} ms, plain {plain_ms:.4f} ms, "
-             f"bound {bound['bound_ms']:.4f} ms by {bound['bound_by']}, max abs err {err:.3g}, equal to K3")
+             f"kernel {ms:.4f} ms, single-stage K3 at H=1 on the same tiles {k3_ms:.4f} ms (ring K3 "
+             f"{k3_ring_ms:.4f} ms), plain {plain_ms:.4f} ms, "
+             f"bound {bound['bound_ms']:.4f} ms by {bound['bound_by']}, max abs err {err:.3g}, equal to the "
+             f"single-stage K3")
         if record and (not rec or ms < rec["flash_gat_forward_subskip"]["ms"]):
             rec["flash_gat_forward_subskip"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, **bound,
                                                     library_ms=None)
@@ -1984,10 +2084,10 @@ def main() -> None:
     sources = {
         "bsr_spmm_fused": ("sgracex1_tpu_torch/csrc/fused_agg_ring.cu", "sgracex1_tpu/ops/fused_agg.py:622"),
         "bsr_spmm": ("sgracex1_tpu_torch/csrc/bsr_spmm_ring.cu", "sgracex1_tpu/ops/bsr.py:589"),
-        "flash_gat_forward": ("sgracex1_tpu_torch/csrc/flash_gat.cu", "sgracex1_tpu/ops/flash_gat.py:422"),
+        "flash_gat_forward": ("sgracex1_tpu_torch/csrc/flash_gat_ring.cu", "sgracex1_tpu/ops/flash_gat.py:422"),
         "flash_gat_bwd_row": ("sgracex1_tpu_torch/csrc/flash_gat_bwd.cu", "sgracex1_tpu/ops/flash_gat.py:762"),
         "flash_gat_bwd_col": ("sgracex1_tpu_torch/csrc/flash_gat_bwd.cu", "sgracex1_tpu/ops/flash_gat.py:847"),
-        "flash_gat_hybrid_forward": ("sgracex1_tpu_torch/csrc/flash_gat.cu",
+        "flash_gat_hybrid_forward": ("sgracex1_tpu_torch/csrc/flash_gat_ring.cu",
                                      "sgracex1_tpu/ops/flash_gat.py:1139"),
         "bsr_spmm_int8": ("sgracex1_tpu_torch/csrc/bsr_spmm_int8.cu", "sgracex1_tpu/ops/bsr.py:773"),
         "bsr_spmm_int8_fused": ("sgracex1_tpu_torch/csrc/fused_agg_int8.cu",

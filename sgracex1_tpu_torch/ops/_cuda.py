@@ -158,6 +158,15 @@ def _declare(lib: ctypes.CDLL) -> None:
         p, i, p, p,  # out, n_rows, m_out, l_out
         p, p, p, p,  # pm, pl, pacc, stream
     ]
+    lib.sg_flash_gat_ring.restype = i
+    lib.sg_flash_gat_ring.argtypes = [
+        p, i, i, ctypes.c_long, i, p, p, p, p,  # tiles, mode, tb, n_tiles, n_seg, seg_rb/lo/hi/part
+        i, p, p, p,  # n_fin, fin_rb/p0/np
+        p, p, p, i,  # step, lrow, slot_col, K
+        p, i, p, p, i, i, ctypes.c_float,  # s1, n_s1, s2p, Wh (bf16), n_wh, H, alpha
+        p, i, p, p,  # out, n_rows, m_out, l_out
+        p, p, p, i, p,  # pm, pl, pacc, n_sm, stream
+    ]
     lib.sg_plan_spmm.restype = i
     lib.sg_plan_spmm.argtypes = [
         p, p, p, i, i, p,  # lcol, val, tile_cb, be, cb, slot_idx

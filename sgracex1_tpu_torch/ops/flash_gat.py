@@ -26,9 +26,13 @@ vector ever exists.
 
 Scores ``s1``/``s2`` are ``[N, H]`` and features ``Wh`` ``[N, H, F]``
 (heads last, one launch for all heads); 1-D scores with 2-D ``Wh`` are the
-single-head call. On a CUDA tensor each kernel wrapper launches
-``csrc/flash_gat.cu`` (K3, K6) or ``csrc/flash_gat_bwd.cu`` (K4, K5) or
-raises; on a CPU tensor it runs its plain PyTorch version (``*_plain``)
+single-head call. On a CUDA tensor each kernel wrapper launches a
+hand-written kernel or raises: K3 and K6 the ring kernel
+``csrc/flash_gat_ring.cu`` where ``flash_ring_shape_ok`` holds (only the live
+steps of ``B.ring`` / ``plan.ring``, every head in one CTA, a multi-stage
+shared-memory ring), else the single-stage ``csrc/flash_gat.cu``; K4, K5
+``csrc/flash_gat_bwd.cu``. On a CPU tensor it runs its plain PyTorch version
+(``*_plain``)
 with the TPU kernel's rounding points: ``bf16(p) @ bf16(Wh)`` with f32
 sums and f32 ``p`` in ``l`` forward (every run's steps in schedule order);
 ``q = bf16(gO) @ bf16(Wh)^T`` and ``bf16(p)^T @ bf16(gO)`` with f32 sums
@@ -48,7 +52,9 @@ from sgracex1_tpu_torch.graph.csr import SparseMatrix, _np, _round_up
 from sgracex1_tpu_torch.ops import _cuda
 from sgracex1_tpu_torch.ops.bsr import (
     BSRMatrix,
+    LiveSchedule,
     RunSegments,
+    _TILE_MODES,
     _PLAIN_BATCH_BYTES,
     _check_cuda_operands,
     _ptr,
@@ -339,6 +345,26 @@ def flash_gat_bwd_col_plain(B: BSRMatrix, s1, s2, m, l, t, Wh, gO, *, alpha: flo
 # ------------------------------------------------------------ K3 and K6
 
 
+def _check_scores(s1, s2, Wh, rows: int, cols: int) -> tuple:
+    """(H, F) of head-last kernel operands, or a ValueError."""
+    H, F = Wh.shape[1], Wh.shape[2]
+    if s1.dim() != 2 or s2.dim() != 2 or Wh.dim() != 3 or s1.shape[1] != H or s2.shape[1] != H:
+        raise ValueError(
+            f"want s1 [N, H], s2 [N, H], Wh [N, H, F]; got {tuple(s1.shape)}, "
+            f"{tuple(s2.shape)}, {tuple(Wh.shape)}"
+        )
+    if s1.shape[0] > rows or s2.shape[0] != Wh.shape[0] or Wh.shape[0] > cols:
+        raise ValueError(
+            f"s1 rows {s1.shape[0]} must fit {rows}; s2/Wh rows "
+            f"{s2.shape[0]}/{Wh.shape[0]} must agree and fit {cols}"
+        )
+    if s1.dtype != torch.float32 or s2.dtype != torch.float32:
+        raise ValueError(f"s1/s2 must be float32, got {s1.dtype}/{s2.dtype}")
+    if Wh.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"Wh must be float32 or bfloat16, got {Wh.dtype}")
+    return H, F
+
+
 def _launch(name, B, S: RunSegments, s1, s2, Wh, alpha, return_stats, plan=None,
             pop=None, sb=0):
     """Launch csrc/flash_gat.cu over run segments ``S``: K3 on ``B``'s
@@ -351,21 +377,7 @@ def _launch(name, B, S: RunSegments, s1, s2, Wh, alpha, return_stats, plan=None,
     if tb % 32 or tb > 1024:
         raise ValueError(f"the flash kernel needs tb % 32 == 0 and tb <= 1024, got {tb}")
     n_rt, n_ct = B.n_row_tiles, _round_up(B.n_cols, tb) // tb
-    H, F = Wh.shape[1], Wh.shape[2]
-    if s1.dim() != 2 or s2.dim() != 2 or Wh.dim() != 3 or s1.shape[1] != H or s2.shape[1] != H:
-        raise ValueError(
-            f"want s1 [N, H], s2 [N, H], Wh [N, H, F]; got {tuple(s1.shape)}, "
-            f"{tuple(s2.shape)}, {tuple(Wh.shape)}"
-        )
-    if s1.shape[0] > n_rt * tb or s2.shape[0] != Wh.shape[0] or Wh.shape[0] > n_ct * tb:
-        raise ValueError(
-            f"s1 rows {s1.shape[0]} must fit {n_rt * tb}; s2/Wh rows "
-            f"{s2.shape[0]}/{Wh.shape[0]} must agree and fit {n_ct * tb}"
-        )
-    if s1.dtype != torch.float32 or s2.dtype != torch.float32:
-        raise ValueError(f"s1/s2 must be float32, got {s1.dtype}/{s2.dtype}")
-    if Wh.dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"Wh must be float32 or bfloat16, got {Wh.dtype}")
+    H, F = _check_scores(s1, s2, Wh, n_rt * tb, n_ct * tb)
     ints = dict(tile_cb=B.tile_cb, **S.tensors())
     if plan is not None:
         if plan.K % 32 or plan.K > 512 or plan.lrow.shape != (plan.num_chunks, plan.K):
@@ -412,10 +424,102 @@ def _launch(name, B, S: RunSegments, s1, s2, Wh, alpha, return_stats, plan=None,
     return (out, m, l) if return_stats else out
 
 
+def flash_ring_shape_ok(mode: int, tb: int, H: int, F: int, K: Optional[int] = None) -> bool:
+    """Whether the ring kernel (csrc/flash_gat_ring.cu) takes these operands:
+    int8 or bf16 tiles of height 64, 128, 192 or 256 (a stage is 64 columns
+    deep), F = 64 features a head and H in {1, 2, 4} heads (a CTA keeps its
+    rows' R x H*F f32 accumulators in registers), chunks of whole 64-slot
+    slabs. Everything else goes to the single-stage kernel. The rule reads
+    shapes and the tile form only."""
+    return (
+        mode in (_TILE_MODES[torch.bfloat16], _TILE_MODES[torch.int8])
+        and tb % 64 == 0 and 0 < tb <= 256 and F == 64 and H in (1, 2, 4)
+        and (K is None or K % 64 == 0)
+    )
+
+
+def _takes_ring(B: BSRMatrix, Wh: torch.Tensor, K: Optional[int] = None) -> bool:
+    H, F = (1, Wh.shape[1]) if Wh.dim() == 2 else (Wh.shape[1], Wh.shape[2])
+    return flash_ring_shape_ok(_tile_mode(B.tiles, B.tb), B.tb, H, F, K)
+
+
+def _launch_ring(name, B, L: LiveSchedule, s1, s2, Wh, alpha, return_stats, plan=None):
+    """Launch csrc/flash_gat_ring.cu over the live schedule ``L``: K3 on
+    ``B``'s live tiles (``B.ring``), or K6 on ``plan``'s live steps
+    (``plan.ring``). s2 goes over zero-padded to the tile grid and Wh in
+    bf16 (rounded once here, as the single-stage launch does)."""
+    s1, s2, Wh, squeeze = _norm_heads(s1, s2, Wh)
+    dev = Wh.device
+    tb = B.tb
+    mode = _tile_mode(B.tiles, tb)
+    n_rt, n_ct = B.n_row_tiles, _round_up(B.n_cols, tb) // tb
+    H, F = _check_scores(s1, s2, Wh, n_rt * tb, n_ct * tb)
+    S = L.segments
+    ints = dict(step=L.step, **S.tensors())
+    K = 0
+    if plan is not None:
+        if plan.lrow.shape != (plan.num_chunks, plan.K):
+            raise ValueError(f"lrow must be [R, K], got {tuple(plan.lrow.shape)}")
+        ints.update(lrow=plan.lrow, slot_col=plan.slot_col)
+        K = plan.K
+    if not flash_ring_shape_ok(mode, tb, H, F, K):
+        raise ValueError(f"the ring kernel does not take tile mode {mode}, tb={tb}, H={H}, F={F}, K={K}")
+    _check_cuda_operands(dict(tiles=B.tiles, s1=s1, s2=s2, Wh=Wh, **ints), dev)
+    for k, t in ints.items():
+        if t.dtype != torch.int32:
+            raise ValueError(f"{k} must be int32, got {t.dtype}")
+    s2p = _grid(s2, n_ct, tb)
+    Whb = Wh.to(torch.bfloat16).contiguous()
+    if Whb.data_ptr() % 16:
+        raise ValueError("the ring kernel needs Wh aligned to 16 bytes")
+    f32 = dict(dtype=torch.float32, device=dev)
+    out = torch.empty((B.n_rows, H, F), **f32)
+    m = l = None
+    if return_stats:
+        m = torch.empty((n_rt * tb, H), **f32)
+        l = torch.empty((n_rt * tb, H), **f32)
+    n_part = max(S.n_part, 1)
+    pm = torch.empty((n_part, tb, H), **f32)
+    pl = torch.empty((n_part, tb, H), **f32)
+    pacc = torch.empty((n_part, tb, H, F), **f32)
+    err = _cuda.library().sg_flash_gat_ring(
+        _ptr(B.tiles), mode, tb, B.num_tiles, *_seg_args(S), _ptr(L.step),
+        _ptr(ints.get("lrow")), _ptr(ints.get("slot_col")), K,
+        _ptr(s1), s1.shape[0], _ptr(s2p), _ptr(Whb), Whb.shape[0], H, float(alpha),
+        _ptr(out), B.n_rows, _ptr(m), _ptr(l), _ptr(pm), _ptr(pl), _ptr(pacc),
+        torch.cuda.get_device_properties(dev).multi_processor_count,
+        ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream),
+    )
+    _cuda.check(err, name)
+    out = out[:, 0, :] if squeeze else out
+    return (out, m, l) if return_stats else out
+
+
 def _device_of(Wh: torch.Tensor, name: str) -> str:
     if Wh.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{name} runs on cpu or cuda, not {Wh.device}")
     return Wh.device.type
+
+
+def _flash_gat_forward_single(
+    B: BSRMatrix, s1, s2, Wh, *, alpha: float = 0.2, return_stats: bool = False
+):
+    """K3 by the single-stage kernel ``csrc/flash_gat.cu``: every tile form
+    and shape, every tile of ``B.segments``."""
+    res = _launch("flash_gat_forward", B, B.segments, s1, s2, Wh, alpha, return_stats)
+    flash_gat_forward.launches += 1
+    flash_gat_forward.launches_single += 1
+    return res
+
+
+def _flash_gat_forward_ring(
+    B: BSRMatrix, s1, s2, Wh, *, alpha: float = 0.2, return_stats: bool = False
+):
+    """K3 by the ring kernel ``csrc/flash_gat_ring.cu`` over ``B.ring``."""
+    res = _launch_ring("flash_gat_forward", B, B.ring, s1, s2, Wh, alpha, return_stats)
+    flash_gat_forward.launches += 1
+    flash_gat_forward.launches_ring += 1
+    return res
 
 
 def flash_gat_forward(
@@ -423,16 +527,20 @@ def flash_gat_forward(
 ):
     """K3: the masked online-softmax aggregation over ``B``'s tiles (mask
     ``> 0``; int8 and packed masks as stored). A CPU tensor runs
-    ``flash_gat_forward_plain``; a CUDA tensor launches
-    ``csrc/flash_gat.cu`` or raises."""
+    ``flash_gat_forward_plain``; a CUDA tensor launches the ring kernel
+    where ``flash_ring_shape_ok`` holds, else the single-stage kernel, or
+    raises. ``launches`` counts both; ``launches_ring`` /
+    ``launches_single`` each one."""
     if _device_of(Wh, "flash_gat_forward") == "cpu":
         return flash_gat_forward_plain(B, s1, s2, Wh, alpha=alpha, return_stats=return_stats)
-    res = _launch("flash_gat_forward", B, B.segments, s1, s2, Wh, alpha, return_stats)
-    flash_gat_forward.launches += 1
-    return res
+    if _takes_ring(B, Wh):
+        return _flash_gat_forward_ring(B, s1, s2, Wh, alpha=alpha, return_stats=return_stats)
+    return _flash_gat_forward_single(B, s1, s2, Wh, alpha=alpha, return_stats=return_stats)
 
 
 flash_gat_forward.launches = 0
+flash_gat_forward.launches_ring = 0
+flash_gat_forward.launches_single = 0
 
 
 # ----------------------------------------------------------------- K12
@@ -536,23 +644,50 @@ def flash_gat_hybrid_forward(
 ):
     """K6: tile steps and remainder chunk steps of a value-mode fused plan
     in one exact row softmax over all edges. A CPU tensor runs
-    ``flash_gat_hybrid_forward_plain``; a CUDA tensor launches
-    ``csrc/flash_gat.cu`` or raises."""
+    ``flash_gat_hybrid_forward_plain``; a CUDA tensor launches the ring
+    kernel where ``flash_ring_shape_ok`` holds, else the single-stage
+    kernel, or raises. ``launches`` counts both; ``launches_ring`` /
+    ``launches_single`` each one."""
     if plan.colscale is not None:
         raise ValueError("the hybrid flash forward takes a value-mode plan (no rank-1 scalings)")
     if _device_of(Wh, "flash_gat_hybrid_forward") == "cpu":
         return flash_gat_hybrid_forward_plain(
             plan, s1, s2, Wh, alpha=alpha, return_stats=return_stats
         )
+    if _takes_ring(plan.B, Wh, plan.K):
+        return _flash_gat_hybrid_forward_ring(plan, s1, s2, Wh, alpha=alpha, return_stats=return_stats)
+    return _flash_gat_hybrid_forward_single(plan, s1, s2, Wh, alpha=alpha, return_stats=return_stats)
+
+
+def _flash_gat_hybrid_forward_single(
+    plan: FusedAggPlan, s1, s2, Wh, *, alpha: float = 0.2, return_stats: bool = False,
+):
+    """K6 by the single-stage kernel ``csrc/flash_gat.cu`` over every step
+    of ``plan.segments``."""
     res = _launch(
         "flash_gat_hybrid_forward", plan.B, plan.segments, s1, s2, Wh, alpha,
         return_stats, plan=plan,
     )
     flash_gat_hybrid_forward.launches += 1
+    flash_gat_hybrid_forward.launches_single += 1
+    return res
+
+
+def _flash_gat_hybrid_forward_ring(
+    plan: FusedAggPlan, s1, s2, Wh, *, alpha: float = 0.2, return_stats: bool = False,
+):
+    """K6 by the ring kernel ``csrc/flash_gat_ring.cu`` over ``plan.ring``."""
+    res = _launch_ring(
+        "flash_gat_hybrid_forward", plan.B, plan.ring, s1, s2, Wh, alpha, return_stats, plan=plan,
+    )
+    flash_gat_hybrid_forward.launches += 1
+    flash_gat_hybrid_forward.launches_ring += 1
     return res
 
 
 flash_gat_hybrid_forward.launches = 0
+flash_gat_hybrid_forward.launches_ring = 0
+flash_gat_hybrid_forward.launches_single = 0
 
 
 # ------------------------------------------------------------ K4 and K5

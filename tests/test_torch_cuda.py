@@ -682,3 +682,87 @@ def test_kernel_choice_reads_shape_and_tile_form_only(cuda_device, form, tb, P, 
     assert (K1.bsr_spmm.launches_ring - before[0], K1.bsr_spmm.launches_single - before[1]) == (
         int(ring1), int(not ring1))
     torch.testing.assert_close(out, K1.bsr_spmm_plain(B, H), rtol=1e-3, atol=1e-3)
+
+
+def _ring_counts(kern):
+    return kern.launches, kern.launches_ring, kern.launches_single
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "form,tb,H",
+    [("int8", 64, 4), ("int8", 128, 2), ("int8", 192, 4), ("int8", 256, 1), ("int8", 256, 4),
+     ("values", 128, 4), ("values", 256, 2)],
+)
+def test_flash_ring_k3_matches_plain(cuda_device, form, tb, H):
+    """The ring K3 (and the single-stage K3 on the same operands) against
+    the plain version: m exact, out at 2e-2, l at 1e-3; tile heights 64 to
+    256, one, two and four heads, runs split over work items, row blocks
+    whose only tiles are empty cover tiles (out exactly 0, m = -1e5, l = 0)."""
+    n = 20 * tb + 37
+    A = _ring_graph(n, tb, weighted=form == "values", seed=tb + H)
+    B = K1.bsr_from_sparse(A, tb=tb, mask=form == "int8", cover_rows=True, cover_cols=True, device=cuda_device)
+    assert FG.flash_ring_shape_ok(K1._tile_mode(B.tiles, tb), tb, H, 64)
+    assert B.tiles[B.tile_rb == 2].eq(0).all() and not B.live[B.tile_rb == 2].any()
+    s1, s2, Wh = _scores(n, H, 64, cuda_device, seed=tb)
+    ref = FG.flash_gat_forward_plain(B, s1, s2, Wh, return_stats=True)
+    before = _ring_counts(FG.flash_gat_forward)
+    res = FG.flash_gat_forward(B, s1, s2, Wh, return_stats=True)
+    assert tuple(a - b for a, b in zip(_ring_counts(FG.flash_gat_forward), before)) == (1, 1, 0)
+    _check_flash(res, ref)
+    _check_flash(FG._flash_gat_forward_single(B, s1, s2, Wh, return_stats=True), ref)
+    out, m, l = res
+    empty = slice(2 * tb, 3 * tb)
+    assert (out[empty] == 0).all() and (m[empty] == -1e5).all() and (l[empty] == 0).all()
+    # the single-head call and bf16 Wh take the same kernel
+    if H == 1:
+        one = FG.flash_gat_forward(B, s1[:, 0], s2[:, 0], Wh[:, 0].to(torch.bfloat16))
+        torch.testing.assert_close(one, out[:, 0], rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tb,H,attach,K", [(64, 4, True, 64), (128, 1, False, 128), (256, 4, True, 128),
+                                           (256, 2, False, 64), (192, 4, True, 128)])
+def test_flash_ring_k6_matches_plain(cuda_device, tb, H, attach, K):
+    """The ring K6 against the plain version on hybrid plans: tile and
+    chunk steps, a CTA of fewer rows than the tile gathering only its
+    slots, dead chunk slots, split runs."""
+    n = 20 * tb + 37
+    A = _ring_graph(n, tb, weighted=False, seed=tb + 3 * H)
+    part, rest = split_by_tile_density(A, tb, max(tb * tb // 400, 2))
+    rest = pt.ops.dispatch._drop_zero_val_edges(rest)
+    B = K1.bsr_mask_from_sparse(part, tb=tb, cover_rows=True, cover_cols=True, device=cuda_device)
+    plan = K2.build_fused_plan(B, rest, K=K, attach_chunks=attach)
+    assert plan.num_rest_chunks > 0 and (plan.ring.step[:, 2] >= 0).any()
+    s1, s2, Wh = _scores(n, H, 64, cuda_device, seed=tb + 1)
+    ref = FG.flash_gat_hybrid_forward_plain(plan, s1, s2, Wh, return_stats=True)
+    before = _ring_counts(FG.flash_gat_hybrid_forward)
+    res = FG.flash_gat_hybrid_forward(plan, s1, s2, Wh, return_stats=True)
+    assert tuple(a - b for a, b in zip(_ring_counts(FG.flash_gat_hybrid_forward), before)) == (1, 1, 0)
+    _check_flash(res, ref)
+    _check_flash(FG._flash_gat_hybrid_forward_single(plan, s1, s2, Wh, return_stats=True), ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "form,tb,H,F,ring",
+    [("int8", 256, 4, 64, True), ("values", 64, 1, 64, True), ("int8", 256, 3, 64, False),
+     ("int8", 128, 4, 32, False), ("packed", 1024, 1, 64, False), ("f32", 128, 2, 64, False),
+     ("int8", 32, 1, 64, False)],
+)
+def test_flash_kernel_choice_reads_shape_and_tile_form_only(cuda_device, form, tb, H, F, ring):
+    """Which K3 kernel a launch takes follows ``flash_ring_shape_ok`` and
+    nothing else; the kernel that ran agrees with the plain version."""
+    n = max(8 * tb, 1500)
+    A = _graph(n, weighted=form in ("values", "f32"), seed=7)
+    if form == "packed":
+        B = K1.bsr_bitmask_from_sparse(A, tb=tb, device=cuda_device)
+    else:
+        B = K1.bsr_from_sparse(A, tb=tb, mask=form == "int8",
+                               dtype=torch.float32 if form == "f32" else torch.bfloat16, device=cuda_device)
+    assert FG.flash_ring_shape_ok(K1._tile_mode(B.tiles, tb), tb, H, F) == ring
+    s1, s2, Wh = _scores(n, H, F, cuda_device, seed=3)
+    before = _ring_counts(FG.flash_gat_forward)
+    res = FG.flash_gat_forward(B, s1, s2, Wh, return_stats=True)
+    assert tuple(a - b for a, b in zip(_ring_counts(FG.flash_gat_forward), before)) == (1, int(ring), int(not ring))
+    _check_flash(res, FG.flash_gat_forward_plain(B, s1, s2, Wh, return_stats=True))
