@@ -19,7 +19,8 @@ Phases, each raising on failure (so the run exits non-zero):
    it, through the other as well; K3 and K6 over the tile forms,
    head counts, ragged widths, isolated rows, split runs and chunk layouts,
    likewise through the kernel flash_ring_shape_ok selects and the other;
-   K4 and K5 over the same forms and under merged hybrid stats; small GCN
+   K4 and K5 over the same forms and under merged hybrid stats, likewise
+   (flash_bwd_ring_shape_ok); small GCN
    and GAT forwards and gradients through the kernels against the f32
    edge path. K7 (bsr_spmm_int8) and K8 (bsr_spmm_int8_fused) must equal
    their plain versions and a scipy integer product (tb 128 and 256, P in
@@ -38,12 +39,14 @@ Phases, each raising on failure (so the run exits non-zero):
    transpose; one step through the K1 view), each held against the
    plain-kernel versions; every launch of these runs must be a ring kernel.
 5. the GAT slice on the same graph: K6 and K3 (the ring kernel, with the
-   single-stage kernel timed in turns beside it) at H=4 and H=1, F=64, K4
-   and K5 at H=4, with their bounds; GATModel(100, 64, 16, nheads=4) answers
-   3 requests through K6 and trains for 3 epochs (K6, K4, K5); every K3/K6
-   launch of those runs must be the ring kernel.
+   single-stage kernel timed in turns beside it) at H=4 and H=1, F=64; K4
+   and K5 likewise (the backward ring kernels, K5 on the transposed live
+   tiles) on the bf16 operands flash_gat_backward hands them, the f32-in
+   call beside them; all with their bounds; GATModel(100, 64, 16, nheads=4)
+   answers 3 requests through K6 and trains for 3 epochs (K6, K4, K5);
+   every K3-K6 launch of those runs must be the ring kernel.
 6. the small GAT path (n=8192, full-cover tiles): 3 requests and 3
-   training epochs through K3, K4 and K5.
+   training epochs through K3, K4 and K5 (the ring kernels).
 7. K8 at full width: the slice's graph quantized to 8 bits,
    prepare_int8_hybrid (tb 256, threshold 64, K 128), Hq from a numpy
    seed; int8_hybrid_agg three times, equal to the plain version; K8, and
@@ -288,6 +291,14 @@ def phase_build():
              f"{regs} registers at entry (consumers raise to 232, the producer drops to 40), {spills.strip()}")
     if _cuda.build_log and len(flash) != 6:
         raise AssertionError(f"expected the six flash ring kernels in the build log, found {len(flash)}")
+    # the backward ring kernels (K4 / K5) by tile mode and head count
+    bwd = re.findall(r"Function properties for \S*bwd_ring_kernelILi(\d)ELi(\d)ELb(\d)E\S*\n\s*(.*)\n.*Used (\d+) registers",
+                     _cuda.build_log)
+    for mode, heads, col, spills, regs in bwd:
+        _log(f"  backward ring kernel ({'K5' if col == '1' else 'K4'}) {'int8' if mode == '2' else 'bf16'} tiles, "
+             f"H={heads}: {regs} registers at entry (consumers raise to 232, the producer drops to 40), {spills.strip()}")
+    if _cuda.build_log and len(bwd) != 12:
+        raise AssertionError(f"expected the twelve backward ring kernels in the build log, found {len(bwd)}")
 
 
 def _random_graph(n, weighted, seed, isolated=None):
@@ -505,14 +516,35 @@ def _gat_kernels_small(device, gen):
             _log(f"  small GAT (3001 nodes) {kern.__name__} route vs f32 edge path: max err {e:.3g}")
 
 
-def _check_bwd(name, B, s1, s2, m, l, Wh, gO) -> float:
-    """K4 and K5 against their plain versions (K5 on the plain t)."""
-    got = FG.flash_gat_bwd_row(B, s1, s2, m, l, Wh, gO)
+def _bwd_ring_rule(B, H, F) -> bool:
+    """The backward ring kernels' shape rule, written out here, held
+    against ``FG.flash_bwd_ring_shape_ok``."""
+    rule = (B.tiles.dtype in (torch.int8, torch.bfloat16) and B.tiles.shape[-1] == B.tb
+            and B.tb % 64 == 0 and B.tb <= 256 and F == 64 and H in (1, 2, 4))
+    if rule != FG.flash_bwd_ring_shape_ok(K1._tile_mode(B.tiles, B.tb), B.tb, H, F):
+        raise AssertionError("flash_bwd_ring_shape_ok disagrees with the rule")
+    return rule
+
+
+def _check_bwd(name, B, s1, s2, m, l, Wh, gO) -> tuple:
+    """K4 and K5 against their plain versions (K5 on the plain t), each
+    through the kernel its shape selects and, where that is the ring
+    kernel, the single-stage one too: (max abs error, ring taken)."""
+    ring = _bwd_ring_rule(B, Wh.shape[1], Wh.shape[2])
     ref = FG.flash_gat_bwd_row_plain(B, s1, s2, m, l, Wh, gO)
-    err = max(_check(f"K4 {name} {k}", g, r, GAT_TOL) for k, g, r in zip(("t", "u1", "u2"), got, ref))
-    got = FG.flash_gat_bwd_col(B, s1, s2, m, l, ref[0], Wh, gO)
     plain = FG.flash_gat_bwd_col_plain(B, s1, s2, m, l, ref[0], Wh, gO)
-    return max(err, *(_check(f"K5 {name} {k}", g, r, GAT_TOL) for k, g, r in zip(("dWh", "ds2"), got, plain)))
+    runs = [("", FG.flash_gat_bwd_row, FG.flash_gat_bwd_col)]
+    if ring:
+        runs.append((" single-stage", FG._flash_gat_bwd_row_single, FG._flash_gat_bwd_col_single))
+    err = 0.0
+    for label, row, col in runs:
+        got = _flash_route(FG.flash_gat_bwd_row, ring if not label else False, f"K4{label} {name}",
+                           lambda: row(B, s1, s2, m, l, Wh, gO))
+        err = max(err, *(_check(f"K4{label} {name} {k}", g, r, GAT_TOL) for k, g, r in zip(("t", "u1", "u2"), got, ref)))
+        got = _flash_route(FG.flash_gat_bwd_col, ring if not label else False, f"K5{label} {name}",
+                           lambda: col(B, s1, s2, m, l, ref[0], Wh, gO))
+        err = max(err, *(_check(f"K5{label} {name} {k}", g, r, GAT_TOL) for k, g, r in zip(("dWh", "ds2"), got, plain)))
+    return err, ring
 
 
 def _bwd_kernels_small(device, gen):
@@ -527,19 +559,33 @@ def _bwd_kernels_small(device, gen):
         ("bf16-values-bsr-H1-F40", 2100, dict(method="bsr", rank1=False, tb=256), 1, 40),
         ("int8-tb128-H2-F100-two-feature-slices", 3001, dict(method="xla", gat_tb=128), 2, 100),
         ("int8-tb256-H3-F20-unaligned-rows", 3001, dict(method="xla"), 3, 20),
+        ("int8-tb64-H2-F64", 3001, dict(method="xla", gat_tb=64), 2, 64),
+        ("int8-tb192-H1-F64-ragged", 2900, dict(method="xla", gat_tb=192), 1, 64),
+        ("bf16-values-bsr-tb128-H4-F64", 2100, dict(method="bsr", rank1=False, tb=128), 4, 64),
+        ("int8-tb256-H4-F64", 4099, dict(method="xla"), 4, 64),
     ]
+    took = {True: 0, False: 0}
     for i, (name, n, kw, H, F) in enumerate(cases):
         A = _random_graph(n, "values" in name, seed=40 + i, isolated=7)
         B = prepare_adjacency(A, for_gat=True, build_transpose=False, device=device, **kw).flash_tiles
         s1, s2, Wh = _scores(n, H, F, gen, device)
         gO = _scores(n, H, F, gen, device)[2]
         _, m, l = FG.flash_gat_forward_plain(B, s1, s2, Wh, return_stats=True)
-        err = _check_bwd(name, B, s1, s2, m, l, Wh, gO)
-        _log(f"  K4/K5 {name}: T={B.num_tiles} row segments={B.segments.n_seg} "
-             f"split={B.segments.n_fin} col segments={B.col_segments.n_seg} "
-             f"split={B.col_segments.n_fin} err {err:.3g}")
-        if "hub" in name and not (B.segments.n_fin and B.col_segments.n_fin):
-            raise AssertionError("the hub case must split a row run and a column run")
+        err, ring = _check_bwd(name, B, s1, s2, m, l, Wh, gO)
+        took[ring] += 1
+        msg = (f"  K4/K5 {name} [{'ring' if ring else 'single-stage'} kernels]: T={B.num_tiles} "
+               f"row segments={B.segments.n_seg} split={B.segments.n_fin} col segments={B.col_segments.n_seg} "
+               f"split={B.col_segments.n_fin}")
+        if ring:
+            Lt = B.live_t.ring
+            msg += (f"; ring: live tiles {B.ring.step.shape[0]}, K4 work items {B.ring.segments.n_seg} "
+                    f"split {B.ring.segments.n_fin}, K5 work items {Lt.segments.n_seg} split {Lt.segments.n_fin}")
+        _log(msg + f" err {err:.3g}")
+        if "hub" in name and not (B.segments.n_fin and B.col_segments.n_fin and B.ring.segments.n_fin
+                                  and B.live_t.ring.segments.n_fin):
+            raise AssertionError("the hub case must split a row run and a column run, on both schedules")
+    if not (took[True] and took[False]):
+        raise AssertionError("the small K4/K5 cases must reach both the ring and the single-stage kernels")
 
     A = _random_graph(3001, False, seed=50)
     part, rest = split_by_tile_density(A, 128, 40)
@@ -548,7 +594,7 @@ def _bwd_kernels_small(device, gen):
     s1, s2, Wh = _scores(3001, 4, 64, gen, device)
     gO = _scores(3001, 4, 64, gen, device)[2]
     _, m, l = FG.flash_gat_hybrid_forward_plain(plan, s1, s2, Wh, return_stats=True)
-    err = _check_bwd("hybrid-merged-stats", B, s1, s2, m, l, Wh, gO)
+    err = _check_bwd("hybrid-merged-stats", B, s1, s2, m, l, Wh, gO)[0]
     _log(f"  K4/K5 under merged hybrid stats (H=4, F=64): err {err:.3g}")
 
     for i, weighted in enumerate((False, True)):
@@ -1020,26 +1066,65 @@ def phase_gat_kernels_slice(prep, device):
                 msg += f", plain {plain_ms:.4f} ms (median of 3)"
             _log(msg)
             del ref, out
-    s1, s2, Wh = _scores(n, GAT_HEADS, GAT_HIDDEN, gen, device)
-    # the backward passes on the plan's tiles under K6's merged stats
-    _, m, l = FG.flash_gat_hybrid_forward(plan, s1, s2, Wh, return_stats=True)
-    gO = torch.randn(Wh.shape, generator=gen, device=device)
+    rec.update(_gat_bwd_slice(plan, n, gen, device))
+    return rec
+
+
+def _gat_bwd_slice(plan, n, gen, device):
+    """K4 and K5 on the slice's plan tiles under K6's merged stats, at H=4
+    and H=1, F=64, on the operands ``flash_gat_backward`` hands them
+    (``FG.bwd_operands``: padded to the tile grid, Wh and gO in bf16): the
+    ring kernel and the single-stage kernel in turns (ring, single, single,
+    ring), each against the plain version; the f32-in call (the two casts to
+    bf16 included) beside them. Bounds count the bf16 operands and the live
+    tiles."""
+    rec = {}
     B = plan.B
-    t = FG.flash_gat_bwd_row_plain(B, s1, s2, m, l, Wh, gO)[0]
-    for name, kern, plain, args in (
-        ("flash_gat_bwd_row", FG.flash_gat_bwd_row, FG.flash_gat_bwd_row_plain, (B, s1, s2, m, l, Wh, gO)),
-        ("flash_gat_bwd_col", FG.flash_gat_bwd_col, FG.flash_gat_bwd_col_plain, (B, s1, s2, m, l, t, Wh, gO)),
-    ):
-        outs = kern(*args)
-        err = max(_check(f"{name} at slice shapes", g, r, GAT_TOL) for g, r in zip(outs, plain(*args)))
-        ms = _cuda_ms(lambda: kern(*args))
-        plain_ms = _cuda_ms(lambda: plain(*args), reps=3)
-        # K4: the q product; K5: the q product and p^T @ gO
-        bound = _flash_bound(B, (*args[1:], *outs), GAT_HEADS, GAT_HIDDEN, 1 if name.endswith("row") else 2)
-        rec[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, **bound, library_ms=None)
-        _log(f"{name} at slice shapes [n={prep.A.n_rows}, T={B.num_tiles}, H={GAT_HEADS}, F={GAT_HIDDEN}]: "
-             f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (median of 3), bound {bound['bound_ms']:.4f} ms "
-             f"by {bound['bound_by']}, max abs err {err:.3g}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    Bt = B.live_t  # K5's transposed live tiles, built once and kept with B
+    torch.cuda.synchronize()
+    _log(f"GAT slice transposed live tiles (K5's ring): {Bt.num_tiles} of {B.num_tiles} tiles, "
+         f"{_nbytes(Bt.tiles) / 1e9:.4f} GB of tiles + {_sched_bytes(Bt.ring) / 1e6:.3f} MB of schedule, "
+         f"built in {time.perf_counter() - t0:.2f} s; K4 {B.ring.segments.n_seg} work items "
+         f"({B.ring.segments.n_fin} split runs), K5 {Bt.ring.segments.n_seg} ({Bt.ring.segments.n_fin} split runs)")
+    for H in (GAT_HEADS, 1):
+        s1, s2, Wh = _scores(n, H, GAT_HIDDEN, gen, device)
+        _, m, l = FG.flash_gat_hybrid_forward(plan, s1, s2, Wh, return_stats=True)
+        gO = torch.randn(Wh.shape, generator=gen, device=device)
+        ops = FG.bwd_operands(B, s1, s2, Wh, gO, m, l)
+        t = FG.flash_gat_bwd_row_plain(B, **ops)[0]
+        for name, kern, single, plain, args, T, products in (
+            ("flash_gat_bwd_row", FG.flash_gat_bwd_row, FG._flash_gat_bwd_row_single, FG.flash_gat_bwd_row_plain,
+             dict(ops), B, 1),
+            ("flash_gat_bwd_col", FG.flash_gat_bwd_col, FG._flash_gat_bwd_col_single, FG.flash_gat_bwd_col_plain,
+             dict(ops, t=t), Bt, 2),
+        ):
+            label = f"{name} at slice shapes H={H}"
+            ref = plain(B, **args)
+            outs = _flash_route(kern, True, label, lambda: kern(B, **args))
+            err = max(_check(label, g, r, GAT_TOL) for g, r in zip(outs, ref))
+            for g, r in zip(single(B, **args), ref):
+                _check(f"{label}, single-stage kernel", g, r, GAT_TOL)
+            ms = [_cuda_ms(lambda: kern(B, **args)), 0.0]
+            earlier = [_cuda_ms(lambda: single(B, **args)), _cuda_ms(lambda: single(B, **args))]
+            ms[1] = _cuda_ms(lambda: kern(B, **args))
+            f32_in = dict(args, Wh=Wh, gO=gO)  # the f32 operands: each call casts them to bf16
+            f32_ms = _cuda_ms(lambda: kern(B, **f32_in))
+            # K4: the q product; K5: the q product and p^T @ gO
+            bound = _flash_bound(T, (*args.values(), *outs), H, GAT_HIDDEN, products)
+            msg = (f"{label} [n={n}, live tiles {int(B.live.sum())}, F={GAT_HIDDEN}, bf16 Wh/gO]: ring kernel "
+                   f"{ms[0]:.4f} / {ms[1]:.4f} ms, single-stage kernel {earlier[0]:.4f} / {earlier[1]:.4f} ms, "
+                   f"ring on f32 Wh/gO (casts included) {f32_ms:.4f} ms, bound {bound['bound_ms']:.4f} ms "
+                   f"by {bound['bound_by']}, max abs err {err:.3g}")
+            if H == GAT_HEADS:
+                plain_ms = _cuda_ms(lambda: plain(B, **args), reps=3)
+                rec[name] = dict(max_abs_err=err, ms=min(ms), plain_ms=plain_ms, **bound, library_ms=None,
+                                 earlier_ms=min(earlier), f32_in_ms=f32_ms)
+                msg += f", plain {plain_ms:.4f} ms (median of 3)"
+            _log(msg)
+            del outs, ref
+        del ops, t, m, l, gO, s1, s2, Wh
     return rec
 
 
@@ -1164,7 +1249,8 @@ def _counts() -> dict:
     return {k.__name__: k.launches for k in KERNELS}
 
 
-RING_KERNELS = (K1.bsr_spmm, K2.bsr_spmm_fused, FG.flash_gat_forward, FG.flash_gat_hybrid_forward)
+RING_KERNELS = (K1.bsr_spmm, K2.bsr_spmm_fused, FG.flash_gat_forward, FG.flash_gat_hybrid_forward,
+                FG.flash_gat_bwd_row, FG.flash_gat_bwd_col)
 
 
 def _reset_counts() -> None:
@@ -1175,8 +1261,8 @@ def _reset_counts() -> None:
 
 
 def _all_ring(label: str) -> None:
-    """Every K1, K2, K3 and K6 launch since the last reset went through
-    the ring kernel."""
+    """Every K1, K2, K3, K4, K5 and K6 launch since the last reset went
+    through the ring kernel."""
     for k in RING_KERNELS:
         if k.launches_ring != k.launches or k.launches_single:
             raise AssertionError(f"{label}: {k.__name__} launched {k.launches} times, {k.launches_ring} on the "
@@ -2085,8 +2171,8 @@ def main() -> None:
         "bsr_spmm_fused": ("sgracex1_tpu_torch/csrc/fused_agg_ring.cu", "sgracex1_tpu/ops/fused_agg.py:622"),
         "bsr_spmm": ("sgracex1_tpu_torch/csrc/bsr_spmm_ring.cu", "sgracex1_tpu/ops/bsr.py:589"),
         "flash_gat_forward": ("sgracex1_tpu_torch/csrc/flash_gat_ring.cu", "sgracex1_tpu/ops/flash_gat.py:422"),
-        "flash_gat_bwd_row": ("sgracex1_tpu_torch/csrc/flash_gat_bwd.cu", "sgracex1_tpu/ops/flash_gat.py:762"),
-        "flash_gat_bwd_col": ("sgracex1_tpu_torch/csrc/flash_gat_bwd.cu", "sgracex1_tpu/ops/flash_gat.py:847"),
+        "flash_gat_bwd_row": ("sgracex1_tpu_torch/csrc/flash_gat_bwd_ring.cu", "sgracex1_tpu/ops/flash_gat.py:762"),
+        "flash_gat_bwd_col": ("sgracex1_tpu_torch/csrc/flash_gat_bwd_ring.cu", "sgracex1_tpu/ops/flash_gat.py:847"),
         "flash_gat_hybrid_forward": ("sgracex1_tpu_torch/csrc/flash_gat_ring.cu",
                                      "sgracex1_tpu/ops/flash_gat.py:1139"),
         "bsr_spmm_int8": ("sgracex1_tpu_torch/csrc/bsr_spmm_int8.cu", "sgracex1_tpu/ops/bsr.py:773"),

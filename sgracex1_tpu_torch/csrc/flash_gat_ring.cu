@@ -114,17 +114,6 @@ struct FArgs {
   float* pacc;               // [n_part, tb, H, 64]
 };
 
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
 // s2 of one slot, H floats; zero-filled for a slot outside the CTA's rows
 template <int H>
 __device__ __forceinline__ void cp_async_s2(uint32_t dst, const float* src, bool valid) {
@@ -135,17 +124,6 @@ __device__ __forceinline__ void cp_async_s2(uint32_t dst, const float* src, bool
                  "r"(valid ? H * 4 : 0)
                  : "memory");
   }
-}
-
-// Four bits (bit k: byte k of w is not zero).
-__device__ __forceinline__ uint32_t nz4(uint32_t w) {
-  const uint32_t b = __vcmpne4(w, 0u) & 0x01010101u;
-  return (b | (b >> 7) | (b >> 14) | (b >> 21)) & 0xfu;
-}
-
-// Two bits (bit k: bf16 half k of w is a value > 0: sign clear, not +0).
-__device__ __forceinline__ uint32_t pos2(uint32_t w) {
-  return (uint32_t)((w & 0xffffu) - 1u < 0x7fffu) | ((uint32_t)((w >> 16) - 1u < 0x7fffu) << 1);
 }
 
 template <int MODE, int H>
@@ -304,16 +282,8 @@ __global__ void __launch_bounds__(NT, 1)
               } else {
                 // the edge flags of the thread's 16 columns in column order
                 // (bit c: column 16t + c), then in position order
-                uint32_t c16;
-                if constexpr (MODE == TILE_I8) {
-                  const uint4 u = *reinterpret_cast<const uint4*>(sp + lr * Msk<MODE>::PITCH + 16 * t);
-                  c16 = nz4(u.x) | (nz4(u.y) << 4) | (nz4(u.z) << 8) | (nz4(u.w) << 12);
-                } else {
-                  const uint4* q = reinterpret_cast<const uint4*>(sp + lr * Msk<MODE>::PITCH + 32 * t);
-                  const uint4 u0 = q[0], u1 = q[1];
-                  c16 = pos2(u0.x) | (pos2(u0.y) << 2) | (pos2(u0.z) << 4) | (pos2(u0.w) << 6) |
-                        (pos2(u1.x) << 8) | (pos2(u1.y) << 10) | (pos2(u1.z) << 12) | (pos2(u1.w) << 14);
-                }
+                const uint32_t c16 =
+                    mask16<MODE>(sp + lr * Msk<MODE>::PITCH + (MODE == TILE_I8 ? 16 : 32) * t);
 #pragma unroll
                 for (int i = 0; i < 4; ++i) {
                   uint32_t n = (c16 >> (4 * (i ^ sw))) & 0xfu;  // columns 4q .. 4q + 3

@@ -194,6 +194,46 @@ __device__ __forceinline__ uint32_t i8x2_to_bf16x2(uint32_t w) {
   return d;
 }
 
+// ------------------------------------------------- flash-GAT score helpers
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// Four bits (bit k: byte k of w is not zero).
+__device__ __forceinline__ uint32_t nz4(uint32_t w) {
+  const uint32_t b = __vcmpne4(w, 0u) & 0x01010101u;
+  return (b | (b >> 7) | (b >> 14) | (b >> 21)) & 0xfu;
+}
+
+// Two bits (bit k: bf16 half k of w is a value > 0: sign clear, not +0).
+__device__ __forceinline__ uint32_t pos2(uint32_t w) {
+  return (uint32_t)((w & 0xffffu) - 1u < 0x7fffu) | ((uint32_t)((w >> 16) - 1u < 0x7fffu) << 1);
+}
+
+// The edge flags of 16 consecutive columns of a mask row in shared memory
+// (bit c: column c of the 16), from int8 bytes or bf16 values, each read
+// as a 16-bit pattern (> 0).
+template <int MODE>
+__device__ __forceinline__ uint32_t mask16(const uint8_t* row16) {
+  if constexpr (MODE == TILE_I8) {
+    const uint4 u = *reinterpret_cast<const uint4*>(row16);
+    return nz4(u.x) | (nz4(u.y) << 4) | (nz4(u.z) << 8) | (nz4(u.w) << 12);
+  } else {
+    const uint4* q = reinterpret_cast<const uint4*>(row16);
+    const uint4 u0 = q[0], u1 = q[1];
+    return pos2(u0.x) | (pos2(u0.y) << 2) | (pos2(u0.z) << 4) | (pos2(u0.w) << 6) | (pos2(u1.x) << 8) |
+           (pos2(u1.y) << 10) | (pos2(u1.z) << 12) | (pos2(u1.w) << 14);
+  }
+}
+
 // The reduction index, inside a 64-deep slab, that position ``pp`` (0..15)
 // of the ``i``-th m16n8k16 product stands for.
 //

@@ -167,6 +167,14 @@ def _declare(lib: ctypes.CDLL) -> None:
         p, i, p, p,  # out, n_rows, m_out, l_out
         p, p, p, i, p,  # pm, pl, pacc, n_sm, stream
     ]
+    lib.sg_flash_gat_bwd_ring.restype = i
+    lib.sg_flash_gat_bwd_ring.argtypes = [
+        i, p, i, i, ctypes.c_long, i, p, p, p, p,  # col, tiles, mode, tb, n_tiles, n_seg, seg_rb/lo/hi/part
+        i, p, p, p,  # n_fin, fin_rb/p0/np
+        p, p, p, ctypes.c_long, p,  # step, slab_stat, op (bf16), n_op, res (bf16)
+        p, p, p, i, ctypes.c_float,  # s_own, m_own, l_own, H, alpha
+        p, p, p, p, i, p,  # out, out2, part, part2, n_sm, stream
+    ]
     lib.sg_plan_spmm.restype = i
     lib.sg_plan_spmm.argtypes = [
         p, p, p, i, i, p,  # lcol, val, tile_cb, be, cb, slot_idx

@@ -29,6 +29,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 from typing import Optional
 
 import numpy as np
@@ -212,10 +213,11 @@ class BSRMatrix:
     ``col_perm`` lists the tiles in column order (stable argsort of
     ``tile_cb``, the walk of the TPU column pass ``_bwd_col_pass``) and
     ``col_segments`` cuts its column-block runs as ``segments`` cuts the
-    row-block runs (``seg_rb`` there holds the column block). The flash
-    backward K5 walks them. It reads the tiles as they are: the transposed
-    tile set (``bsr_transpose``) would double the tile memory and cannot
-    be built from packed tiles."""
+    row-block runs (``seg_rb`` there holds the column block). The
+    single-stage flash backward K5 walks them on the tiles as they are; the
+    ring K5 walks ``live_t``, the transposed live tiles, built at first use
+    and kept with this object (the live tiles' bytes again; not for packed
+    tiles)."""
 
     tiles: torch.Tensor
     tile_rb: torch.Tensor  # int32[T]
@@ -240,6 +242,12 @@ class BSRMatrix:
     @property
     def packed(self) -> bool:
         return self.tiles.shape[-1] != self.tb
+
+    @functools.cached_property
+    def live_t(self) -> "BSRMatrix":
+        """``live_transpose(self)``, built at first use and kept with this
+        tile set (the ring K5 walks its ``ring``)."""
+        return live_transpose(self)
 
     def to(self, device) -> "BSRMatrix":
         return dataclasses.replace(
@@ -436,6 +444,21 @@ def bsr_transpose(B: BSRMatrix) -> BSRMatrix:
         **_schedules(_np(tile_rb), _np(tile_cb), _np(B.live[order]), B.n_cols, B.n_rows,
                      B.tb, B.tiles.device),
     )
+
+
+def live_transpose(B: BSRMatrix) -> BSRMatrix:
+    """``bsr_transpose`` of ``B``'s live tiles alone: A^T over the tiles an
+    edge produced, the empty cover tiles dropped. Its ``ring`` walks A's
+    column-block runs of live tiles (the ring K5's schedule), and a column
+    block without one keeps an empty work item. A tile set without a live
+    tile keeps its first (zero) tile."""
+    keep = torch.nonzero(B.live).flatten()
+    if keep.numel() == 0:
+        keep = torch.zeros(1, dtype=torch.long, device=B.live.device)
+    sub = dataclasses.replace(
+        B, tiles=B.tiles[keep], tile_rb=B.tile_rb[keep], tile_cb=B.tile_cb[keep], live=B.live[keep],
+    )
+    return bsr_transpose(sub)
 
 
 # ------------------------------------------------------------- kernel K1

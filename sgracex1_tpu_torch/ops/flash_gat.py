@@ -31,6 +31,9 @@ hand-written kernel or raises: K3 and K6 the ring kernel
 ``csrc/flash_gat_ring.cu`` where ``flash_ring_shape_ok`` holds (only the live
 steps of ``B.ring`` / ``plan.ring``, every head in one CTA, a multi-stage
 shared-memory ring), else the single-stage ``csrc/flash_gat.cu``; K4, K5
+the ring kernels ``csrc/flash_gat_bwd_ring.cu`` where
+``flash_bwd_ring_shape_ok`` holds (live tiles only, K5 on the transposed
+live tiles ``B.live_t``, every head in one CTA), else the single-stage
 ``csrc/flash_gat_bwd.cu``. On a CPU tensor it runs its plain PyTorch version
 (``*_plain``)
 with the TPU kernel's rounding points: ``bf16(p) @ bf16(Wh)`` with f32
@@ -693,20 +696,18 @@ flash_gat_hybrid_forward.launches_single = 0
 # ------------------------------------------------------------ K4 and K5
 
 
-def _launch_bwd(name, B: BSRMatrix, s1, s2, m, l, Wh, gO, alpha, t=None):
-    """Launch csrc/flash_gat_bwd.cu on head-last operands: K4 over the
-    row-block runs (``t`` None), else K5 over the column-block runs."""
-    dev = Wh.device
+def _bwd_check(B: BSRMatrix, Wh, gO, given: dict) -> tuple:
+    """(mode, H, F, n_rt, n_ct, ops) of a K4/K5 launch: the operands padded
+    to the tile grid, Wh and gO rounded to bf16 (the plain version and the
+    TPU kernel round the same values per tile); no copy where
+    ``bwd_operands`` already did both."""
     tb = B.tb
     mode = _tile_mode(B.tiles, tb)
-    if tb % 32 or tb > 1024:
-        raise ValueError(f"the flash kernels need tb % 32 == 0 and tb <= 1024, got {tb}")
     n_rt, n_ct = B.n_row_tiles, _round_up(B.n_cols, tb) // tb
     if Wh.dim() != 3 or gO.dim() != 3 or gO.shape[1:] != Wh.shape[1:]:
         raise ValueError(f"want Wh and gO [N, H, F]; got {tuple(Wh.shape)}, {tuple(gO.shape)}")
     H, F = Wh.shape[1], Wh.shape[2]
     rows = dict(s1=n_rt, m=n_rt, l=n_rt, t=n_rt, s2=n_ct, Wh=n_ct, gO=n_rt)
-    given = dict(s1=s1, m=m, l=l, t=t, s2=s2, Wh=Wh, gO=gO)
     for k, x in given.items():
         if x is None:
             continue
@@ -714,13 +715,21 @@ def _launch_bwd(name, B: BSRMatrix, s1, s2, m, l, Wh, gO, alpha, t=None):
             raise ValueError(f"{k} {tuple(x.shape)} must be [<= {rows[k] * tb}, {H}(, F)]")
         if x.dtype not in ((torch.float32, torch.bfloat16) if k in ("Wh", "gO") else (torch.float32,)):
             raise ValueError(f"{k} has dtype {x.dtype}")
-    # padded to the tile grid, Wh and gO rounded to bf16 (the plain version
-    # and the TPU kernel round the same values per tile); no copy where
-    # flash_gat_backward already did both
     ops = {
         k: _grid(x, rows[k], tb, torch.bfloat16 if k in ("Wh", "gO") else torch.float32)
         for k, x in given.items() if x is not None
     }
+    return mode, H, F, n_rt, n_ct, ops
+
+
+def _launch_bwd(name, B: BSRMatrix, s1, s2, m, l, Wh, gO, alpha, t=None):
+    """Launch csrc/flash_gat_bwd.cu on head-last operands: K4 over the
+    row-block runs (``t`` None), else K5 over the column-block runs."""
+    dev = Wh.device
+    tb = B.tb
+    if tb % 32 or tb > 1024:
+        raise ValueError(f"the flash kernels need tb % 32 == 0 and tb <= 1024, got {tb}")
+    mode, H, F, n_rt, n_ct, ops = _bwd_check(B, Wh, gO, dict(s1=s1, m=m, l=l, t=t, s2=s2, Wh=Wh, gO=gO))
     S = B.segments if t is None else B.col_segments
     ints = dict(tile_cb=B.tile_cb, tile_rb=B.tile_rb, col_perm=B.col_perm, **S.tensors())
     _check_cuda_operands(dict(tiles=B.tiles, **ops, **ints), dev)
@@ -757,34 +766,142 @@ def _launch_bwd(name, B: BSRMatrix, s1, s2, m, l, Wh, gO, alpha, t=None):
     return dwh, ds2
 
 
-def flash_gat_bwd_row(B: BSRMatrix, s1, s2, m, l, Wh, gO, *, alpha: float = 0.2):
-    """K4: the backward's row reductions ``(t, u1, u2)`` over ``B``'s
-    tiles, each f32 [n_rt*tb, H]. A CPU tensor runs
-    ``flash_gat_bwd_row_plain``; a CUDA tensor launches
-    ``csrc/flash_gat_bwd.cu`` or raises."""
-    if _device_of(Wh, "flash_gat_bwd_row") == "cpu":
-        return flash_gat_bwd_row_plain(B, s1, s2, m, l, Wh, gO, alpha=alpha)
+def flash_bwd_ring_shape_ok(mode: int, tb: int, H: int, F: int) -> bool:
+    """Whether the backward ring kernels (csrc/flash_gat_bwd_ring.cu) take
+    these operands: int8 or bf16 tiles of height 64, 128, 192 or 256 (a
+    stage is 64 deep), F = 64 features a head and H in {1, 2, 4} heads (a
+    CTA owns every head of its rows; K5 keeps R x H*F f32 dWh sums in
+    registers). Everything else goes to the single-stage kernels. The rule
+    reads shapes and the tile form only."""
+    return (
+        mode in (_TILE_MODES[torch.bfloat16], _TILE_MODES[torch.int8])
+        and tb % 64 == 0 and 0 < tb <= 256 and F == 64 and H in (1, 2, 4)
+    )
+
+
+def _takes_bwd_ring(B: BSRMatrix, Wh: torch.Tensor) -> bool:
+    return Wh.dim() == 3 and flash_bwd_ring_shape_ok(_tile_mode(B.tiles, B.tb), B.tb, Wh.shape[1], Wh.shape[2])
+
+
+def _launch_bwd_ring(name, B: BSRMatrix, s1, s2, m, l, Wh, gO, alpha, t=None):
+    """Launch csrc/flash_gat_bwd_ring.cu: K4 (``t`` None) over ``B.ring``,
+    own rows A's rows, Wh streamed; K5 over ``B.live_t.ring`` (the
+    transposed live tiles), own rows A's columns, gO streamed with the
+    slab rows' stats packed as [n_rt*tb, 4, H] = (s1, m, 1/max(l, 1e-30),
+    t)."""
+    dev = Wh.device
+    tb = B.tb
+    mode, H, F, n_rt, n_ct, ops = _bwd_check(B, Wh, gO, dict(s1=s1, m=m, l=l, t=t, s2=s2, Wh=Wh, gO=gO))
+    if not flash_bwd_ring_shape_ok(mode, tb, H, F):
+        raise ValueError(f"the backward ring kernel does not take tile mode {mode}, tb={tb}, H={H}, F={F}")
+    T = B if t is None else B.live_t
+    L, S = T.ring, T.ring.segments
+    _check_cuda_operands(dict(tiles=T.tiles, step=L.step, **ops, **S.tensors()), dev)
+    for k, x in dict(step=L.step, **S.tensors()).items():
+        if x.dtype != torch.int32:
+            raise ValueError(f"{k} must be int32, got {x.dtype}")
+    f32 = dict(dtype=torch.float32, device=dev)
+    n_part = max(S.n_part, 1)
+    if t is None:
+        out = torch.empty((n_rt * tb, 3 * H), **f32)
+        out2 = part2 = None
+        part = torch.empty((n_part, tb, 3 * H), **f32)
+        stat, op, res, own = ops["s2"], ops["Wh"], ops["gO"], (ops["s1"], ops["m"], ops["l"])
+    else:
+        out = torch.empty((n_ct * tb, H, F), **f32)
+        out2 = torch.empty((n_ct * tb, H), **f32)
+        part = torch.empty((n_part, tb, H, F), **f32)
+        part2 = torch.empty((n_part, tb, H), **f32)
+        linv = 1.0 / torch.clamp(ops["l"], min=1e-30)
+        stat = torch.stack((ops["s1"], ops["m"], linv, ops["t"]), dim=1)
+        op, res, own = ops["gO"], ops["Wh"], (ops["s2"], None, None)
+    err = _cuda.library().sg_flash_gat_bwd_ring(
+        int(t is not None), _ptr(T.tiles), mode, tb, T.num_tiles, *_seg_args(S), _ptr(L.step),
+        _ptr(stat), _ptr(op), op.shape[0], _ptr(res), *(_ptr(x) for x in own), H, float(alpha),
+        _ptr(out), _ptr(out2), _ptr(part), _ptr(part2),
+        torch.cuda.get_device_properties(dev).multi_processor_count,
+        ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream),
+    )
+    _cuda.check(err, name)
+    if t is None:
+        return out[:, :H], out[:, H : 2 * H], out[:, 2 * H :]
+    return out, out2
+
+
+def _count(kern, ring: bool) -> None:
+    kern.launches += 1
+    if ring:
+        kern.launches_ring += 1
+    else:
+        kern.launches_single += 1
+
+
+def _flash_gat_bwd_row_single(B: BSRMatrix, s1, s2, m, l, Wh, gO, *, alpha: float = 0.2):
+    """K4 by the single-stage kernel ``csrc/flash_gat_bwd.cu``: every tile
+    form and shape, every tile of ``B.segments``, one head a CTA."""
     res = _launch_bwd("flash_gat_bwd_row", B, s1, s2, m, l, Wh, gO, alpha)
-    flash_gat_bwd_row.launches += 1
+    _count(flash_gat_bwd_row, False)
     return res
 
 
+def _flash_gat_bwd_row_ring(B: BSRMatrix, s1, s2, m, l, Wh, gO, *, alpha: float = 0.2):
+    """K4 by the ring kernel ``csrc/flash_gat_bwd_ring.cu`` over ``B.ring``."""
+    res = _launch_bwd_ring("flash_gat_bwd_row", B, s1, s2, m, l, Wh, gO, alpha)
+    _count(flash_gat_bwd_row, True)
+    return res
+
+
+def flash_gat_bwd_row(B: BSRMatrix, s1, s2, m, l, Wh, gO, *, alpha: float = 0.2):
+    """K4: the backward's row reductions ``(t, u1, u2)`` over ``B``'s
+    tiles, each f32 [n_rt*tb, H]. A CPU tensor runs
+    ``flash_gat_bwd_row_plain``; a CUDA tensor launches the ring kernel
+    where ``flash_bwd_ring_shape_ok`` holds, else the single-stage kernel,
+    or raises. ``launches`` counts both; ``launches_ring`` /
+    ``launches_single`` each one."""
+    if _device_of(Wh, "flash_gat_bwd_row") == "cpu":
+        return flash_gat_bwd_row_plain(B, s1, s2, m, l, Wh, gO, alpha=alpha)
+    kern = _flash_gat_bwd_row_ring if _takes_bwd_ring(B, Wh) else _flash_gat_bwd_row_single
+    return kern(B, s1, s2, m, l, Wh, gO, alpha=alpha)
+
+
 flash_gat_bwd_row.launches = 0
+flash_gat_bwd_row.launches_ring = 0
+flash_gat_bwd_row.launches_single = 0
+
+
+def _flash_gat_bwd_col_single(B: BSRMatrix, s1, s2, m, l, t, Wh, gO, *, alpha: float = 0.2):
+    """K5 by the single-stage kernel ``csrc/flash_gat_bwd.cu`` over every
+    tile of ``B.col_segments``, one head a CTA."""
+    res = _launch_bwd("flash_gat_bwd_col", B, s1, s2, m, l, Wh, gO, alpha, t=t)
+    _count(flash_gat_bwd_col, False)
+    return res
+
+
+def _flash_gat_bwd_col_ring(B: BSRMatrix, s1, s2, m, l, t, Wh, gO, *, alpha: float = 0.2):
+    """K5 by the ring kernel ``csrc/flash_gat_bwd_ring.cu`` over
+    ``B.live_t.ring``."""
+    res = _launch_bwd_ring("flash_gat_bwd_col", B, s1, s2, m, l, Wh, gO, alpha, t=t)
+    _count(flash_gat_bwd_col, True)
+    return res
 
 
 def flash_gat_bwd_col(B: BSRMatrix, s1, s2, m, l, t, Wh, gO, *, alpha: float = 0.2):
     """K5: the backward's column reductions ``(dWh [n_ct*tb, H, F], ds2
     [n_ct*tb, H])`` over ``B``'s tiles in column order, with ``t`` the full
     row reduction. A CPU tensor runs ``flash_gat_bwd_col_plain``; a CUDA
-    tensor launches ``csrc/flash_gat_bwd.cu`` or raises."""
+    tensor launches the ring kernel where ``flash_bwd_ring_shape_ok``
+    holds (on the transposed live tiles ``B.live_t``, built at its first
+    call), else the single-stage kernel, or raises. ``launches`` counts
+    both; ``launches_ring`` / ``launches_single`` each one."""
     if _device_of(Wh, "flash_gat_bwd_col") == "cpu":
         return flash_gat_bwd_col_plain(B, s1, s2, m, l, t, Wh, gO, alpha=alpha)
-    res = _launch_bwd("flash_gat_bwd_col", B, s1, s2, m, l, Wh, gO, alpha, t=t)
-    flash_gat_bwd_col.launches += 1
-    return res
+    kern = _flash_gat_bwd_col_ring if _takes_bwd_ring(B, Wh) else _flash_gat_bwd_col_single
+    return kern(B, s1, s2, m, l, t, Wh, gO, alpha=alpha)
 
 
 flash_gat_bwd_col.launches = 0
+flash_gat_bwd_col.launches_ring = 0
+flash_gat_bwd_col.launches_single = 0
 
 
 def _rest_row_terms(rest: SparseMatrix, s1, s2, Wh, gO, m, l, alpha: float):
@@ -817,6 +934,21 @@ def _rest_fan_in(edge: dict, gO, t, n_cols: int):
     return ds2, dWh.index_add_(0, cols, msg)
 
 
+def bwd_operands(B: BSRMatrix, s1, s2, Wh, gO, m, l) -> dict:
+    """The operands K4 and K5 share, as ``flash_gat_backward`` hands them
+    over: head-last, padded to the tile grid, Wh and gO rounded to bf16 once
+    (the remainder terms read the f32 Wh and gO), and the stats of rows past
+    ``n_rows`` (which hold no edge) set to (0, 1) as in JAX."""
+    nl, tb, n_rt = B.n_rows, B.tb, B.n_row_tiles
+    n_ct = _round_up(B.n_cols, tb) // tb
+    m_p, l_p = m.clone(), l.clone()
+    m_p[nl:], l_p[nl:] = 0.0, 1.0
+    return dict(
+        s1=_grid(s1, n_rt, tb), s2=_grid(s2, n_ct, tb), m=m_p, l=l_p,
+        Wh=_grid(Wh, n_ct, tb, torch.bfloat16), gO=_grid(gO, n_rt, tb, torch.bfloat16),
+    )
+
+
 def flash_gat_backward(
     B: BSRMatrix, s1, s2, Wh, gO, m, l, *, alpha: float = 0.2,
     rest: Optional[SparseMatrix] = None,
@@ -833,16 +965,7 @@ def flash_gat_backward(
     n1, n2, nw = s1.shape[0], s2.shape[0], Wh.shape[0]
     gO = gO.reshape(gO.shape[0], *Wh.shape[1:])
     nl, tb, n_rt = B.n_rows, B.tb, B.n_row_tiles
-    n_ct = _round_up(B.n_cols, tb) // tb
-    # rows past n_rows hold no edge; their stats pad to (0, 1) as in JAX
-    m_p, l_p = m.clone(), l.clone()
-    m_p[nl:], l_p[nl:] = 0.0, 1.0
-    # K4 and K5 share their operands, padded and rounded to bf16 once
-    # (the remainder terms below read the f32 Wh and gO)
-    ops = dict(
-        s1=_grid(s1, n_rt, tb), s2=_grid(s2, n_ct, tb), m=m_p, l=l_p,
-        Wh=_grid(Wh, n_ct, tb, torch.bfloat16), gO=_grid(gO, n_rt, tb, torch.bfloat16),
-    )
+    ops = bwd_operands(B, s1, s2, Wh, gO, m, l)
     t, u1, u2 = (x[:nl] for x in flash_gat_bwd_row(B, **ops, alpha=alpha))
     edge = None
     if rest is not None and rest.nnz:

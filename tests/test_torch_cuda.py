@@ -766,3 +766,121 @@ def test_flash_kernel_choice_reads_shape_and_tile_form_only(cuda_device, form, t
     res = FG.flash_gat_forward(B, s1, s2, Wh, return_stats=True)
     assert tuple(a - b for a, b in zip(_ring_counts(FG.flash_gat_forward), before)) == (1, int(ring), int(not ring))
     _check_flash(res, FG.flash_gat_forward_plain(B, s1, s2, Wh, return_stats=True))
+
+
+# ------------------------------------------------ the backward ring K4 / K5
+
+
+_BWD = (FG.flash_gat_bwd_row, FG.flash_gat_bwd_col)
+
+
+def _bwd_moved(before):
+    """How far (launches, launches_ring, launches_single) of K4 and K5 moved
+    since ``before = [_ring_counts(k) for k in _BWD]``."""
+    return [tuple(a - b for a, b in zip(_ring_counts(k), bk)) for k, bk in zip(_BWD, before)]
+
+
+def _bwd_ring_run(B, H, device, seed):
+    """K4 and K5 on ``B`` through their wrappers against the plain
+    versions at 2e-2 (bf16 q and dWh operands are identical; p differs in
+    the fast exp); also the single-stage kernels on the same operands.
+    Returns the counter moves of the two wrappers."""
+    n = B.n_rows
+    s1, s2, Wh = _scores(n, H, 64, device, seed=seed)
+    gO = _scores(n, H, 64, device, seed=seed + 1)[2]
+    _, m, l = FG.flash_gat_forward_plain(B, s1, s2, Wh, return_stats=True)
+    ref = FG.flash_gat_bwd_row_plain(B, s1, s2, m, l, Wh, gO)
+    ref_c = FG.flash_gat_bwd_col_plain(B, s1, s2, m, l, ref[0], Wh, gO)
+    before = [_ring_counts(k) for k in _BWD]
+    got = FG.flash_gat_bwd_row(B, s1, s2, m, l, Wh, gO)
+    got_c = FG.flash_gat_bwd_col(B, s1, s2, m, l, ref[0], Wh, gO)
+    moved = _bwd_moved(before)
+    single = (FG._flash_gat_bwd_row_single(B, s1, s2, m, l, Wh, gO),
+              FG._flash_gat_bwd_col_single(B, s1, s2, m, l, ref[0], Wh, gO))
+    torch.cuda.synchronize()
+    for res, want in ((got, ref), (got_c, ref_c), (single[0], ref), (single[1], ref_c)):
+        for g, r in zip(res, want):
+            assert torch.isfinite(g).all()
+            torch.testing.assert_close(g, r, rtol=2e-2, atol=2e-2)
+    return moved, got, got_c
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "form,tb,H,seg_steps",
+    [("int8", 64, 4, 16), ("int8", 128, 2, 2), ("int8", 192, 4, 16), ("int8", 256, 1, 16), ("int8", 256, 4, 1),
+     ("values", 128, 4, 3), ("values", 256, 2, 16), ("values", 64, 1, 64)],
+)
+def test_flash_bwd_ring_matches_plain(cuda_device, monkeypatch, form, tb, H, seg_steps):
+    """The ring K4 and K5 against the plain versions: tile heights 64 to
+    256, one, two and four heads, runs cut into work items of 1 to 64 live
+    steps (split runs summed in order), a row block and a column block whose
+    only tiles are empty cover tiles (their sums exactly 0)."""
+    monkeypatch.setattr(K1, "RING_SEG_STEPS", seg_steps)
+    n = 20 * tb + 37
+    A = _ring_graph(n, tb, weighted=form == "values", seed=tb + H)
+    B = K1.bsr_from_sparse(A, tb=tb, mask=form == "int8", cover_rows=True, cover_cols=True, device=cuda_device)
+    assert FG.flash_bwd_ring_shape_ok(K1._tile_mode(B.tiles, tb), tb, H, 64)
+    assert not B.live[B.tile_rb == 2].any() and not B.live[B.tile_cb == 5].any()
+    if seg_steps <= 3:
+        assert B.ring.segments.n_fin > 0 and B.live_t.ring.segments.n_fin > 0
+    moved, (t, u1, u2), (dWh, ds2) = _bwd_ring_run(B, H, cuda_device, seed=tb)
+    assert moved == [(1, 1, 0), (1, 1, 0)]
+    empty_r, empty_c = slice(2 * tb, 3 * tb), slice(5 * tb, 6 * tb)
+    assert all((x[empty_r] == 0).all() for x in (t, u1, u2))
+    assert (dWh[empty_c] == 0).all() and (ds2[empty_c] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "form,tb,H,F,ring",
+    [("int8", 256, 4, 64, True), ("values", 64, 1, 64, True), ("int8", 256, 3, 64, False),
+     ("int8", 128, 4, 32, False), ("packed", 1024, 1, 64, False), ("f32", 128, 2, 64, False),
+     ("int8", 32, 1, 64, False)],
+)
+def test_flash_bwd_kernel_choice_reads_shape_and_tile_form_only(cuda_device, form, tb, H, F, ring):
+    """Which K4 / K5 kernel a launch takes follows
+    ``flash_bwd_ring_shape_ok`` and nothing else; the kernel that ran
+    agrees with the plain version."""
+    n = max(8 * tb, 1500)
+    A = _graph(n, weighted=form in ("values", "f32"), seed=7)
+    if form == "packed":
+        B = K1.bsr_bitmask_from_sparse(A, tb=tb, device=cuda_device)
+    else:
+        B = K1.bsr_from_sparse(A, tb=tb, mask=form == "int8",
+                               dtype=torch.float32 if form == "f32" else torch.bfloat16, device=cuda_device)
+    assert FG.flash_bwd_ring_shape_ok(K1._tile_mode(B.tiles, tb), tb, H, F) == ring
+    s1, s2, Wh = _scores(n, H, F, cuda_device, seed=3)
+    gO = _scores(n, H, F, cuda_device, seed=4)[2]
+    _, m, l = FG.flash_gat_forward_plain(B, s1, s2, Wh, return_stats=True)
+    want = [(1, int(ring), int(not ring))] * 2
+    before = [_ring_counts(k) for k in _BWD]
+    ref = FG.flash_gat_bwd_row_plain(B, s1, s2, m, l, Wh, gO)
+    got = FG.flash_gat_bwd_row(B, s1, s2, m, l, Wh, gO)
+    got_c = FG.flash_gat_bwd_col(B, s1, s2, m, l, ref[0], Wh, gO)
+    moved = _bwd_moved(before)
+    assert moved == want
+    for g, r in zip((*got, *got_c), (*ref, *FG.flash_gat_bwd_col_plain(B, s1, s2, m, l, ref[0], Wh, gO))):
+        torch.testing.assert_close(g, r, rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [dict(), dict(gat_tb=128, gat_rest_thresh=40)])
+def test_gat_model_grads_through_ring_bwd(cuda_device, monkeypatch, kw):
+    """GATModel gradients with the backward on the ring K4 / K5 (K3 or K6
+    forward) against the same step with K4 / K5 swapped for their plain
+    versions: within 2e-2 of each gradient's largest entry."""
+    A = _graph(3001, weighted=False, seed=12)
+    x = torch.randn(3001, 32, device=cuda_device)
+    gat = pt.GATModel(32, 64, 7, nheads=4, dropout=0.0, generator=torch.Generator().manual_seed(0)).to(cuda_device)
+    prep = pt.prepare_adjacency(A, method="xla", for_gat=True, device=cuda_device, **kw)
+    before = [_ring_counts(k) for k in _BWD]
+    got = _grads(gat, prep, x)
+    moved = _bwd_moved(before)
+    assert moved == [(2, 2, 0), (2, 2, 0)]
+    monkeypatch.setattr(FG, "flash_gat_bwd_row", FG.flash_gat_bwd_row_plain)
+    monkeypatch.setattr(FG, "flash_gat_bwd_col", FG.flash_gat_bwd_col_plain)
+    ref = _grads(gat, prep, x)
+    for k, r in ref.items():
+        scale = float(r.abs().max())
+        torch.testing.assert_close(got[k], r, rtol=2e-2, atol=2e-2 * scale, msg=lambda m: f"{k}: {m}")
