@@ -71,9 +71,15 @@ Phases, each raising on failure (so the run exits non-zero):
    100, 128}, f32 and bf16 H, ragged n, a row block without a group, the
    empty matrix, H with spare rows, weighted and rank-1 values, a split hub
    row, plan_with_vals and plan_t; K10 (bsr_spmm_rowloop) in the tile forms
-   with an empty row block, also against K1; K11 (bsr_spmm_fused_k) at k 2
-   and 4 in both attach_chunks modes, with and without scalings, also
-   against K2 on the unpadded plan; K12 (flash_gat_forward_subskip) on int8
+   with an empty row block, also against K1, through the kernel its shape
+   selects (the cluster kernel for int8 and bf16 tiles of height 64-256 at
+   P % 8 == 0, else the single-stage one) and, where the cluster kernel took
+   it, the single-stage one too; the cluster kernel at clusters of 8 and 16
+   on a hub row block of hundreds of live tiles and on an all-light band;
+   K11 (bsr_spmm_fused_k) at k 2 and 4 in both attach_chunks modes, with and
+   without scalings, at P 100 (single-stage) and 128 (the ring kernel where
+   fused_k_ring_shape_ok holds, equal to K2's ring at k = 2), also against
+   K2 on the unpadded plan; K12 (flash_gat_forward_subskip) on int8
    and value tiles with isolated rows at sb 64, 128 and 256, equal to K3.
 12. the pallas kind at full width on the GCN slice's graph:
    prepare_from_config with SGRACEConfig(use_pallas=True, row_block=1024,
@@ -85,9 +91,13 @@ Phases, each raising on failure (so the run exits non-zero):
    agg_matmul_with_vals forward and backward with random positive values;
    K9 alone at the config's default tiling (128 / 128 / 2048).
 13. the variants at the slice's shapes, each through its own entry point:
-   K10 on the slice's tiles and on a banded graph beside K1, K11 on the
-   slice's split at k 2 and 4 beside K2, K12 at H = 1, F = 64 on the
-   slice's attention tiles and at n=8192 beside K3.
+   K10 (the cluster kernel; the hub row block's split, the clusters the card
+   holds) on the slice's tiles and on a banded graph beside the single-stage
+   K10, K1's ring and torch.sparse.mm, at clusters of 8 and 16; K11 (the ring
+   kernel) on the slice's split at k 2 and 4 beside the single-stage K11 and
+   K2's ring, bit-equal to K2's ring where it walks the same schedule at
+   k = 2; K12 at H = 1, F = 64 on the slice's attention tiles and at n=8192
+   beside K3.
 
 Every main path is driven with the launch counts set to 0 just before it
 and read just after. The last two lines are the kernels' JSON record
@@ -275,14 +285,16 @@ def phase_build():
     for line in _cuda.build_log.splitlines():
         if "registers" in line or "spill" in line:
             _log("  " + line.strip())
-    # the ring kernels by name: tile mode 2 int8 / 0 bf16, fused (K2) or not (K1)
-    ring = re.findall(r"Function properties for \S*agg_ring_kernelILi(\d)ELb(\d)E\S*\n\s*(.*)\n.*Used (\d+) registers",
-                      _cuda.build_log)
-    for mode, fused, spills, regs in ring:
-        _log(f"  ring kernel {'K2' if fused == '1' else 'K1'} {'int8' if mode == '2' else 'bf16'} tiles: "
+    # the ring kernels by name: tile mode 2 int8 / 0 bf16, fused (K2, K11)
+    # or not (K1), slabs a stage (1; K11: 2 or 4) and their depth
+    ring = re.findall(r"Function properties for \S*agg_ring_kernelILi(\d)ELb(\d)E\S*?Li(\d)ELi(\d+)EE"
+                      r"\S*\n\s*(.*)\n.*Used (\d+) registers", _cuda.build_log)
+    for mode, fused, slabs, sd, spills, regs in ring:
+        name = ("K11" if slabs != "1" else "K2") if fused == "1" else "K1"
+        _log(f"  ring kernel {name} {'int8' if mode == '2' else 'bf16'} tiles, {slabs} slab(s) a stage, {sd} deep: "
              f"{regs} registers at entry (consumers raise to 232, the producer drops to 40), {spills.strip()}")
-    if _cuda.build_log and len(ring) != 4:  # no log when the library was built by an earlier run
-        raise AssertionError(f"expected the four ring kernels in the build log, found {len(ring)}")
+    if _cuda.build_log and len(ring) != 7:  # no log when the library was built by an earlier run
+        raise AssertionError(f"expected the seven ring kernels (K1, K2, K11) in the build log, found {len(ring)}")
     # the flash ring kernels (K3/K6) by tile mode and head count
     flash = re.findall(r"Function properties for \S*flash_ring_kernelILi(\d)ELi(\d)E\S*\n\s*(.*)\n.*Used (\d+) registers",
                        _cuda.build_log)
@@ -299,6 +311,13 @@ def phase_build():
              f"H={heads}: {regs} registers at entry (consumers raise to 232, the producer drops to 40), {spills.strip()}")
     if _cuda.build_log and len(bwd) != 12:
         raise AssertionError(f"expected the twelve backward ring kernels in the build log, found {len(bwd)}")
+    # the cluster K10 by tile mode and cluster size
+    clus = re.findall(r"Function properties for \S*rowloop_cluster_kernelILi(\d)ELi(\d+)E\S*\n\s*(.*)\n.*Used (\d+) registers",
+                      _cuda.build_log)
+    for mode, C, spills, regs in clus:
+        _log(f"  cluster K10 {'int8' if mode == '2' else 'bf16'} tiles, C={C}: {regs} registers at entry, {spills.strip()}")
+    if _cuda.build_log and len(clus) != 4:
+        raise AssertionError(f"expected the four cluster K10 kernels in the build log, found {len(clus)}")
 
 
 def _random_graph(n, weighted, seed, isolated=None):
@@ -1256,8 +1275,9 @@ RING_KERNELS = (K1.bsr_spmm, K2.bsr_spmm_fused, FG.flash_gat_forward, FG.flash_g
 def _reset_counts() -> None:
     for k in KERNELS:
         k.launches = 0
-    for k in RING_KERNELS:
+    for k in RING_KERNELS + (K2.bsr_spmm_fused_k,):
         k.launches_ring = k.launches_single = 0
+    K1.bsr_spmm_rowloop.launches_cluster = K1.bsr_spmm_rowloop.launches_single = 0
 
 
 def _all_ring(label: str) -> None:
@@ -1715,6 +1735,22 @@ def _empty_graph(n):
     return SparseMatrix.from_coo(z, z, np.zeros(0, np.float32), (n, n))
 
 
+def _hub_band_graph(n_blocks, tb, hub, seed):
+    """Mask-valued edges: a band near the diagonal (one or two tiles a row
+    block) and, with ``hub``, rows of row block 0 linked to every column
+    block; row and column block 3 hold no edge."""
+    rng = np.random.default_rng(seed)
+    n = n_blocks * tb
+    r = np.arange(n).repeat(3)
+    ei = [np.stack([r, (r + rng.integers(-4, 5, r.shape[0])) % n])]
+    if hub:
+        ei.append(np.stack([rng.integers(0, tb // 2, 4 * n_blocks),
+                            np.arange(4 * n_blocks) // 4 * tb + rng.integers(0, tb, 4 * n_blocks)]))
+    ei = np.unique(np.concatenate(ei, axis=1), axis=1)
+    ei = ei[:, (ei // tb != 3).all(axis=0)]
+    return SparseMatrix.from_coo(ei[0], ei[1], np.ones(ei.shape[1], np.float32), (n, n))
+
+
 def phase_variant_kernels_small(device):
     """K9, K10, K11 and K12 against their plain versions over their forms."""
     gen = torch.Generator(device=device).manual_seed(5)
@@ -1771,35 +1807,68 @@ def phase_variant_kernels_small(device):
     for name, A, build, P, hdt in k10_cases:
         B = build(A)
         H = randn(A.n_cols, P).to(hdt)
-        out = K1.bsr_spmm_rowloop(B, H)
+        out = K1.bsr_spmm_rowloop(B, H)  # the kernel its shape selects
         err = _check(f"K10 {name}", out, K1.bsr_spmm_rowloop_plain(B, H), K1_TOL)
         err1 = _check(f"K10 {name} against K1", out, K1.bsr_spmm(B, H), K1_TOL)
+        cluster = K1.ring_shape_ok(K1._tile_mode(B.tiles, B.tb), B.tb, P)
+        if cluster:  # the single-stage kernel on the same operands
+            _check(f"K10 {name} single-stage", K1._bsr_spmm_rowloop_single(B, H), out, K1_TOL)
         if "empty" in name:
             if 2 in B.tile_rb.tolist() or (out[256:384] != 0).any():
                 raise AssertionError("K10: the empty row block must come out exactly 0")
         longest = int(torch.bincount(B.tile_rb.long()).max())
         _log(f"  K10 {name}: T={B.num_tiles} tiles {tuple(B.tiles.shape[1:])} {B.tiles.dtype} "
-             f"longest run={longest} err {err:.3g} against K1 {err1:.3g}")
+             f"longest run={longest} {'cluster kernel (and single-stage)' if cluster else 'single-stage'} "
+             f"err {err:.3g} against K1 {err1:.3g}")
+    # the cluster kernel: a hub row block of hundreds of live tiles split over
+    # a cluster, and an all-light band; clusters of 8 and 16
+    for name, tb, hub, mask, P, hdt in (("hub-int8-tb256", 256, True, True, 128, torch.float32),
+                                        ("hub-bf16-tb128-P200", 128, True, False, 200, torch.bfloat16),
+                                        ("band-int8-tb64", 64, False, True, 64, torch.float32)):
+        A = _hub_band_graph(200, tb, hub, 115)
+        B = K1.bsr_from_sparse(A, tb=tb, mask=mask, cover_rows=True, cover_cols=True, device=device)
+        H = randn(A.n_cols, P).to(hdt)
+        ref1, ref = K1.bsr_spmm(B, H), K1.bsr_spmm_rowloop_plain(B, H)
+        for C in K1.ROWLOOP_CLUSTERS:
+            sched = _cluster_sched(B, C)
+            out = K1._bsr_spmm_rowloop_cluster(B, H, C)
+            err = _check(f"cluster K10 {name} C={C}", out, K1.bsr_spmm_rowloop_cluster_plain(B, H, sched), K1_TOL)
+            _check(f"cluster K10 {name} C={C} against the plain K10", out, ref, K1_TOL)
+            err1 = _check(f"cluster K10 {name} C={C} against K1", out, ref1, K1_TOL)
+            if (sched.n_heavy > 0) != hub or out[3 * tb: 4 * tb].any():
+                raise AssertionError(f"cluster K10 {name}: {sched.n_heavy} heavy items, or the empty row block is not 0")
+            _log(f"  cluster K10 {name} C={C}: live tiles {B.ring.n_tile_steps} of {B.num_tiles}, "
+                 f"items {sched.n_items} ({sched.n_heavy} heavy, over {sched.heavy_min} live tiles), "
+                 f"err {err:.3g} against K1 {err1:.3g}")
 
-    # ---- K11: k 2 and 4, both attach modes, rank-1 scalings and value mode
+    # ---- K11: k 2 and 4, both attach modes, rank-1 scalings and value mode;
+    # P = 100 takes the single-stage kernel, P = 128 the ring kernel where
+    # fused_k_ring_shape_ok holds (equal to K2's ring at k = 2)
     for weighted in (False, True):
         A = _random_graph(2600, weighted, 120 + weighted)
         prep = prepare_adjacency(A, method="hybrid", tb=128, rest_thresh=24, build_transpose=False,
                                  device=device)
-        H = randn(2600, 100)
         r1 = {} if weighted else dict(r1_row=prep.r1_row.cpu().numpy(), r1_col=prep.r1_col.cpu().numpy())
         for attach in (True, False):
             base = K2.build_fused_plan(prep.bsr, prep.rest, attach_chunks=attach, **r1)
-            ref2 = K2.bsr_spmm_fused(base, H)
-            for k in (2, 4):
-                plan = K2.build_fused_plan(prep.bsr, prep.rest, attach_chunks=attach, k_steps=k, **r1)
-                out = K2.bsr_spmm_fused_k(plan, H)
-                err = _check(f"K11 k={k}", out, K2.bsr_spmm_fused_k_plain(plan, H), K2_TOL)
-                err2 = _check(f"K11 k={k} against K2 on the unpadded plan", out, ref2, K2_TOL)
-                _log(f"  K11 {'values' if weighted else 'rank-1'} attach={attach} k={k}: steps {base.num_steps} -> "
-                     f"{plan.num_steps} kinds={sorted(set(plan.step_kind.tolist()))} "
-                     f"segments={plan.segments.n_seg} split_runs={plan.segments.n_fin} "
-                     f"err {err:.3g} against K2 {err2:.3g}")
+            for P in (100, 128):
+                H = randn(2600, P)
+                ref2 = K2.bsr_spmm_fused(base, H)
+                for k in (2, 4):
+                    plan = K2.build_fused_plan(prep.bsr, prep.rest, attach_chunks=attach, k_steps=k, **r1)
+                    ring = K2.fused_k_ring_shape_ok(K1._tile_mode(plan.B.tiles, 128), 128, P, plan.K, k)
+                    out = K2.bsr_spmm_fused_k(plan, H)
+                    err = _check(f"K11 k={k}", out, K2.bsr_spmm_fused_k_plain(plan, H), K2_TOL)
+                    err2 = _check(f"K11 k={k} against K2 on the unpadded plan", out, ref2, K2_TOL)
+                    equal = bool(torch.equal(out, ref2))
+                    if ring and k == 2 and not equal:
+                        raise AssertionError(f"the ring K11 at k=2 differs from K2's ring (P={P}, attach={attach})")
+                    if ring:
+                        _check(f"K11 k={k} single-stage", K2._bsr_spmm_fused_k_single(plan, H), out, K2_TOL)
+                    _log(f"  K11 {'values' if weighted else 'rank-1'} attach={attach} P={P} k={k}: "
+                         f"{'ring' if ring else 'single-stage'} kernel, steps {base.num_steps} -> {plan.num_steps} "
+                         f"(live {plan.ring.step.shape[0]}) kinds={sorted(set(plan.step_kind.tolist()))} "
+                         f"err {err:.3g} against K2 {err2:.3g}{', equal to K2' if equal else ''}")
 
     # ---- K12: int8 and value tiles, isolated rows, sb 64 / 128 / 256
     for name, weighted, kw in (("int8-tb256", False, dict(method="xla")),
@@ -2010,59 +2079,146 @@ def _timed_variant(name, kern, plain, args, tol, reps_plain=3):
     return out, dict(max_abs_err=err, ms=ms, plain_ms=plain_ms), launches
 
 
+def _cluster_sched(B, C):
+    """The cluster K10's schedule for this card, as its wrapper builds it."""
+    mode = K1._tile_mode(B.tiles, B.tb)
+    n_sm = torch.cuda.get_device_properties(B.tiles.device).multi_processor_count
+    return K1._cluster_sched(B, C, n_sm, K1.rowloop_cluster_occupancy(mode, C))
+
+
+def _cluster_split(sched) -> str:
+    """The heavy items of a cluster K10 schedule (each row block's live
+    tiles and the tiles of each CTA), and the spread over the clusters."""
+    lo, hi, rb, kind, cl = (t.cpu().numpy() for t in (sched.item_lo, sched.item_hi, sched.item_rb,
+                                                        sched.item_kind, sched.cl_start))
+    C = sched.C
+    per = (hi - lo).reshape(-1, C)
+    names = {K1.HEAVY: "whole", K1.UPPER: "upper half", K1.LOWER: "lower half"}
+    parts = [f"row block {rb[i * C]} ({names[int(kind[i])]}): {per[i].sum()} live tiles, "
+             f"{per[i].min()}-{per[i].max()} a CTA" for i in np.flatnonzero(kind != K1.LIGHT)]
+    light = per[kind == K1.LIGHT]
+    n_items = np.diff(cl)
+    return (f"{sched.n_items} items over {sched.n_clusters} clusters ({n_items.min()}-{n_items.max()} each), "
+            f"{sched.n_heavy} heavy (over {sched.heavy_min} live tiles: " + "; ".join(parts[:4])
+            + ("; ..." if len(parts) > 4 else "") + f"), light CTAs at most {light.max() if light.size else 0} tiles")
+
+
 def phase_variants_agg_slice(A, prep, device, lib_ms):
     """K10 and K11 at the slice's shapes (P = 128) beside K1 and K2 on the
-    same tiles, and K10 beside K1 on a banded graph."""
+    same tiles, and K10 beside K1 on a banded graph: the cluster K10 at both
+    cluster sizes and the single-stage K10, the ring K11 at k 2 and 4 and
+    the single-stage K11, in the same run."""
     gen = torch.Generator(device=device).manual_seed(3)
     H = torch.randn(prep.A.n_cols, HIDDEN, generator=gen, device=device)
     rec, launches = {}, {}
     B = prep.bsr
+    n_sm = torch.cuda.get_device_properties(device).multi_processor_count
+    mode = K1._tile_mode(B.tiles, B.tb)
 
     def k10_bound(B, H, out):
-        nbytes = _live_tile_bytes(B) + _nbytes(B.tile_cb, H, out) + 4 * (B.n_row_tiles + 1)
+        nbytes = _live_tile_bytes(B) + _sched_bytes(B.ring) + _nbytes(H, out)
         return _bound(nbytes, 2.0 * int(B.live.sum()) * B.tb * B.tb * H.shape[1], "bf16")
 
+    occ = {C: K1.rowloop_cluster_occupancy(mode, C) for C in K1.ROWLOOP_CLUSTERS}
+    _log(f"cluster K10 occupancy (cudaOccupancyMaxActiveClusters, {B.tiles.dtype} tiles, "
+         f"{n_sm} SMs): " + ", ".join(f"C={C}: {n} clusters ({n * C} CTAs)" for C, n in occ.items()))
+    # the plain K10 (the row-loop sum, independent of the cluster work
+    # list) times the plain version; the cluster kernel's own plain version,
+    # which sums each heavy item's partials in rank order, is held too
     out, r, n = _timed_variant("bsr_spmm_rowloop at slice shapes", K1.bsr_spmm_rowloop,
                                K1.bsr_spmm_rowloop_plain, (B, H), K1_TOL)
+    if K1.bsr_spmm_rowloop.launches_single:  # the counts were reset when the main path began
+        raise AssertionError("K10 at the slice's shapes must run the cluster kernel")
+    sched = _cluster_sched(B, K1.ROWLOOP_CLUSTER)
+    _check("bsr_spmm_rowloop at slice shapes against its cluster plain version", out,
+           K1.bsr_spmm_rowloop_cluster_plain(B, H, sched), K1_TOL)
+    k1 = K1.bsr_spmm(B, H)
+    e1 = _check("bsr_spmm_rowloop against K1", out, k1, K1_TOL)
     k1_ms = _cuda_ms(lambda: K1.bsr_spmm(B, H))
+    single_ms = _cuda_ms(lambda: K1._bsr_spmm_rowloop_single(B, H), reps=3)
+    _check("single-stage bsr_spmm_rowloop at slice shapes", K1._bsr_spmm_rowloop_single(B, H), out, K1_TOL)
     bound = k10_bound(B, H, out)
-    rec["bsr_spmm_rowloop"] = dict(**r, **bound, library_ms=lib_ms)
+    rec["bsr_spmm_rowloop"] = dict(**r, **bound, library_ms=lib_ms, earlier_ms=single_ms)
     _add(launches, n)
-    longest = int(torch.bincount(B.tile_rb.long()).max())
-    _log(f"bsr_spmm_rowloop on the slice's tiles [T={B.num_tiles}, longest run {longest} tiles, P={HIDDEN}]: "
-         f"kernel {r['ms']:.4f} ms, K1 on the same tiles {k1_ms:.4f} ms, plain {r['plain_ms']:.4f} ms, "
-         f"bound {bound['bound_ms']:.4f} ms by {bound['bound_by']}, max abs err {r['max_abs_err']:.3g}")
+    longest = int(torch.bincount(B.ring.rb.long()).max())
+    _log(f"bsr_spmm_rowloop on the slice's tiles [T={B.num_tiles}, live {B.ring.n_tile_steps}, longest live run "
+         f"{longest} tiles, P={HIDDEN}]: cluster kernel C={K1.ROWLOOP_CLUSTER} {r['ms']:.4f} ms, single-stage "
+         f"kernel {single_ms:.4f} ms, K1 (ring) on the same tiles {k1_ms:.4f} ms, torch.sparse.mm {lib_ms:.4f} ms, "
+         f"plain {r['plain_ms']:.4f} ms, bound {bound['bound_ms']:.4f} ms by {bound['bound_by']}, "
+         f"max abs err {r['max_abs_err']:.3g}, against K1 {e1:.3g}")
+    ref = K1.bsr_spmm_rowloop_plain(B, H)
+    for C in K1.ROWLOOP_CLUSTERS:
+        sc = _cluster_sched(B, C)
+        oc = K1._bsr_spmm_rowloop_cluster(B, H, C)
+        ec = _check(f"cluster K10 C={C} at slice shapes", oc, K1.bsr_spmm_rowloop_cluster_plain(B, H, sc), K1_TOL)
+        _check(f"cluster K10 C={C} at slice shapes against the plain K10", oc, ref, K1_TOL)
+        ms_c = _cuda_ms(lambda: K1._bsr_spmm_rowloop_cluster(B, H, C))
+        _log(f"  cluster K10 C={C} on the slice: {ms_c:.4f} ms, max abs err {ec:.3g}; {_cluster_split(sc)}")
+    del out, k1, ref
 
     band = _banded_graph(A.n_rows, A.n_rows // 4, 0)
     bp = prepare_adjacency(band, method="hybrid", build_transpose=False, device=device)
     Bb = bp.bsr
     ob = K1.bsr_spmm_rowloop(Bb, H)
+    sb = _cluster_sched(Bb, K1.ROWLOOP_CLUSTER)
     eb = _check("bsr_spmm_rowloop on the banded graph", ob, K1.bsr_spmm_rowloop_plain(Bb, H), K1_TOL)
-    ms_b = _cuda_ms(lambda: K1.bsr_spmm_rowloop(Bb, H))
-    k1_b = _cuda_ms(lambda: K1.bsr_spmm(Bb, H))
+    _check("bsr_spmm_rowloop on the banded graph against its cluster plain version", ob,
+           K1.bsr_spmm_rowloop_cluster_plain(Bb, H, sb), K1_TOL)
     bb = k10_bound(Bb, H, ob)
-    _log(f"bsr_spmm_rowloop on the banded graph's tiles [n={band.n_rows}, T={Bb.num_tiles}, "
-         f"longest run {int(torch.bincount(Bb.tile_rb.long()).max())} tiles]: kernel {ms_b:.4f} ms, "
-         f"K1 {k1_b:.4f} ms, bound {bb['bound_ms']:.4f} ms by {bb['bound_by']}, max abs err {eb:.3g}")
+    times = {f"cluster C={C}": _cuda_ms(lambda: K1._bsr_spmm_rowloop_cluster(Bb, H, C)) for C in K1.ROWLOOP_CLUSTERS}
+    times["single-stage"] = _cuda_ms(lambda: K1._bsr_spmm_rowloop_single(Bb, H))
+    times["K1 (ring)"] = _cuda_ms(lambda: K1.bsr_spmm(Bb, H))
+    _log(f"bsr_spmm_rowloop on the banded graph's tiles [n={band.n_rows}, T={Bb.num_tiles}, live "
+         f"{Bb.ring.n_tile_steps}, longest live run {int(torch.bincount(Bb.ring.rb.long()).max())} tiles, "
+         f"{sb.n_heavy} heavy items]: " + ", ".join(f"{k} {v:.4f} ms" for k, v in times.items())
+         + f", bound {bb['bound_ms']:.4f} ms by {bb['bound_by']}, max abs err {eb:.3g}")
+    # an upper bound on what a heavy item adds: the same tiles with every row
+    # block made heavy (two half-height items each, at heavy_min 0), each
+    # item's partials summed through distributed shared memory; 15 of 16
+    # ranks idle and H is read twice, so the reduction is not isolated
+    C = K1.ROWLOOP_CLUSTER
+    heavy = K1.cluster_schedule(Bb, C, 0, K1.rowloop_cluster_occupancy(K1._tile_mode(Bb.tiles, Bb.tb), C))
+    oh = K1._bsr_spmm_rowloop_cluster(Bb, H, C, sched=heavy)
+    eh = _check("bsr_spmm_rowloop with every row block heavy", oh, ob, K1_TOL)
+    ms_h = _cuda_ms(lambda: K1._bsr_spmm_rowloop_cluster(Bb, H, C, sched=heavy))
+    per_cluster = heavy.n_heavy / heavy.n_clusters
+    _log(f"cluster reduction cost on the banded graph: every row block heavy ({heavy.n_heavy} half-height "
+         f"items, {per_cluster:.0f} a cluster of {C}) {ms_h:.4f} ms against {times[f'cluster C={C}']:.4f} ms "
+         f"all light: at most {(ms_h - times[f'cluster C={C}']) * 1e3 / per_cluster:.2f} us a heavy item "
+         f"(the half-tile work, the two cluster barriers and the rank-order sum together); max abs err {eh:.3g}")
+    del oh
     del bp, Bb, ob
 
+    k2 = K2.bsr_spmm_fused(prep.fused, H)
     k2_ms = _cuda_ms(lambda: K2.bsr_spmm_fused(prep.fused, H))
     r1 = dict(r1_row=prep.r1_row.cpu().numpy(), r1_col=prep.r1_col.cpu().numpy())
     for k in (2, 4):
         t0 = time.perf_counter()
         plan = K2.build_fused_plan(B, prep.rest, attach_chunks=True, k_steps=k, **r1)
         build_s = time.perf_counter() - t0
+        same = bool(torch.equal(plan.ring.step, prep.fused.ring.step)) and all(
+            torch.equal(getattr(plan.ring.segments, f), getattr(prep.fused.ring.segments, f))
+            for f in ("seg_rb", "seg_lo", "seg_hi", "seg_part"))
         out, r, n = _timed_variant(f"bsr_spmm_fused_k k={k} at slice shapes", K2.bsr_spmm_fused_k,
                                    K2.bsr_spmm_fused_k_plain, (plan, H), K2_TOL)
-        e2 = _check(f"bsr_spmm_fused_k k={k} against K2", out, K2.bsr_spmm_fused(prep.fused, H), K2_TOL)
+        if K2.bsr_spmm_fused_k.launches_single:
+            raise AssertionError(f"K11 k={k} at the slice's shapes must run the ring kernel")
+        e2 = _check(f"bsr_spmm_fused_k k={k} against K2", out, k2, K2_TOL)
+        equal = bool(torch.equal(out, k2))
+        if same and k == 2 and not equal:
+            raise AssertionError("the ring K11 at k=2 on K2's ring schedule must equal K2's ring bit for bit")
+        single_ms = _cuda_ms(lambda: K2._bsr_spmm_fused_k_single(plan, H), reps=3)
         bound = _agg_bound(B, H, out, "bf16", plan=plan)
         _add(launches, n)
         _log(f"bsr_spmm_fused_k k={k} on the slice's split [steps {prep.fused.num_steps} -> {plan.num_steps}, "
-             f"plan build {build_s:.1f} s]: kernel {r['ms']:.4f} ms, K2 on the unpadded plan {k2_ms:.4f} ms, "
-             f"plain {r['plain_ms']:.4f} ms, bound {bound['bound_ms']:.4f} ms by {bound['bound_by']}, "
-             f"max abs err {r['max_abs_err']:.3g}, against K2 {e2:.3g}")
+             f"live {plan.ring.step.shape[0]} (the schedule of K2's ring: {same}), {k} slabs a stage, "
+             f"{K2.k_ring_slab_depth(k)} deep, plan build {build_s:.1f} s]: ring kernel "
+             f"{r['ms']:.4f} ms, single-stage kernel {single_ms:.4f} ms, K2 (ring) on the unpadded plan {k2_ms:.4f} ms, "
+             f"torch.sparse.mm {lib_ms:.4f} ms, plain {r['plain_ms']:.4f} ms, bound {bound['bound_ms']:.4f} ms by "
+             f"{bound['bound_by']}, max abs err {r['max_abs_err']:.3g}, against K2 {e2:.3g} "
+             f"({'equal bit for bit' if equal else 'not bit-equal'})")
         if k == 2 or r["ms"] < rec["bsr_spmm_fused_k"]["ms"]:
-            rec["bsr_spmm_fused_k"] = dict(**r, **bound, library_ms=lib_ms)
+            rec["bsr_spmm_fused_k"] = dict(**r, **bound, library_ms=lib_ms, earlier_ms=single_ms)
     return rec, launches
 
 
@@ -2179,8 +2335,8 @@ def main() -> None:
         "bsr_spmm_int8_fused": ("sgracex1_tpu_torch/csrc/fused_agg_int8.cu",
                                 "sgracex1_tpu/ops/fused_agg.py:1054"),
         "spmm_plan": ("sgracex1_tpu_torch/csrc/plan_spmm.cu", "sgracex1_tpu/ops/pallas_spmm.py:232"),
-        "bsr_spmm_rowloop": ("sgracex1_tpu_torch/csrc/bsr_spmm_rowloop.cu", "sgracex1_tpu/ops/bsr.py:693"),
-        "bsr_spmm_fused_k": ("sgracex1_tpu_torch/csrc/fused_agg_k.cu", "sgracex1_tpu/ops/fused_agg.py:871"),
+        "bsr_spmm_rowloop": ("sgracex1_tpu_torch/csrc/bsr_spmm_cluster.cu", "sgracex1_tpu/ops/bsr.py:693"),
+        "bsr_spmm_fused_k": ("sgracex1_tpu_torch/csrc/fused_agg_ring.cu", "sgracex1_tpu/ops/fused_agg.py:871"),
         "flash_gat_forward_subskip": ("sgracex1_tpu_torch/csrc/flash_gat.cu",
                                       "sgracex1_tpu/ops/flash_gat.py:343"),
     }

@@ -1,5 +1,6 @@
-// The ring pipeline of the tile-aggregation kernels K1 (bsr_spmm_ring.cu)
-// and K2 (fused_agg_ring.cu) on Hopper.
+// The ring pipeline of the tile-aggregation kernels K1 (bsr_spmm_ring.cu),
+// K2 and K11 (fused_agg_ring.cu, K11 with k slabs a stage) and the cluster
+// K10 (bsr_spmm_cluster.cu) on Hopper.
 //
 // acc[tb x 128] = sum over the live steps of a work item of
 //   tile step:  tile[tb x tb] @ Hs[cb*tb .. +tb, p0 .. +128]
@@ -72,11 +73,13 @@ constexpr int B_BYTES = KS * B_PITCH;
 constexpr int A_BOX_BF16 = KS + 8;  // bf16 tile columns per A box, 8 spare
 constexpr unsigned FULL = 0xffffffffu;
 
-template <int MODE>
+// One slab of reduction depth SD (64, or 32 for the K11 ring's deeper
+// stages): the A rows as the copy engine lands them, then the B rows.
+template <int MODE, int SD = KS>
 struct ATile {
-  static constexpr int PITCH = MODE == TILE_I8 ? KS : A_BOX_BF16 * 2;  // 64 or 144 bytes
+  static constexpr int PITCH = MODE == TILE_I8 ? SD : (SD + 8) * 2;  // int8: SD bytes; bf16: 8 spare columns
   static constexpr int BYTES = RM * PITCH;
-  static constexpr int STAGE = BYTES + B_BYTES;  // one stage: the A slab, then the B slab
+  static constexpr int STAGE = BYTES + SD * B_PITCH;  // one stage: the A slab, then the B slab
   // the ring, its 2 * STAGES barriers, and room to align the ring to 1024 bytes
   static constexpr int SMEM = STAGES * STAGE + 2 * STAGES * 8 + 1024;
 };
@@ -96,6 +99,10 @@ __device__ __forceinline__ void mbar_arrive(uint32_t bar) {
 __device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
                : "memory");
+}
+// expect_tx without the arrive: a slab that does not close its stage
+__device__ __forceinline__ void mbar_expect_tx_only(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.expect_tx.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(bytes) : "memory");
 }
 __device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
   uint32_t ok;
@@ -234,19 +241,22 @@ __device__ __forceinline__ uint32_t mask16(const uint8_t* row16) {
   }
 }
 
-// The reduction index, inside a 64-deep slab, that position ``pp`` (0..15)
-// of the ``i``-th m16n8k16 product stands for.
+// The reduction index, inside a slab of depth SD, that position ``pp``
+// (0..15) of the ``i``-th m16n8k16 product stands for.
 //
-// bf16 tiles: the natural order. int8 tiles: thread t of a quad reads the 16
-// bytes k = 16t .. 16t+15 of its tile rows; product i takes its word
-// q = i ^ (t >> 1) and puts that word's half (t & 1) at positions 2t, 2t+1
-// and the other half at 2t+8, 2t+9. The eight rows of each 8x8 B matrix then
-// have k % 8 all different, which keeps ldmatrix off bank conflicts at a row
+// bf16 tiles: the natural order. int8 tiles at SD = 64: thread t of a quad
+// reads the 16 bytes k = 16t .. 16t+15 of its tile rows; product i takes its
+// word q = i ^ (t >> 1) and puts that word's half (t & 1) at positions 2t,
+// 2t+1 and the other half at 2t+8, 2t+9. At SD = 32 thread t reads the 8
+// bytes k = 8t .. 8t+7, and product i, half h takes their byte pair
+// (t + 2i + h) & 3. Either way the eight rows of each 8x8 B matrix have
+// k % 8 all different, which keeps ldmatrix off bank conflicts at a row
 // pitch of 272 bytes.
-template <int MODE>
+template <int MODE, int SD = KS>
 __device__ __forceinline__ int slab_k(int i, int pp) {
   if constexpr (MODE == TILE_I8) {
     const int p = pp & 7, hi = pp >> 3, tq = p >> 1, e = p & 1;
+    if constexpr (SD == 32) return 8 * tq + 2 * ((tq + 2 * i + hi) & 3) + e;
     return 16 * tq + 4 * (i ^ (tq >> 1)) + 2 * ((tq & 1) ^ hi) + e;
   } else {
     return 16 * i + pp;
@@ -258,27 +268,34 @@ struct Lane {
   int wm, wn;       // warp's 64-row and 64-feature block
   int g, t;         // row in an 8-row group, thread in a quad
   uint32_t b_off[4];  // ldmatrix.trans: byte offset of this lane's B row for product i
-  int k_lo[4], k_hi[4];  // slab_k of this thread's own positions 2t and 2t+8
+  int k_lo[4], k_hi[4];  // slab_k of this thread's own positions 2t and 2t+8 (SD / 16 products)
 };
 
-template <int MODE>
-__device__ __forceinline__ Lane make_lane() {
+// The lane of a consumer warp that owns rows wm * 64 and features wn * 64.
+template <int MODE, int SD = KS>
+__device__ __forceinline__ Lane make_lane(int wm, int wn) {
   Lane L;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  L.wm = warp & 3;
-  L.wn = warp >> 2;
+  const int lane = threadIdx.x & 31;
+  L.wm = wm;
+  L.wn = wn;
   L.g = lane >> 2;
   L.t = lane & 3;
   // matrices of one ldmatrix.x4.trans: (k positions 0-7 | 8-15) x (features +0 | +8)
   const int pp = ((lane >> 3) & 1) * 8 + (lane & 7);
   const int noff = (lane >> 4) * 8;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    L.b_off[i] = slab_k<MODE>(i, pp) * B_PITCH + (L.wn * 64 + noff) * 2;
-    L.k_lo[i] = slab_k<MODE>(i, 2 * L.t);
-    L.k_hi[i] = slab_k<MODE>(i, 2 * L.t + 8);
+  for (int i = 0; i < SD / 16; ++i) {
+    L.b_off[i] = slab_k<MODE, SD>(i, pp) * B_PITCH + (L.wn * 64 + noff) * 2;
+    L.k_lo[i] = slab_k<MODE, SD>(i, 2 * L.t);
+    L.k_hi[i] = slab_k<MODE, SD>(i, 2 * L.t + 8);
   }
   return L;
+}
+// The eight consumer warps as 4 along rows x 2 along features.
+template <int MODE, int SD = KS>
+__device__ __forceinline__ Lane make_lane() {
+  const int warp = threadIdx.x >> 5;
+  return make_lane<MODE, SD>(warp & 3, warp >> 2);
 }
 
 // acc += A_i @ B_i for product i of a slab, A fragments given.
@@ -296,11 +313,35 @@ __device__ __forceinline__ void mma_row(float (&acc)[4][8][4], const uint32_t (&
   }
 }
 
-// One 64-deep slab of a tile step.
-template <int MODE>
+// One slab of a tile step, SD deep.
+template <int MODE, int SD = KS>
 __device__ __forceinline__ void tile_slab(float (&acc)[4][8][4], const Lane& L, uint32_t a_base,
                                           const uint8_t* a_ptr, uint32_t b_base) {
-  if constexpr (MODE == TILE_I8) {
+  if constexpr (MODE == TILE_I8 && SD == 32) {
+    // rows g and g+8 of the four m16 blocks: 8 bytes each; product i, half h
+    // takes byte pair (t + 2i + h) & 3 (slab_k)
+    uint2 w[4][2];
+#pragma unroll
+    for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        w[mi][h] = *reinterpret_cast<const uint2*>(a_ptr + (L.wm * 64 + mi * 16 + h * 8 + L.g) * SD + 8 * L.t);
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int j0 = (L.t + 2 * i) & 3, j1 = (L.t + 2 * i + 1) & 3;
+      const uint32_t s0 = (uint32_t)(2 * j0) | ((uint32_t)(2 * j0 + 1) << 4);
+      const uint32_t s1 = (uint32_t)(2 * j1) | ((uint32_t)(2 * j1 + 1) << 4);
+      uint32_t a[4][4];
+#pragma unroll
+      for (int mi = 0; mi < 4; ++mi) {
+        a[mi][0] = i8x2_to_bf16x2<false>(__byte_perm(w[mi][0].x, w[mi][0].y, s0));
+        a[mi][1] = i8x2_to_bf16x2<false>(__byte_perm(w[mi][1].x, w[mi][1].y, s0));
+        a[mi][2] = i8x2_to_bf16x2<false>(__byte_perm(w[mi][0].x, w[mi][0].y, s1));
+        a[mi][3] = i8x2_to_bf16x2<false>(__byte_perm(w[mi][1].x, w[mi][1].y, s1));
+      }
+      mma_row(acc, a, b_base, L.b_off[i]);
+    }
+  } else if constexpr (MODE == TILE_I8) {
     // rows g and g+8 of the four m16 blocks: 16 bytes each
     uint32_t w[4][2][4];
     const bool swap_words = (L.t >> 1) != 0;
@@ -331,26 +372,27 @@ __device__ __forceinline__ void tile_slab(float (&acc)[4][8][4], const Lane& L, 
   } else {
     const int lane = threadIdx.x & 31;
     // matrices of one ldmatrix.x4: (rows 0-7 | 8-15) x (k 0-7 | 8-15)
-    const uint32_t a_lane = a_base +
-                            (L.wm * 64 + (lane & 7) + ((lane >> 3) & 1) * 8) * ATile<MODE>::PITCH +
+    constexpr int PITCH = ATile<MODE, SD>::PITCH;
+    const uint32_t a_lane = a_base + (L.wm * 64 + (lane & 7) + ((lane >> 3) & 1) * 8) * PITCH +
                             (lane >> 4) * 16;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+    for (int i = 0; i < SD / 16; ++i) {
       uint32_t a[4][4];
 #pragma unroll
-      for (int mi = 0; mi < 4; ++mi) ldsm_x4(a_lane + mi * 16 * ATile<MODE>::PITCH + i * 32, a[mi]);
+      for (int mi = 0; mi < 4; ++mi) ldsm_x4(a_lane + mi * 16 * PITCH + i * 32, a[mi]);
       mma_row(acc, a, b_base, L.b_off[i]);
     }
   }
 }
 
-// One 64-deep slab of a chunk step: A = onehot(lrow), built in registers
+// One slab of a chunk step, SD deep: A = onehot(lrow), built in registers
 // from the slab's lrow in shared memory (dead slots hold lrow == tb).
+template <int SD = KS>
 __device__ __forceinline__ void chunk_slab(float (&acc)[4][8][4], const Lane& L, const int* lrow,
                                            uint32_t b_base) {
   constexpr uint32_t ONE = 0x3f80;  // bf16 1.0
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < SD / 16; ++i) {
     const int2 lo = *reinterpret_cast<const int2*>(lrow + L.k_lo[i]);
     const int2 hi = *reinterpret_cast<const int2*>(lrow + L.k_hi[i]);
     uint32_t a[4][4];
@@ -368,13 +410,15 @@ __device__ __forceinline__ void chunk_slab(float (&acc)[4][8][4], const Lane& L,
 
 // Value mode: the gathered rows of a chunk slab become
 // bf16(row * bf16(slot_scale)) in place (consumer threads only).
+template <int SD = KS>
 __device__ __forceinline__ void scale_chunk_rows(uint8_t* b_ptr, const float* scale) {
-  const int row = threadIdx.x >> 2;        // 256 consumer threads, 64 rows
-  const int c0 = (threadIdx.x & 3) * 32;   // 32 features each
+  constexpr int TPR = 256 / SD;  // 256 consumer threads over SD rows
+  const int row = threadIdx.x / TPR;
+  const int c0 = (threadIdx.x % TPR) * (BN / TPR);
   const float s = bf16r(scale[row]);
   uint4* p = reinterpret_cast<uint4*>(b_ptr + row * B_PITCH + c0 * 2);
 #pragma unroll
-  for (int q = 0; q < 4; ++q) {
+  for (int q = 0; q < BN / TPR / 8; ++q) {
     uint4 u = p[q];
     __nv_bfloat16* v = reinterpret_cast<__nv_bfloat16*>(&u);
 #pragma unroll
@@ -488,21 +532,41 @@ struct RingArgs {
   int n_rows;
 };
 
+// The ring of agg_ring_kernel: STAGES stages (at most the default four, as
+// many as fit) of NSLAB slabs, each slab SD deep (ATile<MODE, SD>).
+template <int MODE, int NSLAB, int SD>
+struct RingLayout {
+  static constexpr int SLAB = ATile<MODE, SD>::STAGE;  // the A slab, then the B slab
+  static constexpr int STAGE = NSLAB * SLAB;
+  static constexpr int FIT = (232448 - 2048) / STAGE;
+  static constexpr int STAGES = FIT < sgr::STAGES ? FIT : sgr::STAGES;
+  static constexpr int SMEM = STAGES * STAGE + 2 * STAGES * 8 + 1024;
+  static_assert(STAGES >= 2, "at least two stages must fit");
+};
+
 // FUSED: chunk steps and the row scale exist (K2); else tiles only (K1).
-template <int MODE, bool FUSED, typename TO>
+// NSLAB slabs a stage, each SD deep (K11: K2 with k slabs a stage). A stage
+// takes a work item's slabs in walk order (each live step's tile slabs, then
+// its chunk slabs) and closes at its NSLAB-th slab or at the item's last
+// one: one expect_tx a slab for its bytes, one arrive on the full barrier
+// and one on the empty barrier a stage. At NSLAB = 1, SD = 64 that is a
+// handshake a slab (K1, K2).
+template <int MODE, bool FUSED, typename TO, int NSLAB = 1, int SD = KS>
 __global__ void __launch_bounds__(NTHREADS, 1)
     agg_ring_kernel(const __grid_constant__ CUtensorMap map_a,
                     const __grid_constant__ CUtensorMap map_b, const RingArgs p) {
+  using Ring = RingLayout<MODE, NSLAB, SD>;
+  constexpr int NST = Ring::STAGES;
   extern __shared__ uint8_t smem_raw[];
   // the copy engine wants its targets aligned to 128 bytes; 1024 keeps every stage so
   uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
-  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + STAGES * ATile<MODE>::STAGE);
-  const uint32_t full0 = smem_u32(bars), empty0 = smem_u32(bars + STAGES);
-  constexpr int A_BYTES = ATile<MODE>::BYTES;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + NST * Ring::STAGE);
+  const uint32_t full0 = smem_u32(bars), empty0 = smem_u32(bars + NST);
+  constexpr int A_BYTES = ATile<MODE, SD>::BYTES;
   const int tb = p.tb;
 
   if (threadIdx.x == 0) {
-    for (int s = 0; s < STAGES; ++s) {
+    for (int s = 0; s < NST; ++s) {
       mbar_init(full0 + 8 * s, 1);
       mbar_init(empty0 + 8 * s, CONSUMER_WARPS);
     }
@@ -511,14 +575,22 @@ __global__ void __launch_bounds__(NTHREADS, 1)
   __syncthreads();
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  int stage = 0;
+  int stage = 0, j = 0;  // j: slabs already in the open stage (0 at NSLAB = 1)
   uint32_t phase = 0;
-  auto advance = [&]() {
-    if (++stage == STAGES) {
-      stage = 0;
-      phase ^= 1;
+  // after a slab: the stage closes at its NSLAB-th slab or the item's last
+  auto next_slab = [&](bool item_end) {
+    if (NSLAB == 1 || item_end || j == NSLAB - 1) {
+      j = 0;
+      if (++stage == NST) {
+        stage = 0;
+        phase ^= 1;
+      }
+    } else {
+      ++j;
     }
   };
+  auto closes = [&](bool item_end) { return NSLAB == 1 || item_end || j == NSLAB - 1; };
+  auto slab_ptr = [&]() { return smem + stage * Ring::STAGE + (NSLAB == 1 ? 0 : j) * Ring::SLAB; };
 
   if (warp >= CONSUMER_WARPS) {
     // ------------------------------------------------------------ producer
@@ -527,7 +599,7 @@ __global__ void __launch_bounds__(NTHREADS, 1)
     // their accumulators (3 * 168 = 40 + 2 * 232)
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
     if (warp != CONSUMER_WARPS) return;
-    const uint32_t a_tx = (uint32_t)tb * ATile<MODE>::PITCH;
+    const uint32_t a_tx = (uint32_t)tb * ATile<MODE, SD>::PITCH;
     // Every index the loop needs is loaded one step ahead (the next step's
     // record, the next work item's bounds, the next slab's gather columns):
     // a load the producer waits for is a bubble in the copies it feeds.
@@ -551,6 +623,8 @@ __global__ void __launch_bounds__(NTHREADS, 1)
       for (int g = lo; g < hi; ++g) {
         const int4 st = nxt;
         nxt = g + 1 < hi ? p.step[g + 1] : (lo_n < hi_n ? p.step[lo_n] : none);
+        const bool last = g + 1 == hi;
+        const bool chunk = FUSED && st.z >= 0 && st.w > 0;
         // the gather columns of the chunk's first slab; -1 for a dead slot
         // (lrow == tb), whose row is zero-filled: a chunk is two thirds dead
         // slots on the power-law slice, all naming row 0, and copies that
@@ -560,37 +634,42 @@ __global__ void __launch_bounds__(NTHREADS, 1)
         int c0 = -1, c1 = -1;
         if (FUSED && st.z >= 0) {
           c0 = rows[lane] < tb ? cols[lane] : -1;
-          c1 = rows[32 + lane] < tb ? cols[32 + lane] : -1;
+          if (SD > 32) c1 = rows[32 + lane] < tb ? cols[32 + lane] : -1;
         }
         if (st.x >= 0) {
-          for (int k0 = 0; k0 < tb; k0 += KS) {
-            mbar_wait(empty0 + 8 * stage, phase ^ 1);
+          for (int k0 = 0; k0 < tb; k0 += SD) {
+            const bool end = last && !chunk && k0 + SD >= tb;
+            if (NSLAB == 1 || j == 0) mbar_wait(empty0 + 8 * stage, phase ^ 1);
             if (lane == 0) {
-              const uint32_t a_dst = smem_u32(smem + stage * ATile<MODE>::STAGE);
+              const uint32_t a_dst = smem_u32(slab_ptr());
               const uint32_t bar = full0 + 8 * stage;
-              mbar_expect_tx(bar, a_tx + B_BYTES);
+              if (closes(end))
+                mbar_expect_tx(bar, a_tx + SD * B_PITCH);
+              else
+                mbar_expect_tx_only(bar, a_tx + SD * B_PITCH);
               tma_load_2d(a_dst, &map_a, bar, k0, st.x * tb);
               tma_load_2d(a_dst + A_BYTES, &map_b, bar, p0, st.y * tb + k0);
             }
-            advance();
+            next_slab(end);
           }
         }
-        if (FUSED && st.z >= 0) {
-          for (int k0 = 0; k0 < st.w; k0 += KS) {  // slabs past the last live slot are skipped
+        if (chunk) {
+          for (int k0 = 0; k0 < st.w; k0 += SD) {  // slabs past the last live slot are skipped
             int n0 = -1, n1 = -1;
-            if (k0 + KS < st.w) {
-              n0 = rows[k0 + KS + lane] < tb ? cols[k0 + KS + lane] : -1;
-              n1 = rows[k0 + KS + 32 + lane] < tb ? cols[k0 + KS + 32 + lane] : -1;
+            if (k0 + SD < st.w) {
+              n0 = rows[k0 + SD + lane] < tb ? cols[k0 + SD + lane] : -1;
+              if (SD > 32) n1 = rows[k0 + SD + 32 + lane] < tb ? cols[k0 + SD + 32 + lane] : -1;
             }
-            mbar_wait(empty0 + 8 * stage, phase ^ 1);
-            const uint32_t a_dst = smem_u32(smem + stage * ATile<MODE>::STAGE);
+            const bool end = last && k0 + SD >= st.w;
+            if (NSLAB == 1 || j == 0) mbar_wait(empty0 + 8 * stage, phase ^ 1);
+            const uint32_t a_dst = smem_u32(slab_ptr());
             const uint32_t bar = full0 + 8 * stage;
             // half a warp copies one gathered row, 16 bytes a lane
             const int piece = (lane & 15) * 16;
 #pragma unroll 8
-            for (int j = 0; j < KS / 2; ++j) {
-              const int r = 2 * j + (lane >> 4);
-              const int col = __shfl_sync(FULL, j < 16 ? c0 : c1, r & 31);
+            for (int q = 0; q < SD / 2; ++q) {
+              const int r = 2 * q + (lane >> 4);
+              const int col = __shfl_sync(FULL, q < 16 ? c0 : c1, r & 31);
               if (piece < (int)row_bytes)
                 cp_async16(a_dst + A_BYTES + r * B_PITCH + piece,
                            reinterpret_cast<const uint8_t*>(p.Hs + (long)max(col, 0) * p.P + p0) + piece,
@@ -599,10 +678,13 @@ __global__ void __launch_bounds__(NTHREADS, 1)
             cp_async_arrive_on(bar);
             __syncwarp();  // every lane's pending arrival is counted before the phase can end
             if (lane == 0) {
-              mbar_expect_tx(bar, KS * 4);
-              bulk_load(a_dst, rows + k0, KS * 4, bar);
+              if (closes(end))
+                mbar_expect_tx(bar, SD * 4);
+              else
+                mbar_expect_tx_only(bar, SD * 4);
+              bulk_load(a_dst, rows + k0, SD * 4, bar);
             }
-            advance();
+            next_slab(end);
             c0 = n0;
             c1 = n1;
           }
@@ -614,7 +696,7 @@ __global__ void __launch_bounds__(NTHREADS, 1)
   } else {
     // ----------------------------------------------------------- consumers
     asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
-    const Lane L = make_lane<MODE>();
+    const Lane L = make_lane<MODE, SD>();
     const bool active = L.wm * 64 < tb;  // tb % 64 == 0: a warp's rows are all in or all out
     float acc[4][8][4];
     // as in the producer, every index is loaded one step ahead
@@ -629,6 +711,14 @@ __global__ void __launch_bounds__(NTHREADS, 1)
     }
     const int4 none = make_int4(-1, 0, -1, 0);
     int4 nxt = lo < hi ? p.step[lo] : none;
+    // after a slab: release the stage where the producer closed it
+    auto release = [&](bool end) {
+      if (closes(end)) {
+        __syncwarp();
+        if (lane == 0) mbar_arrive(empty0 + 8 * stage);
+      }
+      next_slab(end);
+    };
     for (int w = w0; w < p.n_work; w += gridDim.x) {
       const int p0 = (w % p.n_fs) * BN;
       // the row scales of this item's rows, wanted by the epilogue
@@ -657,27 +747,25 @@ __global__ void __launch_bounds__(NTHREADS, 1)
       for (int g = lo; g < hi; ++g) {
         const int4 st = nxt;
         nxt = g + 1 < hi ? p.step[g + 1] : (lo_n < hi_n ? p.step[lo_n] : none);
+        const bool last = g + 1 == hi;
+        const bool chunk = FUSED && st.z >= 0 && st.w > 0;
         if (st.x >= 0) {
-          for (int k0 = 0; k0 < tb; k0 += KS) {
-            uint8_t* a_ptr = smem + stage * ATile<MODE>::STAGE;
-            mbar_wait(full0 + 8 * stage, phase);
-            if (active) tile_slab<MODE>(acc, L, smem_u32(a_ptr), a_ptr, smem_u32(a_ptr + A_BYTES));
-            __syncwarp();
-            if (lane == 0) mbar_arrive(empty0 + 8 * stage);
-            advance();
+          for (int k0 = 0; k0 < tb; k0 += SD) {
+            uint8_t* a_ptr = slab_ptr();
+            if (NSLAB == 1 || j == 0) mbar_wait(full0 + 8 * stage, phase);
+            if (active) tile_slab<MODE, SD>(acc, L, smem_u32(a_ptr), a_ptr, smem_u32(a_ptr + A_BYTES));
+            release(last && !chunk && k0 + SD >= tb);
           }
         }
-        if (FUSED && st.z >= 0) {
-          for (int k0 = 0; k0 < st.w; k0 += KS) {
-            uint8_t* a_ptr = smem + stage * ATile<MODE>::STAGE;
-            mbar_wait(full0 + 8 * stage, phase);
+        if (chunk) {
+          for (int k0 = 0; k0 < st.w; k0 += SD) {
+            uint8_t* a_ptr = slab_ptr();
+            if (NSLAB == 1 || j == 0) mbar_wait(full0 + 8 * stage, phase);
             if (p.slot_scale != nullptr)
-              scale_chunk_rows(a_ptr + A_BYTES, p.slot_scale + (long)st.z * p.K + k0);
+              scale_chunk_rows<SD>(a_ptr + A_BYTES, p.slot_scale + (long)st.z * p.K + k0);
             if (active)
-              chunk_slab(acc, L, reinterpret_cast<const int*>(a_ptr), smem_u32(a_ptr + A_BYTES));
-            __syncwarp();
-            if (lane == 0) mbar_arrive(empty0 + 8 * stage);
-            advance();
+              chunk_slab<SD>(acc, L, reinterpret_cast<const int*>(a_ptr), smem_u32(a_ptr + A_BYTES));
+            release(last && k0 + SD >= st.w);
           }
         }
       }
@@ -808,7 +896,7 @@ static int encode_2d(CUtensorMap* map, CUtensorMapDataType type, int elem, const
 
 // Launches the ring kernel and, for split runs, the finalize pass. Returns
 // 0, a cudaError_t, or 10000 + a CUresult of the tensor-map encoder.
-template <int MODE, bool FUSED, typename TO>
+template <int MODE, bool FUSED, typename TO, int NSLAB = 1, int SD = KS>
 static int launch_ring(const void* tiles, long n_tiles, int n_seg, int n_fin, const int* fin_rb,
                        const int* fin_p0, const int* fin_np, int hs_rows, int n_sm,
                        RingArgs args, cudaStream_t stream) {
@@ -816,17 +904,17 @@ static int launch_ring(const void* tiles, long n_tiles, int n_seg, int n_fin, co
   const int tb = args.tb;
   int err = MODE == TILE_I8
                 ? encode_2d(&map_a, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, tiles,
-                            (uint64_t)n_tiles * tb, tb, tb, KS)
+                            (uint64_t)n_tiles * tb, tb, tb, SD)
                 : encode_2d(&map_a, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, tiles,
-                            (uint64_t)n_tiles * tb, tb, tb, A_BOX_BF16);
+                            (uint64_t)n_tiles * tb, tb, tb, SD + 8);
   if (err) return err;
-  err = encode_2d(&map_b, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, args.Hs, hs_rows, args.P, KS,
+  err = encode_2d(&map_b, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, args.Hs, hs_rows, args.P, SD,
                   B_BOX);
   if (err) return err;
   args.n_fs = (args.P + BN - 1) / BN;
   args.n_work = n_seg * args.n_fs;
-  auto kernel = agg_ring_kernel<MODE, FUSED, TO>;
-  constexpr int SMEM = ATile<MODE>::SMEM;
+  auto kernel = agg_ring_kernel<MODE, FUSED, TO, NSLAB, SD>;
+  constexpr int SMEM = RingLayout<MODE, NSLAB, SD>::SMEM;
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
   if (e != cudaSuccess) return (int)e;
   const int grid = args.n_work < n_sm ? args.n_work : n_sm;

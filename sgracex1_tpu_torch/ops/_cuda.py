@@ -118,15 +118,25 @@ def _declare(lib: ctypes.CDLL) -> None:
         p, i, i, i, i,  # H, h_bf16, n_cols, P, vec
         p, p, i, p,  # out, partial, n_rows, stream
     ]
-    for ring in (lib.sg_bsr_spmm_ring, lib.sg_fused_agg_ring):
-        ring.restype = i
-        ring.argtypes = [
-            p, i, i, i, i, p, p, p, p,  # tiles, mode, tb, n_tiles, n_seg, seg_rb/lo/hi/part
-            i, p, p, p,  # n_fin, fin_rb/p0/np
-            p, p, p, p, i,  # step, lrow, slot_col, slot_scale, K
-            p, p, i, i,  # rowscale, Hs, hs_rows, P
-            p, p, i, i, p,  # out, partial, n_rows, n_sm, stream
-        ]
+    ring_args = [
+        p, i, i, i, i, p, p, p, p,  # tiles, mode, tb, n_tiles, n_seg, seg_rb/lo/hi/part
+        i, p, p, p,  # n_fin, fin_rb/p0/np
+        p, p, p, p, i,  # step, lrow, slot_col, slot_scale, K
+        p, p, i, i,  # rowscale, Hs, hs_rows, P
+        p, p, i, i,  # out, partial, n_rows, n_sm
+    ]
+    lib.sg_bsr_spmm_ring.restype = i
+    lib.sg_bsr_spmm_ring.argtypes = ring_args + [p]  # stream
+    lib.sg_fused_agg_ring.restype = i
+    lib.sg_fused_agg_ring.argtypes = ring_args + [i, i, p]  # slabs a stage, slab depth, stream
+    lib.sg_bsr_spmm_cluster.restype = i
+    lib.sg_bsr_spmm_cluster.argtypes = [
+        p, i, i, i, i, i, p,  # tiles, mode, tb, n_tiles, cluster, n_clusters, cl_start
+        p, p, p, p, p,  # item_rb/lo/hi/kind, step
+        p, i, i, p, i, p,  # Hs, hs_rows, P, out, n_rows, stream
+    ]
+    lib.sg_bsr_spmm_cluster_occupancy.restype = i
+    lib.sg_bsr_spmm_cluster_occupancy.argtypes = [i, i]  # mode, cluster
     lib.sg_stage_h.restype = i
     lib.sg_stage_h.argtypes = [p, i, i, p, p, i, i, p]  # H, h_bf16, n_valid, colscale, Hs, rows, P, stream
     lib.sg_bsr_spmm_int8.restype = i

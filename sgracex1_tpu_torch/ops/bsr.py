@@ -14,10 +14,13 @@ the live tiles of ``BSRMatrix.ring``, a multi-stage shared-memory ring), else
 the single-stage kernel ``csrc/bsr_spmm.cu``; on a CPU tensor it runs
 ``bsr_spmm_plain``, the plain PyTorch version of the same function.
 
-Kernel K10, ``bsr_spmm_rowloop``: K1's product with one CTA per output
-row block and a two-stage ring over that block's tiles, as
-``sgracex1_tpu.ops.bsr.bsr_spmm_rowloop``: ``csrc/bsr_spmm_rowloop.cu`` on a
-CUDA tensor, ``bsr_spmm_rowloop_plain`` on a CPU tensor.
+Kernel K10, ``bsr_spmm_rowloop``: K1's product with every output row block
+written once, as ``sgracex1_tpu.ops.bsr.bsr_spmm_rowloop``. On a CUDA tensor
+it launches the cluster kernel ``csrc/bsr_spmm_cluster.cu`` at the shapes
+``ring_shape_ok`` names (``cluster_schedule``: a hub row block's live tiles
+split over the CTAs of a thread-block cluster and summed in distributed
+shared memory), else the single-stage kernel ``csrc/bsr_spmm_rowloop.cu``;
+on a CPU tensor it runs ``bsr_spmm_rowloop_plain``.
 
 Kernel K7, ``bsr_spmm_int8``: the exact int32 ``Aq @ Hq`` over shifted-int8
 value tiles (``quant/int8.bsr_int8_from_sparse``), as
@@ -609,12 +612,14 @@ def _stage_h(H: torch.Tensor, colscale: Optional[torch.Tensor], rows: int, n_val
 def _launch_ring(
     name: str, B: BSRMatrix, L: LiveSchedule, H: torch.Tensor, out_dtype, *,
     colscale=None, rowscale=None, lrow=None, slot_col=None, slot_scale=None, K: int = 0,
+    extra: tuple = (),
 ) -> torch.Tensor:
     """Stage H and launch the ring kernel ``sg_<name>`` over the live
     schedule ``L`` (K1: tiles only; K2: with the chunk arrays and
     scalings). With a column scale the chunk rows are ``Hs`` rows as they
     are (rank-1 mode: ``slot_scale == colscale[slot_col]``); without one
-    they are scaled by ``slot_scale`` in the kernel."""
+    they are scaled by ``slot_scale`` in the kernel. ``extra`` ints follow
+    the SM count (the fused ring's slabs a stage and slab depth)."""
     mode = _tile_mode(B.tiles, B.tb)
     _h_operand(H, B.n_cols, B.tb)
     S = L.segments
@@ -636,7 +641,7 @@ def _launch_ring(
         _ptr(B.tiles), mode, tb, B.tiles.shape[0], *_seg_args(S), _ptr(L.step),
         _ptr(lrow), _ptr(slot_col), _ptr(slot_scale if colscale is None else None), K,
         _ptr(rowscale), _ptr(Hs), Hs.shape[0], P, _ptr(out), _ptr(partial), B.n_rows,
-        torch.cuda.get_device_properties(H.device).multi_processor_count,
+        torch.cuda.get_device_properties(H.device).multi_processor_count, *extra,
         ctypes.c_void_p(torch.cuda.current_stream(H.device).cuda_stream),
     )
     _cuda.check(err, name)
@@ -700,6 +705,127 @@ bsr_spmm.launches_single = 0
 
 # ------------------------------------------------------------ kernel K10
 
+# CTAs of a thread-block cluster for the cluster K10 (csrc/bsr_spmm_cluster.cu):
+# 8 is the portable size, 16 needs the non-portable attribute; both measured
+# by chip_smoke.py
+ROWLOOP_CLUSTERS = (8, 16)
+ROWLOOP_CLUSTER = 16
+
+
+# item kinds of the cluster K10 (csrc/bsr_spmm_cluster.cu)
+LIGHT, HEAVY, UPPER, LOWER = 0, 1, 2, 3
+# estimated cost of a CTA's epilogue, in tile products (greedy balance only)
+_EPILOGUE_COST = 0.25
+
+
+@dataclasses.dataclass(frozen=True)
+class ClusterSchedule:
+    """Work list of the cluster K10: items of ``C`` CTA slots each, and the
+    items of each cluster.
+
+    A heavy item (kind ``HEAVY``) is one row block whose live steps
+    (``BSRMatrix.ring``) are cut into ``C`` contiguous ranges, balanced by
+    count, one per slot; the ranks' partial sums meet in distributed shared
+    memory. A row block whose ranges would still hold more than
+    ``heavy_min`` tiles a slot is two such items, ``UPPER`` and ``LOWER``,
+    each over half the tile height (tb >= 128). A light item holds up to
+    ``C`` row blocks, one per slot (``item_rb == -1``: an idle slot). Every
+    row block appears, an empty one as a light slot with an empty range (its
+    rows are written as zeros). ``item_lo`` / ``item_hi`` index
+    ``ring.step``. Cluster ``c`` walks items ``cl_start[c] ..
+    cl_start[c + 1]``: the items go, most costly first, each to the cluster
+    with the least estimated work so far (a tile product per tile and row
+    fraction, plus an epilogue)."""
+
+    item_rb: torch.Tensor  # int32[n_items * C]
+    item_lo: torch.Tensor  # int32[n_items * C]
+    item_hi: torch.Tensor  # int32[n_items * C]
+    item_kind: torch.Tensor  # int32[n_items]
+    cl_start: torch.Tensor  # int32[n_clusters + 1]
+    C: int
+    heavy_min: int  # a row block with more live tiles than this is heavy
+
+    @property
+    def n_items(self) -> int:
+        return self.item_kind.shape[0]
+
+    @property
+    def n_clusters(self) -> int:
+        return self.cl_start.shape[0] - 1
+
+    @property
+    def n_heavy(self) -> int:
+        """Items that split one row block over the cluster."""
+        return int((self.item_kind != LIGHT).sum())
+
+
+def rowloop_heavy_min(n_live: int, n_sm: int, C: int) -> int:
+    """The live tile count above which a row block is heavy: an SM's fair
+    share of the live tiles, and at least ``C`` (every rank gets a tile)."""
+    return max(C, -(-n_live // max(n_sm, 1)))
+
+
+def cluster_schedule(B: BSRMatrix, C: int, heavy_min: int, n_clusters: int) -> ClusterSchedule:
+    """The cluster K10's work list over ``B.ring``'s live steps, spread
+    over ``n_clusters`` clusters (host)."""
+    rb = _np(B.ring.rb).astype(np.int64)
+    tb, n_rt = B.tb, B.n_row_tiles
+    start = np.searchsorted(rb, np.arange(n_rt + 1))
+    count = np.diff(start)
+    heavy = np.flatnonzero(count > heavy_min)
+    heavy = heavy[np.argsort(-count[heavy], kind="stable")]
+    halves = (count[heavy] > C * heavy_min) & (tb >= 128)
+    light = np.flatnonzero(count <= heavy_min)
+    light = light[np.argsort(-count[light], kind="stable")]
+    n_light = -(-len(light) // C)
+    # heavy items: C balanced contiguous ranges of the block's live steps,
+    # a block of two halves listed twice
+    hb = np.repeat(heavy, np.where(halves, 2, 1))
+    h_kind = np.where(np.repeat(halves, np.where(halves, 2, 1)), UPPER, HEAVY)
+    h_kind[1:][(h_kind[1:] == UPPER) & (h_kind[:-1] == UPPER) & (hb[1:] == hb[:-1])] = LOWER
+    cuts = start[hb][:, None] + (count[hb][:, None] * np.arange(C + 1)) // C
+    h_lo, h_hi = cuts[:, :-1].reshape(-1), cuts[:, 1:].reshape(-1)
+    # light items: one row block a slot, idle slots at the end
+    l_rb = np.full(n_light * C, -1, np.int64)
+    l_rb[: len(light)] = light
+    l_lo = np.where(l_rb >= 0, start[np.maximum(l_rb, 0)], 0)
+    l_hi = np.where(l_rb >= 0, start[np.maximum(l_rb, 0) + 1], 0)
+    item_rb = np.r_[np.repeat(hb, C), l_rb]
+    item_lo, item_hi = np.r_[h_lo, l_lo], np.r_[h_hi, l_hi]
+    kind = np.r_[h_kind, np.full(n_light, LIGHT)]
+    n_items = len(kind)
+    # greedy: most costly first, each to the least loaded cluster
+    frac = np.where(kind >= UPPER, 0.5, 1.0)
+    cost = ((item_hi - item_lo).reshape(n_items, C).max(axis=1) if n_items else np.zeros(0)) * frac + _EPILOGUE_COST
+    n_cl = max(1, min(n_clusters, n_items))
+    load = np.zeros(n_cl)
+    owner = np.empty(n_items, np.int64)
+    for i in np.argsort(-cost, kind="stable"):
+        c = int(np.argmin(load))
+        owner[i] = c
+        load[c] += cost[i]
+    order = np.argsort(owner, kind="stable")  # each cluster's items, in list order
+    slots = (order[:, None] * C + np.arange(C)).reshape(-1)
+    cl_start = np.r_[0, np.cumsum(np.bincount(owner, minlength=n_cl))] if n_items else np.zeros(1)
+    dev = B.ring.step.device
+    i32 = lambda a: _tensor(np.asarray(a, np.int64).astype(np.int32), dev)
+    return ClusterSchedule(
+        item_rb=i32(item_rb[slots]), item_lo=i32(item_lo[slots]), item_hi=i32(item_hi[slots]),
+        item_kind=i32(kind[order]), cl_start=i32(cl_start), C=C, heavy_min=heavy_min,
+    )
+
+
+def _cluster_sched(B: BSRMatrix, C: int, n_sm: int, n_clusters: int) -> ClusterSchedule:
+    """``cluster_schedule`` at the heavy rule's threshold for ``n_sm`` SMs
+    over ``n_clusters`` clusters, built at first use and kept with the tile
+    set."""
+    heavy_min = rowloop_heavy_min(B.ring.n_tile_steps, n_sm, C)
+    cache = B.__dict__.setdefault("_cluster_schedules", {})
+    key = (C, heavy_min, n_clusters)
+    if key not in cache:
+        cache[key] = cluster_schedule(B, C, heavy_min, n_clusters)
+    return cache[key]
+
 
 def _row_start(B: BSRMatrix) -> torch.Tensor:
     """int32 [n_rt + 1]: the first tile of every row block (tiles are
@@ -725,16 +851,89 @@ def bsr_spmm_rowloop_plain(B: BSRMatrix, H: torch.Tensor) -> torch.Tensor:
     return acc.view(-1, P)[: B.n_rows]
 
 
-def bsr_spmm_rowloop(B: BSRMatrix, H: torch.Tensor) -> torch.Tensor:
-    """K10: K1's product with one CTA per output row block that walks the
-    block's tiles through a two-stage ring and writes the block once (JAX
-    ``bsr_spmm_rowloop``). Same tile forms and result as ``bsr_spmm``. A
-    CPU tensor runs ``bsr_spmm_rowloop_plain``; a CUDA tensor launches
-    ``csrc/bsr_spmm_rowloop.cu`` or raises."""
-    if H.device.type == "cpu":
-        return bsr_spmm_rowloop_plain(B, H)
-    if H.device.type != "cuda":
-        raise ValueError(f"bsr_spmm_rowloop runs on cpu or cuda, not {H.device}")
+def bsr_spmm_rowloop_cluster_plain(B: BSRMatrix, H: torch.Tensor, sched: ClusterSchedule) -> torch.Tensor:
+    """Plain PyTorch version of the cluster K10 on ``sched``: each slot's
+    live tiles summed in f32 (a light slot straight into its row block), a
+    heavy item's ``C`` partials over its rows summed in rank order, f32
+    [n_rows, P]."""
+    tb, P, C = B.tb, H.shape[1], sched.C
+    n_ct = _round_up(B.n_cols, tb) // tb
+    dev = H.device
+    Hs = stage_h_plain(H, None, n_ct * tb, B.n_cols).float().view(n_ct, tb, P)
+    step = B.ring.step.to(dev).long()
+    lo, hi = sched.item_lo.to(dev).long(), sched.item_hi.to(dev).long()
+    kind = sched.item_kind.to(dev).long()
+    slot = torch.repeat_interleave(torch.arange(lo.shape[0], device=dev), hi - lo)
+    g = torch.arange(slot.shape[0], device=dev) - (torch.cumsum(hi - lo, 0) - (hi - lo))[slot] + lo[slot]
+    acc = torch.zeros((lo.shape[0], tb, P), dtype=torch.float32, device=dev)
+    _tile_products(B.tiles, tb, step[g, 0], slot, step[g, 1], Hs, acc)
+    out = torch.zeros((B.n_row_tiles, tb, P), dtype=torch.float32, device=dev)
+    rb = sched.item_rb.to(dev).long()
+    light = (kind.repeat_interleave(C) == LIGHT) & (rb >= 0)
+    out[rb[light]] = acc[light]
+    parts, rbi = acc.view(-1, C, tb, P), rb.view(-1, C)[:, 0]
+    for i in torch.nonzero(kind != LIGHT).flatten().tolist():
+        r0, r1 = {HEAVY: (0, tb), UPPER: (0, tb // 2), LOWER: (tb // 2, tb)}[int(kind[i])]
+        total = parts[i, 0, r0:r1].clone()
+        for r in range(1, C):
+            total += parts[i, r, r0:r1]
+        out[rbi[i], r0:r1] = total
+    return out.view(-1, P)[: B.n_rows]
+
+
+@functools.lru_cache(maxsize=None)
+def rowloop_cluster_occupancy(mode: int, C: int) -> int:
+    """The clusters of ``C`` CTAs of the cluster K10 the card holds at once
+    (``cudaOccupancyMaxActiveClusters`` at its shared memory); the kernel
+    launches that many, each with its own list of items."""
+    n = _cuda.library().sg_bsr_spmm_cluster_occupancy(mode, C)
+    _cuda.check(-n if n < 0 else 0, "bsr_spmm_cluster occupancy")
+    if n < 1:
+        raise RuntimeError(f"no cluster of {C} CTAs of the cluster K10 fits the card")
+    return n
+
+
+def _bsr_spmm_rowloop_cluster(B: BSRMatrix, H: torch.Tensor, C: int = ROWLOOP_CLUSTER,
+                              sched: Optional[ClusterSchedule] = None) -> torch.Tensor:
+    """K10 by the cluster kernel ``csrc/bsr_spmm_cluster.cu`` over the live
+    tiles: on ``_cluster_sched``'s schedule for this card, or on ``sched``
+    (``cluster_schedule`` of ``B`` with ``C``, as many clusters as the card
+    holds at most: a measurement of the schedule's choices)."""
+    if C not in ROWLOOP_CLUSTERS:
+        raise ValueError(f"the cluster K10 takes clusters of {ROWLOOP_CLUSTERS}, got {C}")
+    mode = _tile_mode(B.tiles, B.tb)
+    _h_operand(H, B.n_cols, B.tb)
+    if sched is None:
+        sched = _cluster_sched(B, C, torch.cuda.get_device_properties(H.device).multi_processor_count,
+                               rowloop_cluster_occupancy(mode, C))
+    elif sched.C != C:
+        raise ValueError(f"the schedule has clusters of {sched.C}, the kernel runs clusters of {C}")
+    elif sched.n_clusters > rowloop_cluster_occupancy(mode, C):
+        raise ValueError(f"the schedule has {sched.n_clusters} clusters, the card holds "
+                         f"{rowloop_cluster_occupancy(mode, C)} of {C} CTAs")
+    ints = dict(step=B.ring.step, cl_start=sched.cl_start, item_rb=sched.item_rb, item_lo=sched.item_lo,
+                item_hi=sched.item_hi, item_kind=sched.item_kind)
+    _check_cuda_operands(dict(tiles=B.tiles, **ints), H.device)
+    tb, P = B.tb, H.shape[1]
+    n_ct = _round_up(B.n_cols, tb) // tb
+    Hs = _stage_h(H, None, n_ct * tb, B.n_cols)
+    out = torch.empty((B.n_rows, P), dtype=torch.float32, device=H.device)
+    err = _cuda.library().sg_bsr_spmm_cluster(
+        _ptr(B.tiles), mode, tb, B.tiles.shape[0], C, sched.n_clusters, _ptr(sched.cl_start),
+        _ptr(sched.item_rb), _ptr(sched.item_lo), _ptr(sched.item_hi), _ptr(sched.item_kind),
+        _ptr(B.ring.step), _ptr(Hs), Hs.shape[0], P, _ptr(out), B.n_rows,
+        ctypes.c_void_p(torch.cuda.current_stream(H.device).cuda_stream),
+    )
+    _cuda.check(err, "bsr_spmm_cluster")
+    bsr_spmm_rowloop.launches += 1
+    bsr_spmm_rowloop.launches_cluster += 1
+    return out
+
+
+def _bsr_spmm_rowloop_single(B: BSRMatrix, H: torch.Tensor) -> torch.Tensor:
+    """K10 by the single-stage kernel ``csrc/bsr_spmm_rowloop.cu``: every
+    tile form, every tile, one CTA per (row block, 128-row group,
+    128-feature slice)."""
     mode = _tile_mode(B.tiles, B.tb)
     is_bf16, vec = _h_operand(H, B.n_cols, B.tb)
     ints = dict(tile_rb=B.tile_rb, tile_cb=B.tile_cb)
@@ -752,10 +951,31 @@ def bsr_spmm_rowloop(B: BSRMatrix, H: torch.Tensor) -> torch.Tensor:
     )
     _cuda.check(err, "bsr_spmm_rowloop")
     bsr_spmm_rowloop.launches += 1
+    bsr_spmm_rowloop.launches_single += 1
     return out
 
 
+def bsr_spmm_rowloop(B: BSRMatrix, H: torch.Tensor) -> torch.Tensor:
+    """K10: K1's product with every output row block written once (JAX
+    ``bsr_spmm_rowloop``). Same tile forms and result as ``bsr_spmm``. A CPU
+    tensor runs ``bsr_spmm_rowloop_plain``; a CUDA tensor launches the
+    cluster kernel (a hub row block split over the CTAs of a
+    ``ROWLOOP_CLUSTER`` cluster, its partials summed in distributed shared
+    memory) where ``ring_shape_ok`` holds, else the single-stage kernel, or
+    raises. ``launches`` counts both; ``launches_cluster`` /
+    ``launches_single`` each one."""
+    if H.device.type == "cpu":
+        return bsr_spmm_rowloop_plain(B, H)
+    if H.device.type != "cuda":
+        raise ValueError(f"bsr_spmm_rowloop runs on cpu or cuda, not {H.device}")
+    if H.dim() == 2 and ring_shape_ok(_tile_mode(B.tiles, B.tb), B.tb, H.shape[1]):
+        return _bsr_spmm_rowloop_cluster(B, H)
+    return _bsr_spmm_rowloop_single(B, H)
+
+
 bsr_spmm_rowloop.launches = 0
+bsr_spmm_rowloop.launches_cluster = 0
+bsr_spmm_rowloop.launches_single = 0
 
 
 # ------------------------------------------------------------- kernel K7

@@ -21,8 +21,11 @@ the same function.
 
 Kernel K11, ``bsr_spmm_fused_k``: K2 taking ``plan.k_steps`` schedule
 entries per loop iteration on a plan built with ``k_steps=k``, as
-``sgracex1_tpu.ops.fused_agg.bsr_spmm_fused_k``: ``csrc/fused_agg_k.cu`` on
-a CUDA tensor, ``bsr_spmm_fused_k_plain`` on a CPU tensor.
+``sgracex1_tpu.ops.fused_agg.bsr_spmm_fused_k``. On a CUDA tensor it launches
+K2's ring kernel ``csrc/fused_agg_ring.cu`` with ``k`` slabs a ring stage at
+the shapes ``fused_k_ring_shape_ok`` names, else
+the single-stage kernel ``csrc/fused_agg_k.cu``; on a CPU tensor it runs
+``bsr_spmm_fused_k_plain``.
 
 Kernel K8, ``bsr_spmm_int8_fused``: the exact int32 ``Aq @ Hq`` of a
 value-mode plan whose tiles are shifted int8 and whose slot scales are the
@@ -59,6 +62,7 @@ from sgracex1_tpu_torch.ops.bsr import (
     _tile_mode,
     _tile_products,
     _tile_products_int8,
+    _TILE_MODES,
     SEG_STEPS,
     live_schedule,
     ring_shape_ok,
@@ -68,6 +72,8 @@ from sgracex1_tpu_torch.ops.bsr import (
 # remainder slots per chunk: a fixed starting point for the H100 (the JAX
 # package picks among 128/256/512 by TPU-measured step costs)
 DEFAULT_K = 128
+
+_TILE_I8 = _TILE_MODES[torch.int8]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -430,15 +436,22 @@ def _bsr_spmm_fused_single(plan: FusedAggPlan, H: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def _bsr_spmm_fused_ring(plan: FusedAggPlan, H: torch.Tensor) -> torch.Tensor:
-    """K2 by the ring kernel ``csrc/fused_agg_ring.cu`` over ``plan.ring``."""
+def _launch_fused_ring(plan: FusedAggPlan, H: torch.Tensor, k: int) -> torch.Tensor:
+    """The fused ring kernel over ``plan.ring``, ``k`` slabs a ring stage
+    (1: K2; 2 or 4: K11)."""
     if plan.lrow.shape != (plan.num_chunks, plan.K):
         raise ValueError(f"lrow must be [R, K], got {tuple(plan.lrow.shape)}")
-    out = _launch_ring(
+    return _launch_ring(
         "fused_agg_ring", plan.B, plan.ring, H, torch.bfloat16,
         colscale=plan.colscale, rowscale=plan.rowscale, lrow=plan.lrow,
         slot_col=plan.slot_col, slot_scale=plan.slot_scale, K=plan.K,
+        extra=(k, k_ring_slab_depth(k)),
     )
+
+
+def _bsr_spmm_fused_ring(plan: FusedAggPlan, H: torch.Tensor) -> torch.Tensor:
+    """K2 by the ring kernel ``csrc/fused_agg_ring.cu`` over ``plan.ring``."""
+    out = _launch_fused_ring(plan, H, 1)
     bsr_spmm_fused.launches += 1
     bsr_spmm_fused.launches_ring += 1
     return out
@@ -494,13 +507,52 @@ def bsr_spmm_fused_k_plain(plan: FusedAggPlan, H: torch.Tensor) -> torch.Tensor:
     return bsr_spmm_fused_plain(plan, H)
 
 
+def fused_k_ring_shape_ok(mode: int, tb: int, P: int, K: int, k: int) -> bool:
+    """Whether the K11 ring kernel (``csrc/fused_agg_ring.cu`` with k slabs
+    a stage) takes these operands: K2's ring shapes (``ring_shape_ok``) at
+    k = 2, and k = 4 for int8 tiles, whose stages of four 32-deep slabs fit
+    three to the shared memory (four bf16 slabs fit one stage only).
+    Everything else goes to the single-stage kernel. The rule reads shapes
+    and the tile form only."""
+    return ring_shape_ok(mode, tb, P, K) and (k == 2 or (k == 4 and mode == _TILE_I8))
+
+
+def k_ring_slab_depth(k: int) -> int:
+    """Reduction depth of one slab of the fused ring kernel at ``k`` slabs
+    a stage (what fits in shared memory): 64 at k = 1 (K2) and 2, 32 at
+    k = 4. The launch passes it to the kernel, which has an instantiation
+    for each (tile form, k, depth) that ``fused_k_ring_shape_ok`` admits."""
+    return 32 if k == 4 else 64
+
+
+def _bsr_spmm_fused_k_ring(plan: FusedAggPlan, H: torch.Tensor) -> torch.Tensor:
+    """K11 by the fused ring kernel ``csrc/fused_agg_ring.cu`` with ``k``
+    slabs a stage (``k = plan.k_steps``) over K2's ring schedule
+    ``plan.ring`` (the pads do no work and are not on it)."""
+    out = _launch_fused_ring(plan, H, plan.k_steps)
+    bsr_spmm_fused_k.launches += 1
+    bsr_spmm_fused_k.launches_ring += 1
+    return out
+
+
+def _bsr_spmm_fused_k_single(plan: FusedAggPlan, H: torch.Tensor) -> torch.Tensor:
+    """K11 by the single-stage kernel ``csrc/fused_agg_k.cu``: every tile
+    form, every step of the padded ``plan.segments``."""
+    out = _launch_fused("bsr_spmm_fused_k", plan, H, plan.k_steps)
+    bsr_spmm_fused_k.launches += 1
+    bsr_spmm_fused_k.launches_single += 1
+    return out
+
+
 def bsr_spmm_fused_k(plan: FusedAggPlan, H: torch.Tensor) -> torch.Tensor:
     """K11: ``bsr_spmm_fused`` taking ``plan.k_steps`` schedule entries per
     loop iteration (JAX ``bsr_spmm_fused_k``; build the plan with
     ``k_steps=k``, 2 or 4 on the card). The same function as K2;
     ``k_steps == 1`` is K2 itself. A CPU tensor runs
-    ``bsr_spmm_fused_k_plain``; a CUDA tensor launches
-    ``csrc/fused_agg_k.cu`` or raises."""
+    ``bsr_spmm_fused_k_plain``; a CUDA tensor launches the ring kernel
+    (``k`` slabs a ring stage) where ``fused_k_ring_shape_ok`` holds, else
+    the single-stage kernel, or raises. ``launches`` counts both;
+    ``launches_ring`` / ``launches_single`` each one."""
     if plan.k_steps == 1:
         return bsr_spmm_fused(plan, H)
     if H.device.type == "cpu":
@@ -512,12 +564,15 @@ def bsr_spmm_fused_k(plan: FusedAggPlan, H: torch.Tensor) -> torch.Tensor:
     k = _check_k_plan(plan, runs=False)
     if k not in (2, 4):
         raise ValueError(f"the CUDA kernel takes k_steps 2 or 4, got {k}")
-    out = _launch_fused("bsr_spmm_fused_k", plan, H, k)
-    bsr_spmm_fused_k.launches += 1
-    return out
+    B = plan.B
+    if H.dim() == 2 and fused_k_ring_shape_ok(_tile_mode(B.tiles, B.tb), B.tb, H.shape[1], plan.K, k):
+        return _bsr_spmm_fused_k_ring(plan, H)
+    return _bsr_spmm_fused_k_single(plan, H)
 
 
 bsr_spmm_fused_k.launches = 0
+bsr_spmm_fused_k.launches_ring = 0
+bsr_spmm_fused_k.launches_single = 0
 
 
 # ------------------------------------------------------------- kernel K8

@@ -884,3 +884,119 @@ def test_gat_model_grads_through_ring_bwd(cuda_device, monkeypatch, kw):
     for k, r in ref.items():
         scale = float(r.abs().max())
         torch.testing.assert_close(got[k], r, rtol=2e-2, atol=2e-2 * scale, msg=lambda m: f"{k}: {m}")
+
+
+# ------------------------------------- the cluster K10 and the ring K11
+
+
+def _hub_band_graph(n_blocks, tb, hub, seed, weighted=False):
+    """A band of edges near the diagonal (one or two tiles a row block,
+    fewer live tiles than a cluster has CTAs) and, with ``hub``, rows of
+    row block 0 linked to every column block (a row block of ``n_blocks``
+    live tiles); row and column block 3 hold no edge (an empty row block,
+    and an empty cover tile in row block 0's run)."""
+    rng = np.random.default_rng(seed)
+    n = n_blocks * tb
+    r = np.arange(n).repeat(3)
+    c = (r + rng.integers(-4, 5, r.shape[0])) % n
+    ei = [np.stack([r, c])]
+    if hub:
+        hr = rng.integers(0, tb // 2, 4 * n_blocks)
+        hc = np.arange(4 * n_blocks) // 4 * tb + rng.integers(0, tb, 4 * n_blocks)
+        ei.append(np.stack([hr, hc]))
+    ei = np.unique(np.concatenate(ei, axis=1), axis=1)
+    ei = ei[:, (ei // tb != 3).all(axis=0)]
+    v = rng.uniform(0.5, 2.0, ei.shape[1]).astype(np.float32) if weighted else np.ones(ei.shape[1], np.float32)
+    return SparseMatrix.from_coo(ei[0], ei[1], v, (n, n))
+
+
+CLUSTER_CASES = [
+    ("int8", 256, 128, torch.float32, 16, True), ("int8", 256, 200, torch.bfloat16, 8, True),
+    ("int8", 64, 8, torch.float32, 8, True), ("int8", 128, 64, torch.bfloat16, 16, True),
+    ("values", 128, 128, torch.float32, 8, True), ("values", 192, 264, torch.float32, 16, True),
+    ("values", 64, 128, torch.bfloat16, 16, False), ("int8", 256, 128, torch.float32, 8, False),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form,tb,P,hdtype,C,hub", CLUSTER_CASES)
+def test_rowloop_cluster_matches_plain_and_k1(cuda_device, form, tb, P, hdtype, C, hub):
+    """The cluster K10 against its plain version (each heavy block's C
+    partials summed in rank order) and against the ring K1 at 1e-3: int8
+    and bf16 tiles of height 64-256, f32 and bf16 H, one to three feature
+    slices, clusters of 8 and 16, a hub row block of hundreds of live tiles
+    (split over a cluster, in halves of the tile height where its ranges
+    are long) and an all-light band graph; the empty row block comes out as
+    zeros."""
+    A = _hub_band_graph(320 if tb == 64 else 200, tb, hub, seed=tb + P, weighted=form == "values")
+    B = K1.bsr_from_sparse(A, tb=tb, mask=form == "int8", cover_rows=True, cover_cols=True, device=cuda_device)
+    assert (~B.live).any()
+    n_sm = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    sched = K1._cluster_sched(B, C, n_sm, K1.rowloop_cluster_occupancy(K1._tile_mode(B.tiles, tb), C))
+    assert (sched.n_heavy > 0) == hub
+    if hub and tb >= 128 and C == 8:  # the hub's ranges hold more than heavy_min: two half-height items
+        assert (sched.item_kind == K1.UPPER).sum() == (sched.item_kind == K1.LOWER).sum() == 1
+    H = torch.randn(A.n_cols, P, device=cuda_device).to(hdtype)
+    k = K1.bsr_spmm_rowloop
+    before = (k.launches, k.launches_cluster, k.launches_single)
+    out = K1._bsr_spmm_rowloop_cluster(B, H, C)
+    torch.cuda.synchronize()
+    assert (k.launches, k.launches_cluster, k.launches_single) == (before[0] + 1, before[1] + 1, before[2])
+    assert out.dtype == torch.float32 and out.shape == (A.n_rows, P)
+    torch.testing.assert_close(out, K1.bsr_spmm_rowloop_cluster_plain(B, H, sched), rtol=1e-3, atol=1e-3)
+    torch.testing.assert_close(out, K1.bsr_spmm(B, H), rtol=1e-3, atol=1e-3)
+    assert not out[3 * tb: 4 * tb].any()
+    # the entry point takes the cluster kernel at these shapes
+    before = (k.launches_cluster, k.launches_single)
+    torch.testing.assert_close(k(B, H), out, rtol=1e-3, atol=1e-3)
+    assert (k.launches_cluster, k.launches_single) == (before[0] + 1, before[1])
+
+
+@pytest.mark.cuda
+def test_rowloop_cluster_occupancy(cuda_device):
+    """Clusters of 8 and 16 CTAs of the ring's shared memory both fit."""
+    for mode in (0, 2):
+        for C in K1.ROWLOOP_CLUSTERS:
+            assert K1.rowloop_cluster_occupancy(mode, C) >= 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "mode,tb,P,k",
+    [("rank1", 256, 128, 2), ("rank1", 256, 128, 4), ("rank1", 128, 200, 4), ("values", 128, 64, 2),
+     ("values", 64, 8, 2), ("rank1", 64, 128, 4), ("values", 256, 128, 4)],
+)
+def test_fused_k_ring_matches_k2_ring(cuda_device, mode, tb, P, k):
+    """The K11 ring kernel walks K2's ring schedule (the k-plan's pads are
+    not on it), k slabs a stage: at k = 2 (64-deep slabs, the products of K2's
+    ring in its order) equal to K2's ring bit for bit, at k = 4 (32-deep
+    slabs) within K2_TOL; both within K2_TOL of the plain K11. bf16 tiles
+    at k = 4 take the single-stage kernel (``fused_k_ring_shape_ok``)."""
+    A = _ring_graph(20 * tb + 37, tb, weighted=mode == "values", seed=5 * tb + P)
+    prep = pt.prepare_adjacency(A, method="hybrid", tb=tb, rest_thresh=tb * tb // 256, build_transpose=False,
+                                device=cuda_device)
+    r1 = {} if prep.r1_row is None else dict(r1_row=prep.r1_row.cpu().numpy(), r1_col=prep.r1_col.cpu().numpy())
+    plan = K2.build_fused_plan(prep.bsr, prep.rest, attach_chunks=True, k_steps=k, **r1)
+    base = prep.fused
+    assert plan.num_steps > base.num_steps or k == 2
+    assert torch.equal(plan.ring.step, base.ring.step)
+    for f in ("seg_rb", "seg_lo", "seg_hi", "seg_part"):
+        assert torch.equal(getattr(plan.ring.segments, f), getattr(base.ring.segments, f))
+    ring = K2.fused_k_ring_shape_ok(K1._tile_mode(plan.B.tiles, tb), tb, P, plan.K, k)
+    assert ring == (mode == "rank1" or k == 2)
+    kern = K2.bsr_spmm_fused_k
+    for hdtype in (torch.float32, torch.bfloat16):
+        H = torch.randn(A.n_cols, P, device=cuda_device).to(hdtype)
+        before = (kern.launches, kern.launches_ring, kern.launches_single)
+        out = kern(plan, H)
+        torch.cuda.synchronize()
+        assert (kern.launches, kern.launches_ring, kern.launches_single) == (
+            before[0] + 1, before[1] + int(ring), before[2] + int(not ring))
+        assert out.dtype == torch.bfloat16 and out.shape == (A.n_rows, P)
+        torch.testing.assert_close(out.float(), K2.bsr_spmm_fused_k_plain(plan, H).float(), rtol=2e-2, atol=2e-2)
+        k2 = K2.bsr_spmm_fused(base, H)
+        if ring and k == 2:
+            assert torch.equal(out, k2)
+        else:
+            torch.testing.assert_close(out.float(), k2.float(), rtol=2e-2, atol=2e-2)
+        assert not out[2 * tb: 3 * tb].any()
