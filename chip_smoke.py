@@ -23,9 +23,12 @@ Phases, each raising on failure (so the run exits non-zero):
    (flash_bwd_ring_shape_ok); small GCN
    and GAT forwards and gradients through the kernels against the f32
    edge path. K7 (bsr_spmm_int8) and K8 (bsr_spmm_int8_fused) must equal
-   their plain versions and a scipy integer product (tb 128 and 256, P in
-   {8, 16, 100, 128}, a row block without a tile, dead chunk slots, split
-   runs, both attach_chunks modes).
+   their plain versions and a scipy integer product (tb 64, 128 and 256, P
+   in {8, 16, 32, 100, 128}, a row block without a tile, dead chunk slots,
+   split runs, both attach_chunks modes); K8 through the kernel its shape
+   selects (the int8 ring kernel on the tiles that carry an edge at tb
+   64-256, P % 16 == 0, else the single-stage one) and, where the ring
+   kernel took it, the single-stage kernel as well.
 4. the GCN slice: 2^20-node power-law graph (avg degree 16, 100 features,
    16 classes, seed 0), sym_norm, degree order, one hybrid prepare with
    the transposed plans; K1 and K2 (the ring kernels) timed against their
@@ -49,8 +52,10 @@ Phases, each raising on failure (so the run exits non-zero):
    training epochs through K3, K4 and K5 (the ring kernels).
 7. K8 at full width: the slice's graph quantized to 8 bits,
    prepare_int8_hybrid (tb 256, threshold 64, K 128), Hq from a numpy
-   seed; int8_hybrid_agg three times, equal to the plain version; K8, and
-   K7 on the plan's dense part, timed.
+   seed; int8_hybrid_agg three times on the int8 ring kernel, equal to the
+   plain version; the ring and the single-stage K8 timed in turns, with the
+   bound on the tiles that carry an edge and on all tiles; K7 on the plan's
+   dense part timed.
 8. fake-quant GCN at 2^20, width 128: calibrate() from one float forward
    with telemetry, the 8-bit GCNModel on a value-tile prep
    (prepare_from_config with fake_quantization), forwards held against the
@@ -70,7 +75,9 @@ Phases, each raising on failure (so the run exits non-zero):
    (spmm_plan) over rb/cb 128, 256 and 1024, be 1024 and 2048, P in {16, 33,
    100, 128}, f32 and bf16 H, ragged n, a row block without a group, the
    empty matrix, H with spare rows, weighted and rank-1 values, a split hub
-   row, plan_with_vals and plan_t; K10 (bsr_spmm_rowloop) in the tile forms
+   row, plan_with_vals and plan_t, through the kernel its shape selects (the
+   gather kernel at P % 8 == 0, else the first kernel) and, where the gather
+   kernel took it, the first kernel too; K10 (bsr_spmm_rowloop) in the tile forms
    with an empty row block, also against K1, through the kernel its shape
    selects (the cluster kernel for int8 and bf16 tiles of height 64-256 at
    P % 8 == 0, else the single-stage one) and, where the cluster kernel took
@@ -85,11 +92,14 @@ Phases, each raising on failure (so the run exits non-zero):
    prepare_from_config with SGRACEConfig(use_pallas=True, row_block=1024,
    col_block=1024, edge_block=1024); the seconds and bytes plan_t adds to a
    prep made with build_transpose=False; K9 timed at P = 128 against its plain
-   version, its bound and torch.sparse.mm; the width-128 GCNModel answers 3
-   requests through K9 (logits against the plain-K9 forward and the K2
-   forward) and trains for 3 epochs (K9 on plan and plan_t); one
-   agg_matmul_with_vals forward and backward with random positive values;
-   K9 alone at the config's default tiling (128 / 128 / 2048).
+   version, its bound and torch.sparse.mm, the gather and the first kernel
+   in turns, on plan and plan_t, and the gather kernel over ROW_SEG_SLOTS
+   16-256; the width-128 GCNModel answers 3 requests through K9 (logits
+   against the plain-K9 forward and the K2 forward) and trains for 3 epochs
+   (K9 on plan and plan_t); one agg_matmul_with_vals forward and backward
+   with random positive values; every K9 launch of these runs must be the
+   gather kernel; K9 alone at the config's default tiling (128 / 128 /
+   2048).
 13. the variants at the slice's shapes, each through its own entry point:
    K10 (the cluster kernel; the hub row block's split, the clusters the card
    holds) on the slice's tiles and on a banded graph beside the single-stage
@@ -241,14 +251,21 @@ def _live_slots(plan) -> int:
     return int((plan.lrow < plan.B.tb).sum()) if plan.num_rest_chunks else 0
 
 
-def _agg_bound(B, H, out, kind, plan=None) -> dict:
+def _agg_bound(B, H, out, kind, plan=None, ring=None) -> dict:
     """Bound of one aggregation (K1, K2, K7, K8) on this run's live tiles
     and chunks: tile products 2*tb*tb*P each, one multiply-add per live
-    slot and feature."""
+    slot and feature. ``ring``: count the tiles of that live schedule
+    instead of ``B.live`` (K8's ``edge_ring``: the tiles that carry an
+    edge) and read it as the schedule."""
     P = H.shape[1]
-    nbytes = _live_tile_bytes(B) + _nbytes(H, out) + (
-        _plan_bytes(plan) if plan is not None else _sched_bytes(B.ring))
-    ops = 2.0 * int(B.live.sum()) * B.tb * B.tb * P + (2.0 * _live_slots(plan) * P if plan is not None else 0.0)
+    n_tiles = int(B.live.sum()) if ring is None else ring.n_tile_steps
+    tile_bytes = n_tiles * (B.tiles.numel() // max(B.num_tiles, 1)) * B.tiles.element_size()
+    chunk_bytes = 0
+    if plan is not None:
+        chunk_bytes = _nbytes(plan.lrow, plan.slot_col, plan.slot_scale, plan.colscale, plan.rowscale)
+    sched = _sched_bytes(ring or (plan.ring if plan is not None else B.ring))
+    nbytes = tile_bytes + _nbytes(H, out) + chunk_bytes + sched
+    ops = 2.0 * n_tiles * B.tb * B.tb * P + (2.0 * _live_slots(plan) * P if plan is not None else 0.0)
     return _bound(nbytes, ops, kind)
 
 
@@ -318,6 +335,20 @@ def phase_build():
         _log(f"  cluster K10 {'int8' if mode == '2' else 'bf16'} tiles, C={C}: {regs} registers at entry, {spills.strip()}")
     if _cuda.build_log and len(clus) != 4:
         raise AssertionError(f"expected the four cluster K10 kernels in the build log, found {len(clus)}")
+    # the gather K9 by lanes a worker, and the int8 ring K8
+    gather = re.findall(r"Function properties for \S*plan_gather_kernelILi(\d+)E\S*\n\s*(.*)\n.*Used (\d+) registers",
+                        _cuda.build_log)
+    for lanes, spills, regs in gather:
+        _log(f"  gather K9, {lanes} lane(s) a worker: {regs} registers, {spills.strip()}")
+    if _cuda.build_log and len(gather) != 6:
+        raise AssertionError(f"expected the six gather K9 kernels in the build log, found {len(gather)}")
+    i8 = re.findall(r"Function properties for \S*agg_ring_i8_kernel\S*\n\s*(.*)\n.*Used (\d+) registers",
+                    _cuda.build_log)
+    for spills, regs in i8:
+        _log(f"  int8 ring K8: {regs} registers at entry (consumers raise to 232, the producer drops to 40), "
+             f"{spills.strip()}")
+    if _cuda.build_log and len(i8) != 1:
+        raise AssertionError(f"expected the int8 ring K8 kernel in the build log, found {len(i8)}")
 
 
 def _random_graph(n, weighted, seed, isolated=None):
@@ -688,8 +719,9 @@ def phase_int8_kernels_small(device):
     import scipy.sparse as sp
 
     c_a = generate_constants(0.0, 1.0, 8, signed=False, w_qbits=8)
-    cases = [(3001, 128, 8, 2), (3001, 256, 16, None), (2600, 128, 100, 5), (4100, 256, 128, 1)]
-    split = False
+    cases = [(3001, 128, 8, 2), (3001, 256, 16, None), (2600, 128, 100, 5), (4100, 256, 128, 1),
+             (5165, 64, 32, 2)]
+    split = ring_split = False
     for i, (n, tb, P, empty_rb) in enumerate(cases):
         A = _int8_graph(n, 80 + i, empty_rb, tb)
         aq = Q._quantize_vals(A.vals[: A.nnz], c_a).astype(np.int64)
@@ -705,25 +737,32 @@ def phase_int8_kernels_small(device):
             raise AssertionError("K7 writes every row of every row block, zeros past n_rows")
         msg = (f"  K7/K8 n={n} tb={tb} P={P}: K7 tiles={B.num_tiles} segments={B.segments.n_seg} "
                f"split_runs={B.segments.n_fin} empty_rb={empty_rb};")
-        part, rest = split_by_tile_density(A, tb, 40 * (tb // 128) ** 2)
+        part, rest = split_by_tile_density(A, tb, max(40 * tb * tb // 128**2, 2))
         B8 = Q.bsr_int8_from_sparse(part, c_a, tb=tb, cover_cols=True, device=device)
         rest_q = rest.with_vals(Q._quantize_vals(rest.vals, c_a))
+        edge = Q.int8_edge_tiles(part, c_a, tb, K1.bsr_tile_keys(part, tb, cover_rows=True, cover_cols=True))
         for attach in (True, False):
-            plan = K2.build_fused_plan(B8, rest_q, attach_chunks=attach)
+            plan = K2.build_fused_plan(B8, rest_q, attach_chunks=attach, edge_tiles=edge)
             dead = int((plan.lrow == tb).sum())
             if not (plan.num_rest_chunks and dead):
                 raise AssertionError("the K8 case needs chunks and dead slots")
+            ring = K2.int8_ring_shape_ok(tb, P, plan.K, Hq.data_ptr())
             split |= plan.segments.n_fin > 0
-            out = K2.bsr_spmm_int8_fused(plan, Hq)
+            ring_split |= ring and plan.edge_ring.segments.n_fin > 0
+            out = K2.bsr_spmm_int8_fused(plan, Hq)  # the kernel its shape selects
             _check_equal(f"K8 n={n} tb={tb} P={P} attach={attach}", out,
                          K2.bsr_spmm_int8_fused_plain(plan, Hq))
             _check_equal(f"K8 n={n} tb={tb} P={P} attach={attach} vs scipy", out, host)
-            msg += (f" K8 attach={attach}: tiles={B8.num_tiles} chunks={plan.num_rest_chunks} "
-                    f"dead_slots={dead} kinds={sorted(set(plan.step_kind.tolist()))} "
-                    f"split_runs={plan.segments.n_fin};")
+            if ring:  # the single-stage kernel on the same plan
+                _check_equal(f"K8 n={n} tb={tb} P={P} attach={attach} single-stage",
+                             K2._bsr_spmm_int8_fused_single(plan, Hq), out)
+            msg += (f" K8 attach={attach}: {'int8 ring (and single-stage)' if ring else 'single-stage'} "
+                    f"tiles={B8.num_tiles} (carrying an edge {plan.edge_ring.n_tile_steps}) "
+                    f"chunks={plan.num_rest_chunks} dead_slots={dead} kinds={sorted(set(plan.step_kind.tolist()))} "
+                    f"split_runs={plan.segments.n_fin} (ring {plan.edge_ring.segments.n_fin});")
         _log(msg + " equal")
-    if not split:
-        raise AssertionError("no K8 case split a run")
+    if not (split and ring_split):
+        raise AssertionError("no K8 case split a run on the single-stage and on the ring kernel")
     # the dense integer products that serve X @ W and the score matvecs
     rng = np.random.default_rng(3)
     shapes = [(1000, 100, 12), (2000, 100, 32), (17, 8, 2), (3001, 128, 100)]
@@ -1272,21 +1311,27 @@ RING_KERNELS = (K1.bsr_spmm, K2.bsr_spmm_fused, FG.flash_gat_forward, FG.flash_g
                 FG.flash_gat_bwd_row, FG.flash_gat_bwd_col)
 
 
+# each redesigned kernel's wrapper and the count of its launches on the new kernel
+REDESIGNED = tuple((k, "launches_ring") for k in RING_KERNELS + (K2.bsr_spmm_int8_fused,)) + (
+    (K9.spmm_plan, "launches_gather"),)
+
+
 def _reset_counts() -> None:
     for k in KERNELS:
         k.launches = 0
-    for k in RING_KERNELS + (K2.bsr_spmm_fused_k,):
-        k.launches_ring = k.launches_single = 0
-    K1.bsr_spmm_rowloop.launches_cluster = K1.bsr_spmm_rowloop.launches_single = 0
+    for k, new in REDESIGNED + ((K2.bsr_spmm_fused_k, "launches_ring"), (K1.bsr_spmm_rowloop, "launches_cluster")):
+        setattr(k, new, 0)
+        k.launches_single = 0
 
 
 def _all_ring(label: str) -> None:
-    """Every K1, K2, K3, K4, K5 and K6 launch since the last reset went
-    through the ring kernel."""
-    for k in RING_KERNELS:
-        if k.launches_ring != k.launches or k.launches_single:
-            raise AssertionError(f"{label}: {k.__name__} launched {k.launches} times, {k.launches_ring} on the "
-                                 f"ring kernel and {k.launches_single} on the single-stage kernel")
+    """Every K1, K2, K3, K4, K5, K6 and K8 launch since the last reset went
+    through the ring kernel, every K9 launch through the gather kernel."""
+    for k, attr in REDESIGNED:
+        new = getattr(k, attr)
+        if new != k.launches or k.launches_single:
+            raise AssertionError(f"{label}: {k.__name__} launched {k.launches} times, {new} on the "
+                                 f"redesigned kernel and {k.launches_single} on the first one")
 
 
 def phase_train(data, prep, net, device, label, per_epoch, k1_view=False, cfg_kw=None):
@@ -1431,6 +1476,10 @@ def phase_int8_hybrid_slice(A, device):
          f"({_nbytes(B.tiles) / 1e9:.3f} GB {B.tiles.dtype}) rest_edges={_live_slots(plan)} "
          f"rest_chunks={plan.num_rest_chunks} K={plan.K} steps={plan.num_steps} "
          f"segments={plan.segments.n_seg} split_runs={plan.segments.n_fin}")
+    L = plan.edge_ring
+    _log(f"int8 ring schedule: {L.n_tile_steps} of {B.num_tiles} tiles carry an edge "
+         f"({L.n_dead_tile_steps} all -128 tiles dropped), {L.step.shape[0]} live steps, "
+         f"work items {L.segments.n_seg} (split runs {L.segments.n_fin})")
     Hq = torch.from_numpy(np.random.default_rng(0).integers(-127, 127, (A.n_cols, HIDDEN)).astype(np.int8)).to(device)
     _reset_counts()
     for _ in range(REQUESTS):
@@ -1439,17 +1488,30 @@ def phase_int8_hybrid_slice(A, device):
     launches = _counts()
     if launches["bsr_spmm_int8_fused"] != REQUESTS or sum(launches.values()) != REQUESTS:
         raise AssertionError(f"int8 hybrid aggregation launches {launches}, expected K8 x{REQUESTS} only")
+    _all_ring("int8 hybrid aggregation")
     if out.shape != (A.n_rows, HIDDEN):
         raise AssertionError(f"int8 hybrid aggregation shape {tuple(out.shape)}")
     rec = {}
     err = _check_equal("K8 at slice shapes", out, K2.bsr_spmm_int8_fused_plain(plan, Hq))
-    ms = _cuda_ms(lambda: K2.bsr_spmm_int8_fused(plan, Hq))
+    _check_equal("K8 single-stage at slice shapes", K2._bsr_spmm_int8_fused_single(plan, Hq), out)
+    # the first kernel and the ring kernel in turns: single, ring, ring, single
+    single = [_cuda_ms(lambda: K2._bsr_spmm_int8_fused_single(plan, Hq))]
+    ring = [_cuda_ms(lambda: K2._bsr_spmm_int8_fused_ring(plan, Hq)) for _ in range(2)]
+    single.append(_cuda_ms(lambda: K2._bsr_spmm_int8_fused_single(plan, Hq)))
+    n_pad = (B.n_cols + B.tb - 1) // B.tb * B.tb
+    pre_ms = _cuda_ms(lambda: K2._stage_hqt(Hq, n_pad, B.n_cols))
+    ms = float(np.median(ring))
     plain_ms = _cuda_ms(lambda: K2.bsr_spmm_int8_fused_plain(plan, Hq), reps=5)
-    bound = _agg_bound(B, Hq, out, "int8", plan=plan)
+    bound = _agg_bound(B, Hq, out, "int8", plan=plan, ring=L)
+    all_tiles = _agg_bound(B, Hq, out, "int8", plan=plan)
     rec["bsr_spmm_int8_fused"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, **bound, library_ms=None)
-    _log(f"bsr_spmm_int8_fused at slice shapes [n={A.n_rows}, P={HIDDEN}]: kernel {ms:.4f} ms "
-         f"({A.nnz / (ms * 1e-3) / 1e6:.1f} M edges/s), plain {plain_ms:.4f} ms (median of 5), "
-         f"bound {bound['bound_ms']:.4f} ms by {bound['bound_by']}, equal to the plain version")
+    _log(f"bsr_spmm_int8_fused at slice shapes [n={A.n_rows}, P={HIDDEN}]: int8 ring kernel "
+         + " / ".join(f"{m:.4f}" for m in ring) + f" ms ({A.nnz / (ms * 1e-3) / 1e6:.1f} M edges/s; "
+         f"of which the transposed-Hq pre-pass {pre_ms:.4f} ms), single-stage kernel "
+         + " / ".join(f"{m:.4f}" for m in single) + f" ms (same run, in turns), plain {plain_ms:.4f} ms "
+         f"(median of 5), bound {bound['bound_ms']:.4f} ms by {bound['bound_by']} on the tiles that carry "
+         f"an edge [all {B.num_tiles} tiles: {all_tiles['bound_ms']:.4f} ms]; both kernels equal to the "
+         f"plain version")
     out7 = K1.bsr_spmm_int8(B, Hq)
     _check_equal("K7 on the hybrid plan's dense part", out7, K1.bsr_spmm_int8_plain(B, Hq))
     ms7 = _cuda_ms(lambda: K1.bsr_spmm_int8(B, Hq))
@@ -1773,8 +1835,11 @@ def phase_variant_kernels_small(device):
         plan, plan_t = prep.plan, prep.plan_t
         split |= plan.segments.n_fin > 0
         H = randn(n + 37, P).to(hdt)  # spare rows of H are never read
-        out = K9.spmm_plan(plan, H)
+        out = K9.spmm_plan(plan, H)  # the kernel its shape selects
         err = _check(f"K9 {name}", out, K9.spmm_plan_plain(plan, H), K9_TOL)
+        gather = K9.gather_shape_ok(P, H.data_ptr())
+        if gather:  # the first kernel on the same operands
+            _check(f"K9 {name} first kernel", K9._spmm_plan_single(plan, H), out, K9_TOL)
         if "empty" in name:
             rows = slice(2 * blk, 3 * blk) if "block" in name else slice(None)
             if (out[rows] != 0).any():
@@ -1785,7 +1850,8 @@ def phase_variant_kernels_small(device):
         pv = K9.plan_with_vals(plan, vals)
         err_v = _check(f"K9 {name} plan_with_vals", K9.spmm_plan(pv, H), K9.spmm_plan_plain(pv, H), K9_TOL)
         live = int((plan.perm >= 0).sum())
-        _log(f"  K9 {name}: n={n} nnz={A.nnz} groups={plan.num_groups} be={plan.be} "
+        _log(f"  K9 {name} ({'gather kernel and first kernel' if gather else 'first kernel'}): "
+             f"n={n} nnz={A.nnz} groups={plan.num_groups} be={plan.be} "
              f"fill={live / max(plan.perm.numel(), 1):.3f} row segments={plan.segments.n_seg} "
              f"split_rows={plan.segments.n_fin} err {err:.3g} plan_t {err_t:.3g} with_vals {err_v:.3g}")
     if not split:
@@ -1898,10 +1964,12 @@ def phase_variant_kernels_small(device):
 def _k9_bound(plan, H, out) -> dict:
     """Bound of K9: the live slots' 12 bytes of plan (slot_idx, lcol, val),
     the group and segment arrays, H and out once; two f32 operations per
-    live slot and feature, outside the tensor cores."""
+    live slot and feature, outside the tensor cores. Also returns the bytes
+    and operations counted."""
     live = plan.slot_idx.numel()
     nbytes = 12 * live + _nbytes(plan.tile_cb, H, out) + _seg_bytes(plan.segments)
-    return _bound(nbytes, 2.0 * live * H.shape[1], "f32")
+    ops = 2.0 * live * H.shape[1]
+    return dict(_bound(nbytes, ops, "f32"), nbytes=nbytes, ops=ops)
 
 
 def _plan_bytes_k9(plan) -> int:
@@ -1945,24 +2013,49 @@ def phase_pallas_slice(A, data, device, k2_logits, cfg=SLICE):
     gen = torch.Generator(device=device).manual_seed(1)
     H = torch.randn(A.n_cols, HIDDEN, generator=gen, device=device)
     lib_ms, lib = _sparse_mm_ms(A, H)
+    if not K9.gather_shape_ok(HIDDEN, H.data_ptr()):
+        raise AssertionError("the slice's K9 must take the gather kernel")
     out = K9.spmm_plan(plan, H)
     err = _check("spmm_plan at slice shapes", out, K9.spmm_plan_plain(plan, H), K9_TOL)
     e_lib = _check("spmm_plan against torch.sparse.mm", out, lib, K2_TOL)
+    e_old = _check("spmm_plan against the first kernel", out, K9._spmm_plan_single(plan, H), K9_TOL)
     del lib
-    ms = _cuda_ms(lambda: K9.spmm_plan(plan, H))
+    # the first kernel and the gather kernel in turns: first, gather, gather, first
+    first = [_cuda_ms(lambda: K9._spmm_plan_single(plan, H))]
+    gather = [_cuda_ms(lambda: K9._spmm_plan_gather(plan, H)) for _ in range(2)]
+    first.append(_cuda_ms(lambda: K9._spmm_plan_single(plan, H)))
+    pre_ms = _cuda_ms(lambda: K1._stage_h(H, None, A.n_cols, A.n_cols))
+    Hb = H.to(torch.bfloat16)
+    bf16_ms = _cuda_ms(lambda: K9._spmm_plan_gather(plan, Hb))
+    ms = float(np.median(gather))
     plain_ms = _cuda_ms(lambda: K9.spmm_plan_plain(plan, H), reps=3)
     bound = _k9_bound(plan, H, out)
-    rec = {"spmm_plan": dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, **bound, library_ms=lib_ms)}
-    _log(f"spmm_plan at slice shapes [n={A.n_rows}, P={HIDDEN}]: kernel {ms:.4f} ms "
-         f"({A.nnz / (ms * 1e-3) / 1e6:.1f} M edges/s), plain {plain_ms:.4f} ms (median of 3), "
-         f"bound {bound['bound_ms']:.4f} ms by {bound['bound_by']}, max abs err {err:.3g}; "
-         f"against the library product (f32 operands) {e_lib:.3g}")
+    b8 = _bound(bound["nbytes"] - 4 * plan.slot_idx.numel(), bound["ops"], "f32")["bound_ms"]
+    rec = {"spmm_plan": dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                             bound_ms=bound["bound_ms"], bound_by=bound["bound_by"], library_ms=lib_ms)}
+    _log(f"spmm_plan at slice shapes [n={A.n_rows}, P={HIDDEN}]: gather kernel "
+         + " / ".join(f"{m:.4f}" for m in gather) + f" ms ({A.nnz / (ms * 1e-3) / 1e6:.1f} M edges/s; the "
+         f"bf16 pre-pass alone {pre_ms:.4f} ms, the kernel on a bf16 H {bf16_ms:.4f} ms), first kernel "
+         + " / ".join(f"{m:.4f}" for m in first) + f" ms (same run, in turns), plain {plain_ms:.4f} ms "
+         f"(median of 3), bound {bound['bound_ms']:.4f} ms by {bound['bound_by']} (12 B of plan a slot; "
+         f"at the 8 B of slot_cv the gather kernel reads: {b8:.4f} ms), max abs err {err:.3g}, against the "
+         f"first kernel {e_old:.3g}; against the library product (f32 operands) {e_lib:.3g}")
     g = torch.randn(A.n_rows, HIDDEN, generator=gen, device=device)
     err_t = _check("spmm_plan on plan_t at slice shapes", K9.spmm_plan(plan_t, g),
                    K9.spmm_plan_plain(plan_t, g), K9_TOL)
-    ms_t = _cuda_ms(lambda: K9.spmm_plan(plan_t, g))
-    _log(f"spmm_plan on plan_t: kernel {ms_t:.4f} ms, max abs err {err_t:.3g}")
-    del out, g
+    ms_t = _cuda_ms(lambda: K9._spmm_plan_gather(plan_t, g))
+    ms_t1 = _cuda_ms(lambda: K9._spmm_plan_single(plan_t, g))
+    _log(f"spmm_plan on plan_t: gather kernel {ms_t:.4f} ms, first kernel {ms_t1:.4f} ms, max abs err {err_t:.3g}")
+    # the row pieces: slots a worker sums before a row is split (ROW_SEG_SLOTS)
+    sweep = []
+    for seg in (16, 32, 64, 128, 256):
+        cut = K9.recut_rows(plan, seg)
+        e = _check(f"spmm_plan at ROW_SEG_SLOTS={seg}", K9.spmm_plan(cut, H), out, K9_TOL)
+        sweep.append(f"{seg}: {_cuda_ms(lambda: K9._spmm_plan_gather(cut, H)):.4f} ms "
+                     f"({cut.segments.n_seg} pieces, {cut.segments.n_fin} split rows, err {e:.3g})")
+        del cut
+    _log(f"spmm_plan gather kernel over ROW_SEG_SLOTS (plan default {K9.ROW_SEG_SLOTS}): " + "; ".join(sweep))
+    del out, g, Hb
 
     # ---- serving: 3 requests, 2 launches each
     C = cfg["num_classes"]
@@ -1991,6 +2084,7 @@ def phase_pallas_slice(A, data, device, k2_logits, cfg=SLICE):
     _log(f"pallas aggregation (layer-1 input, K9): {agg_ms:.4f} ms")
     if per_request != [2] * REQUESTS or sum(launches.values()) != 2 * REQUESTS:
         raise AssertionError(f"K9 launches per request {per_request}, expected 2 each and no other kernel")
+    _all_ring("pallas serving")
     if logits.shape != (A.n_rows, C):
         raise AssertionError(f"logits shape {tuple(logits.shape)}")
     # layer 2 rounds its input to bf16: a last-bit difference in layer 1's
@@ -2027,6 +2121,7 @@ def phase_pallas_slice(A, data, device, k2_logits, cfg=SLICE):
     wv = _counts()
     if wv["spmm_plan"] != 2 or sum(wv.values()) != 2:
         raise AssertionError(f"agg_matmul_with_vals launches {wv}, expected K9 forward and backward")
+    _all_ring("agg_matmul_with_vals")
     with _plain_kernels():
         want = with_vals()
     errs = [_check(f"agg_matmul_with_vals {k}", a, b, K9_TOL)
@@ -2332,9 +2427,9 @@ def main() -> None:
         "flash_gat_hybrid_forward": ("sgracex1_tpu_torch/csrc/flash_gat_ring.cu",
                                      "sgracex1_tpu/ops/flash_gat.py:1139"),
         "bsr_spmm_int8": ("sgracex1_tpu_torch/csrc/bsr_spmm_int8.cu", "sgracex1_tpu/ops/bsr.py:773"),
-        "bsr_spmm_int8_fused": ("sgracex1_tpu_torch/csrc/fused_agg_int8.cu",
+        "bsr_spmm_int8_fused": ("sgracex1_tpu_torch/csrc/fused_agg_int8_ring.cu",
                                 "sgracex1_tpu/ops/fused_agg.py:1054"),
-        "spmm_plan": ("sgracex1_tpu_torch/csrc/plan_spmm.cu", "sgracex1_tpu/ops/pallas_spmm.py:232"),
+        "spmm_plan": ("sgracex1_tpu_torch/csrc/plan_spmm_gather.cu", "sgracex1_tpu/ops/pallas_spmm.py:232"),
         "bsr_spmm_rowloop": ("sgracex1_tpu_torch/csrc/bsr_spmm_cluster.cu", "sgracex1_tpu/ops/bsr.py:693"),
         "bsr_spmm_fused_k": ("sgracex1_tpu_torch/csrc/fused_agg_ring.cu", "sgracex1_tpu/ops/fused_agg.py:871"),
         "flash_gat_forward_subskip": ("sgracex1_tpu_torch/csrc/flash_gat.cu",

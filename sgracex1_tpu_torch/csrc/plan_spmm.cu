@@ -23,7 +23,10 @@
 // lcol, val) and a P-wide row of H that is gathered from anywhere in H,
 // so the reads are latency-bound until enough rows are in flight. A first,
 // simple kernel: the slot loop's three dependent loads are not software
-// pipelined.
+// pipelined. Its successor, plan_spmm_gather.cu, takes every H whose rows are
+// whole 16-byte bf16 pieces (ops/pallas_spmm.gather_shape_ok); this kernel
+// keeps the other widths.
+#include "plan_rows.cuh"
 #include "tile_gemm.cuh"
 
 namespace sg {
@@ -86,33 +89,6 @@ __global__ void __launch_bounds__(NTHREADS)
       for (int q = 0; q < 4; ++q)
         if (f + q * stride < P) dst[f + q * stride] = acc[q];
     }
-  }
-}
-
-// Sums the partials of each split row in a fixed order: a block owns
-// (split row, 32 features); its 8 warps sum every 8th partial each, then
-// warp 0 adds the 8 sums in warp order. A hub row's thousands of partials
-// are a chain 8 times shorter than one thread's.
-constexpr int FIN_WARPS = 8;
-
-__global__ void __launch_bounds__(32 * FIN_WARPS)
-    finalize_rows(const float* partial, const int* fin_row, const int* fin_p0, const int* fin_np,
-                  int P, float* out) {
-  __shared__ float sums[FIN_WARPS][32];
-  const int f = blockIdx.x;
-  const int p = blockIdx.y * 32 + (threadIdx.x & 31);
-  const int w = threadIdx.x >> 5;
-  const int q0 = fin_p0[f], np = fin_np[f];
-  float acc = 0.f;
-  if (p < P)
-    for (int q = w; q < np; q += FIN_WARPS) acc += partial[(long)(q0 + q) * P + p];
-  sums[w][threadIdx.x & 31] = acc;
-  __syncthreads();
-  if (w == 0 && p < P) {
-    float total = 0.f;
-#pragma unroll
-    for (int i = 0; i < FIN_WARPS; ++i) total += sums[i][threadIdx.x];
-    out[(long)fin_row[f] * P + p] = total;
   }
 }
 

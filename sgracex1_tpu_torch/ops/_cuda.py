@@ -193,6 +193,22 @@ def _declare(lib: ctypes.CDLL) -> None:
         p, i, i, i, i,  # H, h_bf16, n_h, P, vec
         p, p, i, p,  # out, partial, n_rows, stream
     ]
+    lib.sg_plan_spmm_gather.restype = i
+    lib.sg_plan_spmm_gather.argtypes = [
+        p, i, p, p, p, p,  # slot_cv, n_seg, seg_row/lo/hi/part
+        i, p, p, p,  # n_fin, fin_row/p0/np
+        p, i, p, p, p,  # Hs (bf16), P, out, partial, stream
+    ]
+    lib.sg_stage_hqt.restype = i
+    lib.sg_stage_hqt.argtypes = [p, i, i, p, i, p]  # Hq, n_valid, P, HqT, rows, stream
+    lib.sg_fused_agg_int8_ring.restype = i
+    lib.sg_fused_agg_int8_ring.argtypes = [
+        p, i, ctypes.c_long, i, p, p, p, p,  # tiles, tb, n_tiles, n_seg, seg_rb/lo/hi/part
+        i, p, p, p,  # n_fin, fin_rb/p0/np
+        p, p, p, p, i,  # step, lrow, slot_col, slot_lv8, K
+        p, i, p, i,  # HqT, n_pad, Hq, P
+        p, p, i, i, p,  # out, partial, n_rows, n_sm, stream
+    ]
     lib.sg_bsr_spmm_rowloop.restype = i
     lib.sg_bsr_spmm_rowloop.argtypes = [
         p, i, i, i, p, p,  # tiles, mode, tb, n_rt, row_start, tile_cb

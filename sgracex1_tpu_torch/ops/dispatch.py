@@ -531,8 +531,8 @@ def map_adjacency_vals(
     remap = {
         "A": lambda A: A.with_vals(fn(torch.as_tensor(A.vals))),
         "dense": fn,
-        "plan": lambda p: dataclasses.replace(p, val=fn(p.val)),
-        "plan_t": lambda p: dataclasses.replace(p, val=fn(p.val)),
+        "plan": lambda p: p.with_val(fn(p.val)),
+        "plan_t": lambda p: p.with_val(fn(p.val)),
         "bsr": lambda B: dataclasses.replace(B, tiles=fn(B.tiles)),
         "bsr_t": lambda B: dataclasses.replace(B, tiles=fn(B.tiles)),
         "rest": lambda r: r.with_vals(fn(torch.as_tensor(r.vals))),

@@ -30,9 +30,12 @@ the single-stage kernel ``csrc/fused_agg_k.cu``; on a CPU tensor it runs
 Kernel K8, ``bsr_spmm_int8_fused``: the exact int32 ``Aq @ Hq`` of a
 value-mode plan whose tiles are shifted int8 and whose slot scales are the
 remainder's 0..255 values (``quant/int8.prepare_int8_hybrid``), as
-``sgracex1_tpu.ops.fused_agg.bsr_spmm_int8_fused``:
-``csrc/fused_agg_int8.cu`` on a CUDA tensor, ``bsr_spmm_int8_fused_plain``
-on a CPU tensor.
+``sgracex1_tpu.ops.fused_agg.bsr_spmm_int8_fused``. On a CUDA tensor it
+launches the int8 ring kernel ``csrc/fused_agg_int8_ring.cu`` on a plan
+that carries ``edge_ring`` at the shapes ``int8_ring_shape_ok`` names (u8 x
+s8 tensor-core products over the tiles that carry an edge, Hq staged
+transposed once), else the single-stage kernel ``csrc/fused_agg_int8.cu``;
+on a CPU tensor it runs ``bsr_spmm_int8_fused_plain``.
 """
 
 from __future__ import annotations
@@ -51,6 +54,7 @@ from sgracex1_tpu_torch.ops.bsr import (
     LiveSchedule,
     RunSegments,
     _check_cuda_operands,
+    _check_int8_operands,
     _h_block_rows,
     _hq_blocks,
     _int8_launch_args,
@@ -92,7 +96,17 @@ class FusedAggPlan:
     same scaled H as a tile's block. ``segments`` is the launch schedule
     over the step runs, every step included (K6, K8, K11 and the
     single-stage K2); ``ring`` is the ring K2's schedule over the steps
-    that do work: tile products on live tiles and chunks with a live slot."""
+    that do work: tile products on live tiles and chunks with a live slot.
+
+    ``edge_ring`` is the int8 ring K8's own schedule (``build_fused_plan``
+    with ``edge_tiles``, as ``quant/int8.prepare_int8_hybrid`` builds it):
+    tile products only on the tiles that carry an edge, i.e. hold a byte
+    other than -128 (a nonzero value on the unsigned grid), and the chunks
+    of ``ring``. ``B.live`` keeps its meaning: for K1 a shifted cover tile is
+    not zero, so every shifted tile is live there; K8 undoes the shift
+    exactly, and an all -128 tile adds 0. ``slot_lv8`` [R*K/64, 128] holds,
+    for each 64-slot slab of a chunk, its 64 local rows (``lrow & 255``)
+    then its 64 values as bytes: what the int8 ring reads of a chunk slab."""
 
     B: BSRMatrix
     step_rb: torch.Tensor  # int32[S+1]
@@ -112,6 +126,8 @@ class FusedAggPlan:
     # schedule entries per loop iteration of ``bsr_spmm_fused_k``: every
     # row-block run is padded to a multiple of it with dead chunk steps
     k_steps: int = 1
+    edge_ring: Optional[LiveSchedule] = None
+    slot_lv8: Optional[torch.Tensor] = None  # uint8[R*K/64, 128]
 
     @property
     def num_steps(self) -> int:
@@ -141,6 +157,7 @@ def build_fused_plan(
     tile_keys: Optional[np.ndarray] = None,
     attach_chunks: bool = False,
     k_steps: int = 1,
+    edge_tiles: Optional[np.ndarray] = None,
 ) -> FusedAggPlan:
     """Host-side schedule build (numpy), moved to ``B``'s device.
 
@@ -156,7 +173,11 @@ def build_fused_plan(
 
     ``k_steps > 1`` pads every row-block run to a multiple of ``k_steps``
     with dead chunk steps (kind 1 on one extra chunk whose ``lrow`` is all
-    ``tb``), for ``bsr_spmm_fused_k``; every kernel reads such a plan."""
+    ``tb``), for ``bsr_spmm_fused_k``; every kernel reads such a plan.
+
+    ``edge_tiles`` (bool [T], value mode with shifted-int8 tiles and slot
+    scales on the 0..255 grid) marks the tiles that carry an edge and builds
+    the int8 ring K8's ``edge_ring`` and ``slot_lv8``."""
     if tile_keys is not None:
         tile_rb = (tile_keys >> 32).astype(np.int64)
         tile_cb = (tile_keys & 0xFFFFFFFF).astype(np.int64)
@@ -311,6 +332,22 @@ def build_fused_plan(
     )
 
     device = B.tiles.device
+    edge_ring = slot_lv8 = None
+    if edge_tiles is not None:
+        edge = np.asarray(edge_tiles, bool)
+        if rank1 or len(edge) != T:
+            raise ValueError(f"edge_tiles needs a value-mode plan and one flag a tile ({T}), got {len(edge)}")
+        if ((slot_scale < 0) | (slot_scale > 255) | (slot_scale != np.round(slot_scale))).any():
+            raise ValueError("edge_tiles needs slot scales on the unsigned 0..255 grid")
+        on = tile_step & edge[s_tile]
+        edge_ring = live_schedule(
+            s_rb[:S], np.where(on, s_tile, -1), s_cb, np.where(chunk_live, s_chunk, -1), n_rt, device,
+            n_dead_tile_steps=int((tile_step & ~on).sum()),
+            chunk_slots=np.where(chunk_live, last_live[s_chunk], 0),
+        )
+        if K % 64 == 0:
+            slabs = lambda a: a.astype(np.uint8).reshape(-1, 64)
+            slot_lv8 = _tensor(np.concatenate([slabs(lrow & 255), slabs(slot_scale)], axis=1), device)
     colscale = rowscale = None
     if rank1:
         cs = np.zeros(n_ct * tb, np.float32)
@@ -339,6 +376,8 @@ def build_fused_plan(
         ),
         ring=ring,
         k_steps=k_steps,
+        edge_ring=edge_ring,
+        slot_lv8=slot_lv8,
     )
 
 
@@ -614,36 +653,62 @@ def bsr_spmm_int8_fused_plain(plan: FusedAggPlan, Hq: torch.Tensor) -> torch.Ten
     return acc.view(-1, P)[: B.n_rows]
 
 
-def bsr_spmm_int8_fused(plan: FusedAggPlan, Hq: torch.Tensor) -> torch.Tensor:
-    """K8: the exact int32 ``Aq @ Hq`` of a hybrid full-integer plan:
-    shifted-int8 tiles plus remainder chunks whose ``slot_scale`` holds the
-    edges' 0..255 values. ``Hq`` is signed int8 [N, P] with
-    N >= n_cols; any P runs (the kernel guards the feature dimension).
-    Returns int32 [n_rows, P]. A CPU tensor runs
-    ``bsr_spmm_int8_fused_plain``; a CUDA tensor launches
-    ``csrc/fused_agg_int8.cu`` or raises."""
-    if Hq.device.type == "cpu":
-        return bsr_spmm_int8_fused_plain(plan, Hq)
-    if Hq.device.type != "cuda":
-        raise ValueError(f"bsr_spmm_int8_fused runs on cpu or cuda, not {Hq.device}")
-    _value_mode(plan)
-    B, S = plan.B, plan.segments
-    vec, vec4, colsum, out, partial = _int8_launch_args(B, S, Hq, B.n_rows)
+def int8_ring_shape_ok(tb: int, P: int, K: int, data_ptr: int = 0) -> bool:
+    """Whether the int8 ring kernel (csrc/fused_agg_int8_ring.cu) takes
+    these operands: a tile height of 64, 128, 192 or 256 (one CTA owns the
+    whole height; a slab is 64 deep), Hq rows of whole 16-byte pieces at a
+    16-byte-aligned address (the chunk rows are gathered 16 bytes a lane),
+    chunks of whole slabs. Everything else goes to the single-stage kernel.
+    The rule reads shapes and the address only."""
+    return tb % 64 == 0 and tb <= 256 and P % 16 == 0 and K % 64 == 0 and data_ptr % 16 == 0
+
+
+def stage_hqt_plain(Hq: torch.Tensor, rows: int, n_valid: int) -> torch.Tensor:
+    """Plain PyTorch version of the int8 ring's pre-pass: Hq transposed,
+    int8 [P, rows], zero columns from ``n_valid`` on. The tensor cores take
+    an int8 B operand K-major only, and a tile step's B is a block of node
+    rows, so K8 reads it from here."""
+    HqT = torch.zeros((Hq.shape[1], rows), dtype=torch.int8, device=Hq.device)
+    HqT[:, :n_valid] = Hq[:n_valid].t()
+    return HqT
+
+
+def _stage_hqt(Hq: torch.Tensor, rows: int, n_valid: int) -> torch.Tensor:
+    """``stage_hqt_plain``'s result by the pre-pass kernel of
+    csrc/fused_agg_int8_ring.cu."""
+    HqT = torch.empty((Hq.shape[1], rows), dtype=torch.int8, device=Hq.device)
+    err = _cuda.library().sg_stage_hqt(
+        _ptr(Hq), n_valid, Hq.shape[1], _ptr(HqT), rows,
+        ctypes.c_void_p(torch.cuda.current_stream(Hq.device).cuda_stream),
+    )
+    _cuda.check(err, "stage_hqt")
+    return HqT
+
+
+def _check_int8_plan(plan: FusedAggPlan, Hq: torch.Tensor, ints: dict) -> None:
+    B = plan.B
     if Hq.shape[0] < B.n_cols:
         raise ValueError(f"Hq must be [>= {B.n_cols}, P], got {tuple(Hq.shape)}")
-    ints = dict(
-        step_cb=plan.step_cb, step_tile=plan.step_tile,
-        step_chunk=plan.step_chunk, step_kind=plan.step_kind,
-        lrow=plan.lrow, slot_col=plan.slot_col, **S.tensors(),
-    )
     _check_cuda_operands(dict(tiles=B.tiles, slot_scale=plan.slot_scale, **ints), Hq.device)
     for name, t in ints.items():
-        if t.dtype != torch.int32:
+        if t is not None and t.dtype != torch.int32:
             raise ValueError(f"{name} must be int32, got {t.dtype}")
     if plan.slot_scale.dtype != torch.float32:
         raise ValueError(f"slot_scale must be float32, got {plan.slot_scale.dtype}")
     if plan.lrow.shape != (plan.num_chunks, plan.K):
         raise ValueError(f"lrow must be [R, K], got {tuple(plan.lrow.shape)}")
+
+
+def _bsr_spmm_int8_fused_single(plan: FusedAggPlan, Hq: torch.Tensor) -> torch.Tensor:
+    """K8 by the single-stage kernel ``csrc/fused_agg_int8.cu``: every
+    step of ``plan.segments``, the shift undone by column sums."""
+    _value_mode(plan)
+    B, S = plan.B, plan.segments
+    vec, vec4, colsum, out, partial = _int8_launch_args(B, S, Hq, B.n_rows)
+    _check_int8_plan(plan, Hq, dict(
+        step_cb=plan.step_cb, step_tile=plan.step_tile, step_chunk=plan.step_chunk,
+        step_kind=plan.step_kind, lrow=plan.lrow, slot_col=plan.slot_col, **S.tensors(),
+    ))
     err = _cuda.library().sg_fused_agg_int8(
         _ptr(B.tiles), B.tb, *_seg_args(S),
         _ptr(plan.step_cb), _ptr(plan.step_tile), _ptr(plan.step_chunk),
@@ -654,7 +719,60 @@ def bsr_spmm_int8_fused(plan: FusedAggPlan, Hq: torch.Tensor) -> torch.Tensor:
     )
     _cuda.check(err, "bsr_spmm_int8_fused")
     bsr_spmm_int8_fused.launches += 1
+    bsr_spmm_int8_fused.launches_single += 1
     return out
 
 
+def _bsr_spmm_int8_fused_ring(plan: FusedAggPlan, Hq: torch.Tensor) -> torch.Tensor:
+    """K8 by the int8 ring kernel ``csrc/fused_agg_int8_ring.cu`` over
+    ``plan.edge_ring``: Hq staged transposed once, u8 x s8 products."""
+    _value_mode(plan)
+    B, L = plan.B, plan.edge_ring
+    _check_int8_operands(B, Hq)
+    tb, P = B.tb, Hq.shape[1]
+    if L is None or plan.slot_lv8 is None or not int8_ring_shape_ok(tb, P, plan.K, Hq.data_ptr()):
+        raise ValueError("the int8 ring kernel needs edge_ring, slot_lv8 and int8_ring_shape_ok")
+    if not Hq.is_contiguous():
+        raise ValueError("Hq must be contiguous")
+    S = L.segments
+    _check_int8_plan(plan, Hq, dict(step=L.step, lrow=plan.lrow, slot_col=plan.slot_col, **S.tensors()))
+    _check_cuda_operands(dict(slot_lv8=plan.slot_lv8), Hq.device)
+    n_pad = _round_up(B.n_cols, tb)
+    HqT = _stage_hqt(Hq, n_pad, B.n_cols)
+    out = torch.empty((B.n_rows, P), dtype=torch.int32, device=Hq.device)
+    partial = torch.empty((max(S.n_part, 1), tb, P), dtype=torch.int32, device=Hq.device)
+    err = _cuda.library().sg_fused_agg_int8_ring(
+        _ptr(B.tiles), tb, B.tiles.shape[0], *_seg_args(S), _ptr(L.step), _ptr(plan.lrow),
+        _ptr(plan.slot_col), _ptr(plan.slot_lv8), plan.K, _ptr(HqT), n_pad, _ptr(Hq), P,
+        _ptr(out), _ptr(partial), B.n_rows,
+        torch.cuda.get_device_properties(Hq.device).multi_processor_count,
+        ctypes.c_void_p(torch.cuda.current_stream(Hq.device).cuda_stream),
+    )
+    _cuda.check(err, "bsr_spmm_int8_fused_ring")
+    bsr_spmm_int8_fused.launches += 1
+    bsr_spmm_int8_fused.launches_ring += 1
+    return out
+
+
+def bsr_spmm_int8_fused(plan: FusedAggPlan, Hq: torch.Tensor) -> torch.Tensor:
+    """K8: the exact int32 ``Aq @ Hq`` of a hybrid full-integer plan:
+    shifted-int8 tiles plus remainder chunks whose ``slot_scale`` holds the
+    edges' 0..255 values. ``Hq`` is signed int8 [N, P] with
+    N >= n_cols; any P runs. Returns int32 [n_rows, P]. A CPU tensor runs
+    ``bsr_spmm_int8_fused_plain``; a CUDA tensor launches the int8 ring
+    kernel on a plan with ``edge_ring`` where ``int8_ring_shape_ok`` holds,
+    else the single-stage kernel, or raises. ``launches`` counts both;
+    ``launches_ring`` / ``launches_single`` each one."""
+    if Hq.device.type == "cpu":
+        return bsr_spmm_int8_fused_plain(plan, Hq)
+    if Hq.device.type != "cuda":
+        raise ValueError(f"bsr_spmm_int8_fused runs on cpu or cuda, not {Hq.device}")
+    if (plan.edge_ring is not None and Hq.dim() == 2
+            and int8_ring_shape_ok(plan.B.tb, Hq.shape[1], plan.K, Hq.data_ptr())):
+        return _bsr_spmm_int8_fused_ring(plan, Hq)
+    return _bsr_spmm_int8_fused_single(plan, Hq)
+
+
 bsr_spmm_int8_fused.launches = 0
+bsr_spmm_int8_fused.launches_ring = 0
+bsr_spmm_int8_fused.launches_single = 0

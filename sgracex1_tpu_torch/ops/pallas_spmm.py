@@ -13,6 +13,9 @@ Kernel K9, ``spmm_plan``: per slot ``f32(bf16(f32(bf16(H[col])) * val))``,
 summed in f32 on the slot's row, as the TPU kernel's one-hot products
 round. The TPU gathers and scatters with one-hot matmuls on its matrix
 unit; here rows of H are gathered directly. On a CUDA tensor it launches
+the gather kernel ``csrc/plan_spmm_gather.cu`` where ``gather_shape_ok``
+holds (H rounded to bf16 once, the compacted slot arrays ``slot_cv``, row
+gathers issued ahead of their sums), else the first kernel
 ``csrc/plan_spmm.cu``; on a CPU tensor it runs ``spmm_plan_plain``, the
 plain PyTorch version of the same function.
 """
@@ -33,6 +36,7 @@ from sgracex1_tpu_torch.ops.bsr import (
     _check_cuda_operands,
     _ptr,
     _seg_args,
+    _stage_h,
     _tensor,
     run_segments,
 )
@@ -57,7 +61,10 @@ class SpMMPlan:
     row, then slot, and ``segments`` cuts each row's run of that list
     into pieces of at most ``ROW_SEG_SLOTS`` (``seg_rb`` there holds the
     row): the K9 launch schedule, which value substitution leaves as it
-    is."""
+    is. ``slot_cv`` compacts what the gather kernel reads of a live slot,
+    in ``slot_idx`` order: its global column ``tile_cb[slot // be] * cb +
+    lcol[slot]`` and the f32 bits of ``val[slot]``, one 8-byte pair a slot
+    (``with_val`` keeps it in step with ``val``)."""
 
     lrow: torch.Tensor  # int32[G, be]
     lcol: torch.Tensor  # int32[G, be]
@@ -72,6 +79,7 @@ class SpMMPlan:
     nnz: int
     slot_idx: torch.Tensor  # int32[nnz]
     segments: RunSegments
+    slot_cv: torch.Tensor  # int32[nnz, 2]: global column, f32 bits of the value
 
     @property
     def num_groups(self) -> int:
@@ -80,6 +88,14 @@ class SpMMPlan:
     @property
     def be(self) -> int:
         return self.val.shape[1]
+
+    def with_val(self, val: torch.Tensor) -> "SpMMPlan":
+        """This plan with the group values ``val`` [G, be] (f32) and the
+        compacted slot values to match."""
+        val = val.to(torch.float32)
+        v = val.reshape(-1).index_select(0, self.slot_idx.long()).contiguous()
+        cv = torch.stack([self.slot_cv[:, 0], v.view(torch.int32)], dim=1)
+        return dataclasses.replace(self, val=val, slot_cv=cv)
 
     def to(self, device) -> "SpMMPlan":
         return dataclasses.replace(self, **{
@@ -134,8 +150,11 @@ def plan_spmm(
         # launch schedule: the live slots by output row, then slot
         by_row = np.argsort(r, kind="stable")
         slot_idx, row_of = slot[by_row], r[by_row]
+        col_of, val_of = c[by_row], v[by_row]
     else:
-        slot_idx, row_of = np.zeros(0, np.int64), np.zeros(0, np.int64)
+        slot_idx = row_of = col_of = np.zeros(0, np.int64)
+        val_of = np.zeros(0, np.float32)
+    slot_cv = np.stack([col_of.astype(np.int32), val_of.astype(np.float32).view(np.int32)], axis=1)
     shape2 = lambda a: _tensor(a.reshape(G, be), device)
     return SpMMPlan(
         lrow=shape2(lrow), lcol=shape2(lcol), val=shape2(val), perm=shape2(perm),
@@ -143,6 +162,17 @@ def plan_spmm(
         n_rows=A.n_rows, n_cols=A.n_cols, rb=rb, cb=cb, nnz=A.nnz,
         slot_idx=_tensor(slot_idx.astype(np.int32), device),
         segments=run_segments(row_of, A.n_rows, device, seg_steps=ROW_SEG_SLOTS),
+        slot_cv=_tensor(slot_cv, device),
+    )
+
+
+def recut_rows(plan: SpMMPlan, seg_slots: int) -> SpMMPlan:
+    """``plan`` with its rows cut into pieces of at most ``seg_slots``
+    slots (the sweep of ``ROW_SEG_SLOTS``)."""
+    slot = plan.slot_idx.long()
+    row = plan.tile_rb.long()[slot // plan.be] * plan.rb + plan.lrow.reshape(-1)[slot].long()
+    return dataclasses.replace(
+        plan, segments=run_segments(_np(row), plan.n_rows, plan.val.device, seg_steps=seg_slots)
     )
 
 
@@ -154,7 +184,7 @@ def plan_with_vals(plan: SpMMPlan, vals: torch.Tensor) -> SpMMPlan:
         vals.index_select(0, plan.perm.clamp(min=0).reshape(-1).long()).view(plan.perm.shape),
         torch.zeros((), dtype=vals.dtype, device=vals.device),
     )
-    return dataclasses.replace(plan, val=v.to(torch.float32))
+    return plan.with_val(v)
 
 
 # ------------------------------------------------------------- kernel K9
@@ -181,27 +211,39 @@ def spmm_plan_plain(plan: SpMMPlan, H: torch.Tensor) -> torch.Tensor:
     return out[: plan.n_rows]
 
 
-def spmm_plan(plan: SpMMPlan, H: torch.Tensor) -> torch.Tensor:
-    """K9: out = A @ H over the plan's edge groups, f32 [n_rows, P]
-    (H rounds to bf16, each weighted row rounds to bf16, f32 sums in slot
-    order). A CPU tensor runs ``spmm_plan_plain``; a CUDA tensor launches
-    ``csrc/plan_spmm.cu`` or raises."""
-    if H.device.type == "cpu":
-        return spmm_plan_plain(plan, H)
-    if H.device.type != "cuda":
-        raise ValueError(f"spmm_plan runs on cpu or cuda, not {H.device}")
+def gather_shape_ok(P: int, data_ptr: int = 0) -> bool:
+    """Whether the gather kernel (csrc/plan_spmm_gather.cu) takes an H of
+    width ``P`` at address ``data_ptr``: bf16 rows of whole 16-byte pieces
+    (P % 8 == 0) from a 16-byte-aligned H. Everything else goes to the first
+    kernel, csrc/plan_spmm.cu. The rule reads the width and the address
+    only."""
+    return P % 8 == 0 and data_ptr % 16 == 0
+
+
+def _check_k9_operands(plan: SpMMPlan, H: torch.Tensor, ints: dict) -> None:
     if H.dim() != 2 or H.shape[0] < plan.n_cols:
         raise ValueError(f"H must be [>= {plan.n_cols}, P], got {tuple(H.shape)}")
     if H.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"H must be float32 or bfloat16, got {H.dtype}")
     if not H.is_contiguous():
         raise ValueError("H must be contiguous")
-    S = plan.segments
-    ints = dict(lcol=plan.lcol, tile_cb=plan.tile_cb, slot_idx=plan.slot_idx, **S.tensors())
     _check_cuda_operands(dict(val=plan.val, **ints), H.device)
     for name, t in ints.items():
         if t.dtype != torch.int32:
             raise ValueError(f"{name} must be int32, got {t.dtype}")
+
+
+def _stream(H: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(H.device).cuda_stream)
+
+
+def _spmm_plan_single(plan: SpMMPlan, H: torch.Tensor) -> torch.Tensor:
+    """K9 by the first kernel ``csrc/plan_spmm.cu``: any P, f32 or bf16 H
+    read as it is, the slot's column and value looked up through
+    ``slot_idx``."""
+    S = plan.segments
+    _check_k9_operands(plan, H, dict(lcol=plan.lcol, tile_cb=plan.tile_cb, slot_idx=plan.slot_idx,
+                                     **S.tensors()))
     if plan.val.dtype != torch.float32 or plan.val.shape != plan.lcol.shape:
         raise ValueError(
             f"val must be float32 {tuple(plan.lcol.shape)}, got {plan.val.dtype} {tuple(plan.val.shape)}"
@@ -215,12 +257,54 @@ def spmm_plan(plan: SpMMPlan, H: torch.Tensor) -> torch.Tensor:
     err = _cuda.library().sg_plan_spmm(
         _ptr(plan.lcol), _ptr(plan.val), _ptr(plan.tile_cb), plan.be, plan.cb,
         _ptr(plan.slot_idx), *_seg_args(S), _ptr(H), int(is_bf16), H.shape[0], P, vec,
-        _ptr(out), _ptr(partial), plan.n_rows,
-        ctypes.c_void_p(torch.cuda.current_stream(H.device).cuda_stream),
+        _ptr(out), _ptr(partial), plan.n_rows, _stream(H),
     )
     _cuda.check(err, "spmm_plan")
     spmm_plan.launches += 1
+    spmm_plan.launches_single += 1
     return out
 
 
+def _spmm_plan_gather(plan: SpMMPlan, H: torch.Tensor) -> torch.Tensor:
+    """K9 by the gather kernel ``csrc/plan_spmm_gather.cu``: H rounded to
+    bf16 once (the pre-pass of the ring kernels, ``ops/bsr._stage_h``; a
+    bf16 H is read as it is), the slots' (column, value) pairs from
+    ``slot_cv``."""
+    S = plan.segments
+    _check_k9_operands(plan, H, dict(slot_cv=plan.slot_cv, **S.tensors()))
+    P = H.shape[1]
+    if not gather_shape_ok(P, H.data_ptr()):
+        raise ValueError(f"the gather kernel needs P % 8 == 0 and a 16-byte-aligned H, got P={P}")
+    if plan.slot_cv.shape != (plan.slot_idx.shape[0], 2):
+        raise ValueError(f"slot_cv must be [nnz, 2], got {tuple(plan.slot_cv.shape)}")
+    Hs = _stage_h(H, None, plan.n_cols, plan.n_cols)
+    out = torch.empty((plan.n_rows, P), dtype=torch.float32, device=H.device)
+    partial = torch.empty((max(S.n_part, 1), P), dtype=torch.float32, device=H.device)
+    err = _cuda.library().sg_plan_spmm_gather(
+        _ptr(plan.slot_cv), *_seg_args(S), _ptr(Hs), P, _ptr(out), _ptr(partial), _stream(H),
+    )
+    _cuda.check(err, "spmm_plan_gather")
+    spmm_plan.launches += 1
+    spmm_plan.launches_gather += 1
+    return out
+
+
+def spmm_plan(plan: SpMMPlan, H: torch.Tensor) -> torch.Tensor:
+    """K9: out = A @ H over the plan's edge groups, f32 [n_rows, P]
+    (H rounds to bf16, each weighted row rounds to bf16, f32 sums in slot
+    order). A CPU tensor runs ``spmm_plan_plain``; a CUDA tensor launches
+    the gather kernel where ``gather_shape_ok`` holds, else the first
+    kernel, or raises. ``launches`` counts both; ``launches_gather`` /
+    ``launches_single`` each one."""
+    if H.device.type == "cpu":
+        return spmm_plan_plain(plan, H)
+    if H.device.type != "cuda":
+        raise ValueError(f"spmm_plan runs on cpu or cuda, not {H.device}")
+    if H.dim() == 2 and gather_shape_ok(H.shape[1], H.data_ptr()):
+        return _spmm_plan_gather(plan, H)
+    return _spmm_plan_single(plan, H)
+
+
 spmm_plan.launches = 0
+spmm_plan.launches_gather = 0
+spmm_plan.launches_single = 0

@@ -452,11 +452,25 @@ def prepare_int8_hybrid(
     rest_q = None
     if rest.nnz:
         rest_q = rest.with_vals(_quantize_vals(_np(rest.vals), c_a))
+    keys = bsr_tile_keys(part, tb, cover_rows=True, cover_cols=True)
     return build_fused_plan(
-        B8, rest_q, K=K,
-        tile_keys=bsr_tile_keys(part, tb, cover_rows=True, cover_cols=True),
-        attach_chunks=True,
+        B8, rest_q, K=K, tile_keys=keys, attach_chunks=True,
+        edge_tiles=int8_edge_tiles(part, c_a, tb, keys),
     )
+
+
+def int8_edge_tiles(A: SparseMatrix, c_a: QuantConstants, tb: int, keys: np.ndarray) -> np.ndarray:
+    """bool [T]: which tiles of ``bsr_int8_from_sparse(A, c_a, tb=tb, ...)``
+    (tile keys ``keys``, ``ops.bsr.bsr_tile_keys``) carry an edge, i.e. hold
+    a byte other than -128: an edge whose value quantizes above 0 (host).
+    The int8 ring K8 multiplies those tiles only (``FusedAggPlan.edge_ring``)."""
+    edge = np.zeros(max(len(keys), 1), bool)
+    aq = _quantize_vals(_np(A.vals)[: A.nnz], c_a)
+    r = _np(A.rows)[: A.nnz][aq > 0].astype(np.int64)
+    c = _np(A.cols)[: A.nnz][aq > 0].astype(np.int64)
+    if len(keys) and len(r):
+        edge[np.searchsorted(keys, (r // tb) << 32 | (c // tb))] = True
+    return edge
 
 
 def int8_hybrid_agg(plan: FusedAggPlan, Hq: torch.Tensor) -> torch.Tensor:

@@ -1000,3 +1000,170 @@ def test_fused_k_ring_matches_k2_ring(cuda_device, mode, tb, P, k):
         else:
             torch.testing.assert_close(out.float(), k2.float(), rtol=2e-2, atol=2e-2)
         assert not out[2 * tb: 3 * tb].any()
+
+
+# ------------------------------------------ the gather K9 and the int8 ring K8
+
+
+def _counts3(kern, a, b):
+    return kern.launches, getattr(kern, a), getattr(kern, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "weighted,blk,be,P,hdtype",
+    [(False, 128, 1024, 16, torch.float32), (True, 256, 2048, 8, torch.float32),
+     (False, 1024, 1024, 128, torch.bfloat16), (True, 128, 1024, 200, torch.float32),
+     (True, 256, 1024, 264, torch.bfloat16), (False, 256, 1024, 64, torch.float32)],
+)
+def test_plan_gather_matches_plain_and_first_kernel(cuda_device, weighted, blk, be, P, hdtype):
+    """The gather K9 (P % 8 == 0) on plan, plan_t and plan_with_vals, a
+    split hub row, spare rows of H, one to two 256-feature slices: within
+    1e-3 of the plain K9 and of the first kernel (identical roundings, f32
+    sums in another order); every launch counted as a gather launch."""
+    A = _graph(3001, weighted, seed=17)
+    prep = pt.prepare_adjacency(A, method="pallas", rb=blk, cb=blk, be=be, device=cuda_device)
+    assert prep.plan.segments.n_fin > 0
+    H = torch.randn(A.n_cols + 5, P, device=cuda_device).to(hdtype)
+    g = torch.randn(A.n_rows, P, device=cuda_device).to(hdtype)
+    pv = K9.plan_with_vals(prep.plan, torch.rand(A.vals.shape[0], device=cuda_device))
+    assert K9.gather_shape_ok(P, H.data_ptr())
+    for plan, x in ((prep.plan, H), (prep.plan_t, g), (pv, H)):
+        before = _counts3(K9.spmm_plan, "launches_gather", "launches_single")
+        out = K9.spmm_plan(plan, x)
+        torch.cuda.synchronize()
+        assert _counts3(K9.spmm_plan, "launches_gather", "launches_single") == (
+            before[0] + 1, before[1] + 1, before[2])
+        assert out.dtype == torch.float32 and out.shape == (plan.n_rows, P)
+        torch.testing.assert_close(out, K9.spmm_plan_plain(plan, x), rtol=1e-3, atol=1e-3)
+        torch.testing.assert_close(out, K9._spmm_plan_single(plan, x), rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seg_slots", [1, 5, 16, 256])
+def test_plan_gather_over_row_pieces(cuda_device, seg_slots):
+    """The same slots cut into row pieces of 1 to 256 slots (the sweep of
+    ROW_SEG_SLOTS): every cut within 1e-3 of the plain K9, rows without a
+    slot exactly 0."""
+    A = _int8_graph(2600, 18, empty_rb=2, tb=256)
+    plan = K9.recut_rows(K9.plan_spmm(A, rb=256, cb=256, device=cuda_device), seg_slots)
+    H = torch.randn(2600, 128, device=cuda_device)
+    out = K9.spmm_plan(plan, H)
+    torch.testing.assert_close(out, K9.spmm_plan_plain(plan, H), rtol=1e-3, atol=1e-3)
+    assert (out[512:768] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P,offset,gather", [(16, 0, True), (128, 0, True), (100, 0, False), (33, 0, False),
+                                             (128, 2, False)])
+def test_plan_kernel_choice_reads_width_and_address_only(cuda_device, P, offset, gather):
+    """``gather_shape_ok``: whole 16-byte bf16 pieces and a 16-byte-aligned
+    H take the gather kernel, everything else the first kernel."""
+    A = _graph(1500, weighted=True, seed=19)
+    plan = K9.plan_spmm(A, rb=256, cb=256, device=cuda_device)
+    H = torch.randn(1500 * P + offset, device=cuda_device)[offset:].view(1500, P)
+    assert K9.gather_shape_ok(P, H.data_ptr()) == gather
+    before = _counts3(K9.spmm_plan, "launches_gather", "launches_single")
+    out = K9.spmm_plan(plan, H)
+    torch.cuda.synchronize()
+    assert _counts3(K9.spmm_plan, "launches_gather", "launches_single") == (
+        before[0] + 1, before[1] + int(gather), before[2] + int(not gather))
+    torch.testing.assert_close(out, K9.spmm_plan_plain(plan, H), rtol=1e-3, atol=1e-3)
+
+
+def _int8_edge_graph(n, tb, seed):
+    """Hub rows (dense tiles, a long run in row block 0), random edges (a
+    remainder), row block 2 without an edge (a cover tile only), column
+    block 3 with remainder edges only (a cover tile (0, 3) in the tile set),
+    and some edges whose value quantizes to 0."""
+    rng = np.random.default_rng(seed)
+    hub = np.stack([rng.integers(0, tb // 2, 20 * n), rng.integers(0, n, 20 * n)])
+    ei = np.unique(np.concatenate([rng.integers(0, n, (2, 3 * n)), hub, hub[::-1]], axis=1), axis=1)
+    ei = ei[:, ei[0] // tb != 2]
+    dense3 = (ei[1] // tb == 3) & (ei[0] < tb // 2)
+    ei = ei[:, ~dense3]
+    v = rng.uniform(0.01, 1.0, ei.shape[1]).astype(np.float32)
+    v[rng.random(ei.shape[1]) < 0.05] = 1e-4  # on the unsigned grid: 0
+    return SparseMatrix.from_coo(ei[0], ei[1], v, (n, n))
+
+
+def _int8_ring_plan(A, tb, attach, device, thresh=None):
+    c_a = generate_constants(0.0, 1.0, 8, signed=False, w_qbits=8)
+    part, rest = split_by_tile_density(A, tb, thresh or max(tb * tb // 600, 2))
+    keys = K1.bsr_tile_keys(part, tb, cover_rows=True, cover_cols=True)
+    B8 = Q.bsr_int8_from_sparse(part, c_a, tb=tb, cover_cols=True, device=device)
+    return K2.build_fused_plan(B8, rest.with_vals(Q._quantize_vals(rest.vals, c_a)), attach_chunks=attach,
+                               edge_tiles=Q.int8_edge_tiles(part, c_a, tb, keys))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tb,P,attach", [(64, 16, True), (128, 128, False), (256, 128, True), (192, 144, False),
+                                         (256, 32, False), (128, 272, True)])
+def test_int8_ring_equals_plain_and_single_stage(cuda_device, tb, P, attach):
+    """The int8 ring K8 over the tiles that carry an edge: torch.equal to the
+    plain K8 and to the single-stage kernel, with cover tiles, chunk slots
+    whose value is 0, dead slots, split runs and ragged feature slices."""
+    n = 20 * tb + 45
+    plan = _int8_ring_plan(_int8_edge_graph(n, tb, seed=tb + P), tb, attach, cuda_device)
+    carry = (plan.B.tiles != -128).flatten(1).any(1)
+    assert (~carry).any() and plan.num_rest_chunks > 0 and (plan.lrow == tb).any()
+    assert plan.edge_ring.segments.n_fin > 0
+    assert K2.int8_ring_shape_ok(tb, P, plan.K)
+    Hq = torch.randint(-128, 128, (n, P), dtype=torch.int8, device=cuda_device)
+    kern = K2.bsr_spmm_int8_fused
+    before = _counts3(kern, "launches_ring", "launches_single")
+    out = Q.int8_hybrid_agg(plan, Hq)
+    torch.cuda.synchronize()
+    assert _counts3(kern, "launches_ring", "launches_single") == (before[0] + 1, before[1] + 1, before[2])
+    assert out.dtype == torch.int32 and out.shape == (n, P)
+    assert torch.equal(out, K2.bsr_spmm_int8_fused_plain(plan, Hq))
+    assert torch.equal(out, K2._bsr_spmm_int8_fused_single(plan, Hq))
+    assert not out[2 * tb: 3 * tb].any()
+
+
+@pytest.mark.cuda
+def test_int8_ring_through_prepare(cuda_device):
+    """prepare_int8_hybrid builds the ring schedule; the main entry point
+    takes the ring kernel and equals the plain version."""
+    A = _int8_edge_graph(3000, 128, seed=21)
+    c_a = generate_constants(0.0, 1.0, 8, signed=False, w_qbits=8)
+    plan = Q.prepare_int8_hybrid(A, c_a, tb=128, rest_thresh=40, device=cuda_device)
+    assert plan.edge_ring is not None and plan.edge_ring.n_dead_tile_steps > 0
+    Hq = torch.randint(-127, 128, (3000, 128), dtype=torch.int8, device=cuda_device)
+    before = K2.bsr_spmm_int8_fused.launches_ring
+    out = Q.int8_hybrid_agg(plan, Hq)
+    assert K2.bsr_spmm_int8_fused.launches_ring == before + 1
+    assert torch.equal(out, K2.bsr_spmm_int8_fused_plain(plan, Hq))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tb,P,edge,offset,ring", [(128, 128, True, 0, True), (128, 8, True, 0, False),
+                                                   (128, 100, True, 0, False), (32, 128, True, 0, False),
+                                                   (128, 128, False, 0, False), (128, 128, True, 8, False)])
+def test_int8_kernel_choice_reads_shape_and_schedule_only(cuda_device, tb, P, edge, offset, ring):
+    """``int8_ring_shape_ok`` on a plan with ``edge_ring`` picks the ring
+    kernel; other shapes, an unaligned Hq or a plan built without
+    ``edge_tiles`` take the single-stage kernel; both equal the plain K8."""
+    A = _int8_edge_graph(1600, max(tb, 64), seed=22)
+    plan = _int8_ring_plan(A, tb, True, cuda_device)
+    if not edge:
+        plan = K2.build_fused_plan(plan.B, None)
+    Hq = torch.randint(-127, 128, (1600 * P + offset,), dtype=torch.int8, device=cuda_device)[offset:].view(1600, P)
+    kern = K2.bsr_spmm_int8_fused
+    before = _counts3(kern, "launches_ring", "launches_single")
+    out = kern(plan, Hq)
+    torch.cuda.synchronize()
+    assert _counts3(kern, "launches_ring", "launches_single") == (
+        before[0] + 1, before[1] + int(ring), before[2] + int(not ring))
+    assert torch.equal(out, K2.bsr_spmm_int8_fused_plain(plan, Hq))
+
+
+@pytest.mark.cuda
+def test_stage_hqt_kernel_equals_plain(cuda_device):
+    """The int8 ring's pre-pass: Hq transposed, zero columns past n_valid."""
+    for n, P in ((1000, 16), (4100, 128), (700, 144)):
+        Hq = torch.randint(-128, 128, (n, P), dtype=torch.int8, device=cuda_device)
+        rows = (n + 63) // 64 * 64
+        out = K2._stage_hqt(Hq, rows, n - 3)
+        torch.cuda.synchronize()
+        assert torch.equal(out, K2.stage_hqt_plain(Hq, rows, n - 3))
