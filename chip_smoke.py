@@ -25,9 +25,10 @@ Phases, each raising on failure (so the run exits non-zero):
    edge path. K7 (bsr_spmm_int8) and K8 (bsr_spmm_int8_fused) must equal
    their plain versions and a scipy integer product (tb 64, 128 and 256, P
    in {8, 16, 32, 100, 128}, a row block without a tile, dead chunk slots,
-   split runs, both attach_chunks modes); K8 through the kernel its shape
-   selects (the int8 ring kernel on the tiles that carry an edge at tb
-   64-256, P % 16 == 0, else the single-stage one) and, where the ring
+   split runs, both attach_chunks modes; K7 also at tb 512), each through
+   the kernel its shape selects (the int8 ring kernel on the tiles, or row
+   pieces, that carry an edge: K7 at any tb % 64 == 0, K8 at tb 64-256,
+   both at P % 16 == 0; else the single-stage one) and, where the ring
    kernel took it, the single-stage kernel as well.
 4. the GCN slice: 2^20-node power-law graph (avg degree 16, 100 features,
    16 classes, seed 0), sym_norm, degree order, one hybrid prepare with
@@ -54,8 +55,8 @@ Phases, each raising on failure (so the run exits non-zero):
    prepare_int8_hybrid (tb 256, threshold 64, K 128), Hq from a numpy
    seed; int8_hybrid_agg three times on the int8 ring kernel, equal to the
    plain version; the ring and the single-stage K8 timed in turns, with the
-   bound on the tiles that carry an edge and on all tiles; K7 on the plan's
-   dense part timed.
+   bound on the tiles that carry an edge and on all tiles; K7 (the ring
+   kernel) on the plan's dense part timed.
 8. fake-quant GCN at 2^20, width 128: calibrate() from one float forward
    with telemetry, the 8-bit GCNModel on a value-tile prep
    (prepare_from_config with fake_quantization), forwards held against the
@@ -64,10 +65,12 @@ Phases, each raising on failure (so the run exits non-zero):
    on bsr and bsr_t).
 9. int8 GCN serving (freeze_gcn2_sparse -> int8_gcn2_sparse_forward, 100
    -> 128 -> 16) at n=2^16 on a full int8 tile cover: 3 requests, K7 twice
-   each, equal to the plain-K7 forward, on the slice's power-law generator
-   (K7 timed at its shapes; the error against the float forward is
-   printed) and on a bounded-degree banded graph, where the output must
-   lie within 0.08 of the float forward.
+   each on the ring kernel, equal to the plain-K7 forward, on the slice's
+   power-law generator at tb 256 and at freeze_gcn2_sparse's default tb 512
+   (K7 timed at its shapes, the ring kernel beside the single-stage one,
+   the bound on the row pieces that carry an edge; the error against the
+   float forward is printed) and on a bounded-degree banded graph, where
+   the output must lie within 0.08 of the float forward.
 10. one int8 GAT layer on K3 at n=8192 against the plain K3 and, on the
    rows whose degree the 255 grid resolves, the edge-list int8 layer.
 
@@ -87,7 +90,10 @@ Phases, each raising on failure (so the run exits non-zero):
    without scalings, at P 100 (single-stage) and 128 (the ring kernel where
    fused_k_ring_shape_ok holds, equal to K2's ring at k = 2), also against
    K2 on the unpadded plan; K12 (flash_gat_forward_subskip) on int8
-   and value tiles with isolated rows at sb 64, 128 and 256, equal to K3.
+   and value tiles with isolated rows at sb 8 to 256, through the kernel its
+   shape selects (the flash ring kernel at F = 64, else the single-stage
+   one) and the single-stage kernel too, equal to K3 on the same route, and
+   on a bitmap that clears populated sub-blocks against the plain K12.
 12. the pallas kind at full width on the GCN slice's graph:
    prepare_from_config with SGRACEConfig(use_pallas=True, row_block=1024,
    col_block=1024, edge_block=1024); the seconds and bytes plan_t adds to a
@@ -107,7 +113,9 @@ Phases, each raising on failure (so the run exits non-zero):
    kernel) on the slice's split at k 2 and 4 beside the single-stage K11 and
    K2's ring, bit-equal to K2's ring where it walks the same schedule at
    k = 2; K12 at H = 1, F = 64 on the slice's attention tiles and at n=8192
-   beside K3.
+   at sb 8 to 256 (the ring kernel beside the single-stage one), equal to
+   the ring K3 on the same tiles, beside the ring and the single-stage K3
+   (the plain K12 at sb >= 64 on the slice, at every sb at n=8192).
 
 Every main path is driven with the launch counts set to 0 just before it
 and read just after. The last two lines are the kernels' JSON record
@@ -312,14 +320,15 @@ def phase_build():
              f"{regs} registers at entry (consumers raise to 232, the producer drops to 40), {spills.strip()}")
     if _cuda.build_log and len(ring) != 7:  # no log when the library was built by an earlier run
         raise AssertionError(f"expected the seven ring kernels (K1, K2, K11) in the build log, found {len(ring)}")
-    # the flash ring kernels (K3/K6) by tile mode and head count
-    flash = re.findall(r"Function properties for \S*flash_ring_kernelILi(\d)ELi(\d)E\S*\n\s*(.*)\n.*Used (\d+) registers",
-                       _cuda.build_log)
-    for mode, heads, spills, regs in flash:
-        _log(f"  flash ring kernel (K3/K6) {'int8' if mode == '2' else 'bf16'} tiles, H={heads}: "
-             f"{regs} registers at entry (consumers raise to 232, the producer drops to 40), {spills.strip()}")
-    if _cuda.build_log and len(flash) != 6:
-        raise AssertionError(f"expected the six flash ring kernels in the build log, found {len(flash)}")
+    # the flash ring kernels by tile mode and head count: K3/K6, and K12's own (H=1, the bitmap)
+    flash = re.findall(r"Function properties for \S*flash_ring_kernelILi(\d)ELi(\d)ELb(\d)E\S*\n\s*(.*)\n.*Used (\d+) "
+                       r"registers", _cuda.build_log)
+    for mode, heads, sub, spills, regs in flash:
+        _log(f"  flash ring kernel ({'K12' if sub == '1' else 'K3/K6'}) {'int8' if mode == '2' else 'bf16'} tiles, "
+             f"H={heads}: {regs} registers at entry (consumers raise to 232, the producer drops to 40), {spills.strip()}")
+    if _cuda.build_log and len(flash) != 8:
+        raise AssertionError(f"expected the eight flash ring kernels (six K3/K6, two K12) in the build log, "
+                             f"found {len(flash)}")
     # the backward ring kernels (K4 / K5) by tile mode and head count
     bwd = re.findall(r"Function properties for \S*bwd_ring_kernelILi(\d)ELi(\d)ELb(\d)E\S*\n\s*(.*)\n.*Used (\d+) registers",
                      _cuda.build_log)
@@ -345,10 +354,10 @@ def phase_build():
     i8 = re.findall(r"Function properties for \S*agg_ring_i8_kernel\S*\n\s*(.*)\n.*Used (\d+) registers",
                     _cuda.build_log)
     for spills, regs in i8:
-        _log(f"  int8 ring K8: {regs} registers at entry (consumers raise to 232, the producer drops to 40), "
+        _log(f"  int8 ring K7/K8: {regs} registers at entry (consumers raise to 232, the producer drops to 40), "
              f"{spills.strip()}")
     if _cuda.build_log and len(i8) != 1:
-        raise AssertionError(f"expected the int8 ring K8 kernel in the build log, found {len(i8)}")
+        raise AssertionError(f"expected the int8 ring K7/K8 kernel in the build log, found {len(i8)}")
 
 
 def _random_graph(n, weighted, seed, isolated=None):
@@ -711,11 +720,28 @@ def _check_equal(name: str, out, ref) -> float:
     return 0.0
 
 
+def _k7_route(B, Hq) -> str:
+    """K7 through its wrapper, held to its plain version and, where the
+    ring kernel took it, the single-stage kernel; the route taken."""
+    before = K1.bsr_spmm_int8.launches_ring
+    out = K1.bsr_spmm_int8(B, Hq)
+    ref = K1.bsr_spmm_int8_plain(B, Hq)
+    ring = K1.bsr_spmm_int8.launches_ring > before
+    if ring != K1.int8_ring_shape_ok_k7(B.tb, Hq.shape[1], Hq.data_ptr()):
+        raise AssertionError(f"K7 tb={B.tb} P={Hq.shape[1]} took the wrong route")
+    name = f"K7 n={B.n_rows} tb={B.tb} P={Hq.shape[1]}"
+    _check_equal(name, out, ref)
+    if ring:
+        _check_equal(name + " single-stage", K1._bsr_spmm_int8_single(B, Hq), out)
+    return out, ("int8 ring (and single-stage)" if ring else "single-stage")
+
+
 def phase_int8_kernels_small(device):
     """K7 and K8 equal to their plain versions and to a scipy integer
-    product made on the host: tb 128 and 256, P in {8, 16, 100, 128}, a
-    row block with no tile, dead chunk slots, split runs, both
-    attach_chunks modes."""
+    product made on the host: tb 64-256 (K7 also 512), P in {8, 16, 32,
+    100, 128}, a row block with no tile, dead chunk slots, split runs, both
+    attach_chunks modes, each through the kernel its shape selects and the
+    single-stage kernel too."""
     import scipy.sparse as sp
 
     c_a = generate_constants(0.0, 1.0, 8, signed=False, w_qbits=8)
@@ -730,13 +756,12 @@ def phase_int8_kernels_small(device):
         host = torch.from_numpy((Aq @ Hq_np.astype(np.int64)).astype(np.int32)).to(device)
         Hq = torch.from_numpy(Hq_np).to(device)
         B = Q.bsr_int8_from_sparse(A, c_a, tb=tb, device=device)
-        out = K1.bsr_spmm_int8(B, Hq)
-        _check_equal(f"K7 n={n} tb={tb} P={P}", out, K1.bsr_spmm_int8_plain(B, Hq))
+        out, route = _k7_route(B, Hq)
         _check_equal(f"K7 n={n} tb={tb} P={P} vs scipy", out[:n], host)
         if out.shape[0] != B.n_row_tiles * tb or (out[n:] != 0).any():
             raise AssertionError("K7 writes every row of every row block, zeros past n_rows")
-        msg = (f"  K7/K8 n={n} tb={tb} P={P}: K7 tiles={B.num_tiles} segments={B.segments.n_seg} "
-               f"split_runs={B.segments.n_fin} empty_rb={empty_rb};")
+        msg = (f"  K7/K8 n={n} tb={tb} P={P}: K7 {route} tiles={B.num_tiles} segments={B.segments.n_seg} "
+               f"split_runs={B.segments.n_fin} (ring {B.edge_ring.segments.n_fin}) empty_rb={empty_rb};")
         part, rest = split_by_tile_density(A, tb, max(40 * tb * tb // 128**2, 2))
         B8 = Q.bsr_int8_from_sparse(part, c_a, tb=tb, cover_cols=True, device=device)
         rest_q = rest.with_vals(Q._quantize_vals(rest.vals, c_a))
@@ -763,6 +788,22 @@ def phase_int8_kernels_small(device):
         _log(msg + " equal")
     if not (split and ring_split):
         raise AssertionError("no K8 case split a run on the single-stage and on the ring kernel")
+    # K7 at freeze_gcn2_sparse's default tile height: the ring kernel's row halves
+    for i, (n, P, empty_rb) in enumerate([(5165, 128, 1), (3001, 16, None), (4100, 100, 2)]):
+        tb = 512
+        A = _int8_graph(n, 90 + i, empty_rb, tb)
+        aq = Q._quantize_vals(A.vals[: A.nnz], c_a).astype(np.int64)
+        Aq = sp.coo_matrix((aq, (A.rows[: A.nnz], A.cols[: A.nnz])), shape=A.shape).tocsr()
+        Hq_np = np.random.default_rng(10 + i).integers(-127, 128, (n, P)).astype(np.int8)
+        B = Q.bsr_int8_from_sparse(A, c_a, device=device)
+        Hq = torch.from_numpy(Hq_np).to(device)
+        out, route = _k7_route(B, Hq)
+        _check_equal(f"K7 n={n} tb={tb} P={P} vs scipy", out[:n],
+                     torch.from_numpy((Aq @ Hq_np.astype(np.int64)).astype(np.int32)).to(device))
+        L = B.edge_ring
+        _log(f"  K7 n={n} tb={B.tb} P={P}: {route} tiles={B.num_tiles} row halves carrying an edge "
+             f"{L.n_tile_steps} of {2 * B.num_tiles} work items={L.segments.n_seg} split_runs={L.segments.n_fin} "
+             f"empty_rb={empty_rb}; equal")
     # the dense integer products that serve X @ W and the score matvecs
     rng = np.random.default_rng(3)
     shapes = [(1000, 100, 12), (2000, 100, 32), (17, 8, 2), (3001, 128, 100)]
@@ -1312,7 +1353,8 @@ RING_KERNELS = (K1.bsr_spmm, K2.bsr_spmm_fused, FG.flash_gat_forward, FG.flash_g
 
 
 # each redesigned kernel's wrapper and the count of its launches on the new kernel
-REDESIGNED = tuple((k, "launches_ring") for k in RING_KERNELS + (K2.bsr_spmm_int8_fused,)) + (
+REDESIGNED = tuple((k, "launches_ring") for k in RING_KERNELS + (
+    K2.bsr_spmm_int8_fused, K1.bsr_spmm_int8, FG.flash_gat_forward_subskip)) + (
     (K9.spmm_plan, "launches_gather"),)
 
 
@@ -1325,8 +1367,8 @@ def _reset_counts() -> None:
 
 
 def _all_ring(label: str) -> None:
-    """Every K1, K2, K3, K4, K5, K6 and K8 launch since the last reset went
-    through the ring kernel, every K9 launch through the gather kernel."""
+    """Every K1-K8 and K12 launch since the last reset went through the
+    ring kernel, every K9 launch through the gather kernel."""
     for k, attr in REDESIGNED:
         new = getattr(k, attr)
         if new != k.launches or k.launches_single:
@@ -1499,7 +1541,7 @@ def phase_int8_hybrid_slice(A, device):
     ring = [_cuda_ms(lambda: K2._bsr_spmm_int8_fused_ring(plan, Hq)) for _ in range(2)]
     single.append(_cuda_ms(lambda: K2._bsr_spmm_int8_fused_single(plan, Hq)))
     n_pad = (B.n_cols + B.tb - 1) // B.tb * B.tb
-    pre_ms = _cuda_ms(lambda: K2._stage_hqt(Hq, n_pad, B.n_cols))
+    pre_ms = _cuda_ms(lambda: K1._stage_hqt(Hq, n_pad, B.n_cols))
     ms = float(np.median(ring))
     plain_ms = _cuda_ms(lambda: K2.bsr_spmm_int8_fused_plain(plan, Hq), reps=5)
     bound = _agg_bound(B, Hq, out, "int8", plan=plan, ring=L)
@@ -1517,7 +1559,7 @@ def phase_int8_hybrid_slice(A, device):
     ms7 = _cuda_ms(lambda: K1.bsr_spmm_int8(B, Hq))
     plain7 = _cuda_ms(lambda: K1.bsr_spmm_int8_plain(B, Hq), reps=5)
     b7 = _agg_bound(B, Hq, out7, "int8")
-    _log(f"bsr_spmm_int8 on the same dense part [T={B.num_tiles}, P={HIDDEN}]: kernel {ms7:.4f} ms, "
+    _log(f"bsr_spmm_int8 on the same dense part [T={B.num_tiles}, P={HIDDEN}]: int8 ring kernel {ms7:.4f} ms, "
          f"plain {plain7:.4f} ms (median of 5), bound {b7['bound_ms']:.4f} ms by {b7['bound_by']}, equal")
     _log(f"peak device memory in the int8 hybrid phase: {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
     return rec, launches
@@ -1539,17 +1581,21 @@ def _banded_graph(n, extra, seed):
     return sym_norm(np.stack([k // n, k % n]), n)
 
 
-def _int8_gcn_serve(A, label, device, cfg, rel_limit):
+def _int8_gcn_serve(A, label, device, cfg, rel_limit, tb=INT8_TB):
     """Freeze the 100 -> 128 -> 16 net on ``A`` (weights uniform +-0.5 and
     features uniform [0, 1] from a numpy seed, a_max from the adjacency,
-    activation ranges from one float forward on the host), answer REQUESTS
-    requests through K7, hold the output against the same forward on the
-    plain K7 (equal) and the float forward (``rel_limit`` of its largest
-    output, where given). Returns (net, launches)."""
+    activation ranges from one float forward on the host) at tile height
+    ``tb`` (None: freeze_gcn2_sparse's default), answer REQUESTS requests
+    through K7 (both launches of each on the ring kernel), hold the output
+    against the same forward on the plain K7 (equal) and the float forward
+    (``rel_limit`` of its largest output, where given). Returns (net,
+    launches)."""
     n, F, C = A.n_rows, cfg["num_features"], cfg["num_classes"]
-    T = len(K1.bsr_tile_keys(A, INT8_TB, cover_rows=True))
-    _log(f"int8 GCN {label}: n={n} nnz={A.nnz}; full cover at tb={INT8_TB}: {T} tiles, "
-         f"{T * INT8_TB * INT8_TB / 1e9:.3f} GB int8")
+    tb_kw = {} if tb is None else dict(tb=tb)
+    tb = 512 if tb is None else tb
+    T = len(K1.bsr_tile_keys(A, tb, cover_rows=True))
+    _log(f"int8 GCN {label}: n={n} nnz={A.nnz}; full cover at tb={tb}{'' if tb_kw else ' (the default)'}: "
+         f"{T} tiles, {T * tb * tb / 1e9:.3f} GB int8")
     rng = np.random.default_rng(0)
     W1 = rng.uniform(-0.5, 0.5, (F, HIDDEN)).astype(np.float32)
     W2 = rng.uniform(-0.5, 0.5, (HIDDEN, C)).astype(np.float32)
@@ -1560,10 +1606,16 @@ def _int8_gcn_serve(A, label, device, cfg, rel_limit):
     amax = Q.collect_amax_gcn2_sparse(A, X, W1, W2)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    net = Q.freeze_gcn2_sparse(W1, W2, A, cal, tb=INT8_TB, device=device, **amax)
+    net = Q.freeze_gcn2_sparse(W1, W2, A, cal, device=device, **tb_kw, **amax)
     torch.cuda.synchronize()
+    if net.a_bsr.tb != tb:
+        raise AssertionError(f"freeze_gcn2_sparse built tb={net.a_bsr.tb}, expected {tb}")
+    L = net.a_bsr.edge_ring  # built here, with the tiles (the first ring launch would build it)
     _log(f"freeze_gcn2_sparse ({label}): {time.perf_counter() - t0:.1f} s tiles={net.a_bsr.num_tiles} "
-         f"segments={net.a_bsr.segments.n_seg} split_runs={net.a_bsr.segments.n_fin} amax={amax}")
+         f"segments={net.a_bsr.segments.n_seg} split_runs={net.a_bsr.segments.n_fin} amax={amax}; "
+         f"ring K7 schedule: {L.n_tile_steps} row pieces of {K1.k7_row_piece(tb)} carry an edge "
+         f"({L.n_dead_tile_steps} all -128 dropped), work items {L.segments.n_seg} "
+         f"(split runs {L.segments.n_fin})")
     xs = Q.quantize_unsigned_shifted(torch.from_numpy(X).to(device), cal.features)
     Q.int8_gcn2_sparse_forward(net, xs)  # warm-up: cuBLASLt handles, allocator
     torch.cuda.synchronize()
@@ -1581,6 +1633,7 @@ def _int8_gcn_serve(A, label, device, cfg, rel_limit):
     _log(f"launches in the int8 GCN serving run ({label}): {launches} (K7 per request: {per_request})")
     if per_request != [2] * REQUESTS or sum(launches.values()) != 2 * REQUESTS:
         raise AssertionError(f"K7 launches per request {per_request}, expected 2 each and no other kernel")
+    _all_ring(f"int8 GCN serving ({label})")
     if out.shape != (n, C) or not torch.isfinite(out).all():
         raise AssertionError(f"int8 GCN output shape {tuple(out.shape)} or non-finite")
     kern = Q.bsr_spmm_int8
@@ -1602,17 +1655,61 @@ def _int8_gcn_serve(A, label, device, cfg, rel_limit):
     return net, launches
 
 
+def _k7_bound(B, Hq, out) -> dict:
+    """Bound of K7 on this run's tiles: the row pieces that carry an edge
+    (``B.edge_ring``; a piece of -128 bytes only is Aq = 0, and the function
+    needs none of its bytes), Hq, the output and the schedule; a u8 x s8
+    product of 2*th*tb*P operations a piece."""
+    L, P = B.edge_ring, Hq.shape[1]
+    piece = K1.k7_row_piece(B.tb) * B.tb
+    nbytes = L.n_tile_steps * piece + _nbytes(Hq, out) + _sched_bytes(L)
+    return _bound(nbytes, 2.0 * L.n_tile_steps * piece * P, "int8")
+
+
+def _k7_times(B, label, rng, device, Ps) -> dict:
+    """K7 at ``B``'s shapes for each P: the ring kernel and the single-stage
+    kernel in turns (single, ring, ring, single), both equal to the plain
+    version; the bound on the pieces that carry an edge. Returns the record
+    at the first P."""
+    rec = None
+    for P in Ps:
+        Hq = torch.from_numpy(rng.integers(-127, 128, (B.n_cols, P)).astype(np.int8)).to(device)
+        o = K1._bsr_spmm_int8_ring(B, Hq)
+        err = _check_equal(f"K7 ring {label} P={P}", o, K1.bsr_spmm_int8_plain(B, Hq))
+        _check_equal(f"K7 single-stage {label} P={P}", K1._bsr_spmm_int8_single(B, Hq), o)
+        single = [_cuda_ms(lambda: K1._bsr_spmm_int8_single(B, Hq))]
+        ring = [_cuda_ms(lambda: K1._bsr_spmm_int8_ring(B, Hq)) for _ in range(2)]
+        single.append(_cuda_ms(lambda: K1._bsr_spmm_int8_single(B, Hq)))
+        n_pad = (B.n_cols + B.tb - 1) // B.tb * B.tb
+        pre_ms = _cuda_ms(lambda: K1._stage_hqt(Hq, n_pad, B.n_cols))
+        p_ms = _cuda_ms(lambda: K1.bsr_spmm_int8_plain(B, Hq), reps=3)
+        bound = _k7_bound(B, Hq, o)
+        all_tiles = _agg_bound(B, Hq, o, "int8")
+        ms = float(np.median(ring))
+        _log(f"bsr_spmm_int8 {label} [n={B.n_rows}, tb={B.tb}, T={B.num_tiles}, P={P}]: int8 ring kernel "
+             + " / ".join(f"{m:.4f}" for m in ring) + f" ms (of which the transposed-Hq pre-pass {pre_ms:.4f}), "
+             "single-stage kernel " + " / ".join(f"{m:.4f}" for m in single) + f" ms (same run, in turns), "
+             f"plain {p_ms:.4f} ms (median of 3), bound {bound['bound_ms']:.4f} ms by {bound['bound_by']} on the "
+             f"{B.edge_ring.n_tile_steps} row pieces that carry an edge [all {B.num_tiles} tiles: "
+             f"{all_tiles['bound_ms']:.4f} ms]; both equal to the plain version")
+        if rec is None:
+            rec = dict(max_abs_err=err, ms=ms, plain_ms=p_ms, **bound, library_ms=None,
+                       earlier_ms=float(np.median(single)))
+    return rec
+
+
 def phase_int8_gcn(device, cfg=INT8_GCN):
     """Full-integer GCN serving (100 -> 128 -> 16) on a full int8 tile
-    cover at tb 256: ``freeze_gcn2_sparse`` -> ``int8_gcn2_sparse_forward``,
-    K7 twice a request. The full cover is what limits the size: at most
-    (n / 256)^2 tiles of 64 KiB.
+    cover: ``freeze_gcn2_sparse`` -> ``int8_gcn2_sparse_forward``, K7 twice
+    a request on the ring kernel. The full cover is what limits the size: at
+    most (n / tb)^2 tiles of tb^2 bytes.
 
     Two graphs of n nodes go through the same entry points. The slice's
     power-law generator is the main path (launch counts, equality with the
-    plain-K7 forward, K7's times at its shapes); its error against the
-    float forward is printed without a limit, because one 8-bit grid per
-    tensor cannot hold a hub row's range (the hub's layer-1 output sets
+    plain-K7 forward, K7's times at its shapes), served at tb 256 and at
+    ``freeze_gcn2_sparse``'s default tb 512; its error against the float
+    forward is printed without a limit, because one 8-bit grid per tensor
+    cannot hold a hub row's range (the hub's layer-1 output sets
     ``x2_absmax`` some 60 times above an ordinary node's, whose values then
     round to a few levels; the reference's int8 design has the same
     limit). The accuracy limit of 0.08 is held on the bounded-degree banded
@@ -1624,18 +1721,12 @@ def phase_int8_gcn(device, cfg=INT8_GCN):
     net, launches = _int8_gcn_serve(A, "power-law", device, cfg, None)
     # K7 at the path's layer-1 shape (P = 128), and its layer-2 shape beside it
     rng = np.random.default_rng(1)
-    rec = {}
-    for P in (HIDDEN, C):
-        Hq = torch.from_numpy(rng.integers(-127, 128, (n, P)).astype(np.int8)).to(device)
-        o = K1.bsr_spmm_int8(net.a_bsr, Hq)
-        err = _check_equal(f"K7 at the int8 GCN's shapes P={P}", o, K1.bsr_spmm_int8_plain(net.a_bsr, Hq))
-        k_ms = _cuda_ms(lambda: K1.bsr_spmm_int8(net.a_bsr, Hq))
-        p_ms = _cuda_ms(lambda: K1.bsr_spmm_int8_plain(net.a_bsr, Hq), reps=3)
-        bound = _agg_bound(net.a_bsr, Hq, o, "int8")
-        _log(f"bsr_spmm_int8 at the int8 GCN's shapes [n={n}, T={net.a_bsr.num_tiles}, P={P}]: kernel {k_ms:.4f} ms, "
-             f"plain {p_ms:.4f} ms (median of 3), bound {bound['bound_ms']:.4f} ms by {bound['bound_by']}, equal")
-        if P == HIDDEN:
-            rec["bsr_spmm_int8"] = dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms, **bound, library_ms=None)
+    rec = {"bsr_spmm_int8": _k7_times(net.a_bsr, "at the int8 GCN's shapes", rng, device, (HIDDEN, C))}
+    del net
+    torch.cuda.empty_cache()
+    net, more = _int8_gcn_serve(A, "power-law, default tb", device, cfg, None, tb=None)
+    launches = _add(launches, more)
+    _k7_times(net.a_bsr, "at the int8 GCN's shapes, tb 512", rng, device, (HIDDEN, C))
     del net
     torch.cuda.empty_cache()
     _, more = _int8_gcn_serve(_banded_graph(n, n // 4, 0), "banded", device, cfg, INT8_REL_TOL)
@@ -1936,29 +2027,44 @@ def phase_variant_kernels_small(device):
                          f"(live {plan.ring.step.shape[0]}) kinds={sorted(set(plan.step_kind.tolist()))} "
                          f"err {err:.3g} against K2 {err2:.3g}{', equal to K2' if equal else ''}")
 
-    # ---- K12: int8 and value tiles, isolated rows, sb 64 / 128 / 256
-    for name, weighted, kw in (("int8-tb256", False, dict(method="xla")),
-                               ("bf16-values-tb256", True, dict(method="bsr", rank1=False, tb=256))):
+    # ---- K12: int8 and value tiles, isolated rows, sb 8 to 256, F 64 (the
+    # ring kernel) and 40 (the single-stage one)
+    for name, weighted, kw, F in (("int8-tb256", False, dict(method="xla"), 64),
+                                  ("int8-tb256", False, dict(method="xla"), 40),
+                                  ("bf16-values-tb256", True, dict(method="bsr", rank1=False, tb=256), 64)):
         A = _random_graph(3001, weighted, 130 + weighted, isolated=7)
         prep = prepare_adjacency(A, for_gat=True, build_transpose=False, device=device, **kw)
         B = prep.flash_tiles
-        s1, s2, Wh = (x[:, 0] for x in _scores(3001, 1, 40, gen, device))
-        k3 = FG._flash_gat_forward_single(B, s1, s2, Wh)
+        s1, s2, Wh = (x[:, 0] for x in _scores(3001, 1, F, gen, device))
+        ring = FG._takes_ring(B, Wh)
+        k3 = FG.flash_gat_forward(B, s1, s2, Wh)  # K3 on the route K12 takes
         has = torch.zeros(3001, dtype=torch.bool, device=device)
         has[prep.A.rows[: A.nnz][prep.A.vals[: A.nnz] > 0].long()] = True
-        for sb in (64, 128, 256):
+        for sb in (8, 16, 32, 64, 128, 256):
             pop = FG.subblock_pop_bitmap(B, A, sb)
+            before = FG.flash_gat_forward_subskip.launches_ring
             out = FG.flash_gat_forward_subskip(B, pop, s1, s2, Wh, sb=sb)
-            err = _check(f"K12 {name} sb={sb}", out,
-                         FG.flash_gat_forward_subskip_plain(B, pop, s1, s2, Wh, sb=sb), GAT_TOL)
-            # what K12 skips adds exact zeros in the single-stage K3, in the same order
+            if (FG.flash_gat_forward_subskip.launches_ring > before) != ring:
+                raise AssertionError(f"K12 {name} F={F} sb={sb} took the wrong route")
+            ref = FG.flash_gat_forward_subskip_plain(B, pop, s1, s2, Wh, sb=sb)
+            err = _check(f"K12 {name} F={F} sb={sb}", out, ref, GAT_TOL)
+            if ring:
+                _check(f"K12 {name} F={F} sb={sb} single-stage",
+                       FG._flash_gat_forward_subskip_single(B, pop, s1, s2, Wh, sb=sb), ref, GAT_TOL)
+            # what K12 skips adds exact zeros in K3 on the same route, in the same order
             if not torch.equal(out, k3):
-                raise AssertionError(f"K12 {name} sb={sb} differs from the single-stage K3 on the same tiles")
+                raise AssertionError(f"K12 {name} F={F} sb={sb} differs from K3 on the same tiles and route")
             if has.all() or (out[~has] != 0).any():
                 raise AssertionError(f"K12 {name}: rows without an edge must come out exactly 0")
+            # a bitmap that clears populated sub-blocks: their edges are never seen
+            cut = pop & np.random.default_rng(sb).integers(-2**31, 2**31, pop.shape, dtype=np.int64).astype(np.int32)
+            err_cut = _check(f"K12 {name} F={F} sb={sb} cleared bitmap",
+                             FG.flash_gat_forward_subskip(B, cut, s1, s2, Wh, sb=sb),
+                             FG.flash_gat_forward_subskip_plain(B, cut, s1, s2, Wh, sb=sb), GAT_TOL)
             bits = _pop_bits(pop)
-            _log(f"  K12 {name} sb={sb}: T={B.num_tiles} populated sub-blocks {bits} of "
-                 f"{B.num_tiles * (B.tb // sb) ** 2} err {err:.3g}, equal to the single-stage K3")
+            _log(f"  K12 {name} F={F} sb={sb}: {'ring (and single-stage)' if ring else 'single-stage'} "
+                 f"T={B.num_tiles} populated sub-blocks {bits} of {B.num_tiles * (B.tb // sb) ** 2} err {err:.3g} "
+                 f"(cleared bitmap, {_pop_bits(cut)} set: {err_cut:.3g}), equal to K3 on the same route")
 
 
 def _k9_bound(plan, H, out) -> dict:
@@ -2330,43 +2436,73 @@ def _k12_bound(B, pop, sb, tensors, F) -> dict:
     return _bound(nbytes, 2.0 * bits * sb * sb * F, "bf16")
 
 
-def phase_subskip(B, edges, device, label, record=False):
-    """K12 at H = 1, F = 64 on tiles ``B`` (whose edges are ``edges``)
-    beside K3 on the same tiles, at every sb the tile size allows."""
+def phase_subskip(B, edges, device, label, record=False, plain_min_sb=1):
+    """K12 at H = 1, F = 64 on tiles ``B`` (whose edges are ``edges``) at
+    every sb from 8 to the tile size, beside K3 on the same tiles. The entry
+    point is the main path (REQUESTS calls, every one on the ring kernel
+    where its rule holds), held torch.equal to K3 on the same route and,
+    from ``plain_min_sb`` on, to the plain K12 (which takes seconds a call
+    at the slice's sizes, more as sb shrinks); the ring and the
+    single-stage kernel timed in turns."""
     gen = torch.Generator(device=device).manual_seed(4)
     n = B.n_cols
     s1, s2, Wh = (x[:, 0] for x in _scores(n, 1, GAT_HIDDEN, gen, device))
-    # K12 is the single-stage kernel with a bitmap: held to the single-stage
-    # K3 (the ring K3 rounds bf16(p) against other running maxima)
-    k3 = FG._flash_gat_forward_single(B, s1, s2, Wh)
+    ring = FG._takes_ring(B, Wh)
+    k3 = FG.flash_gat_forward(B, s1, s2, Wh)  # K3 on the route K12 takes
     k3_ms = _cuda_ms(lambda: FG._flash_gat_forward_single(B, s1, s2, Wh))
     k3_ring_ms = _cuda_ms(lambda: FG.flash_gat_forward(B, s1, s2, Wh))
     rec, launches = {}, {}
-    for sb in (64, 128, 256):
+    for sb in (8, 16, 32, 64, 128, 256):
         if B.tb % sb:
             continue
         pop = FG.subblock_pop_bitmap(B, edges, sb)
         pop_t = torch.from_numpy(pop).to(device)
+        args = (B, pop_t, s1, s2, Wh)
         kern = lambda *a: FG.flash_gat_forward_subskip(*a, sb=sb)
         kern.__name__ = "flash_gat_forward_subskip"
         plain = lambda *a: FG.flash_gat_forward_subskip_plain(*a, sb=sb)
-        out, r, n_l = _timed_variant(f"K12 sb={sb} ({label})", kern, plain, (B, pop_t, s1, s2, Wh),
-                                     GAT_TOL, reps_plain=1)
+        if sb >= plain_min_sb:
+            out, r, n_l = _timed_variant(f"K12 sb={sb} ({label})", kern, plain, args, GAT_TOL, reps_plain=1)
+        else:  # the plain version is held on the small graphs; here K3 is the reference
+            out, r, n_l = _timed_variant(f"K12 sb={sb} ({label})", kern, lambda *a: k3, args, GAT_TOL,
+                                         reps_plain=1)
+            r["plain_ms"] = None
+        if ring:
+            _all_ring(f"K12 sb={sb} ({label})")
         err, ms, plain_ms = r["max_abs_err"], r["ms"], r["plain_ms"]
         if not torch.equal(out, k3):
-            raise AssertionError(f"K12 sb={sb} ({label}) differs from the single-stage K3 on the same tiles")
+            raise AssertionError(f"K12 sb={sb} ({label}) differs from K3 on the same tiles and route")
+        single = [_cuda_ms(lambda: FG._flash_gat_forward_subskip_single(*args, sb=sb))]
+        if ring:
+            _check(f"K12 sb={sb} ({label}) single-stage", FG._flash_gat_forward_subskip_single(*args, sb=sb),
+                   out, GAT_TOL)
+            times = [ms, _cuda_ms(lambda: FG._flash_gat_forward_subskip_ring(*args, sb=sb))]
+            single.append(_cuda_ms(lambda: FG._flash_gat_forward_subskip_single(*args, sb=sb)))
+            ms = float(np.median(times))
+        slabs = FG.subskip_schedule(B, pop_t, sb).step
+        fold_ms = None
+        if ring:
+            fold_ms = _cuda_ms(lambda: FG._subskip_fold(B, pop_t, sb))
+            if not torch.equal(FG._subskip_fold(B, pop_t, sb).step, slabs):
+                raise AssertionError(f"K12 sb={sb} ({label}): the fold kernel differs from subskip_schedule")
+        slabs = slabs[:, 3]
+        n_slabs = int(sum(((slabs >> j) & 1).sum() for j in range(4)))
         bound = _k12_bound(B, pop, sb, (s1, s2, Wh, out), GAT_HIDDEN)
         bits = _pop_bits(pop)
         _add(launches, n_l)
         _log(f"flash_gat_forward_subskip sb={sb} on the {label} tiles [T={B.num_tiles}, tb={B.tb}, H=1, "
-             f"F={GAT_HIDDEN}, populated sub-blocks {bits} of {B.num_tiles * (B.tb // sb) ** 2}]: "
-             f"kernel {ms:.4f} ms, single-stage K3 at H=1 on the same tiles {k3_ms:.4f} ms (ring K3 "
-             f"{k3_ring_ms:.4f} ms), plain {plain_ms:.4f} ms, "
-             f"bound {bound['bound_ms']:.4f} ms by {bound['bound_by']}, max abs err {err:.3g}, equal to the "
-             f"single-stage K3")
-        if record and (not rec or ms < rec["flash_gat_forward_subskip"]["ms"]):
+             f"F={GAT_HIDDEN}, populated sub-blocks {bits} of {B.num_tiles * (B.tb // sb) ** 2}, 64-column "
+             f"slabs loaded {n_slabs} of {int(B.live.sum()) * (B.tb // 64)}]: "
+             + (f"ring kernel {' / '.join(f'{m:.4f}' for m in times)} ms (of which the bitmap's fold into "
+                f"the live steps {fold_ms:.4f}), " if ring else "")
+             + f"single-stage kernel {' / '.join(f'{m:.4f}' for m in single)} ms; K3 at H=1 on the same tiles: "
+             f"ring {k3_ring_ms:.4f} ms, single-stage {k3_ms:.4f} ms; plain "
+             + (f"{plain_ms:.4f} ms" if plain_ms is not None else "not run at this sb")
+             + f", bound {bound['bound_ms']:.4f} ms by {bound['bound_by']}, max abs err {err:.3g} against "
+             + ("the plain K12" if plain_ms is not None else "K3") + ", equal to K3 on the same route")
+        if record and plain_ms is not None and (not rec or ms < rec["flash_gat_forward_subskip"]["ms"]):
             rec["flash_gat_forward_subskip"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, **bound,
-                                                    library_ms=None)
+                                                    library_ms=None, sb=sb, earlier_ms=float(np.median(single)))
     return rec, launches
 
 
@@ -2395,7 +2531,8 @@ def main() -> None:
     gat_prep = phase_gat_prepare(A, device, "slice")
     rec.update(phase_gat_kernels_slice(gat_prep, device))
     dense_part = split_by_tile_density(A, gat_prep.gat_bsr.tb, D.DEFAULT_GAT_REST_THRESH)[0]
-    more_rec, more = phase_subskip(gat_prep.gat_bsr, dense_part, device, "slice's attention", record=True)
+    more_rec, more = phase_subskip(gat_prep.gat_bsr, dense_part, device, "slice's attention", record=True,
+                                   plain_min_sb=64)
     rec.update(more_rec)
     _add(launches, more)
     del dense_part
@@ -2426,13 +2563,13 @@ def main() -> None:
         "flash_gat_bwd_col": ("sgracex1_tpu_torch/csrc/flash_gat_bwd_ring.cu", "sgracex1_tpu/ops/flash_gat.py:847"),
         "flash_gat_hybrid_forward": ("sgracex1_tpu_torch/csrc/flash_gat_ring.cu",
                                      "sgracex1_tpu/ops/flash_gat.py:1139"),
-        "bsr_spmm_int8": ("sgracex1_tpu_torch/csrc/bsr_spmm_int8.cu", "sgracex1_tpu/ops/bsr.py:773"),
+        "bsr_spmm_int8": ("sgracex1_tpu_torch/csrc/fused_agg_int8_ring.cu", "sgracex1_tpu/ops/bsr.py:773"),
         "bsr_spmm_int8_fused": ("sgracex1_tpu_torch/csrc/fused_agg_int8_ring.cu",
                                 "sgracex1_tpu/ops/fused_agg.py:1054"),
         "spmm_plan": ("sgracex1_tpu_torch/csrc/plan_spmm_gather.cu", "sgracex1_tpu/ops/pallas_spmm.py:232"),
         "bsr_spmm_rowloop": ("sgracex1_tpu_torch/csrc/bsr_spmm_cluster.cu", "sgracex1_tpu/ops/bsr.py:693"),
         "bsr_spmm_fused_k": ("sgracex1_tpu_torch/csrc/fused_agg_ring.cu", "sgracex1_tpu/ops/fused_agg.py:871"),
-        "flash_gat_forward_subskip": ("sgracex1_tpu_torch/csrc/flash_gat.cu",
+        "flash_gat_forward_subskip": ("sgracex1_tpu_torch/csrc/flash_gat_ring.cu",
                                       "sgracex1_tpu/ops/flash_gat.py:343"),
     }
     kernels = [

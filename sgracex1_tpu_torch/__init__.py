@@ -15,17 +15,19 @@ hand-written CUDA kernel per Pallas kernel on the ported path:
 - ``ops/flash_gat.flash_gat_bwd_row`` (K4) and ``flash_gat_bwd_col`` (K5,
   both ``csrc/flash_gat_bwd.cu``): the attention backward's row and
   column passes;
-- ``ops/bsr.bsr_spmm_int8`` (K7, ``csrc/bsr_spmm_int8.cu``) and
-  ``ops/fused_agg.bsr_spmm_int8_fused`` (K8, ``csrc/fused_agg_int8.cu``):
-  the exact int32 ``Aq @ Hq`` of full-integer inference, on a full tile
-  cover and on the hybrid split;
+- ``ops/bsr.bsr_spmm_int8`` (K7) and ``ops/fused_agg.bsr_spmm_int8_fused``
+  (K8), both on the int8 ring kernel ``csrc/fused_agg_int8_ring.cu`` where
+  their shape rules hold (else ``csrc/bsr_spmm_int8.cu`` /
+  ``csrc/fused_agg_int8.cu``): the exact int32 ``Aq @ Hq`` of full-integer
+  inference, on a full tile cover and on the hybrid split;
 - ``ops/pallas_spmm.spmm_plan`` (K9, ``csrc/plan_spmm.cu``): the ``pallas``
   kind's aggregation over edge groups, whose values can be replaced per
   call (``ops/dispatch.agg_matmul_with_vals``);
 - the three variants the JAX package keeps as experiments, each under its
   JAX name: ``ops/bsr.bsr_spmm_rowloop`` (K10, ``csrc/bsr_spmm_rowloop.cu``),
   ``ops/fused_agg.bsr_spmm_fused_k`` (K11, ``csrc/fused_agg_k.cu``) and
-  ``ops/flash_gat.flash_gat_forward_subskip`` (K12, ``csrc/flash_gat.cu``).
+  ``ops/flash_gat.flash_gat_forward_subskip`` (K12, the flash ring kernel
+  ``csrc/flash_gat_ring.cu`` where its rule holds, else ``csrc/flash_gat.cu``).
 
 Aggregations and attention are differentiable (K1/K2/K9 on the transposed
 plans, K4/K5), and ``train.train_node_classifier`` trains both models on

@@ -29,13 +29,16 @@
 //
 // K12 (sgracex1_tpu/ops/flash_gat.py:flash_gat_forward_subskip, Pallas
 // kernel _flash_gat_kernel_subskip) is K3 with a host-built population
-// bitmap pop[T, nw]: bit (i * ns + j) of tile t says whether the sb x sb
-// sub-block (i, j) holds an edge. The TPU kernel predicates each
-// sub-block's score math on its bit. Here sb is a multiple of the CTA's 64
-// rows and 64-column chunks, so a CTA's rows lie in one sub-block row: a
-// tile whose sub-block row is empty is left before a barrier or a load of
-// s2, and a 64-column chunk in an empty sub-block is skipped before its
-// mask bytes are read (K3 reads every mask byte to learn the same).
+// bitmap pop[T, nw] (subblock.cuh): bit (i * ns + j) of tile t says whether
+// the sb x sb sub-block (i, j) holds an edge, for any sb that divides tb.
+// The TPU kernel predicates each sub-block's score math on its bit. Here a
+// tile with no populated sub-block in the CTA's rows is left at the step's
+// first barrier, before s2 is loaded; a thread reads the mask bytes of its
+// row's 8 columns only where a populated sub-block meets them, and clears
+// the bits of the empty sub-blocks among them; a 64-column chunk whose
+// cleared bits are all 0 in the CTA's rows is skipped, as in K3. This is
+// the route of K12 for the shapes the ring kernel (flash_gat_ring.cu) does
+// not take.
 //
 // Bound on the H100: the score work (an add, LeakyReLU, mask, max, exp and
 // sum per tile entry, twice read: a row-max pass and a probability pass)
@@ -45,6 +48,7 @@
 // once, where the TPU kernel rounds it per tile); each 64-column chunk's
 // rows are copied into shared memory with cp.async, started before the
 // chunk's probabilities are computed so the copy overlaps them.
+#include "subblock.cuh"
 #include "tile_gemm.cuh"
 
 namespace sg {
@@ -88,7 +92,7 @@ struct Args {
   const int* tile_cb;                                    // K3: step g is tile g
   const int* step_cb; const int* step_tile; const int* step_chunk; const int* step_kind;
   const int* lrow; const int* slot_col; int K;
-  const int* pop; int sb; int nw;                        // K12: sub-block bitmap
+  sgsub::Pop pop;                                        // K12: sub-block bitmap
   const float* s1; int n_s1; const float* s2; int n_s2;
   const __nv_bfloat16* Wh; int wvec;  // wvec: rows copy as 16-byte pieces
   float alpha;
@@ -115,19 +119,15 @@ __device__ __forceinline__ void step(Smem& s, const Args& a, const Lane& ln, lon
                                      float (&acc)[32]) {
   const int tb = a.tb;
   const int ncols = CHUNK ? a.K : tb;
-  // K12: the population bits of this CTA's sub-block row of tile `id`
-  constexpr bool subskip = SUB && !CHUNK;  // compiled into K12 only
-  const int ns = subskip ? tb / a.sb : 0;
-  auto populated = [&](int sj) -> bool {
-    const int b = (row0 / a.sb) * ns + sj;
-    return (a.pop[id * a.nw + (b >> 5)] >> (b & 31)) & 1;
-  };
+  constexpr bool subskip = SUB && !CHUNK;  // K12: compiled into K12 only
+  // the previous step is done with s.s2 / s.col / s.lrow; K12 leaves a tile
+  // without a populated sub-block in this CTA's rows here
   if constexpr (subskip) {
-    bool any = false;
-    for (int sj = 0; sj < ns; ++sj) any |= populated(sj);
-    if (!any) return;  // the same for every thread of the CTA
+    if (!__syncthreads_or(sgsub::any_row(a.pop, id, row0, min(row0 + ROWS, tb), threadIdx.x, NTHREADS)))
+      return;
+  } else {
+    __syncthreads();
   }
-  __syncthreads();  // the previous step is done with s.s2 / s.col / s.lrow
   if (threadIdx.x < MAX_TB / COLS) s.live[threadIdx.x] = 0;
   for (int c = threadIdx.x; c < ncols; c += NTHREADS) {
     if constexpr (CHUNK) {
@@ -152,9 +152,6 @@ __device__ __forceinline__ void step(Smem& s, const Args& a, const Lane& ln, lon
   const int nchunk = (ncols + COLS - 1) / COLS;
   float smax[4] = {-INFINITY, -INFINITY, -INFINITY, -INFINITY};
   for (int kc = 0; kc < nchunk; ++kc) {
-    if constexpr (subskip) {
-      if (!populated(kc * COLS / a.sb)) continue;  // live[kc] stays 0
-    }
     const int c = kc * COLS + ln.g * 8;
     unsigned any = 0;
 #pragma unroll
@@ -166,7 +163,10 @@ __device__ __forceinline__ void step(Smem& s, const Args& a, const Lane& ln, lon
 #pragma unroll
           for (int q = 0; q < 8; ++q) bits |= (unsigned)(s.lrow[c + q] == lr) << q;
         } else {
-          bits = tile_mask8<MODE>(a.tiles, id, tb, lr, c);
+          // K12: only the columns of populated sub-blocks
+          unsigned kp = 0xffu;
+          if constexpr (subskip) kp = sgsub::keep<8>(a.pop, id, lr, c);
+          if (kp) bits = tile_mask8<MODE>(a.tiles, id, tb, lr, c) & kp;
         }
       }
       if (bits) {
@@ -418,7 +418,7 @@ static cudaError_t launch(const Args& a, int n_seg, cudaStream_t stream) {
   if (blocks == 0) return cudaSuccess;
   if (blocks > 0x7fffffffL) return cudaErrorInvalidConfiguration;
   if constexpr (MODE != TILE_BITS) {  // K12 takes unpacked tiles only
-    if (a.pop != nullptr) {
+    if (a.pop.bits != nullptr) {
       flash_gat_kernel<MODE, true><<<(unsigned)blocks, NTHREADS, 0, stream>>>(a);
       return cudaGetLastError();
     }
@@ -446,15 +446,14 @@ extern "C" int sg_flash_gat(const void* tiles, int tile_mode, int tb, int n_seg,
   using namespace sg::flash;
   if (tb % 32 || tb > MAX_TB || K > MAX_K || H < 1 || F < 1)
     return (int)cudaErrorInvalidValue;
-  if (pop != nullptr && (sb < ROWS || sb % ROWS || tb % sb || step_kind != nullptr ||
-                         tile_mode == TILE_BITS))
+  if (pop != nullptr && (sb < 1 || tb % sb || step_kind != nullptr || tile_mode == TILE_BITS))
     return (int)cudaErrorInvalidValue;
-  const int ns2 = pop != nullptr ? (tb / sb) * (tb / sb) : 0;
+  const int ns = pop != nullptr ? tb / sb : 0;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   Args a{tiles, tb, (tb + ROWS - 1) / ROWS, (F + FS - 1) / FS, H, F,
          seg_rb, seg_lo, seg_hi, seg_part, tile_cb,
          step_cb, step_tile, step_chunk, step_kind, lrow, slot_col, K,
-         pop, sb, (ns2 + 31) / 32, s1, n_s1, s2, n_s2, static_cast<const __nv_bfloat16*>(Wh), wvec, alpha,
+         {pop, sb, ns, (ns * ns + 31) / 32}, s1, n_s1, s2, n_s2, static_cast<const __nv_bfloat16*>(Wh), wvec, alpha,
          out, n_rows, m_out, l_out, pm, pl, pacc};
   cudaError_t err;
   switch (tile_mode) {

@@ -5,10 +5,29 @@
 //   out[r] = sum_c softmax_c(LeakyReLU(s1[r] + s2[c]) | edge(r, c)) * Wh[c]
 //
 // Replaces sgracex1_tpu/ops/flash_gat.py:flash_gat_forward (Pallas kernel
-// _flash_gat_kernel) and :flash_gat_hybrid_forward (_flash_hybrid_kernel)
+// _flash_gat_kernel), :flash_gat_hybrid_forward (_flash_hybrid_kernel) and
+// at H = 1 :flash_gat_forward_subskip (_flash_gat_kernel_subskip, K12)
 // where ops/flash_gat.flash_ring_shape_ok holds: int8 or bf16 tiles of
 // height 64..256, F = 64, H in {1, 2, 4}, chunks of whole 64-slot slabs.
-// The single-stage kernel (flash_gat.cu) keeps every other shape and K12.
+// The single-stage kernel (flash_gat.cu) keeps every other shape.
+//
+// K12 is K3 with the sub-block bitmap (subblock.cuh, any sb that divides
+// tb), compiled into its own instantiations (SUB; K3 and K6 build without
+// it). The host folds the bitmap into the live steps: at H = 1 a work item
+// holds every row of its tile, and a tile step loads only the 64-column
+// slabs that a populated sub-block meets (their mask in the step's last
+// field), which saves the slabs' copies as well as their work. Inside a
+// slab each thread clears the mask bits of its 16 columns that lie in empty
+// sub-blocks. The consumers' instructions bound this kernel, so the bitmap
+// costs a thread a few instructions a slab: its 16-column windows' first
+// sub-block column and span are worked out once a launch, its rows'
+// sub-block rows once a work item, and (sb >= 8 at tb = 256) its rows' bits
+// once a tile step by one funnel shift each (one for all four rows where
+// sb % 32 == 0: a warp's 32 rows then lie in one sub-block row). A warp
+// then skips the exps and MMAs of every m16n8k16 product of its 32 rows
+// whose positions hold no bit (one OR-reduction a slab), and the whole slab
+// where none does. What is skipped adds exact zeros, so
+// on a bitmap of the tiles' own edges K12 equals K3 bit for bit.
 //
 // What bounds it on the H100. The tensor work is small (2 * tb^2 * H * F a
 // live tile); the score work is not: every entry of a live tile and head
@@ -52,6 +71,7 @@
 // against this kernel's running max, not the TPU kernel's per-tile one.
 // Split runs leave (m, l, acc) partials that merge_ring combines in a fixed
 // order. No atomics.
+#include "subblock.cuh"
 #include "tile_ring.cuh"
 
 namespace sgfr {
@@ -97,7 +117,9 @@ struct Lay {
 struct FArgs {
   int tb, n_rg, n_work, mrows, K;
   const int *seg_rb, *seg_lo, *seg_hi, *seg_part;
-  const int4* step;          // (tile or -1, cb, chunk or -1, chunk slots to read) per live step
+  // (tile or -1, cb, chunk or -1, chunk slots to read) per live step; K12's
+  // tile steps hold no chunk and, last, the mask of the slabs to load
+  const int4* step;
   const int* lrow;           // [R, K]
   const int* slot_col;       // [R*K]
   const float* s1;           // [n_s1, H]
@@ -112,6 +134,7 @@ struct FArgs {
   float* pm;                 // split runs: [n_part, tb, H]
   float* pl;
   float* pacc;               // [n_part, tb, H, 64]
+  sgsub::Pop pop;            // K12: the sub-block bitmap
 };
 
 // s2 of one slot, H floats; zero-filled for a slot outside the CTA's rows
@@ -126,7 +149,7 @@ __device__ __forceinline__ void cp_async_s2(uint32_t dst, const float* src, bool
   }
 }
 
-template <int MODE, int H>
+template <int MODE, int H, bool SUB>
 __global__ void __launch_bounds__(NT, 1)
     flash_ring_kernel(const __grid_constant__ CUtensorMap map_m,
                       const __grid_constant__ CUtensorMap map_w, const FArgs a) {
@@ -175,7 +198,9 @@ __global__ void __launch_bounds__(NT, 1)
       for (int g = lo; g < hi; ++g) {
         const int4 st = a.step[g];
         if (st.x >= 0) {
+          const int sl = SUB ? st.w : ~0;  // K12: the 64-column slabs to load
           for (int k0 = 0; k0 < tb; k0 += KS) {
+            if (!((sl >> (k0 / KS)) & 1)) continue;
             mbar_wait(empty0 + 8 * stage, phase ^ 1);
             if (lane == 0) {
               const uint32_t dst = smem_u32(smem + stage * Y::STAGE), bar = full0 + 8 * stage;
@@ -236,6 +261,18 @@ __global__ void __launch_bounds__(NT, 1)
     }
     float acc[2][NH][8][4];
     float s1v[2][2][NH], m[2][2][NH], l[2][2][NH];
+    // K12: byte j of cs0p / spanp is the first sub-block column of this
+    // thread's 16-column window 64j + 16t .. + 15 and the sub-block columns
+    // it meets less one (tb <= 256: four slabs)
+    uint32_t cs0p = 0, spanp = 0;
+    if constexpr (SUB) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int c0 = 64 * j + 16 * t;
+        cs0p |= (uint32_t)(c0 / a.pop.sb) << (8 * j);
+        spanp |= (uint32_t)((c0 + 15) / a.pop.sb - c0 / a.pop.sb) << (8 * j);
+      }
+    }
 
     for (int w = blockIdx.x; w < a.n_work; w += gridDim.x) {
       const int seg = w / a.n_rg, row0 = (w - seg * a.n_rg) * C::R;
@@ -255,11 +292,43 @@ __global__ void __launch_bounds__(NT, 1)
 #pragma unroll
             for (int nj = 0; nj < 8; ++nj) acc[mi][hh][nj][2 * r2] = acc[mi][hh][nj][2 * r2 + 1] = 0.f;
           }
+      // K12: the first bit of each of the thread's rows' sub-block rows, and
+      // per tile step the tile's words and (ns <= 32) the rows' bits
+      int rbit[2][2];
+      uint32_t rowbits[2][2];
+      const int* prow = nullptr;
+      if constexpr (SUB) {
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+          for (int r2 = 0; r2 < 2; ++r2) rbit[mi][r2] = ((row0 + rloc + mi * 16 + g + 8 * r2) / a.pop.sb) * a.pop.ns;
+      }
 
-      auto slab = [&](bool chunk) {
+      auto slab = [&](bool chunk, int k0) {
         mbar_wait(full0 + 8 * stage, phase);
         const uint8_t* sp = smem + stage * Y::STAGE;
         if (active) {
+          // K12: the keep flags of the thread's 16 columns in each of its rows
+          uint32_t kp[2][2];
+          if constexpr (SUB) {
+            if (!chunk) {
+              const int j8 = 8 * (k0 / KS), cs0 = (cs0p >> j8) & 255, span = (spanp >> j8) & 255;
+              const int c0 = k0 + 16 * t;
+              if (a.pop.sb % 32 == 0) {  // the warp's 32 rows lie in one sub-block row
+                const uint32_t k = sgsub::expand<16>(rowbits[0][0] >> cs0, c0, a.pop.sb, span);
+                kp[0][0] = kp[0][1] = kp[1][0] = kp[1][1] = k;
+              } else {
+#pragma unroll
+                for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+                  for (int r2 = 0; r2 < 2; ++r2) {
+                    const uint32_t sub = a.pop.ns <= 32 ? rowbits[mi][r2] >> cs0
+                                                        : sgsub::bits_at(prow, a.pop.nw, rbit[mi][r2] + cs0);
+                    kp[mi][r2] = sgsub::expand<16>(sub, c0, a.pop.sb, span);
+                  }
+              }
+            }
+          }
           // the edge bits of the thread's rows at its 16 positions: bit
           // 4i + 2h2 + e is column cpos(i, h2) + e
           uint32_t bits[2][2];
@@ -282,8 +351,9 @@ __global__ void __launch_bounds__(NT, 1)
               } else {
                 // the edge flags of the thread's 16 columns in column order
                 // (bit c: column 16t + c), then in position order
-                const uint32_t c16 =
+                uint32_t c16 =
                     mask16<MODE>(sp + lr * Msk<MODE>::PITCH + (MODE == TILE_I8 ? 16 : 32) * t);
+                if constexpr (SUB) c16 &= kp[mi][r2];  // only the columns of populated sub-blocks
 #pragma unroll
                 for (int i = 0; i < 4; ++i) {
                   uint32_t n = (c16 >> (4 * (i ^ sw))) & 0xfu;  // columns 4q .. 4q + 3
@@ -293,8 +363,15 @@ __global__ void __launch_bounds__(NT, 1)
               }
               bits[mi][r2] = b;
             }
-          const bool any = (bits[0][0] | bits[0][1] | bits[1][0] | bits[1][1]) != 0;
-          if (__any_sync(FULL, any)) {
+          const uint32_t all4 = bits[0][0] | bits[0][1] | bits[1][0] | bits[1][1];
+          // K12: bit i set when product i holds a bit in the warp's 32 rows
+          uint32_t live4 = 0xfu;
+          if constexpr (SUB) {
+#pragma unroll
+            for (int i = 0; i < 4; ++i) live4 &= ~((uint32_t)(((all4 >> (4 * i)) & 0xfu) == 0u) << i);
+            live4 = __reduce_or_sync(FULL, live4);
+          }
+          if (__any_sync(FULL, all4 != 0u)) {
             const float* s2s = reinterpret_cast<const float*>(sp + Y::S2);
 #pragma unroll
             for (int hh = 0; hh < NH; ++hh) {
@@ -362,6 +439,7 @@ __global__ void __launch_bounds__(NT, 1)
               asm volatile("" ::: "memory");  // s2 is read again below, not kept in registers
 #pragma unroll
               for (int i = 0; i < 4; ++i) {
+                if (!((live4 >> i) & 1u)) continue;  // K12: the product adds nothing
                 float sp_[4], sn_[4];  // s2 L2E and alpha s2 L2E of the product's positions
 #pragma unroll
                 for (int j = 0; j < 4; ++j) {
@@ -379,7 +457,9 @@ __global__ void __launch_bounds__(NT, 1)
 #pragma unroll
                       for (int e = 0; e < 2; ++e) {
                         const int k = 4 * i + 2 * h2 + e;
-                        const float y = fmaxf(sp_[k & 3] + ap[mi][r2], sn_[k & 3] + an[mi][r2]);
+                        // __fadd_rn: never contracted into an FMA, so K12's and K3's
+                        // instantiations round the exponent alike
+                        const float y = fmaxf(__fadd_rn(sp_[k & 3], ap[mi][r2]), __fadd_rn(sn_[k & 3], an[mi][r2]));
                         p[e] = ((bits[mi][r2] >> k) & 1u) ? ex2(y) : 0.f;
                       }
                       l[mi][r2][hh] += p[0] + p[1];
@@ -406,10 +486,25 @@ __global__ void __launch_bounds__(NT, 1)
 
       for (int gi = lo; gi < hi; ++gi) {
         const int4 st = a.step[gi];
-        if (st.x >= 0)
-          for (int k0 = 0; k0 < tb; k0 += KS) slab(false);
+        if (st.x >= 0) {
+          int sl = ~0;
+          if constexpr (SUB) {
+            sl = st.w;
+            prow = a.pop.bits + (long)st.x * a.pop.nw;
+            if (a.pop.sb % 32 == 0 && active) {
+              rowbits[0][0] = sgsub::bits_at(prow, a.pop.nw, rbit[0][0]);
+            } else if (a.pop.ns <= 32 && active) {
+#pragma unroll
+              for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+                for (int r2 = 0; r2 < 2; ++r2) rowbits[mi][r2] = sgsub::bits_at(prow, a.pop.nw, rbit[mi][r2]);
+            }
+          }
+          for (int k0 = 0; k0 < tb; k0 += KS)
+            if ((sl >> (k0 / KS)) & 1) slab(false, k0);
+        }
         if (st.z >= 0)
-          for (int k0 = 0; k0 < st.w; k0 += KS) slab(true);
+          for (int k0 = 0; k0 < st.w; k0 += KS) slab(true, k0);
       }
 
       // epilogue from registers: the run's result, or this segment's partial
@@ -495,7 +590,38 @@ __global__ void merge_ring(const float* pm, const float* pl, const float* pacc, 
   *reinterpret_cast<float2*>(out + (grow * H + h) * FH + 2 * lane) = make_float2(sum.x * inv, sum.y * inv);
 }
 
-template <int MODE, int H>
+// K12's fold of the bitmap into the live steps (ops/flash_gat.
+// subskip_schedule is its plain version): one warp a step; the lanes walk
+// the set bits of the step's tile, each a sub-block whose column meets
+// 64-column slabs j0 .. j1, and OR their slab masks. The step keeps its
+// place with the mask in its last field, or with no tile where the mask is
+// empty.
+__global__ void subskip_fold(const int4* step, int n_step, sgsub::Pop pop, int4* out) {
+  const long warp = (blockIdx.x * (long)blockDim.x + threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
+  if (warp >= n_step) return;
+  const int4 st = step[warp];
+  uint32_t m = 0;
+  if (st.x >= 0) {
+    const int* row = pop.bits + (long)st.x * pop.nw;
+    const int n_bits = pop.ns * pop.ns;
+    for (int w = lane; w < pop.nw; w += 32) {
+      uint32_t x = (uint32_t)__ldg(row + w);
+      while (x != 0u) {
+        const int bit = 32 * w + __ffs(x) - 1;
+        x &= x - 1u;
+        if (bit >= n_bits) break;
+        const int c0 = (bit % pop.ns) * pop.sb;  // the sub-block's first column
+        const int j0 = c0 / KS, j1 = (c0 + pop.sb - 1) / KS;
+        m |= ((2u << j1) - 1u) & ~((1u << j0) - 1u);
+      }
+    }
+    m = __reduce_or_sync(FULL, m);
+  }
+  if (lane == 0) out[warp] = make_int4(m != 0u ? st.x : -1, st.y, st.z, (int)m);
+}
+
+template <int MODE, int H, bool SUB = false>
 static int launch(const void* tiles, long n_tiles, int n_seg, int n_wh, int n_sm, FArgs args,
                   cudaStream_t stream) {
   using C = Cfg<H>;
@@ -512,7 +638,7 @@ static int launch(const void* tiles, long n_tiles, int n_seg, int n_wh, int n_sm
   if (err) return err;
   err = encode_2d(&map_w, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, args.Wh, n_wh, C::HF, KS, C::BW);
   if (err) return err;
-  auto kernel = flash_ring_kernel<MODE, H>;
+  auto kernel = flash_ring_kernel<MODE, H, SUB>;
   constexpr int SMEM = Lay<MODE, H>::SMEM;
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
   if (e != cudaSuccess) return (int)e;
@@ -525,6 +651,9 @@ static int launch(const void* tiles, long n_tiles, int n_seg, int n_wh, int n_sm
 template <int MODE>
 static int launch_heads(int H, const void* tiles, long n_tiles, int n_seg, int n_wh, int n_sm,
                         const FArgs& args, cudaStream_t stream) {
+  if (args.pop.bits != nullptr)  // K12: one head
+    return H == 1 ? launch<MODE, 1, true>(tiles, n_tiles, n_seg, n_wh, n_sm, args, stream)
+                  : (int)cudaErrorInvalidValue;
   switch (H) {
     case 1: return launch<MODE, 1>(tiles, n_tiles, n_seg, n_wh, n_sm, args, stream);
     case 2: return launch<MODE, 2>(tiles, n_tiles, n_seg, n_wh, n_sm, args, stream);
@@ -535,11 +664,12 @@ static int launch_heads(int H, const void* tiles, long n_tiles, int n_seg, int n
 
 }  // namespace sgfr
 
-// K3 (a tile-only live schedule, K = 0) and K6 (a fused plan's live
-// schedule) on the ring kernel: int8 (mode 2) or bf16 (mode 0) tiles,
-// tb % 64 == 0 and tb <= 256, F = 64, H in {1, 2, 4}, K % 64 == 0. Wh is
-// bf16 [n_wh, H * 64], s2p f32 [n_ct * tb, H]. Returns 0, a cudaError_t, or
-// 10000 + a CUresult of the tensor-map encoder.
+// K3 (a tile-only live schedule, K = 0), K6 (a fused plan's live
+// schedule) and K12 (K3's live steps with their slab masks, the bitmap
+// ``pop`` of sub-blocks of sb, H = 1) on the ring kernel: int8 (mode 2) or
+// bf16 (mode 0) tiles, tb % 64 == 0 and tb <= 256, F = 64, H in {1, 2, 4},
+// K % 64 == 0. Wh is bf16 [n_wh, H * 64], s2p f32 [n_ct * tb, H]. Returns
+// 0, a cudaError_t, or 10000 + a CUresult of the tensor-map encoder.
 extern "C" int sg_flash_gat_ring(const void* tiles, int tile_mode, int tb, long n_tiles, int n_seg,
                                  const int* seg_rb, const int* seg_lo, const int* seg_hi,
                                  const int* seg_part, int n_fin, const int* fin_rb,
@@ -547,16 +677,20 @@ extern "C" int sg_flash_gat_ring(const void* tiles, int tile_mode, int tb, long 
                                  const int* lrow, const int* slot_col, int K, const float* s1,
                                  int n_s1, const float* s2p, const void* Wh, int n_wh, int H,
                                  float alpha, float* out, int n_rows, float* m_out, float* l_out,
-                                 float* pm, float* pl, float* pacc, int n_sm, void* stream_ptr) {
+                                 float* pm, float* pl, float* pacc, const int* pop, int sb, int n_sm,
+                                 void* stream_ptr) {
   using namespace sgfr;
   if (tb % 64 || tb > 256 || tb < 64 || K % 64 || (K > 0 && (lrow == nullptr || slot_col == nullptr)))
     return (int)cudaErrorInvalidValue;
+  // K12 runs one head, every row of a tile in one work item, no chunk
+  if (pop != nullptr && (sb < 1 || tb % sb || H != 1 || K != 0)) return (int)cudaErrorInvalidValue;
+  const int ns = pop != nullptr ? tb / sb : 0;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   FArgs args{tb, 0, 0, 0, K,
              seg_rb, seg_lo, seg_hi, seg_part,
              reinterpret_cast<const int4*>(step), lrow, slot_col,
              s1, n_s1, s2p, static_cast<const __nv_bfloat16*>(Wh), alpha,
-             out, n_rows, m_out, l_out, pm, pl, pacc};
+             out, n_rows, m_out, l_out, pm, pl, pacc, {pop, sb, ns, (ns * ns + 31) / 32}};
   int err;
   switch (tile_mode) {
     case TILE_I8: err = launch_heads<TILE_I8>(H, tiles, n_tiles, n_seg, n_wh, n_sm, args, stream); break;
@@ -567,5 +701,21 @@ extern "C" int sg_flash_gat_ring(const void* tiles, int tile_mode, int tb, long 
   const long threads = (long)n_fin * tb * H * 32;
   merge_ring<<<(unsigned)((threads + 255) / 256), 256, 0, stream>>>(
       pm, pl, pacc, fin_rb, fin_p0, fin_np, n_fin, tb, H, n_rows, out, m_out, l_out);
+  return (int)cudaGetLastError();
+}
+
+// K12's slab masks on the card: ``out`` [n_step] int4 from the live steps
+// ``step`` of a tile-only schedule and the bitmap ``pop`` [T, ceil((tb/sb)^2
+// / 32)] of sub-blocks of sb. Returns the cudaError_t of the launch.
+extern "C" int sg_subskip_fold(const int* step, int n_step, const int* pop, int tb, int sb, int* out,
+                               void* stream_ptr) {
+  using namespace sgfr;
+  if (sb < 1 || tb % sb || tb > 256) return (int)cudaErrorInvalidValue;
+  if (n_step == 0) return 0;
+  const int ns = tb / sb;
+  const long threads = (long)n_step * 32;
+  subskip_fold<<<(unsigned)((threads + 255) / 256), 256, 0, static_cast<cudaStream_t>(stream_ptr)>>>(
+      reinterpret_cast<const int4*>(step), n_step, sgsub::Pop{pop, sb, ns, (ns * ns + 31) / 32},
+      reinterpret_cast<int4*>(out));
   return (int)cudaGetLastError();
 }

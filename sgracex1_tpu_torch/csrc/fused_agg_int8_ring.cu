@@ -1,11 +1,17 @@
-// Full-integer fused aggregation on Hopper, ring design: out = Aq @ Hq exact
-// in int32 over shifted-int8 tiles and value-carrying remainder chunks.
+// Full-integer aggregation on Hopper, ring design: out = Aq @ Hq exact in
+// int32 over shifted-int8 tiles and value-carrying remainder chunks.
 //
 // Replaces sgracex1_tpu/ops/fused_agg.py:bsr_spmm_int8_fused (Pallas kernel
 // _fused_int8_kernel), as fused_agg_int8.cu does, for tiles of height
 // 64..256, P % 16 == 0 and K % 64 == 0 on a plan that carries the int8 ring
 // schedule (ops/fused_agg.int8_ring_shape_ok, FusedAggPlan.edge_ring); the
-// other forms stay on fused_agg_int8.cu.
+// other forms stay on fused_agg_int8.cu. With no chunks it also replaces
+// sgracex1_tpu/ops/bsr.py:bsr_spmm_int8 (Pallas kernel _bsr_int8_kernel),
+// as bsr_spmm_int8.cu does, on the tile steps of BSRMatrix.edge_ring
+// (ops/bsr.int8_ring_shape_ok_k7: any tile height a multiple of 64). A work
+// item owns th <= 256 rows: the whole tile, or for taller tiles one row
+// piece of it (tb = 512: two halves), whose tile steps reduce over the whole
+// tile width tw; the TMA box then reads th rows of a tw-byte-pitch tile.
 //
 // Bound on the H100: bytes (the tiles that carry an edge, 64 KB each at
 // tb = 256, Hq, the gathered chunk rows and the int32 output), far above
@@ -55,10 +61,10 @@ constexpr int LV_OFF = B_AREA;           // a chunk slab's row and value bytes, 
 static_assert(SMEM <= 232448, "the ring must fit a CTA's shared memory");
 
 struct Args {
-  int tb, n_work, n_fs;
+  int th, tw, n_work, n_fs;  // rows a work item owns (a whole tile or a row piece), tile width
   const int *seg_rb, *seg_lo, *seg_hi, *seg_part;
-  const int4* step;      // (tile or -1, cb, chunk or -1, chunk slots to read) per live step
-  const int* lrow;       // [R, K]; tb marks a dead slot
+  const int4* step;      // (row piece or -1, cb, chunk or -1, chunk slots to read) per live step
+  const int* lrow;       // [R, K]; th marks a dead slot
   const int* slot_col;   // [R*K]
   const uint8_t* lv8;    // [R*K/64, 128]: each slab's 64 row bytes, then its 64 value bytes
   int K;
@@ -123,13 +129,13 @@ __device__ __forceinline__ void transpose_rows(const uint8_t* rows, uint8_t* T) 
 }
 
 template <bool SPLIT>
-__device__ __forceinline__ void store_i32(int (&acc)[4][8][4], const Lane& L, int rb, int tb, int p0,
+__device__ __forceinline__ void store_i32(int (&acc)[4][8][4], const Lane& L, int rb, int th, int p0,
                                           int P, int n_rows, int* dst_base, int part) {
   const bool odd = (L.t & 1) != 0;
 #pragma unroll
   for (int mi = 0; mi < 4; ++mi) {
     const int lr = L.wm * 64 + mi * 16 + L.g + (odd ? 8 : 0);
-    const long grow = (long)rb * tb + lr;
+    const long grow = (long)rb * th + lr;
 #pragma unroll
     for (int nj = 0; nj < 8; ++nj) {
       int(&c)[4] = acc[mi][nj];
@@ -140,7 +146,7 @@ __device__ __forceinline__ void store_i32(int (&acc)[4][8][4], const Lane& L, in
       const int col = p0 + L.wn * 64 + nj * 8 + 4 * (L.t >> 1);
       if (col >= P) continue;
       if (SPLIT)
-        *reinterpret_cast<int4*>(dst_base + ((long)part * tb + lr) * P + col) = v;
+        *reinterpret_cast<int4*>(dst_base + ((long)part * th + lr) * P + col) = v;
       else if (grow < n_rows)
         *reinterpret_cast<int4*>(dst_base + grow * P + col) = v;
     }
@@ -154,7 +160,7 @@ __global__ void __launch_bounds__(NTHREADS, 1)
   uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   uint64_t* bars = reinterpret_cast<uint64_t*>(smem + NST * STAGE);
   const uint32_t full0 = smem_u32(bars), empty0 = smem_u32(bars + NST);
-  const int tb = p.tb;
+  const int th = p.th, tw = p.tw;
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < NST; ++s) {
@@ -180,7 +186,7 @@ __global__ void __launch_bounds__(NTHREADS, 1)
     // ------------------------------------------------------------ producer
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
     if (warp != CONSUMER_WARPS) return;
-    const uint32_t tile_tx = (uint32_t)tb * SLAB + B_AREA;
+    const uint32_t tile_tx = (uint32_t)th * SLAB + B_AREA;
     // every index is loaded one step ahead, as in K2's ring
     const int w0 = blockIdx.x;
     int lo = 0, hi = 0;
@@ -202,30 +208,30 @@ __global__ void __launch_bounds__(NTHREADS, 1)
         const int4 st = nxt;
         nxt = g + 1 < hi ? p.step[g + 1] : (lo_n < hi_n ? p.step[lo_n] : none);
         if (st.x >= 0) {
-          for (int k0 = 0; k0 < tb; k0 += SLAB) {
+          for (int k0 = 0; k0 < tw; k0 += SLAB) {
             mbar_wait(empty0 + 8 * stage, phase ^ 1);
             if (lane == 0) {
               const uint32_t a_dst = smem_u32(smem + stage * STAGE);
               const uint32_t bar = full0 + 8 * stage;
               mbar_expect_tx(bar, tile_tx);
-              tma_load_2d(a_dst, &map_a, bar, k0, st.x * tb);
-              tma_load_2d(a_dst + A_AREA, &map_b, bar, st.y * tb + k0, p0);
+              tma_load_2d(a_dst, &map_a, bar, k0, st.x * th);
+              tma_load_2d(a_dst + A_AREA, &map_b, bar, st.y * tw + k0, p0);
             }
             advance();
           }
         }
         if (st.z >= 0 && st.w > 0) {
-          // the gather columns of a slab's 64 slots, a dead slot (lrow == tb)
+          // the gather columns of a slab's 64 slots, a dead slot (lrow == th)
           // -1: its row is zero-filled, never read (its value is 0 anyway)
           const int* cols = p.slot_col + (long)st.z * p.K;
           const int* rows = p.lrow + (long)st.z * p.K;
-          int c0 = rows[lane] < tb ? cols[lane] : -1;
-          int c1 = rows[32 + lane] < tb ? cols[32 + lane] : -1;
+          int c0 = rows[lane] < th ? cols[lane] : -1;
+          int c1 = rows[32 + lane] < th ? cols[32 + lane] : -1;
           for (int k0 = 0; k0 < st.w; k0 += SLAB) {
             int n0 = -1, n1 = -1;
             if (k0 + SLAB < st.w) {
-              n0 = rows[k0 + SLAB + lane] < tb ? cols[k0 + SLAB + lane] : -1;
-              n1 = rows[k0 + SLAB + 32 + lane] < tb ? cols[k0 + SLAB + 32 + lane] : -1;
+              n0 = rows[k0 + SLAB + lane] < th ? cols[k0 + SLAB + lane] : -1;
+              n1 = rows[k0 + SLAB + 32 + lane] < th ? cols[k0 + SLAB + 32 + lane] : -1;
             }
             mbar_wait(empty0 + 8 * stage, phase ^ 1);
             const uint32_t a_dst = smem_u32(smem + stage * STAGE);
@@ -258,7 +264,7 @@ __global__ void __launch_bounds__(NTHREADS, 1)
     // ----------------------------------------------------------- consumers
     asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
     const Lane L = make_lane<TILE_I8>();
-    const bool active = L.wm * 64 < tb;  // tb % 64 == 0: a warp's rows are all in or all out
+    const bool active = L.wm * 64 < th;  // th % 64 == 0: a warp's rows are all in or all out
     int acc[4][8][4];
     const int w0 = blockIdx.x;
     int lo = 0, hi = 0, rb = 0, part = -1;
@@ -296,7 +302,7 @@ __global__ void __launch_bounds__(NTHREADS, 1)
         const int4 st = nxt;
         nxt = g + 1 < hi ? p.step[g + 1] : (lo_n < hi_n ? p.step[lo_n] : none);
         if (st.x >= 0) {
-          for (int k0 = 0; k0 < tb; k0 += SLAB) {
+          for (int k0 = 0; k0 < tw; k0 += SLAB) {
             const uint8_t* a_ptr = smem + stage * STAGE;
             mbar_wait(full0 + 8 * stage, phase);
             if (active) {
@@ -346,9 +352,9 @@ __global__ void __launch_bounds__(NTHREADS, 1)
       }
       if (active) {
         if (part >= 0)
-          store_i32<true>(acc, L, rb, tb, p0, p.P, p.n_rows, p.partial, part);
+          store_i32<true>(acc, L, rb, th, p0, p.P, p.n_rows, p.partial, part);
         else
-          store_i32<false>(acc, L, rb, tb, p0, p.P, p.n_rows, p.out, part);
+          store_i32<false>(acc, L, rb, th, p0, p.P, p.n_rows, p.out, part);
       }
       lo = lo_n;
       hi = hi_n;
@@ -361,19 +367,19 @@ __global__ void __launch_bounds__(NTHREADS, 1)
 // Sums the int32 partials of each split run in a fixed order, four features
 // a thread.
 __global__ void finalize_i32(const int* partial, const int* fin_rb, const int* fin_p0,
-                             const int* fin_np, int n_fin, int tb, int P, int n_rows, int* out) {
+                             const int* fin_np, int n_fin, int th, int P, int n_rows, int* out) {
   const int P4 = P >> 2;
-  const long total = (long)n_fin * tb * P4;
+  const long total = (long)n_fin * th * P4;
   for (long idx = blockIdx.x * (long)blockDim.x + threadIdx.x; idx < total;
        idx += (long)gridDim.x * blockDim.x) {
-    const int f = (int)(idx / ((long)tb * P4));
-    const long rem = idx - (long)f * tb * P4;
+    const int f = (int)(idx / ((long)th * P4));
+    const long rem = idx - (long)f * th * P4;
     const int lr = (int)(rem / P4);
     const int c = (int)(rem - (long)lr * P4) * 4;
-    const long grow = (long)fin_rb[f] * tb + lr;
+    const long grow = (long)fin_rb[f] * th + lr;
     if (grow >= n_rows) continue;
-    const int* src = partial + ((long)fin_p0[f] * tb + lr) * P + c;
-    const long stride = (long)tb * P;
+    const int* src = partial + ((long)fin_p0[f] * th + lr) * P + c;
+    const long stride = (long)th * P;
     uint4 acc = make_uint4(0u, 0u, 0u, 0u);  // int32 sums wrap as the reference's do
     for (int q = 0; q < fin_np[f]; ++q) {
       const uint4 v = *reinterpret_cast<const uint4*>(src + q * stride);
@@ -422,10 +428,14 @@ extern "C" int sg_stage_hqt(const void* Hq, int n_valid, int P, void* HqT, int r
 }
 
 // Returns 0, the cudaError_t of the launches, or 10000 + the CUresult of the
-// tensor-map encoder. ``HqT`` is int8 [P, n_pad] (sg_stage_hqt), ``Hq`` the
-// int8 [>= n_cols, P] it came from; ``out`` int32 [n_rows, P], ``partial``
-// int32 [n_part, tb, P].
-extern "C" int sg_fused_agg_int8_ring(const void* tiles, int tb, long n_tiles, int n_seg,
+// tensor-map encoder. ``tiles`` is int8 [n_pieces * th, tw]: tiles of height
+// tb and width tw = tb cut into row pieces of th rows each (th = tb where
+// tb <= 256), piece i of tile t at index t * (tb / th) + i. The schedule's
+// row blocks count pieces, rows of piece block q are q * th .. + th. ``HqT``
+// is int8 [P, n_pad] (sg_stage_hqt), ``Hq`` the int8 [>= n_cols, P] it came
+// from; ``out`` int32 [n_rows, P], ``partial`` int32 [n_part, th, P]. K8
+// passes th = tw = tb; K7 passes no chunk arrays (K = 0: no chunk step).
+extern "C" int sg_fused_agg_int8_ring(const void* tiles, int th, int tw, long n_pieces, int n_seg,
                                       const int* seg_rb, const int* seg_lo, const int* seg_hi,
                                       const int* seg_part, int n_fin, const int* fin_rb,
                                       const int* fin_p0, const int* fin_np, const void* step,
@@ -434,16 +444,18 @@ extern "C" int sg_fused_agg_int8_ring(const void* tiles, int tb, long n_tiles, i
                                       int* partial, int n_rows, int n_sm, void* stream_ptr) {
   using namespace sgr;
   using namespace sgi;
-  if (tb % 64 || tb > RM || P % 16 || K % SLAB || n_pad % 64) return (int)cudaErrorInvalidValue;
+  if (th % 64 || th > RM || tw % 64 || tw < th || P % 16 || K % SLAB || n_pad % 64)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   CUtensorMap map_a, map_b;
-  int err = encode_2d(&map_a, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, tiles, (uint64_t)n_tiles * tb, tb,
-                      tb, SLAB);
+  int err = encode_2d(&map_a, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, tiles, (uint64_t)n_pieces * th, tw,
+                      th, SLAB);
   if (err) return err;
   err = encode_2d(&map_b, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, HqT, P, n_pad, BN, SLAB);
   if (err) return err;
   Args a{};
-  a.tb = tb;
+  a.th = th;
+  a.tw = tw;
   a.n_fs = (P + BN - 1) / BN;
   a.n_work = n_seg * a.n_fs;
   a.seg_rb = seg_rb; a.seg_lo = seg_lo; a.seg_hi = seg_hi; a.seg_part = seg_part;
@@ -457,8 +469,8 @@ extern "C" int sg_fused_agg_int8_ring(const void* tiles, int tb, long n_tiles, i
   if (grid > 0) agg_ring_i8_kernel<<<grid, NTHREADS, SMEM, stream>>>(map_a, map_b, a);
   e = cudaGetLastError();
   if (e != cudaSuccess || n_fin == 0) return (int)e;
-  const long total = (long)n_fin * tb * (P >> 2);
+  const long total = (long)n_fin * th * (P >> 2);
   const int blocks = (int)((total + 255) / 256 < 65536 ? (total + 255) / 256 : 65536);
-  finalize_i32<<<blocks, 256, 0, stream>>>(partial, fin_rb, fin_p0, fin_np, n_fin, tb, P, n_rows, out);
+  finalize_i32<<<blocks, 256, 0, stream>>>(partial, fin_rb, fin_p0, fin_np, n_fin, th, P, n_rows, out);
   return (int)cudaGetLastError();
 }

@@ -175,8 +175,10 @@ def _declare(lib: ctypes.CDLL) -> None:
         p, p, p, i,  # step, lrow, slot_col, K
         p, i, p, p, i, i, ctypes.c_float,  # s1, n_s1, s2p, Wh (bf16), n_wh, H, alpha
         p, i, p, p,  # out, n_rows, m_out, l_out
-        p, p, p, i, p,  # pm, pl, pacc, n_sm, stream
+        p, p, p, p, i, i, p,  # pm, pl, pacc, pop, sb (K12), n_sm, stream
     ]
+    lib.sg_subskip_fold.restype = i
+    lib.sg_subskip_fold.argtypes = [p, i, p, i, i, p, p]  # step, n_step, pop, tb, sb, out, stream
     lib.sg_flash_gat_bwd_ring.restype = i
     lib.sg_flash_gat_bwd_ring.argtypes = [
         i, p, i, i, ctypes.c_long, i, p, p, p, p,  # col, tiles, mode, tb, n_tiles, n_seg, seg_rb/lo/hi/part
@@ -203,7 +205,7 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.sg_stage_hqt.argtypes = [p, i, i, p, i, p]  # Hq, n_valid, P, HqT, rows, stream
     lib.sg_fused_agg_int8_ring.restype = i
     lib.sg_fused_agg_int8_ring.argtypes = [
-        p, i, ctypes.c_long, i, p, p, p, p,  # tiles, tb, n_tiles, n_seg, seg_rb/lo/hi/part
+        p, i, i, ctypes.c_long, i, p, p, p, p,  # tiles, th, tw, n_pieces, n_seg, seg_rb/lo/hi/part
         i, p, p, p,  # n_fin, fin_rb/p0/np
         p, p, p, p, i,  # step, lrow, slot_col, slot_lv8, K
         p, i, p, i,  # HqT, n_pad, Hq, P

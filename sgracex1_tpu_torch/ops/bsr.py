@@ -24,8 +24,12 @@ on a CPU tensor it runs ``bsr_spmm_rowloop_plain``.
 
 Kernel K7, ``bsr_spmm_int8``: the exact int32 ``Aq @ Hq`` over shifted-int8
 value tiles (``quant/int8.bsr_int8_from_sparse``), as
-``sgracex1_tpu.ops.bsr.bsr_spmm_int8``: ``csrc/bsr_spmm_int8.cu`` on a CUDA
-tensor, ``bsr_spmm_int8_plain`` on a CPU tensor.
+``sgracex1_tpu.ops.bsr.bsr_spmm_int8``. On a CUDA tensor it launches the int8
+ring kernel ``csrc/fused_agg_int8_ring.cu`` at the shapes
+``int8_ring_shape_ok_k7`` names (u8 x s8 tensor-core products over the tiles
+that carry an edge, ``BSRMatrix.edge_ring``, tiles taller than 256 rows cut
+into row pieces), else the single-stage kernel ``csrc/bsr_spmm_int8.cu``; on
+a CPU tensor it runs ``bsr_spmm_int8_plain``.
 """
 
 from __future__ import annotations
@@ -220,7 +224,7 @@ class BSRMatrix:
     single-stage flash backward K5 walks them on the tiles as they are; the
     ring K5 walks ``live_t``, the transposed live tiles, built at first use
     and kept with this object (the live tiles' bytes again; not for packed
-    tiles)."""
+    tiles). The ring K7 walks ``edge_ring``, likewise built at first use."""
 
     tiles: torch.Tensor
     tile_rb: torch.Tensor  # int32[T]
@@ -251,6 +255,12 @@ class BSRMatrix:
         """``live_transpose(self)``, built at first use and kept with this
         tile set (the ring K5 walks its ``ring``)."""
         return live_transpose(self)
+
+    @functools.cached_property
+    def edge_ring(self) -> LiveSchedule:
+        """``int8_edge_schedule(self)``, built at first use and kept with
+        this tile set (the ring K7 walks it; shifted-int8 tiles only)."""
+        return int8_edge_schedule(self)
 
     def to(self, device) -> "BSRMatrix":
         return dataclasses.replace(
@@ -1048,18 +1058,74 @@ def _int8_launch_args(B: BSRMatrix, S: RunSegments, Hq: torch.Tensor, n_out: int
     )
 
 
-def bsr_spmm_int8(B: BSRMatrix, Hq: torch.Tensor) -> torch.Tensor:
-    """K7: the exact int32 ``Aq @ Hq`` over shifted-int8 value tiles
-    (the 0..255 grid stored minus 128; absent positions and cover tiles
-    hold -128). ``Hq`` is signed int8 [N, P], rows past N read as zero; any
-    P runs (the kernel guards the feature dimension, nothing is padded).
-    Returns int32 [n_rt * tb, P]. A CPU tensor runs
-    ``bsr_spmm_int8_plain``; a CUDA tensor launches
-    ``csrc/bsr_spmm_int8.cu`` or raises."""
-    if Hq.device.type == "cpu":
-        return bsr_spmm_int8_plain(B, Hq)
-    if Hq.device.type != "cuda":
-        raise ValueError(f"bsr_spmm_int8 runs on cpu or cuda, not {Hq.device}")
+def int8_ring_shape_ok_k7(tb: int, P: int, data_ptr: int = 0) -> bool:
+    """Whether the int8 ring kernel (csrc/fused_agg_int8_ring.cu) takes K7's
+    operands: a tile height that is a multiple of 64 (a slab is 64 deep;
+    tiles taller than 256 rows are walked in row pieces, ``k7_row_piece``),
+    Hq rows of whole 16-byte pieces at a 16-byte-aligned address (the B
+    operand is staged transposed by 16-byte loads). Everything else goes to
+    the single-stage kernel. The rule reads shapes and the address only."""
+    return tb > 0 and tb % 64 == 0 and P % 16 == 0 and data_ptr % 16 == 0
+
+
+def k7_row_piece(tb: int) -> int:
+    """Rows of one work item of the ring K7: the largest multiple of 64 up
+    to 256 that divides ``tb`` (one CTA owns at most 256 rows), so a tile
+    of height 512 is two work items over its row halves, 256 and below one."""
+    return next(th for th in (256, 192, 128, 64) if tb % th == 0)
+
+
+def int8_edge_schedule(B: BSRMatrix) -> LiveSchedule:
+    """The ring K7's schedule over shifted-int8 tiles: each tile cut into
+    ``tb / th`` row pieces of ``th = k7_row_piece(tb)`` rows (piece ``i`` of
+    tile ``t`` is ``t * (tb / th) + i``), and a tile step for every piece
+    that holds a byte other than -128, i.e. a nonzero value on the unsigned
+    grid. A piece of -128 bytes only is Aq = 0 and adds nothing once the
+    kernel flips bit 7, so it is dropped (``BSRMatrix.live`` keeps every
+    shifted tile: K1 reads the bytes as they are). The row blocks of the
+    schedule count pieces, ``tb / th`` of them a tile row block, and every
+    one keeps a work item, so rows whose pieces are all dropped are written
+    as zeros. The flags come from the tiles: one max a piece on their
+    device, then the host build."""
+    tb, T = B.tb, B.num_tiles
+    th = k7_row_piece(tb)
+    nh = tb // th
+    edge = _np(B.tiles.reshape(T * nh, th * tb).amax(dim=1) > -128)
+    prb = (_np(B.tile_rb).astype(np.int64)[:, None] * nh + np.arange(nh)).reshape(-1)
+    order = np.argsort(prb, kind="stable")
+    piece = np.arange(T * nh)[order]
+    return live_schedule(
+        prb[order], np.where(edge[order], piece, -1), np.repeat(_np(B.tile_cb), nh)[order],
+        np.full(T * nh, -1), B.n_row_tiles * nh, B.tiles.device,
+        n_dead_tile_steps=int((~edge).sum()),
+    )
+
+
+def stage_hqt_plain(Hq: torch.Tensor, rows: int, n_valid: int) -> torch.Tensor:
+    """Plain PyTorch version of the int8 ring's pre-pass: Hq transposed,
+    int8 [P, rows], zero columns from ``n_valid`` on. The tensor cores take
+    an int8 B operand K-major only, and a tile step's B is a block of node
+    rows, so K7 and K8 read it from here."""
+    HqT = torch.zeros((Hq.shape[1], rows), dtype=torch.int8, device=Hq.device)
+    HqT[:, :n_valid] = Hq[:n_valid].t()
+    return HqT
+
+
+def _stage_hqt(Hq: torch.Tensor, rows: int, n_valid: int) -> torch.Tensor:
+    """``stage_hqt_plain``'s result by the pre-pass kernel of
+    csrc/fused_agg_int8_ring.cu."""
+    HqT = torch.empty((Hq.shape[1], rows), dtype=torch.int8, device=Hq.device)
+    err = _cuda.library().sg_stage_hqt(
+        _ptr(Hq), n_valid, Hq.shape[1], _ptr(HqT), rows,
+        ctypes.c_void_p(torch.cuda.current_stream(Hq.device).cuda_stream),
+    )
+    _cuda.check(err, "stage_hqt")
+    return HqT
+
+
+def _bsr_spmm_int8_single(B: BSRMatrix, Hq: torch.Tensor) -> torch.Tensor:
+    """K7 by the single-stage kernel ``csrc/bsr_spmm_int8.cu``: every tile
+    of ``B.segments``, the shift undone by column sums."""
     S = B.segments
     n_out = B.n_row_tiles * B.tb
     vec, vec4, colsum, out, partial = _int8_launch_args(B, S, Hq, n_out)
@@ -1076,7 +1142,58 @@ def bsr_spmm_int8(B: BSRMatrix, Hq: torch.Tensor) -> torch.Tensor:
     )
     _cuda.check(err, "bsr_spmm_int8")
     bsr_spmm_int8.launches += 1
+    bsr_spmm_int8.launches_single += 1
     return out
 
 
+def _bsr_spmm_int8_ring(B: BSRMatrix, Hq: torch.Tensor) -> torch.Tensor:
+    """K7 by the int8 ring kernel ``csrc/fused_agg_int8_ring.cu`` over
+    ``B.edge_ring`` (tile steps only): Hq staged transposed once, u8 x s8
+    products, a work item a row piece of ``k7_row_piece(tb)`` rows."""
+    _check_int8_operands(B, Hq)
+    tb, P = B.tb, Hq.shape[1]
+    if not int8_ring_shape_ok_k7(tb, P, Hq.data_ptr()):
+        raise ValueError(f"the int8 ring kernel does not take K7 at tb={tb}, P={P}")
+    if not Hq.is_contiguous():
+        raise ValueError("Hq must be contiguous")
+    L = B.edge_ring
+    S = L.segments
+    _check_cuda_operands(dict(tiles=B.tiles, step=L.step, **S.tensors()), Hq.device)
+    th = k7_row_piece(tb)
+    n_pad, n_out = _round_up(B.n_cols, tb), B.n_row_tiles * tb
+    HqT = _stage_hqt(Hq, n_pad, min(Hq.shape[0], B.n_cols))
+    out = torch.empty((n_out, P), dtype=torch.int32, device=Hq.device)
+    partial = torch.empty((max(S.n_part, 1), th, P), dtype=torch.int32, device=Hq.device)
+    err = _cuda.library().sg_fused_agg_int8_ring(
+        _ptr(B.tiles), th, tb, B.num_tiles * (tb // th), *_seg_args(S), _ptr(L.step), _ptr(None),
+        _ptr(None), _ptr(None), 0, _ptr(HqT), n_pad, _ptr(Hq), P, _ptr(out), _ptr(partial), n_out,
+        torch.cuda.get_device_properties(Hq.device).multi_processor_count,
+        ctypes.c_void_p(torch.cuda.current_stream(Hq.device).cuda_stream),
+    )
+    _cuda.check(err, "bsr_spmm_int8_ring")
+    bsr_spmm_int8.launches += 1
+    bsr_spmm_int8.launches_ring += 1
+    return out
+
+
+def bsr_spmm_int8(B: BSRMatrix, Hq: torch.Tensor) -> torch.Tensor:
+    """K7: the exact int32 ``Aq @ Hq`` over shifted-int8 value tiles
+    (the 0..255 grid stored minus 128; absent positions and cover tiles
+    hold -128). ``Hq`` is signed int8 [N, P], rows past N read as zero; any
+    P runs. Returns int32 [n_rt * tb, P]. A CPU tensor runs
+    ``bsr_spmm_int8_plain``; a CUDA tensor launches the int8 ring kernel
+    where ``int8_ring_shape_ok_k7`` holds, else the single-stage kernel, or
+    raises. ``launches`` counts both; ``launches_ring`` /
+    ``launches_single`` each one."""
+    if Hq.device.type == "cpu":
+        return bsr_spmm_int8_plain(B, Hq)
+    if Hq.device.type != "cuda":
+        raise ValueError(f"bsr_spmm_int8 runs on cpu or cuda, not {Hq.device}")
+    if Hq.dim() == 2 and int8_ring_shape_ok_k7(B.tb, Hq.shape[1], Hq.data_ptr()):
+        return _bsr_spmm_int8_ring(B, Hq)
+    return _bsr_spmm_int8_single(B, Hq)
+
+
 bsr_spmm_int8.launches = 0
+bsr_spmm_int8.launches_ring = 0
+bsr_spmm_int8.launches_single = 0

@@ -13,7 +13,7 @@ vector ever exists.
 - Kernel K3, ``flash_gat_forward``: tile steps over a ``BSRMatrix``.
 - Kernel K12, ``flash_gat_forward_subskip``: K3 for one head with a
   host-built bitmap (``subblock_pop_bitmap``) that lets it skip empty
-  ``sb x sb`` sub-blocks of a tile.
+  ``sb x sb`` sub-blocks of a tile, any ``sb`` that divides ``tb``.
 - Kernel K6, ``flash_gat_hybrid_forward``: K3's tile steps plus remainder
   chunk steps of a value-mode ``FusedAggPlan`` in one exact row softmax.
 - Kernels K4, ``flash_gat_bwd_row``, and K5, ``flash_gat_bwd_col``: the
@@ -27,10 +27,11 @@ vector ever exists.
 Scores ``s1``/``s2`` are ``[N, H]`` and features ``Wh`` ``[N, H, F]``
 (heads last, one launch for all heads); 1-D scores with 2-D ``Wh`` are the
 single-head call. On a CUDA tensor each kernel wrapper launches a
-hand-written kernel or raises: K3 and K6 the ring kernel
+hand-written kernel or raises: K3, K6 and K12 the ring kernel
 ``csrc/flash_gat_ring.cu`` where ``flash_ring_shape_ok`` holds (only the live
 steps of ``B.ring`` / ``plan.ring``, every head in one CTA, a multi-stage
-shared-memory ring), else the single-stage ``csrc/flash_gat.cu``; K4, K5
+shared-memory ring; K12 on ``subskip_schedule``'s slabs), else the
+single-stage ``csrc/flash_gat.cu``; K4, K5
 the ring kernels ``csrc/flash_gat_bwd_ring.cu`` where
 ``flash_bwd_ring_shape_ok`` holds (live tiles only, K5 on the transposed
 live tiles ``B.live_t``, every head in one CTA), else the single-stage
@@ -446,11 +447,13 @@ def _takes_ring(B: BSRMatrix, Wh: torch.Tensor, K: Optional[int] = None) -> bool
     return flash_ring_shape_ok(_tile_mode(B.tiles, B.tb), B.tb, H, F, K)
 
 
-def _launch_ring(name, B, L: LiveSchedule, s1, s2, Wh, alpha, return_stats, plan=None):
+def _launch_ring(name, B, L: LiveSchedule, s1, s2, Wh, alpha, return_stats, plan=None,
+                 pop=None, sb=0):
     """Launch csrc/flash_gat_ring.cu over the live schedule ``L``: K3 on
-    ``B``'s live tiles (``B.ring``), or K6 on ``plan``'s live steps
-    (``plan.ring``). s2 goes over zero-padded to the tile grid and Wh in
-    bf16 (rounded once here, as the single-stage launch does)."""
+    ``B``'s live tiles (``B.ring``), K6 on ``plan``'s live steps
+    (``plan.ring``), or K12 with the bitmap ``pop`` on
+    ``subskip_schedule``'s steps. s2 goes over zero-padded to the tile grid
+    and Wh in bf16 (rounded once here, as the single-stage launch does)."""
     s1, s2, Wh, squeeze = _norm_heads(s1, s2, Wh)
     dev = Wh.device
     tb = B.tb
@@ -458,7 +461,7 @@ def _launch_ring(name, B, L: LiveSchedule, s1, s2, Wh, alpha, return_stats, plan
     n_rt, n_ct = B.n_row_tiles, _round_up(B.n_cols, tb) // tb
     H, F = _check_scores(s1, s2, Wh, n_rt * tb, n_ct * tb)
     S = L.segments
-    ints = dict(step=L.step, **S.tensors())
+    ints = dict(step=L.step, pop=pop, **S.tensors())
     K = 0
     if plan is not None:
         if plan.lrow.shape != (plan.num_chunks, plan.K):
@@ -469,7 +472,7 @@ def _launch_ring(name, B, L: LiveSchedule, s1, s2, Wh, alpha, return_stats, plan
         raise ValueError(f"the ring kernel does not take tile mode {mode}, tb={tb}, H={H}, F={F}, K={K}")
     _check_cuda_operands(dict(tiles=B.tiles, s1=s1, s2=s2, Wh=Wh, **ints), dev)
     for k, t in ints.items():
-        if t.dtype != torch.int32:
+        if t is not None and t.dtype != torch.int32:
             raise ValueError(f"{k} must be int32, got {t.dtype}")
     s2p = _grid(s2, n_ct, tb)
     Whb = Wh.to(torch.bfloat16).contiguous()
@@ -489,7 +492,7 @@ def _launch_ring(name, B, L: LiveSchedule, s1, s2, Wh, alpha, return_stats, plan
         _ptr(B.tiles), mode, tb, B.num_tiles, *_seg_args(S), _ptr(L.step),
         _ptr(ints.get("lrow")), _ptr(ints.get("slot_col")), K,
         _ptr(s1), s1.shape[0], _ptr(s2p), _ptr(Whb), Whb.shape[0], H, float(alpha),
-        _ptr(out), B.n_rows, _ptr(m), _ptr(l), _ptr(pm), _ptr(pl), _ptr(pacc),
+        _ptr(out), B.n_rows, _ptr(m), _ptr(l), _ptr(pm), _ptr(pl), _ptr(pacc), _ptr(pop), sb,
         torch.cuda.get_device_properties(dev).multi_processor_count,
         ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream),
     )
@@ -615,30 +618,102 @@ def flash_gat_forward_subskip_plain(
     return st.result(B.n_rows, squeeze, False)
 
 
+def subskip_slabs(pop: torch.Tensor, tb: int, sb: int) -> torch.Tensor:
+    """int32 [T] on ``pop``'s device: bit j set when a populated sub-block of
+    the tile (bitmap ``pop`` [T, nw] of ``sb x sb`` sub-blocks) meets its
+    64-column slab j (columns 64j .. 64j + 63), in any row. Batches of
+    tiles bound the scratch."""
+    ns, n_slabs = tb // sb, -(-tb // 64)
+    dev = pop.device
+    bit = torch.arange(ns * ns, device=dev)
+    word, shift = bit // 32, (bit % 32).to(torch.int32)
+    cs = torch.arange(ns, device=dev)
+    j = torch.arange(n_slabs, device=dev)
+    meets = (cs[None, :] * sb < 64 * (j[:, None] + 1)) & ((cs[None, :] + 1) * sb > 64 * j[:, None])
+    out = torch.empty(pop.shape[0], dtype=torch.int32, device=dev)
+    batch = max(1, _PLAIN_BATCH_BYTES // (8 * ns * ns))
+    for b0 in range(0, pop.shape[0], batch):
+        bits = (pop[b0: b0 + batch][:, word] >> shift) & 1
+        col = bits.view(-1, ns, ns).amax(dim=1) > 0  # [b, ns]: a populated sub-block in that column
+        hit = (col[:, None, :] & meets).any(dim=-1)  # [b, n_slabs]
+        out[b0: b0 + batch] = (hit.to(torch.int32) << j.to(torch.int32)).sum(dim=-1, dtype=torch.int32)
+    return out
+
+
+def subskip_schedule(B: BSRMatrix, pop: torch.Tensor, sb: int) -> LiveSchedule:
+    """The ring K12's schedule: ``B.ring``'s live tile steps with the bitmap
+    folded in. At one head a work item holds every row of its tile, so a
+    step loads only the 64-column slabs that a populated sub-block meets
+    (``subskip_slabs``), their mask in the step's last field (its chunk-slot
+    field, free on a tile-only schedule); a step whose tile meets none keeps
+    its place with no tile (-1). The plain version of the fold kernel of
+    csrc/flash_gat_ring.cu (``_subskip_fold``), which the ring K12 runs on
+    the card: one launch in place of a dozen small ones, whose launch gaps
+    outlast their work."""
+    step = B.ring.step.clone()
+    tile = step[:, 0].long()
+    slabs = torch.where(tile >= 0, subskip_slabs(pop, B.tb, sb)[tile.clamp(min=0)], 0)
+    step[:, 3] = slabs
+    step[:, 0] = torch.where(slabs != 0, step[:, 0], -1)
+    return dataclasses.replace(B.ring, step=step)
+
+
+def _subskip_fold(B: BSRMatrix, pop: torch.Tensor, sb: int) -> LiveSchedule:
+    """``subskip_schedule``'s result by the fold kernel of
+    csrc/flash_gat_ring.cu: one launch, a warp a live step."""
+    step = torch.empty_like(B.ring.step)
+    err = _cuda.library().sg_subskip_fold(
+        _ptr(B.ring.step), step.shape[0], _ptr(pop), B.tb, sb, _ptr(step),
+        ctypes.c_void_p(torch.cuda.current_stream(pop.device).cuda_stream),
+    )
+    _cuda.check(err, "subskip_fold")
+    return dataclasses.replace(B.ring, step=step)
+
+
+def _flash_gat_forward_subskip_single(B: BSRMatrix, pop, s1, s2, Wh, *, alpha: float = 0.2, sb: int = 128):
+    """K12 by the single-stage kernel ``csrc/flash_gat.cu``: every tile of
+    ``B.segments``, the bitmap read per CTA row group and per 8 columns."""
+    pop = _subskip_operands(B, pop, s1, sb, Wh.device)
+    res = _launch("flash_gat_forward_subskip", B, B.segments, s1, s2, Wh, alpha, False, pop=pop, sb=sb)
+    flash_gat_forward_subskip.launches += 1
+    flash_gat_forward_subskip.launches_single += 1
+    return res
+
+
+def _flash_gat_forward_subskip_ring(B: BSRMatrix, pop, s1, s2, Wh, *, alpha: float = 0.2, sb: int = 128):
+    """K12 by the ring kernel ``csrc/flash_gat_ring.cu`` over
+    ``subskip_schedule(B, pop, sb)``, folded on the card (``_subskip_fold``)."""
+    pop = _subskip_operands(B, pop, s1, sb, Wh.device)
+    _check_cuda_operands(dict(step=B.ring.step, pop=pop), Wh.device)
+    res = _launch_ring("flash_gat_forward_subskip", B, _subskip_fold(B, pop, sb), s1, s2, Wh, alpha,
+                       False, pop=pop, sb=sb)
+    flash_gat_forward_subskip.launches += 1
+    flash_gat_forward_subskip.launches_ring += 1
+    return res
+
+
 def flash_gat_forward_subskip(
     B: BSRMatrix, pop, s1, s2, Wh, *, alpha: float = 0.2, sb: int = 128
 ):
     """K12: ``flash_gat_forward`` for one head that skips every ``sb x sb``
     sub-block whose bit in the host-built bitmap ``pop``
     (``subblock_pop_bitmap``) is 0: its mask bytes, scores, exps and
-    product (JAX ``flash_gat_forward_subskip``). int8 or value tiles only.
-    A CPU tensor runs ``flash_gat_forward_subskip_plain``; a CUDA tensor
-    launches ``csrc/flash_gat.cu`` (``sb`` a multiple of 64 there) or
-    raises."""
+    product (JAX ``flash_gat_forward_subskip``); any ``sb`` that divides
+    ``tb``. int8 or value tiles only. A CPU tensor runs
+    ``flash_gat_forward_subskip_plain``; a CUDA tensor launches the ring
+    kernel where ``flash_ring_shape_ok`` holds at one head, else the
+    single-stage kernel, or raises. ``launches`` counts both;
+    ``launches_ring`` / ``launches_single`` each one."""
     if _device_of(Wh, "flash_gat_forward_subskip") == "cpu":
         return flash_gat_forward_subskip_plain(B, pop, s1, s2, Wh, alpha=alpha, sb=sb)
-    pop = _subskip_operands(B, pop, s1, sb, Wh.device)
-    if sb % 64:
-        raise ValueError(f"the CUDA kernel needs sb % 64 == 0, got {sb}")
-    res = _launch(
-        "flash_gat_forward_subskip", B, B.segments, s1, s2, Wh, alpha, False,
-        pop=pop, sb=sb,
-    )
-    flash_gat_forward_subskip.launches += 1
-    return res
+    if _takes_ring(B, Wh):
+        return _flash_gat_forward_subskip_ring(B, pop, s1, s2, Wh, alpha=alpha, sb=sb)
+    return _flash_gat_forward_subskip_single(B, pop, s1, s2, Wh, alpha=alpha, sb=sb)
 
 
 flash_gat_forward_subskip.launches = 0
+flash_gat_forward_subskip.launches_ring = 0
+flash_gat_forward_subskip.launches_single = 0
 
 
 def flash_gat_hybrid_forward(

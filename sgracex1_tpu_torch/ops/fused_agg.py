@@ -61,6 +61,7 @@ from sgracex1_tpu_torch.ops.bsr import (
     _h_operand,
     _launch_ring,
     _ptr,
+    _stage_hqt,
     _seg_args,
     _tensor,
     _tile_mode,
@@ -663,28 +664,6 @@ def int8_ring_shape_ok(tb: int, P: int, K: int, data_ptr: int = 0) -> bool:
     return tb % 64 == 0 and tb <= 256 and P % 16 == 0 and K % 64 == 0 and data_ptr % 16 == 0
 
 
-def stage_hqt_plain(Hq: torch.Tensor, rows: int, n_valid: int) -> torch.Tensor:
-    """Plain PyTorch version of the int8 ring's pre-pass: Hq transposed,
-    int8 [P, rows], zero columns from ``n_valid`` on. The tensor cores take
-    an int8 B operand K-major only, and a tile step's B is a block of node
-    rows, so K8 reads it from here."""
-    HqT = torch.zeros((Hq.shape[1], rows), dtype=torch.int8, device=Hq.device)
-    HqT[:, :n_valid] = Hq[:n_valid].t()
-    return HqT
-
-
-def _stage_hqt(Hq: torch.Tensor, rows: int, n_valid: int) -> torch.Tensor:
-    """``stage_hqt_plain``'s result by the pre-pass kernel of
-    csrc/fused_agg_int8_ring.cu."""
-    HqT = torch.empty((Hq.shape[1], rows), dtype=torch.int8, device=Hq.device)
-    err = _cuda.library().sg_stage_hqt(
-        _ptr(Hq), n_valid, Hq.shape[1], _ptr(HqT), rows,
-        ctypes.c_void_p(torch.cuda.current_stream(Hq.device).cuda_stream),
-    )
-    _cuda.check(err, "stage_hqt")
-    return HqT
-
-
 def _check_int8_plan(plan: FusedAggPlan, Hq: torch.Tensor, ints: dict) -> None:
     B = plan.B
     if Hq.shape[0] < B.n_cols:
@@ -742,7 +721,7 @@ def _bsr_spmm_int8_fused_ring(plan: FusedAggPlan, Hq: torch.Tensor) -> torch.Ten
     out = torch.empty((B.n_rows, P), dtype=torch.int32, device=Hq.device)
     partial = torch.empty((max(S.n_part, 1), tb, P), dtype=torch.int32, device=Hq.device)
     err = _cuda.library().sg_fused_agg_int8_ring(
-        _ptr(B.tiles), tb, B.tiles.shape[0], *_seg_args(S), _ptr(L.step), _ptr(plan.lrow),
+        _ptr(B.tiles), tb, tb, B.tiles.shape[0], *_seg_args(S), _ptr(L.step), _ptr(plan.lrow),
         _ptr(plan.slot_col), _ptr(plan.slot_lv8), plan.K, _ptr(HqT), n_pad, _ptr(Hq), P,
         _ptr(out), _ptr(partial), B.n_rows,
         torch.cuda.get_device_properties(Hq.device).multi_processor_count,

@@ -466,8 +466,66 @@ def test_subskip_kernel_matches_plain_and_k3(cuda_device, form, sb):
     torch.testing.assert_close(out, FG.flash_gat_forward_subskip_plain(B, pop, s1, s2, Wh, sb=sb),
                                rtol=2e-2, atol=2e-2)
     assert torch.equal(out, FG.flash_gat_forward(B, s1, s2, Wh))
-    with pytest.raises(ValueError, match="sb % 64"):
-        FG.flash_gat_forward_subskip(B, FG.subblock_pop_bitmap(B, A, 32), s1, s2, Wh, sb=32)
+    # sub-blocks narrower than 64 columns run too (every sb that divides tb)
+    pop = FG.subblock_pop_bitmap(B, A, 32)
+    torch.testing.assert_close(FG.flash_gat_forward_subskip(B, pop, s1, s2, Wh, sb=32),
+                               FG.flash_gat_forward_subskip_plain(B, pop, s1, s2, Wh, sb=32), rtol=2e-2, atol=2e-2)
+
+
+def _counts(kern):
+    return kern.launches, kern.launches_ring, kern.launches_single
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tb", [64, 128, 192, 256, 512])
+@pytest.mark.parametrize("P", [16, 128, 100])
+def test_ring_k7_equals_plain_and_single(cuda_device, tb, P):
+    """The ring K7 (the int8 ring kernel over BSRMatrix.edge_ring's row
+    pieces) bit-equal to the plain and the single-stage K7; P = 100 takes
+    the single-stage route."""
+    n = 5 * tb + 37
+    A = _int8_graph(n, 21, empty_rb=1, tb=tb)
+    B = Q.bsr_int8_from_sparse(A, generate_constants(0.0, 1.0, 8, signed=False, w_qbits=8), tb=tb,
+                               device=cuda_device)
+    Hq = torch.randint(-127, 128, (n, P), dtype=torch.int8, device=cuda_device)
+    ring = K1.int8_ring_shape_ok_k7(tb, P, Hq.data_ptr())
+    assert ring == (P != 100)
+    before = _counts(K1.bsr_spmm_int8)
+    out = K1.bsr_spmm_int8(B, Hq)
+    torch.cuda.synchronize()
+    assert _counts(K1.bsr_spmm_int8) == (before[0] + 1, before[1] + ring, before[2] + (not ring))
+    ref = K1.bsr_spmm_int8_plain(B, Hq)
+    assert out.dtype == torch.int32 and torch.equal(out, ref) and not out[tb: 2 * tb].any()
+    assert torch.equal(K1._bsr_spmm_int8_single(B, Hq), ref)
+    if ring and tb == 512:
+        assert B.edge_ring.n_dead_tile_steps > 0  # row halves of -128 bytes only
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sb", [8, 16, 32, 64, 128, 256])
+def test_ring_subskip_equals_ring_k3_and_matches_plain(cuda_device, sb):
+    """The ring K12 at every sb: torch.equal to the ring K3 on a bitmap of
+    the tiles' own edges; the ring and the single-stage K12 within 2e-2 of
+    the plain K12, also on a bitmap that clears populated sub-blocks."""
+    A = _graph(3001, weighted=False, seed=23)
+    B = K1.bsr_from_sparse(A, tb=256, mask=True, device=cuda_device)
+    s1, s2, Wh = (t[:, 0] for t in _scores(3001, 1, 64, cuda_device, seed=5))
+    full = torch.from_numpy(FG.subblock_pop_bitmap(B, A, sb))
+    cut = full & torch.from_numpy(np.random.default_rng(sb).integers(-2**31, 2**31, tuple(full.shape),
+                                                                     dtype=np.int64).astype(np.int32))
+    for pop in (full.to(cuda_device), cut.to(cuda_device)):
+        # the fold kernel and its plain version give the same live steps
+        assert torch.equal(FG._subskip_fold(B, pop, sb).step, FG.subskip_schedule(B, pop, sb).step)
+        before = _counts(FG.flash_gat_forward_subskip)
+        out = FG.flash_gat_forward_subskip(B, pop, s1, s2, Wh, sb=sb)
+        torch.cuda.synchronize()
+        assert _counts(FG.flash_gat_forward_subskip) == (before[0] + 1, before[1] + 1, before[2])
+        ref = FG.flash_gat_forward_subskip_plain(B, pop, s1, s2, Wh, sb=sb)
+        torch.testing.assert_close(out, ref, rtol=2e-2, atol=2e-2)
+        torch.testing.assert_close(FG._flash_gat_forward_subskip_single(B, pop, s1, s2, Wh, sb=sb), ref,
+                                   rtol=2e-2, atol=2e-2)
+    full_out = FG.flash_gat_forward_subskip(B, full.to(cuda_device), s1, s2, Wh, sb=sb)
+    assert torch.equal(full_out, FG._flash_gat_forward_ring(B, s1, s2, Wh))
 
 
 def test_wrappers_run_plain_on_cpu_and_raise_elsewhere():
@@ -1164,6 +1222,6 @@ def test_stage_hqt_kernel_equals_plain(cuda_device):
     for n, P in ((1000, 16), (4100, 128), (700, 144)):
         Hq = torch.randint(-128, 128, (n, P), dtype=torch.int8, device=cuda_device)
         rows = (n + 63) // 64 * 64
-        out = K2._stage_hqt(Hq, rows, n - 3)
+        out = K1._stage_hqt(Hq, rows, n - 3)
         torch.cuda.synchronize()
-        assert torch.equal(out, K2.stage_hqt_plain(Hq, rows, n - 3))
+        assert torch.equal(out, K1.stage_hqt_plain(Hq, rows, n - 3))

@@ -5,7 +5,11 @@ once a slab, a chunk slab reduced to the slots in the work item's rows,
 split runs merged in partial order. Held against the plain K3 / K6 (``m``
 equal, ``out`` and ``l`` within 2e-2: bf16(p) rounds against another running
 max) and, through them, against the Pallas kernels in interpret mode; and
-the shape rule that picks the kernel."""
+the shape rule that picks the kernel. K12 on the same kernel: the bitmap
+folded into the live steps (``subskip_schedule``: the 64-column slabs a
+populated sub-block meets) and the mask bits of empty sub-blocks cleared,
+held equal to K3's flow on a bitmap of the tiles' own edges and within 2e-2
+of the plain K12 on any bitmap."""
 
 import numpy as np
 import pytest
@@ -40,7 +44,16 @@ def _bf16r(x):
     return x.to(torch.bfloat16).to(torch.float32)
 
 
-def ring_emulation(B, L, s1, s2, Wh, *, alpha=0.2, plan=None):
+def _keep_mask(pop, tile, tb, sb):
+    """[tb, tb] bool: the positions of tile ``tile`` whose sub-block bit is
+    set."""
+    ns = tb // sb
+    b = torch.arange(ns * ns)
+    bits = ((pop[tile, b // 32] >> (b % 32)) & 1).view(ns, ns).bool()
+    return bits.repeat_interleave(sb, 0).repeat_interleave(sb, 1)
+
+
+def ring_emulation(B, L, s1, s2, Wh, *, alpha=0.2, plan=None, pop=None, sb=0):
     """(out [n_rows, H, F], m, l [n_rt*tb, H]) by the ring kernel's data
     flow over the live schedule ``L`` (``B.ring`` for K3, ``plan.ring`` for
     K6). Work item (segment, row group of R rows): every head at once; a
@@ -49,7 +62,9 @@ def ring_emulation(B, L, s1, s2, Wh, *, alpha=0.2, plan=None):
     item's. Per slab and row the running max moves to LeakyReLU(s1 + the
     largest s2 over the row's edges in the slab); the sums are rescaled
     when it grows; p = exp(e - m) on edges, l += p, acc += bf16(p) @
-    bf16(Wh). A split run's partials merge in order."""
+    bf16(Wh). A split run's partials merge in order. With ``pop`` (K12 on
+    ``subskip_schedule``'s steps) a tile step loads only the slabs of its
+    last field's mask and clears the edges of empty sub-blocks."""
     if s1.dim() == 1:
         s1, s2, Wh = s1[:, None], s2[:, None], Wh[:, None, :]
     tb, H, F = B.tb, Wh.shape[1], Wh.shape[2]
@@ -77,8 +92,13 @@ def ring_emulation(B, L, s1, s2, Wh, *, alpha=0.2, plan=None):
                 tile, cb, chunk, slots = step[g].tolist()
                 if tile >= 0:
                     mask = tfg._mask01(B.tiles[tile][None], tb)[0][rows] > 0  # [r, tb]
+                    on = ~0
+                    if pop is not None:
+                        mask = mask & _keep_mask(pop, tile, tb, sb)[rows]
+                        on = slots  # K12: the slabs to load
                     for k0 in range(0, tb, SLAB):
-                        slabs.append((mask[:, k0: k0 + SLAB], cb * tb + k0 + torch.arange(SLAB)))
+                        if (on >> (k0 // SLAB)) & 1:
+                            slabs.append((mask[:, k0: k0 + SLAB], cb * tb + k0 + torch.arange(SLAB)))
                 if chunk >= 0:
                     for k0 in range(0, slots, SLAB):
                         lr = plan.lrow[chunk, k0: k0 + SLAB].long()
@@ -285,3 +305,83 @@ def test_flash_ring_shape_rule():
     before = (k.launches, k.launches_ring, k.launches_single)
     torch.testing.assert_close(k(B, s1, s2, Wh), tfg.flash_gat_forward_plain(B, s1, s2, Wh), rtol=0, atol=0)
     assert (k.launches, k.launches_ring, k.launches_single) == before
+
+
+# ------------------------------------------------------------------- K12
+
+
+def _edge_pop(B, T, sb):
+    return torch.from_numpy(tfg.subblock_pop_bitmap(B, T, sb))
+
+
+@pytest.mark.parametrize("pop_kind", ["edges", "cut"])
+@pytest.mark.parametrize("form,tb,sb", [("int8", 256, 8), ("int8", 256, 32), ("int8", 128, 64),
+                                        ("values", 128, 16), ("values", 192, 48), ("int8", 64, 1)])
+def test_subskip_ring_flow(form, tb, sb, pop_kind):
+    """K12's ring data flow on ``subskip_schedule``: on a bitmap of the
+    tiles' own edges, every result torch.equal to K3's flow on the same
+    tiles (what is skipped adds exact zeros); on a bitmap that clears
+    populated sub-blocks, within 2e-2 of the plain K12, and the slabs loaded
+    are those a set bit meets."""
+    n = 5 * tb + 31
+    T = _graph(n, form == "values", seed=tb + sb)
+    B = tb_.bsr_mask_from_sparse(T, tb=tb, cover_rows=True) if form == "int8" else tb_.bsr_from_sparse(
+        T, tb=tb, cover_rows=True)
+    s1, s2, Wh = (x[:, 0] for x in _scores(n, 1, 64, seed=sb))
+    pop = _edge_pop(B, T, sb)
+    if pop_kind == "cut":
+        rng = np.random.default_rng(sb)
+        pop = pop & torch.from_numpy(rng.integers(-2**31, 2**31, pop.shape, dtype=np.int64).astype(np.int32))
+        pop[1] = 0  # a live tile with no bit: no slab loaded
+    L = tfg.subskip_schedule(B, pop, sb)
+    assert torch.equal(L.step[:, [1, 2]], B.ring.step[:, [1, 2]]) and L.segments is B.ring.segments
+    for (tile, _, _, on), live in zip(L.step.tolist(), B.ring.step[:, 0].tolist()):
+        want = int((_keep_mask(pop, live, tb, sb).view(tb, -1, SLAB).any(dim=(0, 2)).int()
+                    << torch.arange(-(-tb // SLAB))).sum())
+        assert on == want and tile == (live if want else -1)
+    got = ring_emulation(B, L, s1, s2, Wh, pop=pop, sb=sb)
+    ref = tfg.flash_gat_forward_subskip_plain(B, pop, s1, s2, Wh, sb=sb)
+    torch.testing.assert_close(got[0][:, 0], ref, rtol=TOL, atol=TOL)
+    if pop_kind == "edges":
+        k3 = ring_emulation(B, B.ring, s1, s2, Wh)
+        assert all(torch.equal(a, b) for a, b in zip(got, k3))
+    else:
+        assert (L.step[:, 0] < 0).any() and not torch.equal(got[0], ring_emulation(B, B.ring, s1, s2, Wh)[0])
+
+
+@pytest.mark.parametrize("tb,sb", [(256, 1), (256, 8), (256, 64), (256, 128), (192, 3), (192, 96), (128, 128)])
+def test_subskip_slabs(tb, sb):
+    """Bit j of a tile's slab mask is set exactly when a set bit's sub-block
+    meets columns 64j .. 64j + 63."""
+    ns = tb // sb
+    rng = np.random.default_rng(tb * sb)
+    pop = torch.from_numpy(rng.integers(-2**31, 2**31, (9, -(-(ns * ns) // 32)), dtype=np.int64).astype(np.int32))
+    pop[3] = 0
+    pop[4] = 0
+    pop[4, 0] = 1 << ((ns - 1) % 31)  # one sub-block of row 0
+    got = tfg.subskip_slabs(pop, tb, sb)
+    for t in range(9):
+        keep = _keep_mask(pop, t, tb, sb).any(dim=0)  # [tb] columns
+        want = sum(1 << j for j in range(-(-tb // SLAB)) if keep[j * SLAB:(j + 1) * SLAB].any())
+        assert int(got[t]) == want
+    assert int(got[3]) == 0 and int(got[4]) != 0
+
+
+def test_subskip_route_rule():
+    """K12 takes the ring kernel where flash_ring_shape_ok holds at one head
+    (int8 or bf16 tiles of height 64..256, F = 64), any sb dividing tb;
+    elsewhere the single-stage kernel. On the CPU the wrapper runs the plain
+    version and counts nothing."""
+    T = _graph(300, False, seed=1)
+    B = tb_.bsr_mask_from_sparse(T, tb=128, cover_rows=True)
+    s1, s2, Wh = (x[:, 0] for x in _scores(300, 1, 64, seed=2))
+    assert tfg._takes_ring(B, Wh) and not tfg._takes_ring(B, Wh[:, :40])
+    big = tb_.bsr_mask_from_sparse(T, tb=512, cover_rows=True)
+    assert not tfg._takes_ring(big, Wh)
+    k = tfg.flash_gat_forward_subskip
+    for sb in (4, 16, 128):
+        pop = _edge_pop(B, T, sb)
+        before = (k.launches, k.launches_ring, k.launches_single)
+        torch.testing.assert_close(k(B, pop, s1, s2, Wh, sb=sb),
+                                   tfg.flash_gat_forward_subskip_plain(B, pop, s1, s2, Wh, sb=sb), rtol=0, atol=0)
+        assert (k.launches, k.launches_ring, k.launches_single) == before

@@ -1,6 +1,9 @@
 """The host side and the data flow of the int8 ring K8
 (``csrc/fused_agg_int8_ring.cu``), on the CPU, against the plain K8 and the
-JAX package's Pallas kernel in interpret mode on the same numpy inputs.
+JAX package's Pallas kernel in interpret mode on the same numpy inputs; and
+the same kernel as the ring K7 (tile steps only, over
+``BSRMatrix.edge_ring``'s row pieces) against the plain K7 and its Pallas
+kernel.
 
 The kernel walks ``FusedAggPlan.edge_ring`` (tile products only on the
 tiles that carry an edge, i.e. hold a byte other than -128), flips bit 7 of
@@ -18,6 +21,7 @@ import jax.numpy as jnp
 import torch
 
 from sgracex1_tpu.graph.csr import SparseMatrix as JSparse
+from sgracex1_tpu.ops import bsr as jbsr
 from sgracex1_tpu.ops import dispatch as jdis
 from sgracex1_tpu.ops import fused_agg as jfa
 from sgracex1_tpu.quant import int8 as jq
@@ -73,7 +77,7 @@ def _ring_walk(plan, Hq):
     """The int8 ring K8's data flow, in int64 (exact) wrapped to int32."""
     B, L, K = plan.B, plan.edge_ring, plan.K
     tb, P = B.tb, Hq.shape[1]
-    HqT = tfa.stage_hqt_plain(Hq, _round_up(B.n_cols, tb), B.n_cols).long()
+    HqT = tbsr.stage_hqt_plain(Hq, _round_up(B.n_cols, tb), B.n_cols).long()
     rows = torch.arange(tb)
     S = L.segments
     partial = torch.zeros((max(S.n_part, 1), tb, P), dtype=torch.int64)
@@ -182,7 +186,7 @@ def test_ring_walk_unattached_chunks(tb, P):
 
 def test_stage_hqt_plain_is_the_padded_transpose():
     hq = torch.from_numpy(np.random.default_rng(0).integers(-128, 128, (300, 48)).astype(np.int8))
-    t = tfa.stage_hqt_plain(hq, 320, 290)
+    t = tbsr.stage_hqt_plain(hq, 320, 290)
     assert t.shape == (48, 320) and t.dtype == torch.int8
     assert torch.equal(t[:, :290], hq[:290].t()) and not t[:, 290:].any()
 
@@ -211,3 +215,114 @@ def test_edge_tiles_contract():
     bare = tfa.build_fused_plan(plan.B, None)
     assert bare.edge_ring is None and bare.slot_lv8 is None
     assert dataclasses.replace(plan, edge_ring=None).edge_ring is None
+
+
+# ------------------------------------------------------- the ring K7
+
+
+def _k7_graph(n, tb, seed):
+    """Hub rows (row block 0 a run longer than a work item), random edges,
+    row block 1 without an edge (its only tile a cover tile), no edge in the
+    lower rows of row block 2's tiles (at tb = 512 a row half of -128 bytes
+    only), and edges whose value quantizes to 0."""
+    rng = np.random.default_rng(seed)
+    hub = np.stack([rng.integers(0, 40, 12 * n), rng.integers(0, n, 12 * n)])
+    ei = np.unique(np.concatenate([rng.integers(0, n, (2, 3 * n)), hub], axis=1), axis=1)
+    ei = ei[:, (ei[0] // tb != 1) & ~((ei[0] // tb == 2) & (ei[0] % tb >= tb // 2))]
+    v = rng.uniform(0.01, 1.0, ei.shape[1]).astype(np.float32)
+    v[rng.random(ei.shape[1]) < 0.05] = 1e-4  # below half a grid step: 0
+    return JSparse.from_coo(ei[0], ei[1], v, (n, n)), pt.SparseMatrix.from_coo(ei[0], ei[1], v, (n, n))
+
+
+def _k7_walk(B, Hq):
+    """The ring K7's data flow: each work item a row piece of th rows over
+    ``B.edge_ring``'s piece steps, the shifted bytes with bit 7 flipped times
+    HqT in 64-deep slabs over the whole tile width, in int64 (exact) wrapped
+    to int32; split runs summed in order; rows without a step zero."""
+    L = B.edge_ring
+    tb, P = B.tb, Hq.shape[1]
+    th = tbsr.k7_row_piece(tb)
+    HqT = tbsr.stage_hqt_plain(Hq, _round_up(B.n_cols, tb), min(Hq.shape[0], B.n_cols)).long()
+    pieces = B.tiles.view(-1, th, tb)
+    S = L.segments
+    partial = torch.zeros((max(S.n_part, 1), th, P), dtype=torch.int64)
+    out = torch.zeros((B.n_row_tiles * tb, P), dtype=torch.int64)
+    for q, lo, hi, part in zip(S.seg_rb.tolist(), S.seg_lo.tolist(), S.seg_hi.tolist(), S.seg_part.tolist()):
+        acc = torch.zeros((th, P), dtype=torch.int64)
+        for piece, cb, chunk, _ in L.step[lo:hi].tolist():
+            assert chunk == -1 and piece >= 0
+            aq = (pieces[piece].view(torch.uint8) ^ 0x80).long()
+            for k0 in range(0, tb, SLAB):
+                acc += aq[:, k0:k0 + SLAB] @ HqT[:, cb * tb + k0: cb * tb + k0 + SLAB].t()
+        if part >= 0:
+            partial[part] = acc
+        else:
+            out[q * th:(q + 1) * th] = acc
+    for q, p0, np_ in zip(S.fin_rb.tolist(), S.fin_p0.tolist(), S.fin_np.tolist()):
+        out[q * th:(q + 1) * th] = partial[p0:p0 + np_].sum(0)
+    return ((out + 2**31) % 2**32 - 2**31).to(torch.int32)
+
+
+@pytest.mark.parametrize("tb", [64, 256, 512])
+def test_k7_edge_schedule_lists_each_edge_piece_once(tb):
+    """edge_ring takes every row piece with a byte other than -128 exactly
+    once, in run order (piece row blocks ascending), drops the all -128
+    pieces, and keeps a work item for every piece row block; B.live and
+    B.ring keep their meaning."""
+    n = 18 * tb + 37  # row block 0 a run of more than RING_SEG_STEPS pieces
+    _, T = _k7_graph(n, tb, seed=tb)
+    B = tq.bsr_int8_from_sparse(T, _uc(TConst), tb=tb, device="cpu")
+    th = tbsr.k7_row_piece(tb)
+    nh = tb // th
+    carry = (B.tiles.view(-1, th * tb) != -128).any(1)
+    assert (~carry).any() and bool(B.live.all())
+    assert torch.equal(B.ring.step[:, 0], torch.arange(B.num_tiles, dtype=torch.int32))
+    L = B.edge_ring
+    assert B.edge_ring is L  # built once and kept with the tile set
+    piece = L.step[:, 0]
+    assert sorted(piece.tolist()) == torch.nonzero(carry).flatten().tolist()
+    assert (L.step[:, 2] == -1).all() and (L.step[:, 3] == 0).all()
+    assert torch.equal(L.step[:, 1], B.tile_cb[piece.long() // nh])
+    q = B.tile_rb[piece.long() // nh] * nh + piece % nh  # the piece's row block
+    assert torch.equal(L.rb, q.to(torch.int32)) and bool((q[1:] >= q[:-1]).all())
+    assert L.n_tile_steps == int(carry.sum()) and L.n_dead_tile_steps == int((~carry).sum())
+    assert set(L.segments.seg_rb.tolist()) == set(range(B.n_row_tiles * nh)) and L.segments.n_fin > 0
+
+
+@pytest.mark.parametrize("tb,th", [(64, 64), (128, 128), (192, 192), (256, 256), (320, 64), (384, 192),
+                                   (512, 256), (1024, 256)])
+def test_k7_row_pieces_cover_each_row_once(tb, th):
+    """A tile taller than 256 rows is cut into pieces of at most 256 rows,
+    a multiple of 64; the pieces of a tile cover each of its rows once."""
+    assert tbsr.k7_row_piece(tb) == th
+    rows = torch.arange(tb * tb).view(tb, tb)  # one tile's bytes, numbered
+    pieces = rows.view(-1, th, tb)  # as the kernel's TMA map reads them
+    assert pieces.shape[0] * th == tb
+    assert torch.equal(torch.cat([p[:, 0] // tb for p in pieces]), torch.arange(tb))
+
+
+@pytest.mark.parametrize("tb,P", [(64, 16), (64, 128), (256, 16), (256, 128), (512, 16), (512, 128)])
+def test_k7_ring_walk_equals_plain_and_pallas(tb, P):
+    """The ring K7's walk: torch.equal to the plain K7 and array_equal to
+    the Pallas kernel (interpret mode) on the JAX package's tiles."""
+    n = 3 * tb + 37
+    J, T = _k7_graph(n, tb, seed=7 * tb + P)
+    B = tq.bsr_int8_from_sparse(T, _uc(TConst), tb=tb, device="cpu")
+    Bj = jq.bsr_int8_from_sparse(J, _uc(JConst), tb=tb)
+    hq = np.random.default_rng(P).integers(-128, 128, (n, P)).astype(np.int8)
+    Hq = torch.from_numpy(hq)
+    got = _k7_walk(B, Hq)
+    assert B.edge_ring.n_dead_tile_steps > 0
+    assert torch.equal(got, tbsr.bsr_spmm_int8_plain(B, Hq))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(jbsr.bsr_spmm_int8(Bj, jnp.asarray(hq), interpret=True)))
+    assert not got[tb: 2 * tb].any()
+
+
+@pytest.mark.parametrize("tb,P,ptr,ok", [(256, 128, 0, True), (512, 16, 16, True), (64, 16, 0, True),
+                                         (192, 144, 0, True), (1024, 32, 0, True), (256, 100, 0, False),
+                                         (256, 8, 0, False), (96, 128, 0, False), (32, 128, 0, False),
+                                         (512, 128, 8, False)])
+def test_k7_ring_shape_rule(tb, P, ptr, ok):
+    """Any tile height a multiple of 64 (row pieces above 256), Hq rows of
+    whole 16-byte pieces at an aligned address."""
+    assert tbsr.int8_ring_shape_ok_k7(tb, P, ptr) == ok

@@ -186,7 +186,8 @@ def _isolating_graph(n, weighted, seed, isolated=7):
 @pytest.mark.parametrize(
     "weighted,tb,sb,n",
     [(False, 256, 64, 700), (False, 256, 128, 700), (False, 256, 256, 700),
-     (True, 128, 64, 500), (False, 512, 128, 1100)],
+     (True, 128, 64, 500), (False, 512, 128, 1100),
+     (False, 64, 8, 300), (False, 128, 16, 400), (True, 128, 32, 400)],
 )
 def test_subskip_bitmap_identical_and_plain_matches(weighted, tb, sb, n):
     T = _isolating_graph(n, weighted, seed=8)
@@ -214,6 +215,27 @@ def test_subskip_bitmap_identical_and_plain_matches(weighted, tb, sb, n):
     has = np.zeros(n, bool)
     has[T.rows[: T.nnz][T.vals[: T.nnz] > 0]] = True
     assert not has.all() and (out.numpy()[~has] == 0).all()  # isolated rows come out 0
+
+
+@pytest.mark.parametrize("tb,sb", [(64, 8), (128, 32), (256, 64)])
+def test_subskip_cleared_bitmap_matches_pallas(tb, sb):
+    """A bitmap that clears populated sub-blocks: their edges are never
+    seen, in the plain K12 as in the Pallas kernel (interpret mode)."""
+    n = 3 * tb + 40
+    T = _isolating_graph(n, False, seed=tb + sb)
+    J = _to_jax(T)
+    Bt, Bj = tb_.bsr_mask_from_sparse(T, tb=tb), jb.bsr_mask_from_sparse(J, tb=tb)
+    full = tfg.subblock_pop_bitmap(Bt, T, sb)
+    rng = np.random.default_rng(sb)
+    pop = full & rng.integers(-2**31, 2**31, full.shape, dtype=np.int64).astype(np.int32)
+    assert (pop != full).any()
+    s1, s2, Wh = _scores(n, 16, seed=sb)
+    out = tfg.flash_gat_forward_subskip(Bt, pop, *map(torch.from_numpy, (s1, s2, Wh)), sb=sb)
+    want = np.asarray(jfg.flash_gat_forward_subskip(
+        Bj, pop, jnp.asarray(s1), jnp.asarray(s2), jnp.asarray(Wh), sb=sb, interpret=True))
+    np.testing.assert_allclose(out.numpy(), want, rtol=EXACT, atol=EXACT)
+    kept = tfg.flash_gat_forward_subskip(Bt, full, *map(torch.from_numpy, (s1, s2, Wh)), sb=sb)
+    assert not torch.allclose(out, kept, rtol=FUSED, atol=FUSED)
 
 
 def test_subskip_reads_its_bitmap_and_keeps_the_jax_rules():
