@@ -1,5 +1,6 @@
 """Drive the PyTorch port's GCN and GAT serving and training paths, its
-full-integer int8 serving and its fake-quant (QAT) path once on one NVIDIA
+full-integer int8 serving, its fake-quant (QAT) path and its sampled,
+multi-label and graph-classification training loops once on one NVIDIA
 GPU.
 
     python3 chip_smoke.py
@@ -117,6 +118,24 @@ Phases, each raising on failure (so the run exits non-zero):
    the ring K3 on the same tiles, beside the ring and the single-stage K3
    (the plain K12 at sb >= 64 on the slice, at every sb at n=8192).
 
+14. the neighbor-sampled loop on the GCN slice's graph
+   (train_node_classifier_sampled, GCNModel(100, 128, 16), 4096 train seeds
+   from default_rng(0), batches of 1024, fanouts (10, 10), 2 epochs,
+   prepare="hybrid"): every batch hybrid, K2 four times a step on the ring
+   kernel; each batch's n_pad, e_pad, tiles and chunks, host seconds of
+   sampling and prepare, step and epoch ms, peak memory.
+15. PPI-shaped inductive multi-label training (train_multilabel_inductive,
+   24 graphs of 2373 nodes, 50 features, 121 labels, 20/2/2;
+   GATModel(50, 64, 121, nheads=4, dropout=0), lr 0.005, 2 epochs,
+   prepare="auto"): full-cover flash tiles, K3 x2, K4 x2, K5 x2 a step on
+   the ring kernels; micro-F1 by epoch.
+16. MUTAG-shaped graph classification (train_graph_classifier,
+   MoleculeGCN(7, 64, 2), 150 molecules, 120/30, batches of 32 at
+   pad_to=64, 36 epochs, prepare="bsr"): K2 on block-diagonal batches,
+   four times a step; the best test accuracy beside the 0.76 anchor.
+   Each of 14-16 holds one step of its loop (logits and every gradient)
+   against the same step on the plain kernels.
+
 Every main path is driven with the launch counts set to 0 just before it
 and read just after. The last two lines are the kernels' JSON record
 (name, route, source, the TPU kernel replaced, launches, error, kernel /
@@ -137,11 +156,16 @@ import numpy as np
 import torch
 
 from sgracex1_tpu_torch import (
-    GATModel, GCNModel, SGRACEConfig, agg_matmul, prepare_adjacency, prepare_from_config,
-    sym_norm, train_node_classifier,
+    GATModel, GCNModel, MoleculeGCN, SGRACEConfig, agg_matmul, prepare_adjacency, prepare_from_config,
+    sym_norm, train_graph_classifier, train_multilabel_inductive, train_node_classifier,
+    train_node_classifier_sampled,
 )
+from sgracex1_tpu_torch.graph.batch import make_batches
 from sgracex1_tpu_torch.graph.csr import SparseMatrix
-from sgracex1_tpu_torch.graph.datasets import NodeClassificationData, powerlaw_node_classification
+from sgracex1_tpu_torch.graph.datasets import (
+    NodeClassificationData, powerlaw_node_classification, products_density_graph, synthetic_molecules,
+    synthetic_ppi,
+)
 from sgracex1_tpu_torch.graph.reorder import degree_order, permute_graph
 from sgracex1_tpu_torch.ops import _cuda
 from sgracex1_tpu_torch.ops import bsr as K1
@@ -155,6 +179,7 @@ from sgracex1_tpu_torch.quant import int8 as Q
 from sgracex1_tpu_torch.quant.affine import QuantConstants, fake_quant_unsigned, generate_constants
 from sgracex1_tpu_torch.quant.autocal import calibrate
 from sgracex1_tpu_torch.quant.calibration import CalibrationTable
+from sgracex1_tpu_torch.train import loop as TL
 from sgracex1_tpu_torch.train.loop import _masked_xent
 
 SLICE = dict(n=1 << 20, avg_degree=16, num_features=100, num_classes=16, seed=0)
@@ -184,6 +209,17 @@ INT8_REL_TOL = 0.08  # int8 2-layer GCN against the float forward, of its larges
 INT8_GAT_TOL = 0.03  # int8 GAT on K3 against the edge-list int8 GAT, of its largest output
 INT8_GAT_MAX_DEGREE = 32  # rows whose attention weights the edge-list layer's 255 grid resolves
 QAT_TOL = 2e-2  # fake-quant logits against the plain-K1 forward, of the largest logit
+# the sampled loop: ogbn-products' density class (products_density_graph,
+# ~29 edges a node) cut from 2.45 M nodes to 2^20, and its GraphSAGE batch
+# of 1024 seeds, 4 batches an epoch; such a batch reaches tens of thousands
+# of nodes, past the dense limit, so prepare="auto" makes it hybrid
+SAMPLED_GRAPH = dict(n=1 << 20, tail_degree=16, ring=12, num_features=100, num_classes=16, seed=0)
+SAMPLED_SEEDS, SAMPLED_BATCH, SAMPLED_EPOCHS = 4096, 1024, 2
+# PPI's shape: 24 graphs of ~2373 nodes (56 944 in all), 20/2/2, 50 features, 121 labels
+PPI = dict(num_graphs=24, n_per=2373, num_features=50, num_labels=121, splits=(2, 2), seed=0)
+PPI_EPOCHS = 2
+PPI_LOSS_TOL = 0.01  # the last epoch's mean loss over the labels' entropy, less 1
+MOL_HIDDEN, MOL_EPOCHS = 64, 36  # the MUTAG notebook's width and its anchor's epoch
 # the card's published peaks: bytes/s of device memory, dense tensor-core
 # operations/s by operand type
 HBM_BYTES_S = 3.35e12
@@ -2506,6 +2542,283 @@ def phase_subskip(B, edges, device, label, record=False, plain_min_sb=1):
     return rec, launches
 
 
+# ------------------------------------------- the sampled, PPI and molecule loops
+
+
+@contextlib.contextmanager
+def _timed_calls(mod, name: str, calls: list):
+    """``mod.name`` wrapped for the block: each call runs between two device
+    synchronisations and appends (host seconds, its result, the launch
+    counts before it, the launch counts after it) to ``calls``."""
+    fn = getattr(mod, name)
+
+    def timed(*args, **kw):
+        torch.cuda.synchronize()
+        before = _counts()
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        torch.cuda.synchronize()
+        calls.append((time.perf_counter() - t0, out, before, _counts()))
+        return out
+
+    setattr(mod, name, timed)
+    try:
+        yield
+    finally:
+        setattr(mod, name, fn)
+
+
+def _run_loop(label, loop_fn, spies):
+    """Drive one training loop as its user calls it: counts set to 0 just
+    before, read just after; every launch on a redesigned kernel; peak
+    memory. ``spies`` maps names of ``train.loop`` to lists that take the
+    timed calls (``_train_step`` always: step ms and launches a step)."""
+    spies = {"_train_step": [], **spies}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    with contextlib.ExitStack() as stack:
+        for name, calls in spies.items():
+            stack.enter_context(_timed_calls(TL, name, calls))
+        t0 = time.perf_counter()
+        state, hist = loop_fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = _counts()
+    _all_ring(label)
+    peak = torch.cuda.max_memory_allocated()
+    steps = spies["_train_step"]
+    per_step = [{k: after[k] - before[k] for k in after if after[k] != before[k]} for _, _, before, after in steps]
+    step_ms = [1e3 * s for s, _, _, _ in steps]
+    _log(f"{label}: {len(steps)} steps, device step (synchronised host clock) median {np.median(step_ms):.3f} ms, "
+         f"min {min(step_ms):.3f}, max {max(step_ms):.3f}; launches in the run {launches}")
+    _log(f"{label}: loss {hist.loss}, train {hist.train_acc}, test {hist.test_acc}, best {hist.best_test_acc}")
+    _log(f"peak device memory in the {label} run: {peak / 2**30:.3f} GiB")
+    if state.step != len(steps) or not all(np.isfinite(hist.loss)):
+        raise AssertionError(f"{label}: step {state.step} of {len(steps)}, losses {hist.loss}")
+    return state, hist, launches, per_step, wall
+
+
+def _check_loop_step(label, net, forward, loss_of):
+    """One step of a loop (train mode, dropout from a generator seeded 0,
+    the loop's loss, backward) with the kernels, then with every kernel
+    plain: the logits and every gradient at GRAD_TOL of their largest
+    entry."""
+    def run():
+        net.train()
+        net.zero_grad(set_to_none=True)
+        logits = forward(torch.Generator(device=next(net.parameters()).device).manual_seed(0))
+        loss_of(logits).backward()
+        return logits.detach()
+
+    before = _counts()
+    got_logits = run()
+    launched = {k: v - before[k] for k, v in _counts().items() if v != before[k]}
+    got = {k: p.grad.clone() for k, p in net.named_parameters()}
+    before = _counts()
+    with _plain_kernels():
+        ref = run()
+    if not launched or _counts() != before:
+        raise AssertionError(f"{label} step check: the kernel step launched {launched}, the plain step "
+                             f"{ {k: v - before[k] for k, v in _counts().items() if v != before[k]} }")
+    scale = float(ref.abs().max())
+    torch.testing.assert_close(got_logits, ref, rtol=GRAD_TOL, atol=GRAD_TOL * scale,
+                               msg=lambda m: f"{label} step logits: {m}")
+    _log(f"{label} step logits vs the plain-kernel step: max err / max |logit| "
+         f"{float((got_logits - ref).abs().max()) / max(scale, 1e-30):.3g}")
+    _check_grads(label, net, got)
+
+
+def _want_per_step(label, per_step, want):
+    bad = [i for i, d in enumerate(per_step) if d != want]
+    if bad:
+        raise AssertionError(f"{label}: step {bad[0]} launched {per_step[bad[0]]}, expected {want}")
+
+
+def phase_sampled(device, cfg=SAMPLED_GRAPH):
+    """train_node_classifier_sampled on the products-density graph:
+    GCNModel(100, 128, 16), 4096 train seeds drawn with default_rng(0),
+    batches of SAMPLED_BATCH, fanouts (10, 10), 2 epochs, prepare="auto".
+    Every batch must prepare hybrid (the rule's dense limit lies far
+    below its node count) and every step launch K2 four times (two
+    forward, two on fused_t), all on the ring kernel."""
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    data = products_density_graph(**cfg)
+    gen_s = time.perf_counter() - t0
+    _log(f"products-density graph {cfg}: {data.num_nodes} nodes, {data.edge_index.shape[1]} directed edges "
+         f"({data.edge_index.shape[1] / data.num_nodes:.2f} a node); generated in {gen_s:.1f} s")
+    train = np.nonzero(data.train_mask)[0]
+    seeds = np.random.default_rng(0).choice(train, SAMPLED_SEEDS, replace=False)
+    mask = np.zeros_like(data.train_mask)
+    mask[seeds] = True
+    sdata = dataclasses.replace(data, train_mask=mask)
+    net = _gcn_net(cfg)
+    scfg = SGRACEConfig(num_epochs=SAMPLED_EPOCHS, learning_rate=0.01)
+    norm, sampled, preps = [], [], []
+    state, hist, launches, per_step, wall = _run_loop(
+        "sampled GCN", lambda: train_node_classifier_sampled(
+            net, sdata, scfg, batch_size=SAMPLED_BATCH, fanouts=(10, 10), seed=0, prepare="auto",
+            device=device),
+        {"sym_norm": norm, "make_neighbor_batches": sampled, "_prepare_backend": preps})
+    full_s = preps[0][0]  # sym_norm runs inside the full graph's _prepare_backend
+    full = preps[0][1]
+    _log(f"  full graph (evaluation): kind={full.kind} n_pad={full.A.n_rows} tiles={full.bsr.num_tiles} "
+         f"rest chunks={full.fused.num_rest_chunks}")
+    batch_preps = preps[1:]
+    n_batches = len(batch_preps)
+    for i, (sec, p, _, _) in enumerate(batch_preps):
+        f = p.fused
+        layout = "" if f is None else (
+            f" tiles={p.bsr.num_tiles} live={int(p.bsr.live.sum())} rest chunks={f.num_rest_chunks} "
+            f"ring steps={f.ring.step.shape[0]} work items={f.ring.segments.n_seg}")
+        _log(f"  sampled batch {i}: kind={p.kind} n_pad={p.A.n_rows} (dense bf16 {p.A.n_rows ** 2 * 2 / 2**20:.0f} "
+             f"MiB, limit {D.DENSE_MAX_BYTES / 2**20:.0f}) e_pad={p.A.e_pad} nonzero edges="
+             f"{int((p.A.vals != 0).sum())}{layout}; prepare {sec:.3f} s")
+    if full.kind != "hybrid" or any(p.kind != "hybrid" or p.fused is None for _, p, _, _ in batch_preps):
+        raise AssertionError(f"sampled GCN: full graph {full.kind}, batch preps "
+                             f"{[p.kind for _, p, _, _ in batch_preps]}; all must be hybrid")
+    _want_per_step("sampled GCN", per_step, {"bsr_spmm_fused": 4})
+    want = 4 * n_batches + 2 * SAMPLED_EPOCHS
+    if launches["bsr_spmm_fused"] != want or sum(launches.values()) != want:
+        raise AssertionError(f"sampled GCN launches {launches}, expected bsr_spmm_fused {want} and nothing else")
+    sample_s = [sec for sec, _, _, _ in sampled]
+    prep_s = [sec for sec, _, _, _ in batch_preps]
+    epoch_ms = (wall - full_s) / SAMPLED_EPOCHS * 1e3
+    _log(f"sampled GCN host seconds a batch: sampling and batching {sum(sample_s) / n_batches:.3f} s "
+         f"(an epoch's make_neighbor_batches: {', '.join(f'{x:.3f}' for x in sample_s)} s), prepare "
+         f"{np.mean(prep_s):.3f} s (min {min(prep_s):.3f}, max {max(prep_s):.3f}); full graph: sym_norm "
+         f"{norm[0][0]:.3f} s, prepare {full_s - norm[0][0]:.3f} s; epoch {epoch_ms:.3f} ms (sampling, prepares, "
+         f"{n_batches // SAMPLED_EPOCHS} steps and the full-graph evaluation); loop wall {wall:.3f} s")
+    # one step of the loop on the last batch, against the plain kernels
+    b = sampled[-1][1][-1]
+    p = batch_preps[-1][1]
+    x = torch.from_numpy(b.x).to(device)
+    y = torch.from_numpy(b.y).to(device).long()
+    m = torch.from_numpy(b.seed_mask).to(device).float()
+    gen = torch.Generator(device=device).manual_seed(0)
+    _profile_forward(lambda: TL._train_step(state, lambda: _masked_xent(state.model(p, x, generator=gen), y, m)),
+                     "sampled GCN train", "1 training step of the last batch")
+    _check_loop_step("sampled GCN", state.model, lambda g: state.model(p, x, generator=g),
+                     lambda lg: _masked_xent(lg, y, m))
+    _log(f"phase sampled: {time.perf_counter() - t_phase:.1f} s wall")
+    return {"bsr_spmm_fused": launches["bsr_spmm_fused"]}
+
+
+def phase_ppi(device):
+    """train_multilabel_inductive on PPI-shaped data (the real dataset's
+    shape: 24 graphs, 20/2/2, 50 features, 121 labels) with
+    GATModel(50, 64, 121, nheads=4, dropout=0) at lr 0.005
+    (examples/ppi_gat.py), 2 epochs, prepare="auto": full-cover flash
+    tiles, K3 forward, K4/K5 backward on the ring kernels."""
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    tr, va, te = synthetic_ppi(**PPI)
+    gen_s = time.perf_counter() - t0
+    F, C = PPI["num_features"], PPI["num_labels"]
+    net = GATModel(F, GAT_HIDDEN, C, nheads=GAT_HEADS, dropout=0.0)
+    net.load_state_dict(_gat_weights(np.random.default_rng(0), F, GAT_HIDDEN, GAT_HEADS, C))
+    pcfg = SGRACEConfig(num_epochs=PPI_EPOCHS, learning_rate=0.005)
+    padded, preps, steps = [], [], []
+    state, hist, launches, per_step, wall = _run_loop(
+        "PPI GAT", lambda: train_multilabel_inductive(net, tr, va, te, pcfg, seed=0, log_every=1, prepare="auto",
+                                                   device=device),
+        {"_pad_multilabel_graph": padded, "_prepare_backend": preps, "_train_step": steps})
+    for i, (sec, p, _, _) in enumerate(preps):
+        B = p.flash_tiles
+        _log(f"  PPI graph {i}: kind={p.kind} flash layout {'full cover' if p.gat_plan is None else 'hybrid'} "
+             f"tb={B.tb} n_pad={p.A.n_rows} e_pad={p.A.e_pad} tiles={B.num_tiles} live={int(B.live.sum())} "
+             f"work items={B.ring.segments.n_seg}; prepare {sec:.3f} s")
+    if any(p.gat_plan is not None or p.flash_tiles is None for _, p, _, _ in preps):
+        raise AssertionError("PPI graphs must prepare full-cover flash tiles")
+    _want_per_step("PPI GAT", per_step, {"flash_gat_forward": 2, "flash_gat_bwd_row": 2, "flash_gat_bwd_col": 2})
+    n_tr, n_all = len(tr), len(tr) + len(va) + len(te)
+    want = {"flash_gat_forward": PPI_EPOCHS * 2 * (n_tr + n_all),
+            "flash_gat_bwd_row": PPI_EPOCHS * 2 * n_tr, "flash_gat_bwd_col": PPI_EPOCHS * 2 * n_tr}
+    if {k: v for k, v in launches.items() if v} != want:
+        raise AssertionError(f"PPI GAT launches {launches}, expected {want}")
+    pad_s = [sec for sec, _, _, _ in padded]
+    prep_s = [sec for sec, _, _, _ in preps]
+    staging = sum(pad_s) + sum(prep_s)
+    _log(f"PPI GAT host seconds a graph: batching (_pad_multilabel_graph) {np.mean(pad_s):.3f} s, prepare "
+         f"{np.mean(prep_s):.3f} s (min {min(prep_s):.3f}, max {max(prep_s):.3f}); data generation {gen_s:.1f} s; "
+         f"epoch {(wall - staging) / PPI_EPOCHS * 1e3:.3f} ms ({n_tr} steps and the F1 of {n_all} graphs); "
+         f"loop wall {wall:.3f} s")
+    _log(f"PPI GAT micro-F1 by epoch: train {hist.train_acc}, test {hist.test_acc}; best validation "
+         f"{hist.best_test_acc}")
+    # the loop learns: every epoch steps through the same training graphs in
+    # the same order, so the epochs' mean losses compare, and the last comes
+    # within PPI_LOSS_TOL of the entropy of the training labels' positive rate
+    # (what a model that has learned that rate scores)
+    loss = np.array([out.item() for _, out, _, _ in steps]).reshape(PPI_EPOCHS, n_tr).mean(axis=1)
+    rate = float(np.mean([g.y.mean() for g in tr]))
+    entropy = -(rate * np.log(rate) + (1 - rate) * np.log(1 - rate))
+    _log(f"PPI GAT mean training loss by epoch: {loss.tolist()}; the labels' positive rate {rate:.4f}, "
+         f"its entropy {entropy:.4f}")
+    if not (loss[-1] < loss[0] and loss[-1] <= entropy * (1 + PPI_LOSS_TOL)):
+        raise AssertionError(f"PPI GAT did not learn: mean loss by epoch {loss.tolist()}, label entropy {entropy}")
+    _, x, y, m = padded[0][1]
+    p0 = preps[0][1]
+    x, y, m = (torch.from_numpy(a).to(device) for a in (x, y, m))
+
+    def bce(logits):
+        ls = torch.nn.functional.binary_cross_entropy_with_logits(logits, y, reduction="none")
+        return torch.sum(ls * m[:, None]) / torch.clamp(torch.sum(m) * y.shape[1], min=1.0)
+
+    _profile_forward(lambda: TL._train_step(state, lambda: bce(state.model(p0, x))), "PPI GAT train",
+                     "1 training step of graph 0")
+    _check_loop_step("PPI GAT", state.model, lambda g: state.model(p0, x, generator=g), bce)
+    _log(f"phase PPI: {time.perf_counter() - t_phase:.1f} s wall")
+    return want
+
+
+def phase_molecules(device):
+    """train_graph_classifier on MUTAG-shaped molecules (150 graphs, 120/30,
+    batches of 32 at pad_to=64, as tests/test_training.py):
+    MoleculeGCN(7, 64, 2), 36 epochs at lr 0.01, prepare="bsr", so that
+    K2 walks the block-diagonal batches (two forward, two on fused_t a
+    step; two an evaluated batch)."""
+    t_phase = time.perf_counter()
+    graphs = synthetic_molecules(num_graphs=150, seed=4)
+    rng = np.random.default_rng(0)
+    idx = rng.permutation(len(graphs))
+    t0 = time.perf_counter()
+    train_b = make_batches([graphs[i] for i in idx[:120]], 32, rng=rng, pad_to=64)
+    test_b = make_batches([graphs[i] for i in idx[120:]], 32, pad_to=64)
+    batch_s = time.perf_counter() - t0
+    net = MoleculeGCN(7, MOL_HIDDEN, 2)
+    net.load_state_dict({k: torch.from_numpy(v) for k, v in
+                         _slice_weights(np.random.default_rng(0), 7, MOL_HIDDEN, 2).items()})
+    mcfg = SGRACEConfig(num_epochs=MOL_EPOCHS, learning_rate=0.01)
+    preps = []
+    state, hist, launches, per_step, wall = _run_loop(
+        "MoleculeGCN", lambda: train_graph_classifier(net, train_b, test_b, mcfg, seed=0, prepare="bsr",
+                                                      device=device),
+        {"_prepare_backend": preps})
+    for i, (sec, p, _, _) in enumerate(preps):
+        _log(f"  molecule batch {i}: kind={p.kind} n_pad={p.A.n_rows} e_pad={p.A.e_pad} tb={p.bsr.tb} "
+             f"tiles={p.bsr.num_tiles} live={int(p.bsr.live.sum())}; prepare {sec:.3f} s")
+    _want_per_step("MoleculeGCN", per_step, {"bsr_spmm_fused": 4})
+    n_tr, n_all = len(train_b), len(train_b) + len(test_b)
+    want = MOL_EPOCHS * (4 * n_tr + 2 * n_all)
+    if launches["bsr_spmm_fused"] != want or sum(launches.values()) != want:
+        raise AssertionError(f"MoleculeGCN launches {launches}, expected bsr_spmm_fused {want} and nothing else")
+    prep_s = sum(sec for sec, _, _, _ in preps)
+    _log(f"MoleculeGCN host seconds a batch: batching {batch_s / n_all:.4f} s, prepare {prep_s / n_all:.4f} s; "
+         f"epoch {(wall - prep_s) / MOL_EPOCHS * 1e3:.3f} ms ({n_tr} steps and the accuracy of {n_all} batches); "
+         f"best test accuracy {hist.best_test_acc:.4f} (the reference's MUTAG anchor: 0.76 by epoch 36)")
+    b, p0 = train_b[0], preps[0][1]
+    x, gid = torch.from_numpy(b.x).to(device), torch.from_numpy(b.graph_ids).to(device).long()
+    y, m = torch.from_numpy(b.y).to(device).long(), torch.from_numpy(b.label_mask).to(device).float()
+    gen = torch.Generator(device=device).manual_seed(0)
+    _profile_forward(lambda: TL._train_step(state, lambda: _masked_xent(
+        state.model(p0, x, gid, b.num_graphs, generator=gen), y, m)), "MoleculeGCN train", "1 training step of batch 0")
+    _check_loop_step("MoleculeGCN", state.model, lambda g: state.model(p0, x, gid, b.num_graphs, generator=g),
+                     lambda lg: _masked_xent(lg, y, m))
+    _log(f"phase molecules: {time.perf_counter() - t_phase:.1f} s wall")
+    return {"bsr_spmm_fused": launches["bsr_spmm_fused"]}
+
+
 def main() -> None:
     phase_device()
     phase_build()
@@ -2548,13 +2861,19 @@ def main() -> None:
     _add(launches, more)
     torch.cuda.empty_cache()
     _add(launches, phase_fake_quant(A, data, device))
-    del A, data
+    del A
     torch.cuda.empty_cache()
     rec7, more = phase_int8_gcn(device)
     rec.update(rec7)
     _add(launches, more)
     torch.cuda.empty_cache()
     _add(launches, phase_int8_gat(device))
+    del data
+    _add(launches, phase_sampled(device))
+    torch.cuda.empty_cache()
+    _add(launches, phase_ppi(device))
+    torch.cuda.empty_cache()
+    _add(launches, phase_molecules(device))
     sources = {
         "bsr_spmm_fused": ("sgracex1_tpu_torch/csrc/fused_agg_ring.cu", "sgracex1_tpu/ops/fused_agg.py:622"),
         "bsr_spmm": ("sgracex1_tpu_torch/csrc/bsr_spmm_ring.cu", "sgracex1_tpu/ops/bsr.py:589"),

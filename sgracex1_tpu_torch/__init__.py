@@ -30,8 +30,11 @@ hand-written CUDA kernel per Pallas kernel on the ported path:
   ``csrc/flash_gat_ring.cu`` where its rule holds, else ``csrc/flash_gat.cu``).
 
 Aggregations and attention are differentiable (K1/K2/K9 on the transposed
-plans, K4/K5), and ``train.train_node_classifier`` trains both models on
-the full graph. ``quant`` holds the adaptive quantization (8/4/2/1 bit):
+plans, K4/K5). ``train`` holds the JAX package's four loops: full-graph
+and neighbor-sampled node classification (``graph.sampling``), graph
+classification of block-diagonal batches (``graph.batch``,
+``MoleculeGCN``) and inductive multi-label training over whole graphs
+(PPI). ``quant`` holds the adaptive quantization (8/4/2/1 bit):
 the affine math, calibration tables and automatic calibration, the
 fake-quant datapath of the layers (``GCNModel(..., calibration=cal)``) and
 int8 serving (``quant.int8``). Entry points run on the CUDA card unless
@@ -46,10 +49,15 @@ from sgracex1_tpu_torch import quant
 from sgracex1_tpu_torch.config import SGRACEConfig
 from sgracex1_tpu_torch.graph.csr import SparseMatrix
 from sgracex1_tpu_torch.graph.normalize import sym_norm
-from sgracex1_tpu_torch.nn.models import GATModel, GCNModel
+from sgracex1_tpu_torch.nn.models import GATModel, GCNModel, MoleculeGCN
 from sgracex1_tpu_torch.ops.dispatch import agg_matmul, prepare_adjacency, prepare_from_config
 from sgracex1_tpu_torch.ops.fused_gnn import gnn_layer
-from sgracex1_tpu_torch.train import train_node_classifier
+from sgracex1_tpu_torch.train import (
+    train_graph_classifier,
+    train_multilabel_inductive,
+    train_node_classifier,
+    train_node_classifier_sampled,
+)
 
 __all__ = [
     "SparseMatrix",
@@ -57,10 +65,14 @@ __all__ = [
     "gnn_layer",
     "GCNModel",
     "GATModel",
+    "MoleculeGCN",
     "prepare_adjacency",
     "prepare_from_config",
     "agg_matmul",
     "SGRACEConfig",
     "train_node_classifier",
+    "train_node_classifier_sampled",
+    "train_graph_classifier",
+    "train_multilabel_inductive",
     "quant",
 ]

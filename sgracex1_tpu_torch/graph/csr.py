@@ -57,6 +57,14 @@ class SparseMatrix:
     def n_cols(self) -> int:
         return self.shape[1]
 
+    @property
+    def e_pad(self) -> int:
+        return int(self.vals.shape[0])
+
+    @property
+    def dtype(self):
+        return self.vals.dtype
+
     @staticmethod
     def from_coo(
         rows, cols, vals, shape: Tuple[int, int], *, pad_to: int = 128,
@@ -96,6 +104,18 @@ class SparseMatrix:
             coo.row, coo.col, coo.data, coo.shape, pad_to=pad_to
         )
 
+    @staticmethod
+    def from_csr_arrays(
+        rowptr, cols, vals, n_cols: int, *, pad_to: int = 128
+    ) -> "SparseMatrix":
+        """Build from classic CSR (the reference's on-disk format)."""
+        rowptr = np.asarray(rowptr, dtype=np.int64)
+        n_rows = len(rowptr) - 1
+        rows = np.repeat(np.arange(n_rows, dtype=np.int32), np.diff(rowptr))
+        return SparseMatrix.from_coo(
+            rows, cols, vals, (n_rows, n_cols), pad_to=pad_to, sort=False
+        )
+
     def to_dense(self) -> np.ndarray:
         """Densify on the host (numpy)."""
         r, c, v = (_np(x)[: self.nnz] for x in (self.rows, self.cols, self.vals))
@@ -108,6 +128,11 @@ class SparseMatrix:
 
         r, c, v = (_np(x)[: self.nnz] for x in (self.rows, self.cols, self.vals))
         return sp.coo_matrix((v, (r, c)), shape=self.shape).tocsr()
+
+    def rowptr(self) -> np.ndarray:
+        """Host CSR row pointer of the first ``nnz`` entries."""
+        counts = np.bincount(_np(self.rows)[: self.nnz], minlength=self.n_rows)
+        return np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
 
     def transpose(self) -> "SparseMatrix":
         """Swap rows and cols. The result is not row-sorted."""
@@ -123,6 +148,37 @@ class SparseMatrix:
                 f"vals shape {tuple(vals.shape)} != {tuple(self.vals.shape)}"
             )
         return dataclasses.replace(self, vals=vals)
+
+    def astype(self, dtype) -> "SparseMatrix":
+        """The host values cast to the numpy ``dtype``."""
+        return dataclasses.replace(self, vals=_np(self.vals).astype(dtype))
+
+    def pad_edges_to(self, e_pad: int) -> "SparseMatrix":
+        """Re-pad the host edge arrays to a larger length: row
+        ``n_rows - 1``, col 0, val 0, as ``from_coo`` pads."""
+        if e_pad < self.e_pad:
+            raise ValueError(f"e_pad {e_pad} < {self.e_pad}")
+        pad = e_pad - self.e_pad
+        if pad == 0:
+            return self
+        fill = lambda a, v: np.concatenate([_np(a), np.full(pad, v, _np(a).dtype)])
+        return dataclasses.replace(
+            self, rows=fill(self.rows, max(0, self.n_rows - 1)),
+            cols=fill(self.cols, 0), vals=fill(self.vals, 0),
+        )
+
+    def with_uniform_nnz(self) -> "SparseMatrix":
+        """nnz set to ``e_pad``: the padding counts as edges of value 0,
+        which changes no product; ``to_scipy`` / ``pad_mask`` / ``rowptr``
+        then see it as real entries."""
+        return dataclasses.replace(self, nnz=self.e_pad)
+
+    def pad_mask(self) -> np.ndarray:
+        """bool[E_pad]: True for real edges, False for padding."""
+        return np.arange(self.e_pad) < self.nnz
+
+    def density(self) -> float:
+        return self.nnz / float(self.shape[0] * self.shape[1])
 
     def to(self, device) -> "SparseMatrix":
         """The same matrix with torch tensors on ``device``."""

@@ -1,4 +1,5 @@
-"""Synthetic node-classification graphs.
+"""Synthetic datasets: node classification, MUTAG-shaped molecules and
+PPI-shaped multi-label graphs.
 
 Each generator draws from one ``numpy.random.default_rng(seed)`` stream in
 the same order as ``sgracex1_tpu.graph.datasets``, so one seed gives the
@@ -8,8 +9,11 @@ identical graph, features, labels and splits in both packages.
 from __future__ import annotations
 
 import dataclasses
+from typing import List, Tuple
 
 import numpy as np
+
+from sgracex1_tpu_torch.graph.batch import GraphSample
 
 
 @dataclasses.dataclass(frozen=True)
@@ -73,6 +77,94 @@ def sbm_node_classification(
     return NodeClassificationData(edge_index, x, y, train_mask, val_mask, test_mask)
 
 
+def synthetic_molecules(
+    num_graphs: int = 188,
+    num_features: int = 7,
+    seed: int = 0,
+) -> List[GraphSample]:
+    """MUTAG-shaped graph-classification set: class = cycle vs tree motif,
+    one-hot node-type features (MUTAG has 7 atom types, 188 graphs)."""
+    rng = np.random.default_rng(seed)
+    graphs = []
+    for _ in range(num_graphs):
+        label = int(rng.random() < 0.5)
+        n = int(rng.integers(10, 28))
+        if label == 1:
+            # ring + pendant nodes
+            ring = max(3, n - int(rng.integers(0, 5)))
+            src = np.arange(ring)
+            dst = (src + 1) % ring
+            extra_s = rng.integers(0, ring, n - ring)
+            extra_d = np.arange(ring, n)
+            rows = np.concatenate([src, extra_s])
+            cols = np.concatenate([dst, extra_d])
+        else:
+            # random tree
+            rows = np.array([rng.integers(0, k) for k in range(1, n)])
+            cols = np.arange(1, n)
+        ei = np.stack([np.concatenate([rows, cols]), np.concatenate([cols, rows])]).astype(np.int64)
+        types = rng.integers(0, num_features, n)
+        x = np.eye(num_features, dtype=np.float32)[types]
+        graphs.append(GraphSample(edge_index=ei, x=x, y=label))
+    return graphs
+
+
+@dataclasses.dataclass(frozen=True)
+class MultiLabelGraphData:
+    """One graph with multi-label node targets (the PPI-style inductive
+    task: whole graphs are held out for val and test)."""
+
+    edge_index: np.ndarray  # [2, E]
+    x: np.ndarray  # [N, F]
+    y: np.ndarray  # float32 [N, C] multi-hot
+
+    @property
+    def num_nodes(self) -> int:
+        return self.x.shape[0]
+
+    @property
+    def num_features(self) -> int:
+        return self.x.shape[1]
+
+    @property
+    def num_labels(self) -> int:
+        return self.y.shape[1]
+
+
+def synthetic_ppi(
+    num_graphs: int = 8,
+    n_per: int = 192,
+    num_features: int = 32,
+    num_labels: int = 12,
+    seed: int = 0,
+    splits: Tuple[int, int] = (2, 2),
+) -> Tuple[List[MultiLabelGraphData], List[MultiLabelGraphData], List[MultiLabelGraphData]]:
+    """PPI-shaped multi-graph multi-label set: overlapping community
+    memberships are the labels, features a noisy linear image of them,
+    and edges prefer nodes that share communities. Returns (train, val,
+    test) lists of whole graphs, ``splits`` = (val, test) counts."""
+    rng = np.random.default_rng(seed)
+    centers = rng.standard_normal((num_labels, num_features)).astype(np.float32)
+    graphs = []
+    for _ in range(num_graphs):
+        m = (rng.random((n_per, num_labels)) < 0.25).astype(np.float32)
+        # every node gets at least one label
+        empty = m.sum(1) == 0
+        m[empty, rng.integers(0, num_labels, int(empty.sum()))] = 1.0
+        shared = m @ m.T
+        p = 0.02 + 0.05 * (shared > 0) + 0.02 * np.minimum(shared, 3)
+        upper = np.triu(rng.random((n_per, n_per)) < p, k=1)
+        adj = upper | upper.T
+        rows, cols = np.nonzero(adj)
+        x = (m @ centers + 0.5 * rng.standard_normal((n_per, num_features))).astype(np.float32)
+        graphs.append(MultiLabelGraphData(
+            edge_index=np.stack([rows, cols]).astype(np.int64), x=x, y=m,
+        ))
+    n_val, n_test = splits
+    n_train = num_graphs - n_val - n_test
+    return graphs[:n_train], graphs[n_train : n_train + n_val], graphs[n_train + n_val :]
+
+
 def powerlaw_node_classification(
     n: int = 65536,
     avg_degree: int = 16,
@@ -127,3 +219,34 @@ def powerlaw_node_classification(
     masks[1, perm[int(n * 0.6) : int(n * 0.8)]] = True
     masks[2, perm[int(n * 0.8) :]] = True
     return NodeClassificationData(und, x, y.astype(np.int64), *masks)
+
+
+def products_density_graph(
+    n: int = 1 << 22,
+    *,
+    tail_degree: int = 16,
+    ring: int = 12,
+    num_classes: int = 16,
+    num_features: int = 8,
+    seed: int = 0,
+) -> NodeClassificationData:
+    """ogbn-products-density synthetic graph: ring-lattice community edges
+    (``2 * ring`` a node, products' strong locality) plus the Chung-Lu
+    power-law tail of ``powerlaw_node_classification``. At the defaults and
+    n = 2^22 it holds ~121 M directed edges, ~29 a node: ogbn-products'
+    density class (123.7 M), which Chung-Lu alone cannot reach (hub dedup
+    holds its real degree near 17)."""
+    base = powerlaw_node_classification(
+        n=n, avg_degree=tail_degree, num_classes=num_classes,
+        num_features=num_features, seed=seed,
+    )
+    i = np.arange(n, dtype=np.int64)
+    offs = np.arange(1, ring + 1, dtype=np.int64)
+    src = np.repeat(i, ring)
+    dst = (src + np.tile(offs, n)) % n
+    ei = np.concatenate([base.edge_index, np.stack([src, dst])], axis=1)
+    k = np.unique(np.concatenate([ei[0] * n + ei[1], ei[1] * n + ei[0]]))
+    und = np.stack([k // n, k % n])
+    return NodeClassificationData(
+        und, base.x, base.y, base.train_mask, base.val_mask, base.test_mask,
+    )

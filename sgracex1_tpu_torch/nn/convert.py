@@ -12,8 +12,9 @@ import torch
 
 
 def params_from_jax(params: Mapping) -> "OrderedDict[str, torch.Tensor]":
-    """Map a flax ``GCNModel`` or ``GATModel`` variable tree (numpy or JAX
-    arrays) onto the port's model of the same name's ``state_dict``.
+    """Map a flax ``GCNModel``, ``GATModel`` or ``MoleculeGCN`` variable
+    tree (numpy or JAX arrays) onto the port's model of the same name's
+    ``state_dict``.
 
     ``params/conv{i}/weight`` [in, out] loads as ``conv{i}.weight`` and
     ``params/conv{i}/attention`` [2*F*H, 1] as ``conv{i}.attention``,

@@ -1,4 +1,5 @@
-"""GCN and GAT node-classification models as ``torch.nn.Module``s."""
+"""GCN and GAT node-classification models and the molecule
+graph-classification model as ``torch.nn.Module``s."""
 
 from __future__ import annotations
 
@@ -104,4 +105,53 @@ class GATModel(nn.Module):
     ) -> torch.Tensor:
         x = self.conv1(A, x, relu=True)
         x = self.conv2(A, x)
+        return self.head(_dropout(self, x, generator))
+
+
+def global_mean_pool(x: torch.Tensor, graph_ids: torch.Tensor, num_graphs: int) -> torch.Tensor:
+    """Mean of the node rows of each graph (PyG's ``global_mean_pool``):
+    ``[num_graphs, F]``, zero for a graph without nodes. Sums and counts
+    are taken in float32 whatever ``x``'s dtype."""
+    idx = graph_ids.long()
+    sums = torch.zeros((num_graphs, x.shape[1]), dtype=torch.float32, device=x.device)
+    sums.index_add_(0, idx, x.float())
+    counts = torch.zeros((num_graphs, 1), dtype=torch.float32, device=x.device)
+    counts.index_add_(0, idx, torch.ones((x.shape[0], 1), dtype=torch.float32, device=x.device))
+    return (sums / torch.clamp(counts, min=1.0)).to(x.dtype)
+
+
+class MoleculeGCN(nn.Module):
+    """2-layer GCN + global mean pool for graph classification (the JAX
+    ``MoleculeGCN``, the molecule notebook's GCN): conv1 with ReLU, conv2,
+    ``global_mean_pool`` over the batch's graphs, dropout, a linear head.
+
+    Parameters are named ``conv1.weight``, ``conv2.weight``,
+    ``head.weight``, ``head.bias`` (see ``nn/convert.params_from_jax``).
+    ``calibration`` as in ``GCNModel``."""
+
+    def __init__(
+        self,
+        num_features: int,
+        hidden_channels: int,
+        num_classes: int,
+        *,
+        calibration: Optional[CalibrationTable] = None,
+        dropout: float = 0.5,
+        generator: Optional[torch.Generator] = None,
+    ):
+        super().__init__()
+        self.dropout = dropout
+        q1 = calibration.layer_params(0) if calibration else None
+        q2 = calibration.layer_params(1) if calibration else None
+        self.conv1 = GCNConv(num_features, hidden_channels, quant=q1, generator=generator)
+        self.conv2 = GCNConv(hidden_channels, hidden_channels, quant=q2, generator=generator)
+        self.head = nn.Linear(hidden_channels, num_classes)
+
+    def forward(
+        self, A, x: torch.Tensor, graph_ids: torch.Tensor, num_graphs: int, *,
+        generator: Optional[torch.Generator] = None,
+    ) -> torch.Tensor:
+        x = self.conv1(A, x, relu=True)
+        x = self.conv2(A, x)
+        x = global_mean_pool(x, graph_ids, num_graphs)
         return self.head(_dropout(self, x, generator))

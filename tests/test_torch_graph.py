@@ -155,6 +155,8 @@ def test_rcm_order_reduces_bandwidth():
         ("powerlaw_node_classification", dict(n=4096, num_features=16, seed=3)),
         ("powerlaw_node_classification", dict(n=2000, avg_degree=8, num_classes=5, seed=0)),
         ("sbm_node_classification", dict(n=300, seed=4)),
+        ("products_density_graph", dict(n=4096, num_features=16, seed=2)),
+        ("products_density_graph", dict(n=3000, tail_degree=8, ring=4, num_classes=5, seed=0)),
     ],
 )
 def test_generators_identical(gen, kw):
@@ -167,3 +169,38 @@ def test_generators_identical(gen, kw):
     assert (a.num_nodes, a.num_features, a.num_classes) == (
         b.num_nodes, b.num_features, b.num_classes
     )
+
+
+@pytest.mark.parametrize("extra", [0, 1, 300])
+def test_pad_edges_and_uniform_nnz(extra):
+    """pad_edges_to (row n_rows - 1, col 0, val 0) and with_uniform_nnz:
+    arrays identical to the JAX package's,
+    and the fields the padding touches (e_pad, nnz, pad_mask, rowptr,
+    density) too."""
+    r, c, v, shape = _coo(np.random.default_rng(5))
+    a = j_csr.SparseMatrix.from_coo(r, c, v, shape)
+    b = t_csr.SparseMatrix.from_coo(r, c, v, shape)
+    e_pad = a.e_pad + extra
+    assert b.e_pad == a.e_pad and b.dtype == a.dtype
+    ja, tb = a.pad_edges_to(e_pad).with_uniform_nnz(), b.pad_edges_to(e_pad).with_uniform_nnz()
+    _assert_same_matrix(ja, tb)
+    assert tb.e_pad == tb.nnz == e_pad
+    for x, y in ((a, b), (a.pad_edges_to(e_pad), b.pad_edges_to(e_pad)), (ja, tb)):
+        np.testing.assert_array_equal(np.asarray(x.pad_mask()), y.pad_mask())
+        np.testing.assert_array_equal(x.rowptr(), y.rowptr())
+        assert x.density() == y.density()
+    with pytest.raises(ValueError):
+        b.pad_edges_to(b.e_pad - 1)
+
+
+def test_csr_arrays_and_astype():
+    rng = np.random.default_rng(6)
+    counts = rng.integers(0, 5, 40)
+    rowptr = np.concatenate([[0], np.cumsum(counts)])
+    cols = rng.integers(0, 33, rowptr[-1])
+    vals = rng.standard_normal(rowptr[-1]).astype(np.float32)
+    a = j_csr.SparseMatrix.from_csr_arrays(rowptr, cols, vals, 33, pad_to=64)
+    b = t_csr.SparseMatrix.from_csr_arrays(rowptr, cols, vals, 33, pad_to=64)
+    _assert_same_matrix(a, b)
+    np.testing.assert_array_equal(b.rowptr(), rowptr)
+    _assert_same_matrix(a.astype(np.float16), b.astype(np.float16))
