@@ -1,7 +1,7 @@
 """Drive the PyTorch port's GCN and GAT serving and training paths, its
-full-integer int8 serving, its fake-quant (QAT) path and its sampled,
-multi-label and graph-classification training loops once on one NVIDIA
-GPU.
+full-integer int8 serving, its fake-quant (QAT) path, its sampled,
+multi-label and graph-classification training loops and its distributed
+layers (on the in-process mesh) once on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -135,6 +135,25 @@ Phases, each raising on failure (so the run exits non-zero):
    four times a step; the best test accuracy beside the 0.76 anchor.
    Each of 14-16 holds one step of its loop (logits and every gradient)
    against the same step on the plain kernels.
+17. the distributed GCN training step (BASELINE.json config 5,
+   benchmarks/bench_dist_train.main_large cut to 2^20 nodes on 4 shards of
+   the in-process mesh) on 14's products-density graph: sym_norm,
+   degree_balanced_order, the global rank1_factor, build_halo,
+   build_halo_fused (host seconds of each); dist_gnn_layer_halo_fused
+   100 -> 128 -> 128 and a head, masked cross-entropy, Adam; K2 16 times a
+   step on the ring kernel; per-shard plan bytes and local-edge share,
+   halo bytes (halo_comm), step ms, the in-process exchange's ms, a
+   profiler window, peak memory; one step against the plain kernels and
+   the kernel-free dist_gnn_layer_halo.
+18. the halo GAT at full width on 5's graph: dist_gat_layer_halo_flash
+   (4 heads of 64) on each shard's full-cover int8 mask tiles, K3, K4, K5
+   once a shard a pass on the ring kernels, against the plain kernels and
+   the edge-path dist_gat_layer_halo; dist_gnn_layer_halo_bsr on bf16
+   value tiles (K1 on the ring kernel, forward and transposed) against
+   dist_gnn_layer_halo.
+19. the twin of the JAX package's dryrun_multichip(4) at tb 32 (the
+   single-stage K1-K5): every distributed layer kind, one Adam step, against
+   the plain-kernel step.
 
 Every main path is driven with the launch counts set to 0 just before it
 and read just after. The last two lines are the kernels' JSON record
@@ -166,13 +185,21 @@ from sgracex1_tpu_torch.graph.datasets import (
     NodeClassificationData, powerlaw_node_classification, products_density_graph, synthetic_molecules,
     synthetic_ppi,
 )
-from sgracex1_tpu_torch.graph.reorder import degree_order, permute_graph
+from sgracex1_tpu_torch.graph.normalize import rank1_factor
+from sgracex1_tpu_torch.graph.reorder import degree_balanced_order, degree_order, permute_graph, shard_edge_counts
+from sgracex1_tpu_torch.nn.convert import dist_params_from_jax
 from sgracex1_tpu_torch.ops import _cuda
 from sgracex1_tpu_torch.ops import bsr as K1
 from sgracex1_tpu_torch.ops import fused_agg as K2
 from sgracex1_tpu_torch.ops import flash_gat as FG
 from sgracex1_tpu_torch.ops import pallas_spmm as K9
 from sgracex1_tpu_torch.ops.fused_gnn import relu_hw
+from sgracex1_tpu_torch.parallel import dryrun as DR
+from sgracex1_tpu_torch.parallel import halo as HALO
+from sgracex1_tpu_torch.parallel import halo_fused as HF
+from sgracex1_tpu_torch.parallel.comm_model import allgather_comm, halo_comm
+from sgracex1_tpu_torch.parallel.mesh import make_mesh
+from sgracex1_tpu_torch.parallel.partition import pad_nodes
 from sgracex1_tpu_torch.ops import dispatch as D
 from sgracex1_tpu_torch.ops.dispatch import _drop_zero_val_edges, agg_matmul_with_vals, split_by_tile_density
 from sgracex1_tpu_torch.quant import int8 as Q
@@ -220,6 +247,13 @@ PPI = dict(num_graphs=24, n_per=2373, num_features=50, num_labels=121, splits=(2
 PPI_EPOCHS = 2
 PPI_LOSS_TOL = 0.01  # the last epoch's mean loss over the labels' entropy, less 1
 MOL_HIDDEN, MOL_EPOCHS = 64, 36  # the MUTAG notebook's width and its anchor's epoch
+# the distributed path (BASELINE.json config 5, bench_dist_train.main_large
+# cut from 2^22 nodes on 8 devices to 2^20 on 4 shards of one card)
+DIST_SHARDS = 4
+DIST_STEPS = 3
+DIST_GAT_HEADS, DIST_GAT_F = 4, 64  # all heads in one flash launch; the flash ring's F
+# the CUDA tile kernels take tb % 32 == 0; the JAX dry run's tb = 8 runs on the CPU only
+DIST_DRYRUN_TB = 32
 # the card's published peaks: bytes/s of device memory, dense tensor-core
 # operations/s by operand type
 HBM_BYTES_S = 3.35e12
@@ -324,14 +358,18 @@ def _flash_bound(B, tensors, H, F, products, plan=None) -> dict:
     return _bound(nbytes, ops, "bf16")
 
 
-def phase_device():
-    if not torch.cuda.is_available():
-        sys.exit("chip_smoke: torch.cuda.is_available() is false; this script needs an NVIDIA GPU")
-    smi = subprocess.run(
+def _card() -> str:
+    """The card's name and power limit, as nvidia-smi reports them."""
+    return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip().splitlines()[0]
-    _log(smi)
+
+
+def phase_device():
+    if not torch.cuda.is_available():
+        sys.exit("chip_smoke: torch.cuda.is_available() is false; this script needs an NVIDIA GPU")
+    _log(_card())
     _log(f"torch {torch.__version__} cuda {torch.version.cuda} "
          f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2635,19 +2673,25 @@ def _want_per_step(label, per_step, want):
         raise AssertionError(f"{label}: step {bad[0]} launched {per_step[bad[0]]}, expected {want}")
 
 
-def phase_sampled(device, cfg=SAMPLED_GRAPH):
-    """train_node_classifier_sampled on the products-density graph:
-    GCNModel(100, 128, 16), 4096 train seeds drawn with default_rng(0),
-    batches of SAMPLED_BATCH, fanouts (10, 10), 2 epochs, prepare="auto".
-    Every batch must prepare hybrid (the rule's dense limit lies far
-    below its node count) and every step launch K2 four times (two
-    forward, two on fused_t), all on the ring kernel."""
-    t_phase = time.perf_counter()
+def _products_graph(cfg=SAMPLED_GRAPH):
+    """The products-density graph, generated once for the sampled loop and
+    the distributed GCN step."""
     t0 = time.perf_counter()
     data = products_density_graph(**cfg)
     gen_s = time.perf_counter() - t0
     _log(f"products-density graph {cfg}: {data.num_nodes} nodes, {data.edge_index.shape[1]} directed edges "
          f"({data.edge_index.shape[1] / data.num_nodes:.2f} a node); generated in {gen_s:.1f} s")
+    return data
+
+
+def phase_sampled(device, data, cfg=SAMPLED_GRAPH):
+    """train_node_classifier_sampled on the products-density graph ``data``
+    (``_products_graph(cfg)``): GCNModel(100, 128, 16), 4096 train seeds
+    drawn with default_rng(0), batches of SAMPLED_BATCH, fanouts (10, 10),
+    2 epochs, prepare="auto". Every batch must prepare hybrid (the rule's
+    dense limit lies far below its node count) and every step launch K2
+    four times (two forward, two on fused_t), all on the ring kernel."""
+    t_phase = time.perf_counter()
     train = np.nonzero(data.train_mask)[0]
     seeds = np.random.default_rng(0).choice(train, SAMPLED_SEEDS, replace=False)
     mask = np.zeros_like(data.train_mask)
@@ -2819,7 +2863,311 @@ def phase_molecules(device):
     return {"bsr_spmm_fused": launches["bsr_spmm_fused"]}
 
 
+# --------------------------------------------------- the distributed path
+
+
+def _tensor_bytes(obj) -> int:
+    """Bytes of the tensors in a dataclass and the dataclasses it holds."""
+    total = 0
+    for f in dataclasses.fields(obj):
+        v = getattr(obj, f.name)
+        if isinstance(v, torch.Tensor):
+            total += v.numel() * v.element_size()
+        elif dataclasses.is_dataclass(v):
+            total += _tensor_bytes(v)
+    return total
+
+
+def _grads_of(forward, params: dict):
+    """One forward and backward: (loss, the output, every parameter's
+    gradient). ``forward`` returns (loss, output)."""
+    for p in params.values():
+        p.grad = None
+    loss, out = forward()
+    loss.backward()
+    torch.cuda.synchronize()
+    return float(loss.detach()), out.detach(), {k: p.grad.detach().clone() for k, p in params.items()}
+
+
+def _check_dist(label, got, ref) -> None:
+    """A step's loss, output and gradients against a reference step's, at
+    GRAD_TOL of each one's largest entry."""
+    (gl, go, gg), (rl, ro, rg) = got, ref
+    if not np.isfinite(gl) or abs(gl - rl) > GRAD_TOL * max(abs(rl), 1e-30):
+        raise AssertionError(f"{label}: loss {gl} vs {rl}")
+    errs = {}
+    for k, g, r in [("output", go, ro)] + [(k, gg[k], rg[k]) for k in rg]:
+        scale = float(r.abs().max())
+        if not torch.isfinite(g).all():
+            raise AssertionError(f"{label}: {k} is not finite")
+        torch.testing.assert_close(g, r, rtol=GRAD_TOL, atol=GRAD_TOL * scale, msg=lambda m: f"{label} {k}: {m}")
+        errs[k] = float((g - r).abs().max()) / max(scale, 1e-30)
+    _log(f"{label}: loss {gl:.6g} vs {rl:.6g}; max err / max |x| " + ", ".join(f"{k} {e:.3g}" for k, e in errs.items()))
+
+
+def _checked_launches(label, fn, want: dict):
+    """Run ``fn`` between two reads of the counts; the launches must be
+    ``want`` exactly."""
+    before = _counts()
+    res = fn()
+    torch.cuda.synchronize()
+    got = {k: v - before[k] for k, v in _counts().items() if v != before[k]}
+    if got != want:
+        raise AssertionError(f"{label}: launched {got}, expected {want}")
+    return res
+
+
+def _dist_steps(label, step, want: dict) -> list:
+    """The main path: counts set to 0 just before, DIST_STEPS calls of
+    ``step`` between device synchronisations, each launching ``want``,
+    every launch on the ring kernels. Returns the host milliseconds."""
+    torch.cuda.synchronize()
+    _reset_counts()
+    ms = []
+    for _ in range(DIST_STEPS):
+        t0 = time.perf_counter()
+        _checked_launches(f"{label} step", step, want)
+        ms.append((time.perf_counter() - t0) * 1e3)
+    _all_ring(label)
+    _log(f"{label}: {DIST_STEPS} steps " + ", ".join(f"{m:.3f}" for m in ms) + f" ms (median {np.median(ms):.3f}, "
+         f"synchronised host clock); launches {_counts()}")
+    return ms
+
+
+def _shard_edges(G, s) -> tuple:
+    """(local, remote) edges of shard s with a nonzero value."""
+    return int((G.vals_loc[s] != 0).sum()), int((G.vals_rem[s] != 0).sum())
+
+
+def phase_dist_gcn(device, data, cfg=SAMPLED_GRAPH):
+    """BASELINE.json config 5's training step, as
+    benchmarks/bench_dist_train.main_large prepares and takes it, cut from
+    2^22 nodes on 8 devices to the products-density graph at 2^20 on
+    DIST_SHARDS shards of the in-process mesh: sym_norm,
+    degree_balanced_order and permute_graph, the global rank1_factor,
+    build_halo, build_halo_fused with the global factors; then
+    dist_gnn_layer_halo_fused 100 -> 128 -> 128 (ReLU each), the head
+    128 -> C, masked softmax cross-entropy, Adam at lr 0.01, parameters
+    from default_rng(0) x 0.1. One warm-up step, DIST_STEPS timed steps,
+    each launching K2 2 layers x 4 shards x (forward, fused_t) = 16 times on
+    the ring kernel; one step's loss, logits and gradients held against the
+    plain-kernel step and the kernel-free dist_gnn_layer_halo step. One card
+    runs the shards in turn: no scaling efficiency is stated."""
+    t_phase = time.perf_counter()
+    S, n = DIST_SHARDS, data.num_nodes
+    stages = {}
+    t0 = time.perf_counter()
+    A = sym_norm(data.edge_index, n)
+    stages["sym_norm"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    perm = degree_balanced_order(A, S)
+    stages["degree_balanced_order"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    A_s, _ = permute_graph(A, perm)
+    stages["permute_graph"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fac = rank1_factor(A_s)
+    stages["rank1_factor"] = time.perf_counter() - t0
+    if fac is None:
+        raise AssertionError("the sym-normalized graph must factor as rank 1")
+    t0 = time.perf_counter()
+    G, n_pad = HALO.build_halo(A_s, S, device=device)
+    stages["build_halo"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    FP = HF.build_halo_fused(G, rank1_factors=fac)
+    torch.cuda.synchronize()
+    stages["build_halo_fused"] = time.perf_counter() - t0
+    _log(f"dist GCN prepare host seconds (n={n}, nnz={A.nnz}, S={S}): "
+         + ", ".join(f"{k} {v:.2f}" for k, v in stages.items()) + f"; total {sum(stages.values()):.2f}")
+    raw, bal = shard_edge_counts(A, S), shard_edge_counts(A_s, S)
+    _log(f"dist GCN shard edges: contiguous split {raw.tolist()} (max/mean {raw.max() / raw.mean():.3f}), "
+         f"degree-balanced {bal.tolist()} (max/mean {bal.max() / bal.mean():.3f})")
+    _log(f"dist GCN halo plan: n_pad={n_pad} n_local={G.n_local} L={G.halo_len} tb={FP.tb} K={FP.K} "
+         f"rank1={FP.rank1}")
+    for s in range(S):
+        loc, rem = _shard_edges(G, s)
+        p, pt = FP.preps[s].fused, FP.preps[s].fused_t
+        _log(f"  shard {s}: local edges {loc}, remote {rem} (local share {loc / max(loc + rem, 1):.4f}); "
+             f"plan bytes {_tensor_bytes(p) / 2**20:.1f} MiB + transposed {_tensor_bytes(pt) / 2**20:.1f} MiB; "
+             f"tiles {p.B.num_tiles} (live {int(p.B.live.sum())}), rest chunks {p.num_rest_chunks}, ring steps "
+             f"{p.ring.step.shape[0]}, work items {p.ring.segments.n_seg}")
+    comm = halo_comm(G, HIDDEN, backward=True)
+    _log(f"dist GCN halo bytes a shard and step (halo_comm, f32 rows of width {HIDDEN}, 2 layers forward and "
+         f"backward): {2 * comm.bytes_out:.0f} B = {2 * comm.bytes_out / 2**20:.2f} MiB ({comm.note}); "
+         f"the all-gather layer's would be {2 * allgather_comm(n_pad, HIDDEN, S, backward=True).bytes_out / 2**20:.2f} MiB")
+
+    x = torch.from_numpy(pad_nodes(data.x[perm], n_pad)).to(device)
+    y = torch.from_numpy(pad_nodes(data.y[perm].astype(np.int64), n_pad)).to(device)
+    m = torch.from_numpy(pad_nodes(data.train_mask[perm].astype(np.float32), n_pad)).to(device)
+    F, C = cfg["num_features"], cfg["num_classes"]
+    rng = np.random.default_rng(0)
+    params = {k: torch.from_numpy(rng.standard_normal(shape).astype(np.float32) * 0.1).to(device).requires_grad_()
+              for k, shape in (("W1", (F, HIDDEN)), ("W2", (HIDDEN, HIDDEN)), ("Wo", (HIDDEN, C)))}
+    mesh = make_mesh(S, device=device)
+
+    def forward(layer, *plan):
+        h = layer(mesh, G, *plan, x, params["W1"], relu=True)
+        h = layer(mesh, G, *plan, h, params["W2"], relu=True)
+        logits = h @ params["Wo"]
+        return _masked_xent(logits, y, m), logits
+
+    fused = lambda: forward(HF.dist_gnn_layer_halo_fused, FP)
+    opt = torch.optim.Adam(params.values(), lr=0.01, betas=(0.9, 0.999), eps=1e-8)
+
+    def step():
+        opt.zero_grad(set_to_none=True)
+        loss, _ = fused()
+        loss.backward()
+        opt.step()
+        return loss
+
+    t0 = time.perf_counter()
+    step()
+    torch.cuda.synchronize()
+    _log(f"dist GCN warm-up step: {(time.perf_counter() - t0) * 1e3:.3f} ms")
+    torch.cuda.reset_peak_memory_stats()
+    want = {"bsr_spmm_fused": 2 * S * 2}
+    _dist_steps("dist GCN training", step, want)
+    launches = _counts()
+    _log(f"peak device memory in the dist GCN steps: {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    H = torch.randn(n_pad, HIDDEN, device=device)
+    ex_ms = _cuda_ms(lambda: HALO._exchange(mesh, G, mesh.split(H)))
+    _log(f"dist GCN in-process exchange of one layer's rows (gather the send buffers, all_to_all as a device "
+         f"copy, [{S}, {S}, {G.halo_len}, {HIDDEN}] f32): {ex_ms:.4f} ms (CUDA events; not a link)")
+    _profile_forward(step, "dist GCN train", "1 training step")
+
+    got = _checked_launches("dist GCN check step", lambda: _grads_of(fused, params), want)
+    with _plain_kernels():
+        plain = _checked_launches("dist GCN plain step", lambda: _grads_of(fused, params), {})
+    _check_dist("dist GCN step vs the plain-kernel step", got, plain)
+    edge = _checked_launches("dist GCN edge step",
+                             lambda: _grads_of(lambda: forward(HALO.dist_gnn_layer_halo), params), {})
+    _check_dist("dist GCN step vs the kernel-free dist_gnn_layer_halo step", got, edge)
+    _log(f"phase dist GCN: {time.perf_counter() - t_phase:.1f} s wall")
+    return {"bsr_spmm_fused": launches["bsr_spmm_fused"]}
+
+
+def phase_dist_gat(A, x_np, device):
+    """The halo GAT at full width on the GAT slice's graph (the 2^20
+    power-law slice in degree order), build_halo on DIST_SHARDS shards:
+    dist_gat_layer_halo_flash (4 heads of 64, W 100 x 256, attention
+    [512, 1], ReLU) on build_halo_bsr(G, tb=256, mask=True), one warm-up and
+    DIST_STEPS timed forward + backward passes, each launching K3, K4 and K5
+    once a shard on the ring kernels; its output and the gradients of x, W
+    and the attention vector held against the plain-kernel pass and the
+    edge-path dist_gat_layer_halo. Then dist_gnn_layer_halo_bsr 100 -> 128
+    on bf16 value tiles (build_halo_bsr(G, tb=256)): K1 forward and on the
+    transposed tiles, once a shard each, against dist_gnn_layer_halo."""
+    t_phase = time.perf_counter()
+    S = DIST_SHARDS
+    t0 = time.perf_counter()
+    G, n_pad = HALO.build_halo(A, S, device=device)
+    halo_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    BP = HALO.build_halo_bsr(G, tb=256, mask=True)
+    torch.cuda.synchronize()
+    bsr_s = time.perf_counter() - t0
+    loc = [_shard_edges(G, s) for s in range(S)]
+    Bs, Bts = [p.bsr for p in BP.preps], [p.bsr_t for p in BP.preps]
+    n_tiles = sum(B.num_tiles for B in Bs)
+    _log(f"dist GAT prepare: build_halo {halo_s:.2f} s (L={G.halo_len}), build_halo_bsr(tb=256, mask=True) "
+         f"{bsr_s:.2f} s: {n_tiles} full-cover local tiles ({sum(int(B.live.sum()) for B in Bs)} live; "
+         f"{sum(_nbytes(B.tiles) for B in Bs) / 1e9:.3f} GB of int8 forward, "
+         f"{sum(_nbytes(B.tiles) for B in Bts) / 1e9:.3f} GB transposed), local edges "
+         f"{sum(a for a, _ in loc)} of {sum(a + b for a, b in loc)} "
+         f"({sum(a for a, _ in loc) / max(sum(a + b for a, b in loc), 1):.4f})")
+    for s in range(S):
+        B = Bs[s]
+        _log(f"  shard {s}: tiles {B.num_tiles} (live {int(B.live.sum())}), work items {B.ring.segments.n_seg}, "
+             f"local {loc[s][0]} remote {loc[s][1]} edges")
+    FH = DIST_GAT_HEADS * DIST_GAT_F
+    rng = np.random.default_rng(0)
+    t = lambda *shape: torch.from_numpy(rng.standard_normal(shape).astype(np.float32) * 0.1).to(device)
+    x = torch.from_numpy(pad_nodes(x_np, n_pad)).to(device).requires_grad_()
+    params = {"x": x, "W": t(x_np.shape[1], FH).requires_grad_(), "att": t(2 * FH, 1).requires_grad_()}
+    mesh = make_mesh(S, device=device)
+
+    def gat(layer, *plan):
+        out = layer(mesh, G, *plan, x, params["W"], params["att"], nheads=DIST_GAT_HEADS, relu=True)
+        return torch.sum(out ** 2), out  # smooth across the ReLU's kink, as tests/test_halo.py
+
+    flash = lambda: gat(HALO.dist_gat_layer_halo_flash, BP)
+    t0 = time.perf_counter()
+    _grads_of(flash, params)
+    _log(f"dist GAT warm-up forward + backward (builds each shard's transposed live tiles): "
+         f"{(time.perf_counter() - t0) * 1e3:.3f} ms")
+    torch.cuda.reset_peak_memory_stats()
+    want = {"flash_gat_forward": S, "flash_gat_bwd_row": S, "flash_gat_bwd_col": S}
+    _dist_steps("dist GAT forward + backward", lambda: _grads_of(flash, params), want)
+    launches = _counts()
+    _log(f"peak device memory in the dist GAT passes: {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    _profile_forward(lambda: _grads_of(flash, params), "dist GAT", "1 forward + backward")
+    got = _checked_launches("dist GAT check pass", lambda: _grads_of(flash, params), want)
+    with _plain_kernels():
+        plain = _checked_launches("dist GAT plain pass", lambda: _grads_of(flash, params), {})
+    _check_dist("dist GAT flash vs the plain-kernel pass", got, plain)
+    del plain
+    edge = _checked_launches("dist GAT edge pass", lambda: _grads_of(lambda: gat(HALO.dist_gat_layer_halo), params),
+                             {})
+    _check_dist("dist GAT flash vs the edge-path dist_gat_layer_halo", got, edge)
+    del got, edge, BP, Bs, Bts, B
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    BPv = HALO.build_halo_bsr(G, tb=256)
+    torch.cuda.synchronize()
+    _log(f"dist GCN-on-K1 prepare: build_halo_bsr(tb=256) bf16 value tiles {time.perf_counter() - t0:.2f} s, "
+         f"{sum(_nbytes(p.bsr.tiles) for p in BPv.preps) / 1e9:.3f} GB forward, "
+         f"{sum(_nbytes(p.bsr_t.tiles) for p in BPv.preps) / 1e9:.3f} GB transposed")
+    p1 = {"x": x, "W": t(x_np.shape[1], HIDDEN).requires_grad_()}
+
+    def gcn(layer, *plan):
+        out = layer(mesh, G, *plan, x, p1["W"], relu=True)
+        return torch.sum(out ** 2), out
+
+    _reset_counts()
+    t0 = time.perf_counter()
+    got = _checked_launches("dist K1 layer pass", lambda: _grads_of(lambda: gcn(HALO.dist_gnn_layer_halo_bsr, BPv),
+                                                                    p1), {"bsr_spmm": 2 * S})
+    k1_ms = (time.perf_counter() - t0) * 1e3
+    _all_ring("dist K1 layer")
+    launches = _add(launches, _counts())
+    _log(f"dist_gnn_layer_halo_bsr forward + backward: {k1_ms:.3f} ms (synchronised host clock, first call)")
+    edge = _grads_of(lambda: gcn(HALO.dist_gnn_layer_halo), p1)
+    _check_dist("dist_gnn_layer_halo_bsr vs dist_gnn_layer_halo", got, edge)
+    _log(f"phase dist GAT: {time.perf_counter() - t_phase:.1f} s wall")
+    return {k: v for k, v in launches.items() if v}
+
+
+def phase_dist_dryrun(device):
+    """The twin of the JAX package's dryrun_multichip(4) on the card at its
+    own tiny shapes (24 nodes a shard, 16 features): every distributed
+    layer kind and one Adam step, the tile layers at tb = DIST_DRYRUN_TB,
+    where the single-stage kernels run (K1 and K2 forward and backward, K3,
+    K4, K5 once a shard each). A finite loss and parameters, and the loss
+    and gradients against the same step on the plain kernels."""
+    t_phase = time.perf_counter()
+    S, tb = DIST_SHARDS, DIST_DRYRUN_TB
+    want = {"bsr_spmm": 2 * S, "bsr_spmm_fused": 2 * S, "flash_gat_forward": S, "flash_gat_bwd_row": S,
+            "flash_gat_bwd_col": S}
+    torch.cuda.synchronize()
+    _reset_counts()
+    loss, _, grads = _checked_launches("dist dry run", lambda: DR.dryrun_multichip(S, tb=tb, device=device), want)
+    launches = _counts()
+    _log(f"dist dry run (S={S}, tb={tb}): loss {float(loss):.6f}, launches {launches}, on the single-stage "
+         f"kernels {sum(k.launches_single for k in KERNELS if hasattr(k, 'launches_single'))}")
+    P = DR.build_problem(S, tb=tb, device=device)
+    params = {k: v.requires_grad_() for k, v in dist_params_from_jax(DR.init_params(), device=device).items()}
+    with _plain_kernels():
+        plain = _checked_launches(
+            "dist dry run plain step", lambda: _grads_of(lambda: (DR.loss_fn(P, params), torch.zeros(())), params), {})
+    _check_dist("dist dry run vs the plain-kernel step", (float(loss), torch.zeros(()), grads), plain)
+    _log(f"phase dist dry run: {time.perf_counter() - t_phase:.1f} s wall")
+    return launches
+
+
 def main() -> None:
+    t_run = time.perf_counter()
     phase_device()
     phase_build()
     device = torch.device("cuda")
@@ -2861,19 +3209,26 @@ def main() -> None:
     _add(launches, more)
     torch.cuda.empty_cache()
     _add(launches, phase_fake_quant(A, data, device))
-    del A
     torch.cuda.empty_cache()
     rec7, more = phase_int8_gcn(device)
     rec.update(rec7)
     _add(launches, more)
     torch.cuda.empty_cache()
     _add(launches, phase_int8_gat(device))
-    del data
-    _add(launches, phase_sampled(device))
+    products = _products_graph()
+    _add(launches, phase_sampled(device, products))
     torch.cuda.empty_cache()
     _add(launches, phase_ppi(device))
     torch.cuda.empty_cache()
     _add(launches, phase_molecules(device))
+    torch.cuda.empty_cache()
+    _add(launches, phase_dist_gcn(device, products))
+    del products
+    torch.cuda.empty_cache()
+    _add(launches, phase_dist_gat(A, data.x, device))
+    del A, data
+    torch.cuda.empty_cache()
+    _add(launches, phase_dist_dryrun(device))
     sources = {
         "bsr_spmm_fused": ("sgracex1_tpu_torch/csrc/fused_agg_ring.cu", "sgracex1_tpu/ops/fused_agg.py:622"),
         "bsr_spmm": ("sgracex1_tpu_torch/csrc/bsr_spmm_ring.cu", "sgracex1_tpu/ops/bsr.py:589"),
@@ -2895,6 +3250,7 @@ def main() -> None:
         dict(name=name, route="cuda", source=src, replaces=rep, launches=launches[name], **rec[name])
         for name, (src, rep) in sources.items()
     ]
+    _log(f"{_card()} (the card again, at the end of the run); run wall {time.perf_counter() - t_run:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -37,7 +37,10 @@ classification of block-diagonal batches (``graph.batch``,
 (PPI). ``quant`` holds the adaptive quantization (8/4/2/1 bit):
 the affine math, calibration tables and automatic calibration, the
 fake-quant datapath of the layers (``GCNModel(..., calibration=cal)``) and
-int8 serving (``quant.int8``). Entry points run on the CUDA card unless
+int8 serving (``quant.int8``). ``parallel`` holds the distributed layers:
+the row partition, the halo exchange with each shard's local block on K1,
+K2 or K3-K5, on an in-process mesh of shards (one card) or one shard a
+rank over ``torch.distributed``. Entry points run on the CUDA card unless
 the caller passes ``device="cpu"``. Kernels build with nvcc at first use;
 on CPU tensors each wrapper runs its plain PyTorch version. This package
 never imports jax.

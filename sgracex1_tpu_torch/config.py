@@ -5,10 +5,11 @@ under their JAX names and defaults: the training loop's (``num_epochs``,
 ``learning_rate``, ``preload``, ``w_qbits`` through the learning-rate
 rule) and ``prepare_from_config``'s (``use_pallas`` with the tiling
 ``row_block`` / ``col_block`` / ``edge_block`` of the ``pallas`` kind,
-``fake_quantization``). The model's widths, heads, dropout, LeakyReLU
-slope and calibration table are the model's own arguments. A JAX field
-joins this class with the part of the port that reads it (ROADMAP queue
-1: distribution with item 16).
+``fake_quantization``) and the mesh's (``mesh_axis``, ``num_shards``:
+``parallel.make_mesh(cfg.num_shards, cfg.mesh_axis)``). The model's
+widths, heads, dropout, LeakyReLU slope and calibration table are the
+model's own arguments. A JAX field joins this class with the part of the
+port that reads it.
 """
 
 from __future__ import annotations
@@ -34,6 +35,10 @@ class SGRACEConfig:
     # prepare_from_config then prepares the pallas kind: the edge-group
     # plan that kernel K9 (ops/pallas_spmm.spmm_plan) aggregates over
     use_pallas: bool = False
+
+    # --- distribution (parallel.make_mesh(num_shards, mesh_axis)) ---
+    mesh_axis: str = "graph"
+    num_shards: Optional[int] = None  # None => one shard
 
     # --- training loop ---
     learning_rate: Optional[float] = None  # None => the reference's qbits rule

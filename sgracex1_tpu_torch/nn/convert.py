@@ -1,5 +1,6 @@
-"""Parameters of the JAX package's flax models as ``state_dict``s, and its
-frozen int8 layers as the port's."""
+"""Parameters of the JAX package's flax models as ``state_dict``s, the
+parameter dict of its distributed layers as tensors, and its frozen int8
+layers as the port's."""
 
 from __future__ import annotations
 
@@ -39,6 +40,17 @@ def params_from_jax(params: Mapping) -> "OrderedDict[str, torch.Tensor]":
         else:
             raise KeyError(f"unexpected parameter group {name!r}")
     return out
+
+
+def dist_params_from_jax(params: Mapping, *, device="cpu") -> "OrderedDict[str, torch.Tensor]":
+    """The JAX package's dict of distributed-layer parameters (``W1``,
+    ``att1``, ..., ``Wo``; numpy or JAX arrays, the layout of
+    ``sgracex1_tpu.parallel``: weights [in, out], attention [2*out, 1]) as
+    float32 leaf tensors on ``device`` under the same names, ready for
+    ``requires_grad_`` and an optimizer."""
+    return OrderedDict(
+        (k, torch.from_numpy(np.array(v, dtype=np.float32)).to(device)) for k, v in params.items()
+    )
 
 
 def int8_layer_from_jax(layer, *, device="cpu"):

@@ -174,6 +174,7 @@ def prepare_adjacency(
     tb: Optional[int] = None,
     rest_thresh: Optional[int] = None,
     rank1: bool = True,
+    rank1_factors=None,
     build_transpose: bool = True,
     fuse: bool = True,
     for_gat: bool = False,
@@ -190,6 +191,10 @@ def prepare_adjacency(
 
     ``rank1`` detects a diagonal factorization of the edge values
     (``graph/normalize.rank1_factor``) and then stores mask tiles.
+    ``rank1_factors`` gives the factorization ``(s_row, s_col)`` instead
+    and skips the detection (the caller vouches for ``v(r, c) = s_row[r] *
+    s_col[c]`` on every positive edge, e.g. a verified global factorization
+    sliced to a block), whatever ``rank1`` says.
     ``build_transpose=False`` skips the transposed tiles and fused plans
     that only a backward reads; the ``pallas`` kind builds ``plan_t``
     whatever the flag, as the JAX package does. ``fuse=False`` runs the
@@ -230,7 +235,10 @@ def prepare_adjacency(
         ))
 
     tb = DEFAULT_TB if tb is None else tb
-    fac = rank1_factor(A) if rank1 else None
+    if rank1_factors is not None:
+        fac = tuple(np.asarray(f, np.float32) for f in rank1_factors)
+    else:
+        fac = rank1_factor(A) if rank1 else None
 
     def tiles_pair(M: SparseMatrix):
         """(forward, transposed) tiles: values, int8 masks, or packed

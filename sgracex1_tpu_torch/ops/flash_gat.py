@@ -23,6 +23,11 @@ vector ever exists.
 - ``gat_attention_agg_fused`` / ``gat_attention_agg_hybrid``: the layer
   entry points, ``torch.autograd.Function``s whose backward runs K4 and K5
   (the hybrid one adds its remainder edges' terms in plain torch).
+- ``flash_gat_halo_agg``: one shard of the distributed layer
+  (``parallel/halo.dist_gat_layer_halo_flash``): K3 with its stats on the
+  shard's local tiles, merged with its halo edges' softmax terms; the
+  backward runs K4 under the merged stats and K5 with ``t`` summed over
+  local and halo edges.
 
 Scores ``s1``/``s2`` are ``[N, H]`` and features ``Wh`` ``[N, H, F]``
 (heads last, one launch for all heads); 1-D scores with 2-D ``Wh`` are the
@@ -72,6 +77,7 @@ from sgracex1_tpu_torch.ops.spmm import _edges
 
 _M_INIT = -1e5  # running-max start: exp(masked - m) underflows to 0
 _MASK_BIG = 1e9  # additive mask: masked scores sit 1e9 below real ones
+_MASKED = -1e9  # a masked halo edge's score (JAX ``_MASKED``)
 
 
 def _norm_heads(s1, s2, Wh):
@@ -979,23 +985,28 @@ flash_gat_bwd_col.launches_ring = 0
 flash_gat_bwd_col.launches_single = 0
 
 
-def _rest_row_terms(rest: SparseMatrix, s1, s2, Wh, gO, m, l, alpha: float):
-    """The remainder edges' part of the row reductions, as JAX
-    ``_halo_agg_bwd`` computes it with ``s2h = s2``, ``halo = Wh``:
-    per-edge ``p`` under the merged stats, f32 ``q = gO[r] . Wh[c]``,
-    LeakyReLU' and the row sums ``(t, u1, u2)`` [n_rows, H]."""
-    rows, cols, vals = (x[: rest.nnz] for x in _edges(rest, Wh.device))
-    rows, cols, mask = rows.long(), cols.long(), (vals > 0)[:, None]
+def _edge_row_terms(rows, cols, mask, s1, s2, Wh, gO, m, l, alpha: float, n_rows: int):
+    """Edges' part of the row reductions, as JAX ``_halo_agg_bwd``
+    computes its remote edges' (``s2`` / ``Wh`` the column side: the halo
+    rows' there): per-edge ``p`` under the merged stats, f32 ``q = gO[r] .
+    Wh[c]``, LeakyReLU' and the row sums ``(t, u1, u2)`` [n_rows, H]."""
     e_pre = s1.index_select(0, rows) + s2.index_select(0, cols)
     lr = torch.where(e_pre > 0, 1.0, alpha)
     e = torch.maximum(e_pre, alpha * e_pre)
     p = torch.where(mask, torch.exp(e - m.index_select(0, rows)), 0.0)
     p = p / torch.clamp(l, min=1e-30).index_select(0, rows)
     q = (gO.index_select(0, rows) * Wh.index_select(0, cols).float()).sum(dim=-1)
-    nl = rest.n_rows
-    seg = lambda x: torch.zeros((nl, x.shape[1]), dtype=x.dtype, device=x.device).index_add_(0, rows, x)
+    seg = lambda x: torch.zeros((n_rows, x.shape[1]), dtype=x.dtype, device=x.device).index_add_(0, rows, x)
     edge = dict(rows=rows, cols=cols, mask=mask, p=p, q=q, lr=lr)
     return edge, seg(p * q), seg(p * q * lr), seg(p * lr)
+
+
+def _rest_row_terms(rest: SparseMatrix, s1, s2, Wh, gO, m, l, alpha: float):
+    """The remainder edges' part of the row reductions
+    (``_edge_row_terms`` with ``s2h = s2``, ``halo = Wh``)."""
+    rows, cols, vals = (x[: rest.nnz] for x in _edges(rest, Wh.device))
+    return _edge_row_terms(rows.long(), cols.long(), (vals > 0)[:, None], s1, s2, Wh, gO, m, l, alpha,
+                           rest.n_rows)
 
 
 def _rest_fan_in(edge: dict, gO, t, n_cols: int):
@@ -1110,3 +1121,107 @@ def gat_attention_agg_hybrid(
     if _needs_grad(s1, s2, Wh):
         return _Flash.apply(flash_gat_hybrid_forward, plan, plan.B, rest, alpha, s1, s2, Wh)
     return flash_gat_hybrid_forward(plan, s1, s2, Wh, alpha=alpha)
+
+
+# ------------------------------------- one shard of the distributed layer
+
+
+def _halo_gat_forward(B: BSRMatrix, s1, s2, s2h, Wh, halo, rows_rem, cols_halo, mask_rem, alpha: float):
+    """One shard's row softmax over its local tiles and its remote (halo)
+    edges, head-last (s1/s2 [n, H], s2h [HL, H], Wh [n, H, F], halo
+    [HL, H, F]): K3 with its stats ``(m_l, l_l)`` on the tiles, the
+    streaming-softmax pieces on the remote edges, combined by the flash
+    block-combine identity
+
+        m = max(m_l, m_r);  l = l_l e^(m_l - m) + l_r e^(m_r - m)
+        out = (acc_l e^(m_l - m) + acc_r e^(m_r - m)) / l
+
+    which is the row softmax over all edges (JAX ``_halo_gat_forward``).
+    A row block with no local edge holds only an empty cover tile, where
+    K3 leaves m at the running-max start and l = 0. Returns (out [nl, H,
+    F], merged (m, l) [nl, H])."""
+    nl, H = B.n_rows, s1.shape[1]
+    o_l, m_l, l_l = flash_gat_forward(B, s1, s2, Wh, alpha=alpha, return_stats=True)
+    m_l, l_l = m_l[:nl], l_l[:nl]
+    acc_l = o_l * l_l[..., None]  # the local partial result, un-normalized
+    rows, cols = rows_rem.long(), cols_halo.long()
+    mask = mask_rem[:, None]  # one adjacency mask for every head
+    e = s1.index_select(0, rows) + s2h.index_select(0, cols)
+    e = torch.where(mask, torch.maximum(e, alpha * e), _MASKED)
+    m_r = torch.full((nl, H), float("-inf"), dtype=e.dtype, device=e.device).scatter_reduce(
+        0, rows[:, None].expand_as(e), e, reduce="amax")
+    m_r = torch.clamp(m_r, min=_M_INIT)  # rows without a remote edge
+    ex = torch.where(mask, torch.exp(e - m_r.index_select(0, rows)), 0.0)
+    seg = lambda x: torch.zeros((nl, *x.shape[1:]), dtype=x.dtype, device=x.device).index_add_(0, rows, x)
+    l_r = seg(ex)
+    acc_r = seg(halo.index_select(0, cols).float() * ex[..., None])
+    m = torch.maximum(m_l, m_r)
+    c_l, c_r = torch.exp(m_l - m), torch.exp(m_r - m)
+    l = l_l * c_l + l_r * c_r
+    num = acc_l * c_l[..., None] + acc_r * c_r[..., None]
+    out = torch.where(l[..., None] > 0, num / torch.clamp(l, min=1e-30)[..., None], 0.0)
+    return out, m, l
+
+
+class _HaloFlash(torch.autograd.Function):
+    """``_halo_gat_forward`` with its merged stats; the backward recomputes
+    the local tiles' probabilities from the MERGED ``(m, l)`` (padded to
+    the tile grid with (0, 1)): K4, the remote edges' row terms, then K5
+    with ``t`` summed over local AND remote edges (JAX ``_halo_agg_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, B, alpha, rows_rem, cols_halo, mask_rem, s1, s2, s2h, Wh, halo):
+        out, m, l = _halo_gat_forward(B, s1, s2, s2h, Wh, halo, rows_rem, cols_halo, mask_rem, alpha)
+        ctx.B, ctx.alpha = B, alpha
+        ctx.save_for_backward(rows_rem, cols_halo, mask_rem, s1, s2, s2h, Wh, halo, m, l)
+        return out
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, gO):
+        rows_rem, cols_halo, mask_rem, s1, s2, s2h, Wh, halo, m, l = ctx.saved_tensors
+        B, alpha = ctx.B, ctx.alpha
+        nl, tb, n_rt = B.n_rows, B.tb, B.n_row_tiles
+        gO = gO.reshape(gO.shape[0], *Wh.shape[1:])
+        m_p = m.new_zeros((n_rt * tb, m.shape[1]))
+        l_p = l.new_ones((n_rt * tb, l.shape[1]))
+        m_p[:nl], l_p[:nl] = m, l
+        ops = bwd_operands(B, s1, s2, Wh, gO, m_p, l_p)
+        t, u1, u2 = (x[:nl] for x in flash_gat_bwd_row(B, **ops, alpha=alpha))
+        edge, t_r, u1_r, u2_r = _edge_row_terms(
+            rows_rem.long(), cols_halo.long(), mask_rem[:, None], s1, s2h, halo, gO, m, l, alpha, nl)
+        t = t + t_r
+        ds1 = (u1 + u1_r) - t * (u2 + u2_r)
+        dWh, ds2 = flash_gat_bwd_col(B, **ops, t=_grid(t, n_rt, tb), alpha=alpha)
+        del ops
+        ds2h, d_halo = _rest_fan_in(edge, gO, t, halo.shape[0])
+        return (None,) * 5 + (ds1[: s1.shape[0]], ds2[: s2.shape[0]], ds2h,
+                              dWh[: Wh.shape[0]].to(Wh.dtype), d_halo.to(halo.dtype))
+
+
+def flash_gat_halo_agg(
+    B: BSRMatrix, s1, s2, s2h, Wh, halo, rows_rem, cols_halo, mask_rem, alpha: float = 0.2,
+    edges_sorted: bool = False,
+):
+    """One shard's GAT aggregation over its local tiles ``B`` plus its halo
+    edges (``rows_rem`` local rows, ``cols_halo`` slots of ``halo``,
+    ``mask_rem`` the edges that take part), differentiable (JAX
+    ``flash_gat_halo_agg``): K3 forward with the softmax stats merged over
+    both edge populations, K4 and K5 backward under the merged stats. All
+    heads in one launch a pass: ``s1``/``s2`` [n, H], ``s2h`` [HL, H],
+    ``Wh`` [n, H, F], ``halo`` [HL, H, F]; 1-D scores with 2-D ``Wh`` /
+    ``halo`` are the single-head call. No collective: ``halo`` is an
+    ordinary input, so the cotangent reaches the owning shards through
+    the mesh's all_to_all. Gradients flow to s1, s2, s2h, Wh and halo.
+    ``edges_sorted`` is accepted for the JAX signature; the scatter-adds
+    here do not use it."""
+    squeeze = s1.dim() == 1
+    s1, s2, Wh, _ = _norm_heads(s1, s2, Wh)
+    if squeeze:
+        s2h, halo = s2h[:, None], halo[:, None, :]
+    args = (B, alpha, rows_rem, cols_halo, mask_rem, s1, s2, s2h, Wh, halo)
+    if _needs_grad(s1, s2, s2h, Wh, halo):
+        out = _HaloFlash.apply(*args)
+    else:
+        out = _halo_gat_forward(B, s1, s2, s2h, Wh, halo, rows_rem, cols_halo, mask_rem, alpha)[0]
+    return out[:, 0, :] if squeeze else out

@@ -1,6 +1,8 @@
 """Shared inputs of the training-slice parity tests (test_torch_grads.py,
 test_torch_train.py): graphs and prepared layouts in both packages, and
-both models at the JAX loop's initial parameters. Holds no test itself."""
+both models at the JAX loop's initial parameters; and of the distributed
+ones (test_torch_halo.py, test_torch_halo_fused.py, test_torch_parallel.py):
+both packages' halo plans and the JAX mesh. Holds no test itself."""
 
 import numpy as np
 import jax
@@ -78,3 +80,49 @@ def model_pair(kind, n=512, F=16, C=4, hidden=16, H=2, monkeypatch=None):
     variables = model.init(init_rng, jp, jnp.asarray(d.x))
     net.load_state_dict(params_from_jax(np_tree(variables)))
     return d, e, jp, tp, model, variables, net
+
+
+# ---------------------------------------------- the distributed layers
+
+
+def jax_mesh_put(S, *trees):
+    """The JAX package's mesh of ``S`` virtual CPU devices and ``trees``
+    placed row-sharded on it (numpy arrays or halo / partition plans)."""
+    from jax.sharding import NamedSharding, PartitionSpec as P
+    from sgracex1_tpu.parallel.mesh import make_mesh
+
+    mesh = make_mesh(S)
+    sh = NamedSharding(mesh, P("graph"))
+    return (mesh, *(jax.device_put(t, sh) for t in trees))
+
+
+def dist_graph(n, seed, S, weighted=False):
+    """Both packages' adjacency of a random directed graph (sym_norm, or
+    random weights) and its halo plans on ``S`` shards (the port's on the
+    CPU): (JAX A, port A, JAX HaloGraph (host), port HaloGraph)."""
+    from sgracex1_tpu.parallel.halo import build_halo as j_build_halo
+    from sgracex1_tpu_torch.parallel.halo import build_halo
+    from tests.conftest import make_random_graph
+
+    rng = np.random.default_rng(seed)
+    ei = make_random_graph(rng, n, avg_degree=6)
+    if weighted:
+        v = rng.uniform(0.5, 2.0, ei.shape[1]).astype(np.float32)
+        T = pt.SparseMatrix.from_coo(ei[0], ei[1], v, (n, n))
+    else:
+        T = pt.sym_norm(ei, n)
+    J = to_jax(T)
+    return J, T, j_build_halo(J, S)[0], build_halo(T, S, device="cpu")[0]
+
+
+def leaf(a):
+    """A float32 CPU leaf tensor that takes a gradient, converted as the
+    distributed layers' JAX parameters are (``dist_params_from_jax``)."""
+    from sgracex1_tpu_torch.nn.convert import dist_params_from_jax
+
+    return dist_params_from_jax({"a": a})["a"].requires_grad_()
+
+
+def grads_of(loss, *leaves):
+    loss.backward()
+    return [np.asarray(x.grad) for x in leaves]
