@@ -1,5 +1,6 @@
-"""Drive the PyTorch port's GCN and GAT serving and training paths, its
-full-integer int8 serving, its fake-quant (QAT) path, its sampled,
+"""Drive the PyTorch port's GCN and GAT serving and training paths (with
+and without remat), its native host prepare and reference-format loaders,
+its full-integer int8 serving, its fake-quant (QAT) path, its sampled,
 multi-label and graph-classification training loops and its distributed
 layers (on the in-process mesh) once on one NVIDIA GPU.
 
@@ -33,7 +34,11 @@ Phases, each raising on failure (so the run exits non-zero):
    kernel took it, the single-stage kernel as well.
 4. the GCN slice: 2^20-node power-law graph (avg degree 16, 100 features,
    16 classes, seed 0), sym_norm, degree order, one hybrid prepare with
-   the transposed plans; K1 and K2 (the ring kernels) timed against their
+   the transposed plans. The host prepare runs on the native library
+   (runtime/native, built from csrc/sgrace_host.cpp with g++; the run fails
+   if it does not build): sym_norm_edges, rcm_order and plan_spmm at
+   1024/1024/1024 each timed beside its numpy spec and identical to it, K9
+   on the native plan torch.equal to K9 on the numpy plan; K1 and K2 (the ring kernels) timed against their
    plain versions, with their bound and the library call (torch.sparse.mm
    on the CSR form) beside them, the single-stage kernels in the same run
    through their private entries, on all steps, on the live steps alone
@@ -43,13 +48,28 @@ Phases, each raising on failure (so the run exits non-zero):
    one through K1, then trains for 3 epochs (K2 on the plan and its
    transpose; one step through the K1 view), each held against the
    plain-kernel versions; every launch of these runs must be a ring kernel.
+   One step of the same model with remat=True: logits torch.equal to the
+   step without remat, gradients torch.equal or within REMAT_TOL, K2 five
+   times (the ReLU layer's aggregation recomputed, not the last layer's),
+   step ms and peak memory of both.
+4a. the reference's input files at pubmed's descriptor (N 19 717, M 500,
+   108 365 adjacency and 988 031 feature nonzeros, weights 500 x 128),
+   written from a seed into a temporary directory and read by the native
+   and the numpy parser (identical) and load_reference_dataset; the
+   reference's call ReLU(A (X W)) with X W on the edge path and the
+   aggregation through prepare_adjacency (auto: hybrid) and agg_matmul
+   (K2), against the all-edge-path gnn_layer and spmm_dense_rhs.
 5. the GAT slice on the same graph: K6 and K3 (the ring kernel, with the
    single-stage kernel timed in turns beside it) at H=4 and H=1, F=64; K4
    and K5 likewise (the backward ring kernels, K5 on the transposed live
    tiles) on the bf16 operands flash_gat_backward hands them, the f32-in
    call beside them; all with their bounds; GATModel(100, 64, 16, nheads=4)
    answers 3 requests through K6 and trains for 3 epochs (K6, K4, K5);
-   every K3-K6 launch of those runs must be the ring kernel.
+   every K3-K6 launch of those runs must be the ring kernel. Before it,
+   gat_attention_agg (H=1, F=64) on the slice's dense attention part: its
+   forward torch.equal to K3, its edge backward's gradients against the f32
+   edge path (AGG_REF_TOL) and against K3/K4/K5 (AGG_FUSED_TOL). After it,
+   one remat step as in 4 (K6 four times).
 6. the small GAT path (n=8192, full-cover tiles): 3 requests and 3
    training epochs through K3, K4 and K5 (the ring kernels).
 7. K8 at full width: the slice's graph quantized to 8 bits,
@@ -132,7 +152,10 @@ Phases, each raising on failure (so the run exits non-zero):
 16. MUTAG-shaped graph classification (train_graph_classifier,
    MoleculeGCN(7, 64, 2), 150 molecules, 120/30, batches of 32 at
    pad_to=64, 36 epochs, prepare="bsr"): K2 on block-diagonal batches,
-   four times a step; the best test accuracy beside the 0.76 anchor.
+   four times a step; the best test accuracy beside the 0.76 anchor; then
+   calibrate() on the trained model and one batch on the card and
+   MOL_QAT_EPOCHS 8-bit fake-quant epochs from that table (value tiles, K1
+   four times a step).
    Each of 14-16 holds one step of its loop (logits and every gradient)
    against the same step on the plain kernels.
 17. the distributed GCN training step (BASELINE.json config 5,
@@ -166,9 +189,11 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -179,21 +204,26 @@ from sgracex1_tpu_torch import (
     sym_norm, train_graph_classifier, train_multilabel_inductive, train_node_classifier,
     train_node_classifier_sampled,
 )
+from sgracex1_tpu_torch.graph import io as GIO
 from sgracex1_tpu_torch.graph.batch import make_batches
 from sgracex1_tpu_torch.graph.csr import SparseMatrix
 from sgracex1_tpu_torch.graph.datasets import (
     NodeClassificationData, powerlaw_node_classification, products_density_graph, synthetic_molecules,
     synthetic_ppi,
 )
-from sgracex1_tpu_torch.graph.normalize import rank1_factor
-from sgracex1_tpu_torch.graph.reorder import degree_balanced_order, degree_order, permute_graph, shard_edge_counts
+from sgracex1_tpu_torch.graph.normalize import rank1_factor, sym_norm_edges
+from sgracex1_tpu_torch.graph.reorder import (
+    bandwidth, degree_balanced_order, degree_order, permute_graph, rcm_order, shard_edge_counts,
+)
+from sgracex1_tpu_torch.runtime import native
 from sgracex1_tpu_torch.nn.convert import dist_params_from_jax
 from sgracex1_tpu_torch.ops import _cuda
 from sgracex1_tpu_torch.ops import bsr as K1
 from sgracex1_tpu_torch.ops import fused_agg as K2
 from sgracex1_tpu_torch.ops import flash_gat as FG
 from sgracex1_tpu_torch.ops import pallas_spmm as K9
-from sgracex1_tpu_torch.ops.fused_gnn import relu_hw
+from sgracex1_tpu_torch.ops.fused_gnn import gnn_layer, relu_hw
+from sgracex1_tpu_torch.ops.spmm import spmm, spmm_dense_rhs
 from sgracex1_tpu_torch.parallel import dryrun as DR
 from sgracex1_tpu_torch.parallel import halo as HALO
 from sgracex1_tpu_torch.parallel import halo_fused as HF
@@ -247,6 +277,7 @@ PPI = dict(num_graphs=24, n_per=2373, num_features=50, num_labels=121, splits=(2
 PPI_EPOCHS = 2
 PPI_LOSS_TOL = 0.01  # the last epoch's mean loss over the labels' entropy, less 1
 MOL_HIDDEN, MOL_EPOCHS = 64, 36  # the MUTAG notebook's width and its anchor's epoch
+MOL_QAT_EPOCHS = 5  # 8-bit fake-quant epochs from the calibrated table
 # the distributed path (BASELINE.json config 5, bench_dist_train.main_large
 # cut from 2^22 nodes on 8 devices to 2^20 on 4 shards of one card)
 DIST_SHARDS = 4
@@ -254,6 +285,17 @@ DIST_STEPS = 3
 DIST_GAT_HEADS, DIST_GAT_F = 4, 64  # all heads in one flash launch; the flash ring's F
 # the CUDA tile kernels take tb % 32 == 0; the JAX dry run's tb = 8 runs on the CPU only
 DIST_DRYRUN_TB = 32
+# the reference-format files: pubmed's descriptor (graph/io.REFERENCE_DATASETS)
+# and a weights file of this width
+REF_DATASET, REF_HIDDEN = "pubmed", 128
+REF_TOL = 2e-2  # K2 rounds H, the tile values and its output to bf16: of the largest output
+# gat_attention_agg: its edge backward against autograd through the f32 edge
+# path (the same function, sums in another order), and against K4/K5, which
+# round p, q, gO and Wh to bf16; both of the largest gradient entry
+AGG_REF_TOL, AGG_FUSED_TOL = 1e-4, 5e-2
+# a remat step's gradients against the step without remat where they are
+# not bit-identical (float atomics in a scatter), of the largest entry
+REMAT_TOL = 1e-5
 # the card's published peaks: bytes/s of device memory, dense tensor-core
 # operations/s by operand type
 HBM_BYTES_S = 3.35e12
@@ -906,25 +948,88 @@ def _slice_weights(rng, F, hidden, C):
     }
 
 
+def _degree_ordered(A, data):
+    """The degree order of ``A``, and the data renumbered in it."""
+    perm = degree_order(A)
+    A, inv = permute_graph(A, perm)
+    return A, NodeClassificationData(
+        inv[data.edge_index], data.x[perm], data.y[perm], data.train_mask[perm],
+        data.val_mask[perm], data.test_mask[perm],
+    )
+
+
 def _slice_graph(cfg):
     """The power-law graph, sym_norm (fill-0 self-loops), degree order;
     the data (edges, x, y, masks) renumbered in the same order."""
     t0 = time.perf_counter()
     data = powerlaw_node_classification(**cfg)
-    A = sym_norm(data.edge_index, data.num_nodes)
-    perm = degree_order(A)
-    A, inv = permute_graph(A, perm)
-    data = NodeClassificationData(
-        inv[data.edge_index], data.x[perm], data.y[perm], data.train_mask[perm],
-        data.val_mask[perm], data.test_mask[perm],
-    )
+    A, data = _degree_ordered(sym_norm(data.edge_index, data.num_nodes), data)
     return A, data, time.perf_counter() - t0
 
 
-def phase_slice_prepare(device, cfg=SLICE):
+def _timed(fn):
+    t0 = time.perf_counter()
+    out = fn()
+    return out, time.perf_counter() - t0
+
+
+def phase_native_prepare(device, cfg=SLICE):
+    """The host prepare of the GCN slice on the native library
+    (runtime/native, built from csrc/sgrace_host.cpp by g++): sym_norm,
+    RCM and the pallas plan, each against its numpy spec (identical
+    arrays) and timed, and K9 on the native plan against K9 on the numpy
+    plan. Returns the slice graph as _slice_graph, prepared on the native
+    path."""
+    if not native.available():
+        raise AssertionError("the native host library did not build: the slice's host prepare needs it")
+    _log(f"native host library: {native.lib_path()}")
+    data, gen_s = _timed(lambda: powerlaw_node_classification(**cfg))
+    n = data.num_nodes
+    (ei, ew), nat_s = _timed(lambda: sym_norm_edges(data.edge_index, n))
+    with native.disabled():
+        (ei_np, ew_np), np_s = _timed(lambda: sym_norm_edges(data.edge_index, n))
+    if not (np.array_equal(ei, ei_np) and np.array_equal(ew, ew_np)):
+        raise AssertionError(f"sym_norm_edges: the native result differs from numpy's in "
+                             f"{int((ew != ew_np).sum())} weights")
+    del ei_np, ew_np
+    _log(f"sym_norm_edges at n={n}, {data.edge_index.shape[1]} edges: native {nat_s:.3f} s, numpy {np_s:.3f} s, "
+         f"identical ({ei.shape[1]} edges with the self-loops)")
+    A0 = SparseMatrix.from_coo(ei[0], ei[1], ew, (n, n), sort=False)
+    perm, rcm_s = _timed(lambda: rcm_order(A0))
+    if not np.array_equal(np.sort(perm), np.arange(n)):
+        raise AssertionError("rcm_order is not a permutation")
+    band = bandwidth(permute_graph(A0, perm)[0])
+    _log(f"rcm_order at n={n} (native): {rcm_s:.3f} s; bandwidth {bandwidth(A0)} before, {band} after")
+    (A, data), order_s = _timed(lambda: _degree_ordered(A0, data))
+    del A0, perm
+    tiling = dict(rb=PALLAS_CFG["row_block"], cb=PALLAS_CFG["col_block"], be=PALLAS_CFG["edge_block"])
+    plan, plan_s = _timed(lambda: K9.plan_spmm(A, **tiling))
+    with native.disabled():
+        plan_np, plan_np_s = _timed(lambda: K9.plan_spmm(A, **tiling))
+    fields = ("lrow", "lcol", "val", "perm", "tile_rb", "tile_cb", "slot_idx", "slot_cv")
+    differ = [f for f in fields if not torch.equal(getattr(plan, f), getattr(plan_np, f))]
+    differ += [f for f in ("seg_rb", "seg_lo", "seg_hi", "seg_part")
+               if not torch.equal(getattr(plan.segments, f), getattr(plan_np.segments, f))]
+    if differ:
+        raise AssertionError(f"plan_spmm: the native plan differs from numpy's in {differ}")
+    _log(f"plan_spmm at {tiling} on the degree-ordered slice: native {plan_s:.3f} s, numpy {plan_np_s:.3f} s, "
+         f"identical ({plan.num_groups} groups)")
+    gen = torch.Generator(device=device).manual_seed(7)
+    H = torch.randn(A.n_cols, HIDDEN, generator=gen, device=device)
+    out = K9.spmm_plan(plan.to(device), H)
+    if not torch.equal(out, K9.spmm_plan(plan_np.to(device), H)):
+        raise AssertionError("K9 on the native plan differs from K9 on the numpy plan")
+    _log("K9 on the native plan: torch.equal to K9 on the numpy plan")
+    _log(f"the slice's host prepare takes the native path: generate {gen_s:.1f} s, sym_norm {nat_s:.1f} s, "
+         f"degree order {order_s:.1f} s")
+    return A, data, gen_s + nat_s + order_s
+
+
+def phase_slice_prepare(device, cfg=SLICE, graph=None):
     """One prepare for serving and training: serving reads the forward
-    plans, training also the transposed ones."""
-    A, data, gen_s = _slice_graph(cfg)
+    plans, training also the transposed ones. ``graph`` is _slice_graph's
+    result where the caller made it."""
+    A, data, gen_s = graph or _slice_graph(cfg)
     t0 = time.perf_counter()
     prep = prepare_adjacency(A, method="hybrid", device=device)
     prep_s = time.perf_counter() - t0
@@ -953,6 +1058,169 @@ def phase_slice_prepare(device, cfg=SLICE):
         if (B.live & ~nonzero).any():
             _log(f"  {int((B.live & ~nonzero).sum())} live-flagged tiles hold no nonzero (allowed: extra work only)")
     return A, data, prep
+
+
+def _random_csr(rng, n_rows, n_cols, nnz):
+    """(rowptr, cols) of ``nnz`` distinct positions, sorted by row and column."""
+    keys = np.sort(rng.choice(n_rows * n_cols, nnz, replace=False))
+    rows, cols = keys // n_cols, keys % n_cols
+    return np.searchsorted(rows, np.arange(n_rows + 1)), cols
+
+
+def _write_csr_text(path, rowptr, cols, vals=None) -> None:
+    """The reference's 3-line CSR text; no values line for a binary matrix."""
+    lines = [",".join(map(str, rowptr)), ",".join(map(str, cols))]
+    if vals is not None:
+        lines.append(",".join(f"{v:.9g}" for v in vals))  # 9 digits: every float32 reads back exactly
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+
+
+def _same_matrix(name, a, b) -> None:
+    for k in ("rows", "cols", "vals"):
+        if not np.array_equal(np.asarray(getattr(a, k)), np.asarray(getattr(b, k))):
+            raise AssertionError(f"{name}: {k} differ")
+    if (a.shape, a.nnz) != (b.shape, b.nnz):
+        raise AssertionError(f"{name}: shape or nnz differ")
+
+
+def phase_reference_format(device):
+    """The reference's own input files at pubmed's descriptor, written from
+    a seed into a temporary directory: the adjacency (3-line CSR text with
+    values), the binary features (CSR text without a values line) and the
+    weights (dense text, M x REF_HIDDEN). Parsed by the native and the
+    numpy parser (identical), then through load_reference_dataset; then the
+    reference's one call ReLU(A (X W)): X W on the edge path (gnn_layer's
+    sparse-feature branch), the aggregation through prepare_adjacency
+    (auto: hybrid, since the dense bf16 matrix passes 512 MiB) and
+    agg_matmul (K2), against the all-edge-path gnn_layer and
+    spmm_dense_rhs."""
+    desc = GIO.REFERENCE_DATASETS[REF_DATASET]
+    n, m = desc["N_adj"], desc["M_fea"]
+    rng = np.random.default_rng(11)
+    adj_ptr, adj_cols = _random_csr(rng, n, n, desc["NNZ_adj"])
+    adj_vals = rng.uniform(0.05, 1.0, desc["NNZ_adj"]).astype(np.float32)
+    fea_ptr, fea_cols = _random_csr(rng, n, m, desc["NNZ_fea"])
+    W = (rng.standard_normal((m, REF_HIDDEN)) * 0.1).astype(np.float32)
+    with tempfile.TemporaryDirectory() as d:
+        path = lambda kind: os.path.join(d, f"{REF_DATASET}_{kind}.txt")
+        t0 = time.perf_counter()
+        _write_csr_text(path("adj"), adj_ptr, adj_cols, adj_vals)
+        _write_csr_text(path("feat"), fea_ptr, fea_cols)
+        with open(path("weights"), "w") as f:
+            f.write("\n".join(",".join(f"{v:.9g}" for v in row) for row in W) + "\n")
+        write_s = time.perf_counter() - t0
+        times = {}
+        parsed = {}
+        for kind, cols in (("adj", n), ("feat", m)):
+            parsed[kind], times[f"{kind} native"] = _timed(lambda: GIO.load_csr_text(path(kind), cols))
+            with native.disabled():
+                spec, times[f"{kind} numpy"] = _timed(lambda: GIO.load_csr_text(path(kind), cols))
+            _same_matrix(f"{kind} parse native vs numpy", parsed[kind], spec)
+        w_nat, times["weights native"] = _timed(lambda: GIO.load_dense_text(path("weights")))
+        with native.disabled():
+            w_np, times["weights numpy"] = _timed(lambda: GIO.load_dense_text(path("weights")))
+        (adj, fea, w), load_s = _timed(lambda: GIO.load_reference_dataset(REF_DATASET, d))
+    _same_matrix("load_reference_dataset adjacency", adj, parsed["adj"])
+    _same_matrix("load_reference_dataset features", fea, parsed["feat"])
+    if not (np.array_equal(w, w_nat) and np.array_equal(w, w_np) and np.array_equal(w, W)):
+        raise AssertionError("the weights file does not read back as written")
+    if not (np.array_equal(np.asarray(adj.vals)[: adj.nnz], adj_vals) and adj.nnz == desc["NNZ_adj"]
+            and fea.nnz == desc["NNZ_fea"] and (np.asarray(fea.vals)[: fea.nnz] == 1).all()):
+        raise AssertionError("the adjacency or the features do not read back as written")
+    _log(f"reference-format files at {REF_DATASET}'s descriptor (N {n}, M {m}, {adj.nnz} adjacency and {fea.nnz} "
+         f"feature nonzeros, weights {W.shape[0]} x {W.shape[1]}): written in {write_s:.2f} s; parse seconds "
+         + ", ".join(f"{k} {v:.4f}" for k, v in times.items()) + f"; load_reference_dataset {load_s:.4f} s")
+
+    prep, prep_s = _timed(lambda: prepare_adjacency(adj, device=device))
+    if prep.kind != "hybrid" or prep.fused is None:
+        raise AssertionError(f"auto must prepare {REF_DATASET}'s adjacency hybrid with a fused plan, got {prep.kind}")
+    fea_d, W_d = fea.to(device), torch.from_numpy(w).to(device)
+
+    def forward():
+        return relu_hw(agg_matmul(prep, spmm(fea_d, W_d)))
+
+    forward()  # warm-up
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.perf_counter()
+    out = forward()
+    torch.cuda.synchronize()
+    fwd_ms = (time.perf_counter() - t0) * 1e3
+    launches = _counts()
+    _all_ring("reference-format forward")
+    want = {k.__name__: 0 for k in KERNELS} | {"bsr_spmm_fused": 1}
+    if launches != want:
+        raise AssertionError(f"reference-format forward launches {launches}, expected {want}")
+    agg_ms = _cuda_ms(forward)
+    adj_d = adj.to(device)
+    edge = gnn_layer(adj_d, fea_d, W_d, relu=True)
+    dense = relu_hw(spmm_dense_rhs(adj_d, torch.from_numpy(fea.to_dense()).to(device), W_d))
+    scale = float(edge.abs().max())
+    errs = []
+    for name, ref in (("the all-edge-path gnn_layer", edge), ("spmm_dense_rhs", dense)):
+        torch.testing.assert_close(out, ref, rtol=REF_TOL, atol=REF_TOL * scale,
+                                   msg=lambda msg: f"reference-format forward vs {name}: {msg}")
+        errs.append(f"{float((out - ref).abs().max()) / scale:.3g} against {name}")
+    _log(f"reference-format forward ReLU(A (X W)) on {REF_DATASET}: prepare {prep_s:.2f} s (kind {prep.kind}, "
+         f"tb {prep.bsr.tb}, rank1 {prep.r1_row is not None}, {prep.bsr.num_tiles} tiles, "
+         f"{prep.rest.nnz if prep.rest is not None else 0} remainder edges); first forward {fwd_ms:.3f} ms, "
+         f"forward {agg_ms:.4f} ms (CUDA events, median of 10); launches {launches}; max err / max |out| "
+         + ", ".join(errs) + f" (tolerance {REF_TOL})")
+    return {"bsr_spmm_fused": launches["bsr_spmm_fused"]}
+
+
+def phase_gat_agg(A, B, device):
+    """gat_attention_agg at the GAT slice: one head, F = 64, on the slice's
+    dense attention part (A, edge list) and its int8 mask tiles (B). The
+    forward (K3) must be torch.equal to flash_gat_forward; the gradients of
+    s1, s2 and Wh (the edge backward) are held against autograd through the
+    f32 edge path (gat_attention_agg_ref) and against gat_attention_agg_fused
+    (K3 forward, K4/K5 backward)."""
+    n, F = A.n_rows, GAT_HIDDEN
+    gen = torch.Generator(device=device).manual_seed(5)
+    s1, s2 = (torch.randn(n, generator=gen, device=device) for _ in range(2))
+    Wh = torch.randn(n, F, generator=gen, device=device)
+    v = torch.randn(n, F, generator=gen, device=device)
+    A_d = A.to(device)
+
+    def run(fn):
+        xs = [t.clone().requires_grad_(True) for t in (s1, s2, Wh)]
+        out = fn(*xs)
+        (out * v).sum().backward()
+        return out.detach(), [x.grad for x in xs]
+
+    agg = lambda a, b, c: FG.gat_attention_agg(A_d, B, a, b, c)
+    run(agg)  # warm-up
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.perf_counter()
+    out, grads = run(agg)
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    launches = _counts()
+    _all_ring("gat_attention_agg")
+    want = {k.__name__: 0 for k in KERNELS} | {"flash_gat_forward": 1}
+    if launches != want:
+        raise AssertionError(f"gat_attention_agg forward + backward launches {launches}, expected {want}")
+    ms = _cuda_ms(lambda: run(agg), reps=5)
+    with torch.no_grad():
+        if not torch.equal(out, FG.flash_gat_forward(B, s1, s2, Wh)):
+            raise AssertionError("gat_attention_agg's forward differs from flash_gat_forward on the same inputs")
+    _, fused = run(lambda a, b, c: FG.gat_attention_agg_fused(B, a, b, c))
+    _, ref = run(lambda a, b, c: FG.gat_attention_agg_ref(A_d, a, b, c))
+    errs = []
+    for name, g, f, r in zip(("ds1", "ds2", "dWh"), grads, fused, ref):
+        scale = float(r.abs().max())
+        for what, want_g, tol in (("the f32 edge path", r, AGG_REF_TOL), ("K3/K4/K5", f, AGG_FUSED_TOL)):
+            torch.testing.assert_close(g, want_g, rtol=tol, atol=tol * scale,
+                                       msg=lambda msg: f"gat_attention_agg {name} vs {what}: {msg}")
+        errs.append(f"{name} {float((g - r).abs().max()) / scale:.3g} / {float((g - f).abs().max()) / scale:.3g}")
+    _log(f"gat_attention_agg at the GAT slice's dense part (n={n}, {A.nnz} edges, {int(B.live.sum())} live tiles of "
+         f"{B.tb}, H=1, F={F}): forward + backward {ms:.3f} ms (CUDA events, median of 5; first call {first_ms:.3f} "
+         f"ms); launches {launches}; forward torch.equal to flash_gat_forward; max err / max |grad| against the "
+         f"f32 edge path / K3-K4-K5: " + ", ".join(errs) + f" (tolerances {AGG_REF_TOL} / {AGG_FUSED_TOL})")
+    return {"flash_gat_forward": launches["flash_gat_forward"]}
 
 
 def _live_plan(plan):
@@ -1450,12 +1718,14 @@ def _all_ring(label: str) -> None:
                                  f"redesigned kernel and {k.launches_single} on the first one")
 
 
-def phase_train(data, prep, net, device, label, per_epoch, k1_view=False, cfg_kw=None):
+def phase_train(data, prep, net, device, label, per_epoch, k1_view=False, cfg_kw=None, remat=None):
     """train_node_classifier for TRAIN_EPOCHS epochs on ``prep`` (the main
     path: counts reset just before, read just after, each kernel launched
     ``per_epoch[name]`` times an epoch); then timed steps, a profiler
     window over one step, optionally one step through the K1 view of the
-    prep, and one step's gradients against the plain-kernel step."""
+    prep, one step's gradients against the plain-kernel step, and with
+    ``remat`` = (the same model with remat=True, its launches a step) one
+    remat step against the step without remat."""
     x = torch.from_numpy(data.x).to(device)
     y = torch.from_numpy(data.y).to(device).long()
     mask = torch.from_numpy(data.train_mask).to(device).float()
@@ -1521,7 +1791,58 @@ def phase_train(data, prep, net, device, label, per_epoch, k1_view=False, cfg_kw
     with _plain_kernels():
         _step(net, prep, x, y, mask)
     _check_grads(label, net, got)
+    if remat is not None:
+        _add(launches, _remat_step(label, net, remat[0].to(device), remat[1], prep, x, y, mask))
     return launches
+
+
+def _remat_step(label, net, remat, want, prep, x, y, mask):
+    """One training step (train mode, dropout from a generator seeded 0,
+    the loop's loss, backward) of ``net`` and of ``remat``, its remat twin
+    at the same weights, each after a warm-up step: the logits must be
+    torch.equal, the gradients torch.equal or within REMAT_TOL of their
+    largest entry; the remat step launches ``want``; step ms and the peak
+    device memory of each. Returns the remat step's launches."""
+    remat.load_state_dict(net.state_dict())
+
+    def step(m):
+        m.train()
+        m.zero_grad(set_to_none=True)
+        logits = m(prep, x, generator=torch.Generator(device=x.device).manual_seed(0))
+        _masked_xent(logits, y, mask).backward()
+        return logits.detach()
+
+    res = {}
+    for name, m in (("without remat", net), ("with remat", remat)):
+        step(m)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts()
+        t0 = time.perf_counter()
+        logits = step(m)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        counts = {k: v for k, v in _counts().items() if v}
+        _all_ring(f"{label} step {name}")
+        peak = torch.cuda.max_memory_allocated()
+        res[name] = (logits, {k: p.grad.clone() for k, p in m.named_parameters()}, counts)
+        _log(f"{label} training step {name}: {ms:.3f} ms, launches {counts}, peak device memory "
+             f"{peak / 2**30:.3f} GiB ({(peak - base) / 2**30:.3f} GiB above the step's start)")
+    (l0, g0, _), (l1, g1, c1) = res["without remat"], res["with remat"]
+    if c1 != want:
+        raise AssertionError(f"{label} remat step launches {c1}, expected {want}")
+    if not torch.equal(l0, l1):
+        raise AssertionError(f"{label} remat step logits differ from the step without remat")
+    same = [k for k in g0 if torch.equal(g0[k], g1[k])]
+    for k in g0:
+        scale = float(g0[k].abs().max())
+        torch.testing.assert_close(g1[k], g0[k], rtol=REMAT_TOL, atol=REMAT_TOL * scale,
+                                   msg=lambda m: f"{label} remat gradient {k}: {m}")
+    err = max(float((g1[k] - g0[k]).abs().max()) / max(float(g0[k].abs().max()), 1e-30) for k in g0)
+    _log(f"{label} remat step: logits torch.equal to the step without remat; gradients torch.equal for "
+         f"{len(same)} of {len(g0)} parameters ({same}), max err / max |grad| {err:.3g} (tolerance {REMAT_TOL})")
+    return c1
 
 
 def _check_grads(label, net, got):
@@ -1552,16 +1873,16 @@ def phase_gat_small(device, cfg=GAT_SMALL):
     return _add(launches, phase_subskip(prep.flash_tiles, A, device, "n=8192 full-cover")[1])
 
 
-def _gat_net(cfg):
+def _gat_net(cfg, remat=False):
     F, C = cfg["num_features"], cfg["num_classes"]
-    net = GATModel(F, GAT_HIDDEN, C, nheads=GAT_HEADS)
+    net = GATModel(F, GAT_HIDDEN, C, nheads=GAT_HEADS, remat=remat)
     net.load_state_dict(_gat_weights(np.random.default_rng(0), F, GAT_HIDDEN, GAT_HEADS, C))
     return net
 
 
-def _gcn_net(cfg):
+def _gcn_net(cfg, remat=False):
     F, C = cfg["num_features"], cfg["num_classes"]
-    net = GCNModel(F, HIDDEN, C)
+    net = GCNModel(F, HIDDEN, C, remat=remat)
     net.load_state_dict({k: torch.from_numpy(v) for k, v in
                          _slice_weights(np.random.default_rng(0), F, HIDDEN, C).items()})
     return net
@@ -2821,7 +3142,9 @@ def phase_molecules(device):
     batches of 32 at pad_to=64, as tests/test_training.py):
     MoleculeGCN(7, 64, 2), 36 epochs at lr 0.01, prepare="bsr", so that
     K2 walks the block-diagonal batches (two forward, two on fused_t a
-    step; two an evaluated batch)."""
+    step; two an evaluated batch). Then ``calibrate`` on the trained
+    model and MOL_QAT_EPOCHS fake-quant epochs on bf16 value tiles (K1).
+    One step of each loop is held against the plain-kernel step."""
     t_phase = time.perf_counter()
     graphs = synthetic_molecules(num_graphs=150, seed=4)
     rng = np.random.default_rng(0)
@@ -2859,8 +3182,35 @@ def phase_molecules(device):
         state.model(p0, x, gid, b.num_graphs, generator=gen), y, m)), "MoleculeGCN train", "1 training step of batch 0")
     _check_loop_step("MoleculeGCN", state.model, lambda g: state.model(p0, x, gid, b.num_graphs, generator=g),
                      lambda lg: _masked_xent(lg, y, m))
+
+    # quantization: calibrate the trained float model on the card from one
+    # batch (the JAX package's calibrate takes one batch's arguments), then
+    # 8-bit fake-quant epochs from that table on value tiles (K1)
+    cal, cal_s = _timed(lambda: calibrate(state.model.eval(), p0, x, gid, b.num_graphs))
+    raw = cal.raw
+    _log(f"MoleculeGCN calibrate on train batch 0: {cal_s * 1e3:.1f} ms; f_max {raw['f_max']:.4g} "
+         f"w_max {raw['w_max']:.4g} f_max2 {raw['f_max2']:.4g} w_max2 {raw['w_max2']:.4g}")
+    qnet = MoleculeGCN(7, MOL_HIDDEN, 2, calibration=cal)
+    qnet.load_state_dict(state.model.state_dict())
+    qcfg = SGRACEConfig(num_epochs=MOL_QAT_EPOCHS, learning_rate=0.01, fake_quantization=True)
+    qpreps = []
+    qstate, qhist, qlaunches, q_per_step, qwall = _run_loop(
+        "MoleculeGCN QAT", lambda: train_graph_classifier(qnet, train_b, test_b, qcfg, seed=0, prepare="bsr",
+                                                          device=device),
+        {"_prepare_backend": qpreps})
+    if any(p.r1_row is not None or p.bsr.tiles.dtype != torch.bfloat16 for _, p, _, _ in qpreps):
+        raise AssertionError("fake-quant batches must be prepared with bf16 value tiles")
+    _want_per_step("MoleculeGCN QAT", q_per_step, {"bsr_spmm": 4})
+    q_want = MOL_QAT_EPOCHS * (4 * n_tr + 2 * n_all)
+    if qlaunches["bsr_spmm"] != q_want or sum(qlaunches.values()) != q_want:
+        raise AssertionError(f"MoleculeGCN QAT launches {qlaunches}, expected bsr_spmm {q_want} and nothing else")
+    qp0 = qpreps[0][1]
+    _check_loop_step("MoleculeGCN QAT", qstate.model, lambda g: qstate.model(qp0, x, gid, b.num_graphs, generator=g),
+                     lambda lg: _masked_xent(lg, y, m))
+    _log(f"MoleculeGCN QAT: {MOL_QAT_EPOCHS} epochs in {qwall:.2f} s; best test accuracy {qhist.best_test_acc:.4f} "
+         f"(float: {hist.best_test_acc:.4f})")
     _log(f"phase molecules: {time.perf_counter() - t_phase:.1f} s wall")
-    return {"bsr_spmm_fused": launches["bsr_spmm_fused"]}
+    return {"bsr_spmm_fused": launches["bsr_spmm_fused"], "bsr_spmm": qlaunches["bsr_spmm"]}
 
 
 # --------------------------------------------------- the distributed path
@@ -3174,16 +3524,20 @@ def main() -> None:
     phase_kernels_small(device)
     phase_int8_kernels_small(device)
     phase_variant_kernels_small(device)
-    A, data, prep = phase_slice_prepare(device)
+    A, data, prep = phase_slice_prepare(device, graph=phase_native_prepare(device))
     rec = phase_kernels_slice(A, prep, device)
     launches, k2_logits = phase_slice_serve(A, data.x, prep, device)
+    # remat: the ReLU layer's aggregation is recomputed, the last layer's is
+    # not (its backward reads no output of it), so K2 five times a step
     _add(launches, phase_train(data, prep, _gcn_net(SLICE), device, "GCN slice",
-                               {"bsr_spmm_fused": 6}, k1_view=True))
+                               {"bsr_spmm_fused": 6}, k1_view=True,
+                               remat=(_gcn_net(SLICE, remat=True), {"bsr_spmm_fused": 5})))
     more_rec, more = phase_variants_agg_slice(A, prep, device, rec["bsr_spmm"]["library_ms"])
     rec.update(more_rec)
     _add(launches, more)
     del prep
     torch.cuda.empty_cache()
+    _add(launches, phase_reference_format(device))
     more_rec, more = phase_pallas_slice(A, data, device, k2_logits)
     rec.update(more_rec)
     _add(launches, more)
@@ -3196,11 +3550,14 @@ def main() -> None:
                                    plain_min_sb=64)
     rec.update(more_rec)
     _add(launches, more)
+    _add(launches, phase_gat_agg(dense_part, gat_prep.gat_bsr, device))
     del dense_part
     _add(launches, {"flash_gat_hybrid_forward": phase_gat_serve(
         A, data.x, gat_prep, device, FG.flash_gat_hybrid_forward, "slice")})
     per_epoch = {"flash_gat_hybrid_forward": 4, "flash_gat_bwd_row": 2, "flash_gat_bwd_col": 2}
-    _add(launches, phase_train(data, gat_prep, _gat_net(SLICE), device, "GAT slice", per_epoch))
+    remat = (_gat_net(SLICE, remat=True),
+             {"flash_gat_hybrid_forward": 4, "flash_gat_bwd_row": 2, "flash_gat_bwd_col": 2})
+    _add(launches, phase_train(data, gat_prep, _gat_net(SLICE), device, "GAT slice", per_epoch, remat=remat))
     del gat_prep
     torch.cuda.empty_cache()
     _add(launches, phase_gat_small(device))

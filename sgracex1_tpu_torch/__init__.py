@@ -40,7 +40,11 @@ fake-quant datapath of the layers (``GCNModel(..., calibration=cal)``) and
 int8 serving (``quant.int8``). ``parallel`` holds the distributed layers:
 the row partition, the halo exchange with each shard's local block on K1,
 K2 or K3-K5, on an in-process mesh of shards (one card) or one shard a
-rank over ``torch.distributed``. Entry points run on the CUDA card unless
+rank over ``torch.distributed``. ``graph.io`` and the ``graph.datasets``
+parsers read the reference's text files and the public datasets' raw
+files; ``runtime.native`` (a g++ build of ``csrc/sgrace_host.cpp``) runs
+the parsers, ``sym_norm``, ``rcm_order`` and ``plan_spmm``'s planner
+natively, their numpy versions the fallback. Entry points run on the CUDA card unless
 the caller passes ``device="cpu"``. Kernels build with nvcc at first use;
 on CPU tensors each wrapper runs its plain PyTorch version. This package
 never imports jax.

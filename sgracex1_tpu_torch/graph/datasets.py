@@ -1,14 +1,19 @@
-"""Synthetic datasets: node classification, MUTAG-shaped molecules and
-PPI-shaped multi-label graphs.
+"""Datasets: synthetic generators (node classification, MUTAG-shaped
+molecules, PPI-shaped multi-label graphs) and parsers of the file formats
+the reference trains on (Planetoid, TU, OGB, Amazon, PPI).
 
 Each generator draws from one ``numpy.random.default_rng(seed)`` stream in
 the same order as ``sgracex1_tpu.graph.datasets``, so one seed gives the
-identical graph, features, labels and splits in both packages.
+identical graph, features, labels and splits in both packages. The
+parsers read files already on disk (nothing is fetched) and give the JAX
+parsers' arrays; a missing file raises.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
+import pickle
 from typing import List, Tuple
 
 import numpy as np
@@ -250,3 +255,197 @@ def products_density_graph(
     return NodeClassificationData(
         und, base.x, base.y, base.train_mask, base.val_mask, base.test_mask,
     )
+
+
+# ------------------------------------------------------ file-format parsers
+
+
+def load_ppi(root: str, split: str = "train") -> List[MultiLabelGraphData]:
+    """The PPI raw format: ``{split}_graph.json`` (networkx node-link),
+    ``{split}_feats.npy`` [N, 50], ``{split}_labels.npy`` [N, 121] and
+    ``{split}_graph_id.npy`` [N]. One ``MultiLabelGraphData`` per protein
+    graph, its edges symmetrized."""
+    import json
+
+    with open(os.path.join(root, f"{split}_graph.json")) as f:
+        g = json.load(f)
+    feats = np.load(os.path.join(root, f"{split}_feats.npy"))
+    labels = np.load(os.path.join(root, f"{split}_labels.npy"))
+    gid = np.load(os.path.join(root, f"{split}_graph_id.npy"))
+
+    src = np.array([link["source"] for link in g["links"]], dtype=np.int64)
+    dst = np.array([link["target"] for link in g["links"]], dtype=np.int64)
+    # the file stores each undirected edge once
+    und = np.unique(np.concatenate([np.stack([src, dst]), np.stack([dst, src])], axis=1), axis=1)
+    graphs = []
+    for gi in np.unique(gid):
+        nodes = np.nonzero(gid == gi)[0]
+        lo, hi = nodes[0], nodes[-1]
+        em = (und[0] >= lo) & (und[0] <= hi)
+        graphs.append(MultiLabelGraphData(
+            edge_index=(und[:, em] - lo).astype(np.int64),
+            x=feats[nodes].astype(np.float32),
+            y=labels[nodes].astype(np.float32),
+        ))
+    return graphs
+
+
+def load_planetoid(root: str, name: str) -> NodeClassificationData:
+    """The raw Planetoid format (``ind.<name>.{x,y,tx,ty,allx,ally,graph,
+    test.index}``) of Cora, Citeseer and Pubmed: test node
+    ``test.index[i]`` gets row i of ``tx`` / ``ty``. The files are
+    pickles: load them only from a source you trust.
+
+    Citeseer's test index skips its isolated nodes, which get zero
+    features and labels (the row of class 0). The JAX parser stretches
+    the test index itself over that range, so its reorder assigns rows of
+    unequal count and raises, and it skips the reorder where the range
+    has no gap; this parser keeps the file's index, as PyG does. Cora and
+    Pubmed give the JAX parser's arrays."""
+    import scipy.sparse as sp
+
+    name = name.lower()
+
+    def read(suffix):
+        path = os.path.join(root, f"ind.{name}.{suffix}")
+        if suffix == "test.index":
+            return np.loadtxt(path, dtype=np.int64)
+        with open(path, "rb") as f:
+            return pickle.load(f, encoding="latin1")
+
+    x, y, tx, ty, allx, ally, graph = (read(s) for s in ["x", "y", "tx", "ty", "allx", "ally", "graph"])
+    test_idx = read("test.index")
+    test_sorted = np.sort(test_idx)
+
+    if name == "citeseer":  # isolated test nodes: reindex over the full range
+        full = np.arange(test_sorted[0], test_sorted[-1] + 1)
+        tx_full = sp.lil_matrix((len(full), x.shape[1]))
+        tx_full[test_sorted - test_sorted[0]] = tx
+        tx = tx_full
+        ty_full = np.zeros((len(full), y.shape[1]))
+        ty_full[test_sorted - test_sorted[0]] = ty
+        ty = ty_full
+
+    features = sp.vstack([allx, tx]).tolil()
+    features[test_idx] = features[test_sorted]
+    labels = np.vstack([ally, ty])
+    labels[test_idx] = labels[test_sorted]
+
+    n = labels.shape[0]
+    rows = [src for src, dsts in graph.items() for _ in dsts]
+    cols = [d for dsts in graph.values() for d in dsts]
+    edge_index = np.stack([np.array(rows), np.array(cols)]).astype(np.int64)
+    edge_index = np.unique(np.concatenate([edge_index, edge_index[::-1]], axis=1), axis=1)
+
+    masks = np.zeros((3, n), bool)
+    masks[0, : y.shape[0]] = True
+    masks[1, y.shape[0] : y.shape[0] + 500] = True
+    masks[2, test_sorted] = True
+    return NodeClassificationData(
+        edge_index, np.asarray(features.todense(), dtype=np.float32),
+        labels.argmax(axis=1).astype(np.int64), *masks,
+    )
+
+
+def load_tu_dataset(root: str, name: str = "MUTAG") -> List[GraphSample]:
+    """The TU graph-kernel format (``{name}_A.txt``, ``_graph_indicator``,
+    ``_graph_labels``, ``_node_labels``) under ``root/name/raw`` or
+    ``root``; node labels one-hot, graph labels ``> 0`` as 1."""
+    pre = os.path.join(root, name, "raw", name)
+    if not os.path.exists(pre + "_A.txt"):
+        pre = os.path.join(root, name)
+    edges = np.loadtxt(pre + "_A.txt", delimiter=",", dtype=np.int64) - 1
+    gid = np.loadtxt(pre + "_graph_indicator.txt", dtype=np.int64) - 1
+    glabels = (np.loadtxt(pre + "_graph_labels.txt", dtype=np.int64) > 0).astype(np.int64)
+    nlabels = np.loadtxt(pre + "_node_labels.txt", dtype=np.int64)
+    num_types = int(nlabels.max()) + 1
+
+    graphs = []
+    for g in range(int(gid.max()) + 1):
+        nodes = np.nonzero(gid == g)[0]
+        emask = (gid[edges[:, 0]] == g) & (gid[edges[:, 1]] == g)
+        ei = (edges[emask] - nodes[0]).T.astype(np.int64)
+        x = np.eye(num_types, dtype=np.float32)[nlabels[nodes]]
+        graphs.append(GraphSample(edge_index=ei, x=x, y=int(glabels[g])))
+    return graphs
+
+
+def _index_masks(n: int, *idxs) -> list:
+    masks = []
+    for idx in idxs:
+        m = np.zeros(n, bool)
+        m[idx] = True
+        masks.append(m)
+    return masks
+
+
+def load_ogb_node(root: str) -> NodeClassificationData:
+    """An OGB node-property dataset (e.g. ogbn-products) on disk:
+    ``{root}/processed.npz`` (edge_index, x, y, train_idx, valid_idx,
+    test_idx; ``convert_ogb_raw`` writes it) where it exists, else OGB's
+    raw layout through ``convert_ogb_raw``."""
+    proc = os.path.join(root, "processed.npz")
+    if not os.path.exists(proc):
+        return convert_ogb_raw(root)
+    z = np.load(proc)
+    masks = _index_masks(z["x"].shape[0], z["train_idx"], z["valid_idx"], z["test_idx"])
+    return NodeClassificationData(
+        z["edge_index"], z["x"].astype(np.float32), z["y"].reshape(-1).astype(np.int64), *masks
+    )
+
+
+def convert_ogb_raw(root: str, save: bool = True) -> NodeClassificationData:
+    """OGB's raw files: ``raw/edge.csv.gz`` (src,dst rows, symmetrized
+    here), ``raw/node-feat.csv.gz``, ``raw/node-label.csv.gz`` and the
+    first ``split/*/{train,valid,test}.csv.gz``; with ``save``, cached as
+    ``processed.npz``."""
+    import glob
+    import gzip
+
+    def read_csv_gz(path, dtype):
+        with gzip.open(path, "rt") as f:
+            return np.loadtxt(f, delimiter=",", dtype=dtype, ndmin=2)
+
+    raw = os.path.join(root, "raw")
+    edges = read_csv_gz(os.path.join(raw, "edge.csv.gz"), np.int64)
+    x = read_csv_gz(os.path.join(raw, "node-feat.csv.gz"), np.float32)
+    y = read_csv_gz(os.path.join(raw, "node-label.csv.gz"), np.int64).reshape(-1)
+    ei = np.concatenate([edges.T, edges.T[::-1]], axis=1)
+
+    split_dirs = sorted(glob.glob(os.path.join(root, "split", "*")))
+    if not split_dirs:
+        raise FileNotFoundError(f"no split directory under {root}/split")
+    idxs = {
+        k: read_csv_gz(os.path.join(split_dirs[0], f"{k}.csv.gz"), np.int64).reshape(-1)
+        for k in ("train", "valid", "test")
+    }
+    if save:
+        np.savez_compressed(
+            os.path.join(root, "processed.npz"), edge_index=ei, x=x, y=y,
+            train_idx=idxs["train"], valid_idx=idxs["valid"], test_idx=idxs["test"],
+        )
+    masks = _index_masks(x.shape[0], idxs["train"], idxs["valid"], idxs["test"])
+    return NodeClassificationData(ei, x, y, *masks)
+
+
+def load_amazon(
+    path: str, *, train_frac: float = 0.6, val_frac: float = 0.2, seed: int = 0,
+) -> NodeClassificationData:
+    """The Amazon Photo/Computers npz (Shchur et al.: CSR adjacency, CSR
+    bag-of-words attributes, labels), edges symmetrized, with the random
+    split of ``default_rng(seed)`` that the JAX parser draws."""
+    import scipy.sparse as sp
+
+    z = np.load(path, allow_pickle=True)
+    adj = sp.csr_matrix((z["adj_data"], z["adj_indices"], z["adj_indptr"]), shape=tuple(z["adj_shape"]))
+    attr = sp.csr_matrix((z["attr_data"], z["attr_indices"], z["attr_indptr"]), shape=tuple(z["attr_shape"]))
+    y = z["labels"].astype(np.int64)
+    coo = adj.tocoo()
+    ei = np.stack([coo.row, coo.col]).astype(np.int64)
+    und = np.unique(np.concatenate([ei, ei[::-1]], axis=1), axis=1)
+
+    n = attr.shape[0]
+    perm = np.random.default_rng(seed).permutation(n)
+    n_tr, n_va = int(n * train_frac), int(n * val_frac)
+    masks = _index_masks(n, perm[:n_tr], perm[n_tr : n_tr + n_va], perm[n_tr + n_va :])
+    return NodeClassificationData(und, np.asarray(attr.todense(), dtype=np.float32), y, *masks)

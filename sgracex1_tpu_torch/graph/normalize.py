@@ -15,6 +15,7 @@ from typing import Optional, Tuple
 import numpy as np
 
 from sgracex1_tpu_torch.graph.csr import SparseMatrix
+from sgracex1_tpu_torch.runtime import native
 
 
 def add_self_loops(
@@ -51,7 +52,14 @@ def sym_norm_edges(
     fill: float = 0.0,
 ) -> Tuple[np.ndarray, np.ndarray]:
     """Edge-list form: ``w'(i,j) = d_i^{-1/2} w(i,j) d_j^{-1/2}`` with
-    ``d`` the weight sum per source row (float64, as the reference)."""
+    ``d`` the weight sum per source row (float64, as the reference). The
+    native library runs it where it is available (``runtime/native``);
+    the numpy below is the spec."""
+    fast = native.sym_norm_edges(
+        np.asarray(edge_index, dtype=np.int64), num_nodes, edge_weight, fill
+    )
+    if fast is not None:
+        return fast
     edge_index, edge_weight = add_self_loops(
         edge_index, edge_weight, num_nodes, fill
     )

@@ -15,16 +15,23 @@ from typing import Tuple
 import numpy as np
 
 from sgracex1_tpu_torch.graph.csr import SparseMatrix
+from sgracex1_tpu_torch.runtime import native
 
 
 def rcm_order(A: SparseMatrix) -> np.ndarray:
-    """Reverse Cuthill-McKee permutation (scipy), perm[new_id] = old_id."""
-    import scipy.sparse as sp
-    from scipy.sparse.csgraph import reverse_cuthill_mckee
-
+    """Reverse Cuthill-McKee permutation, perm[new_id] = old_id: the
+    native library's where it is available (``runtime/native``, the JAX
+    package's fast path, so both packages give the same permutation),
+    else scipy's. The two are different valid RCM orders."""
     r = np.asarray(A.rows[: A.nnz])
     c = np.asarray(A.cols[: A.nnz])
     n = max(A.n_rows, A.n_cols)
+    perm = native.rcm_order(n, r, c)
+    if perm is not None:
+        return perm.astype(np.int64)
+    import scipy.sparse as sp
+    from scipy.sparse.csgraph import reverse_cuthill_mckee
+
     m = sp.coo_matrix(
         (np.ones(A.nnz, np.float32), (r, c)), shape=(n, n)
     ).tocsr()

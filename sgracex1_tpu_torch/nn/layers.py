@@ -127,7 +127,19 @@ class GCNConv(nn.Module, _AmaxMixin):
         self.bias = nn.Parameter(torch.zeros(out_features)) if use_bias else None
         _xavier_uniform_(self.weight, generator=generator)
 
-    def forward(self, A, x: torch.Tensor, *, relu: bool = False) -> torch.Tensor:
+    def quantize_adjacency(self, A):
+        """The adjacency as the forward aggregates over it: its values
+        fake-quantized on the fake-quant datapath (not the ``go_quant``
+        one), else ``A`` itself. The forward takes the result with
+        ``adj_quantized=True``, so a caller maps it once for several
+        forwards (the models' ``remat`` recompute)."""
+        if self.quant is None or self.go_quant is not None:
+            return A
+        return _quantize_adj(A, self.quant)
+
+    def forward(
+        self, A, x: torch.Tensor, *, relu: bool = False, adj_quantized: bool = False,
+    ) -> torch.Tensor:
         W, q = self.weight, self.quant
         if q is not None:
             x = fake_quant_unsigned(x, q.features, q.w_qbits)
@@ -142,7 +154,8 @@ class GCNConv(nn.Module, _AmaxMixin):
         self._record_amax(x, W, Wh)
         if q is not None:
             Wh = internal_fixed_point(Wh, q.scale_fea, q.internal_quantization)
-            A = _quantize_adj(A, q)
+            if not adj_quantized:
+                A = _quantize_adj(A, q)
         out = _agg(A, Wh)
         if self.bias is not None:
             out = out + self.bias
@@ -198,9 +211,15 @@ class GATConv(nn.Module, _AmaxMixin):
         _xavier_uniform_(self.weight, generator=generator)
         _xavier_uniform_(self.attention, generator=generator)
 
+    def quantize_adjacency(self, A):
+        """The adjacency as the forward reads its edges: its values
+        fake-quantized on the fake-quant datapath, else ``A`` itself (see
+        ``GCNConv.quantize_adjacency``)."""
+        return A if self.quant is None else _quantize_adj(A, self.quant)
+
     def forward(
         self, A, x: torch.Tensor, *, relu: bool = False,
-        return_attention: bool = False,
+        return_attention: bool = False, adj_quantized: bool = False,
     ):
         F, H = self.out_features, self.nheads
         W, att, q = self.weight, self.attention, self.quant
@@ -208,7 +227,8 @@ class GATConv(nn.Module, _AmaxMixin):
             x = fake_quant_unsigned(x, q.features, q.w_qbits)
             W = fake_quant_signed(W, q.weights, q.w_qbits)
             att = fake_quant_signed(att, q.weights, q.w_qbits)
-            A = _quantize_adj(A, q)
+            if not adj_quantized:
+                A = _quantize_adj(A, q)
         Wh = torch.matmul(x, W)  # [N, F*H]
         self._record_amax(x, W, Wh)
         if q is not None:

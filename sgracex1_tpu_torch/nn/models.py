@@ -1,15 +1,47 @@
 """GCN and GAT node-classification models and the molecule
-graph-classification model as ``torch.nn.Module``s."""
+graph-classification model as ``torch.nn.Module``s.
+
+``remat=True`` checkpoints each convolution (the JAX models' ``nn.remat``):
+under grad its activations are not kept but recomputed in the backward
+(``torch.utils.checkpoint``, non-reentrant, stopping as soon as what the
+backward reads is recomputed). Parameter names and results do not change.
+Dropout sits outside the convolutions, so no random draw is replayed.
+"""
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from sgracex1_tpu_torch.nn.layers import GATConv, GCNConv
 from sgracex1_tpu_torch.quant.calibration import CalibrationTable
+
+
+@contextlib.contextmanager
+def _no_telemetry(conv: nn.Module):
+    """The recompute records no range telemetry: the forward has."""
+    saved, conv.telemetry = conv.telemetry, False
+    try:
+        yield
+    finally:
+        conv.telemetry = saved
+
+
+def _conv_apply(remat: bool, conv: nn.Module, A, x: torch.Tensor, relu: bool) -> torch.Tensor:
+    """``conv(A, x, relu=relu)``, checkpointed with ``remat`` under grad.
+    The adjacency is quantized once, outside the checkpoint, so the
+    recompute reads the forward's."""
+    if not (remat and torch.is_grad_enabled()):
+        return conv(A, x, relu=relu)
+    Aq = conv.quantize_adjacency(A)
+    return checkpoint(
+        lambda x: conv(Aq, x, relu=relu, adj_quantized=True), x, use_reentrant=False,
+        context_fn=lambda: (contextlib.nullcontext(), _no_telemetry(conv)),
+    )
 
 
 class GCNModel(nn.Module):
@@ -21,7 +53,7 @@ class GCNModel(nn.Module):
     Dropout draws from the ``generator`` passed to ``forward``. With
     ``calibration`` the convolutions run the fake-quant datapath: conv1
     on the table's layer-1 constants, every later one on its layer-2
-    constants."""
+    constants. ``remat`` checkpoints each convolution."""
 
     def __init__(
         self,
@@ -31,11 +63,13 @@ class GCNModel(nn.Module):
         *,
         calibration: Optional[CalibrationTable] = None,
         dropout: float = 0.5,
+        remat: bool = False,
         num_layers: int = 2,
         generator: Optional[torch.Generator] = None,
     ):
         super().__init__()
         self.dropout = dropout
+        self.remat = remat
         self.num_layers = num_layers
         for i in range(num_layers):
             f_in = num_features if i == 0 else hidden_channels
@@ -51,7 +85,7 @@ class GCNModel(nn.Module):
     ) -> torch.Tensor:
         for i in range(self.num_layers):
             conv = getattr(self, f"conv{i + 1}")
-            x = conv(A, x, relu=i < self.num_layers - 1)
+            x = _conv_apply(self.remat, conv, A, x, i < self.num_layers - 1)
         return self.head(_dropout(self, x, generator))
 
 
@@ -72,7 +106,7 @@ class GATModel(nn.Module):
 
     Parameters are named ``conv{1,2}.weight``, ``conv{1,2}.attention``,
     ``head.weight``, ``head.bias`` (see ``nn/convert.params_from_jax``).
-    ``calibration`` as in ``GCNModel``."""
+    ``calibration`` and ``remat`` as in ``GCNModel``."""
 
     def __init__(
         self,
@@ -84,10 +118,12 @@ class GATModel(nn.Module):
         alpha: float = 0.2,
         calibration: Optional[CalibrationTable] = None,
         dropout: float = 0.5,
+        remat: bool = False,
         generator: Optional[torch.Generator] = None,
     ):
         super().__init__()
         self.dropout = dropout
+        self.remat = remat
         q1 = calibration.layer_params(0) if calibration else None
         q2 = calibration.layer_params(1) if calibration else None
         self.conv1 = GATConv(
@@ -103,8 +139,8 @@ class GATModel(nn.Module):
     def forward(
         self, A, x: torch.Tensor, *, generator: Optional[torch.Generator] = None
     ) -> torch.Tensor:
-        x = self.conv1(A, x, relu=True)
-        x = self.conv2(A, x)
+        x = _conv_apply(self.remat, self.conv1, A, x, True)
+        x = _conv_apply(self.remat, self.conv2, A, x, False)
         return self.head(_dropout(self, x, generator))
 
 
@@ -127,7 +163,7 @@ class MoleculeGCN(nn.Module):
 
     Parameters are named ``conv1.weight``, ``conv2.weight``,
     ``head.weight``, ``head.bias`` (see ``nn/convert.params_from_jax``).
-    ``calibration`` as in ``GCNModel``."""
+    ``calibration`` and ``remat`` as in ``GCNModel``."""
 
     def __init__(
         self,
@@ -137,10 +173,12 @@ class MoleculeGCN(nn.Module):
         *,
         calibration: Optional[CalibrationTable] = None,
         dropout: float = 0.5,
+        remat: bool = False,
         generator: Optional[torch.Generator] = None,
     ):
         super().__init__()
         self.dropout = dropout
+        self.remat = remat
         q1 = calibration.layer_params(0) if calibration else None
         q2 = calibration.layer_params(1) if calibration else None
         self.conv1 = GCNConv(num_features, hidden_channels, quant=q1, generator=generator)
@@ -151,7 +189,7 @@ class MoleculeGCN(nn.Module):
         self, A, x: torch.Tensor, graph_ids: torch.Tensor, num_graphs: int, *,
         generator: Optional[torch.Generator] = None,
     ) -> torch.Tensor:
-        x = self.conv1(A, x, relu=True)
-        x = self.conv2(A, x)
+        x = _conv_apply(self.remat, self.conv1, A, x, True)
+        x = _conv_apply(self.remat, self.conv2, A, x, False)
         x = global_mean_pool(x, graph_ids, num_graphs)
         return self.head(_dropout(self, x, generator))

@@ -3,7 +3,8 @@ host, ``agg_matmul`` per layer.
 
 Kinds, as in ``sgracex1_tpu.ops.dispatch``:
 
-- ``dense``: the adjacency as a dense bf16 matrix, one matmul.
+- ``dense``: the adjacency as a dense matrix (bf16 unless ``dense_dtype``
+  says otherwise), one matmul.
 - ``bsr``: nonempty dense tiles (``ops/bsr``).
 - ``hybrid``: tiles holding at least ``rest_thresh`` edges stay tiles; the
   sparse remainder rides chunk steps of the fused kernel (``ops/fused_agg``)
@@ -21,8 +22,8 @@ diagonal scalings applied around the tile products.
 
 The JAX package picks the backend and tile size with a cost model
 calibrated on the TPU. Those constants do not carry over, so here
-``method="auto"`` is a fixed rule: ``dense`` when the bf16 matrix fits
-``dense_max_bytes``, else ``hybrid`` at ``DEFAULT_TB`` / ``DEFAULT_REST_THRESH``
+``method="auto"`` is a fixed rule: ``dense`` when the dense matrix in
+``dense_dtype`` fits ``dense_max_bytes``, else ``hybrid`` at ``DEFAULT_TB`` / ``DEFAULT_REST_THRESH``
 — unmeasured starting points, to be calibrated on the H100.
 
 ``for_gat=True`` also attaches the flash-GAT layout that ``GATConv`` reads
@@ -76,7 +77,7 @@ from sgracex1_tpu_torch.ops.fused_agg import (
 from sgracex1_tpu_torch.ops.pallas_spmm import SpMMPlan, plan_spmm, plan_with_vals, spmm_plan
 from sgracex1_tpu_torch.ops.spmm import spmm, spmm_into
 
-DENSE_MAX_BYTES = 512 << 20  # dense bf16 adjacency budget
+DENSE_MAX_BYTES = 512 << 20  # dense adjacency budget
 DEFAULT_TB = 256  # hybrid/bsr tile size: unmeasured starting point
 DEFAULT_REST_THRESH = 64  # edges a tile needs to stay a tile: unmeasured
 GAT_FULL_COVER_MAX_N = 8192  # full-cover flash tiles up to here (JAX rule)
@@ -168,6 +169,7 @@ def prepare_adjacency(
     *,
     method: str = "auto",
     dense_max_bytes: int = DENSE_MAX_BYTES,
+    dense_dtype: torch.dtype = torch.bfloat16,
     rb: int = 1024,
     cb: int = 1024,
     be: int = 1024,
@@ -180,11 +182,16 @@ def prepare_adjacency(
     for_gat: bool = False,
     gat_tb: Optional[int] = None,
     gat_rest_thresh: Optional[int] = None,
+    gat_train: bool = True,
     device=None,
 ) -> PreparedAdjacency:
     """Prepare ``A`` for one backend, with its tensors on ``device``: the
     CUDA card by default (a ``RuntimeError`` where there is none), the CPU
     only with ``device="cpu"``.
+
+    ``dense_dtype`` is the dense kind's matrix dtype, and sets the
+    ``auto`` rule's budget ``n * n * itemsize``; ``agg_matmul`` reads H in
+    it (so ``torch.float32`` keeps H unrounded).
 
     ``rb`` / ``cb`` / ``be`` are the ``pallas`` kind's row block, column
     block and edge-group size (``plan_spmm``; the JAX defaults).
@@ -204,11 +211,15 @@ def prepare_adjacency(
     ``for_gat`` attaches the flash-GAT layout unless the prep's own tiles
     already serve (``flash_tiles``). ``gat_tb`` / ``gat_rest_thresh``
     override the fixed rule; an explicit ``gat_rest_thresh`` asks for the
-    hybrid split at any size."""
+    hybrid split at any size. ``gat_train`` (the JAX argument: price the
+    layout for training, not serving alone) is accepted for the JAX
+    signature; the fixed rule ignores it until a layout chooser prices
+    it."""
     device = resolve_device(device)
     n = max(A.n_rows, A.n_cols)
     if method == "auto":
-        method = "dense" if n * n * 2 <= dense_max_bytes else "hybrid"
+        itemsize = torch.empty((), dtype=dense_dtype).element_size()
+        method = "dense" if n * n * itemsize <= dense_max_bytes else "hybrid"
     if method not in ("dense", "bsr", "hybrid", "pallas", "xla"):
         raise ValueError(f"unknown method {method!r}")
     A_dev = A.to(device)
@@ -231,7 +242,7 @@ def prepare_adjacency(
     if method == "dense":
         d = torch.from_numpy(A.to_dense().astype(np.float32))
         return finish(PreparedAdjacency(
-            A=A_dev, kind="dense", dense=d.to(torch.bfloat16).to(device)
+            A=A_dev, kind="dense", dense=d.to(dense_dtype).to(device)
         ))
 
     tb = DEFAULT_TB if tb is None else tb
@@ -388,7 +399,7 @@ def agg_matmul(prep: PreparedAdjacency, H: torch.Tensor) -> torch.Tensor:
     through bf16, forward and in grad_H."""
     if prep.kind == "dense":
         out = torch.matmul(
-            prep.dense.to(torch.float32), H.to(torch.bfloat16).to(torch.float32)
+            prep.dense.to(torch.float32), H.to(prep.dense.dtype).to(torch.float32)
         )
         return out[: prep.A.n_rows].to(H.dtype)
     if prep.kind == "pallas":

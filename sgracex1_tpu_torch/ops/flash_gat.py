@@ -23,6 +23,8 @@ vector ever exists.
 - ``gat_attention_agg_fused`` / ``gat_attention_agg_hybrid``: the layer
   entry points, ``torch.autograd.Function``s whose backward runs K4 and K5
   (the hybrid one adds its remainder edges' terms in plain torch).
+- ``gat_attention_agg``: K3 forward with the reference's per-edge backward
+  on the edge list (single head).
 - ``flash_gat_halo_agg``: one shard of the distributed layer
   (``parallel/halo.dist_gat_layer_halo_flash``): K3 with its stats on the
   shard's local tiles, merged with its halo edges' softmax terms; the
@@ -1096,6 +1098,48 @@ class _Flash(torch.autograd.Function):
             ctx.B, s1, s2, Wh, gO, m, l, alpha=ctx.alpha, rest=ctx.rest
         )
         return None, None, None, None, None, ds1, ds2, dWh.to(Wh.dtype)
+
+
+class _EdgeBwd(torch.autograd.Function):
+    """K3 forward on the tiles ``B``; the reference's per-edge backward on
+    the edge list ``A`` (JAX ``_gat_agg_bwd``), single head."""
+
+    @staticmethod
+    def forward(ctx, A, B, alpha, s1, s2, Wh):
+        ctx.A, ctx.alpha = A, alpha
+        ctx.save_for_backward(s1, s2, Wh)
+        return flash_gat_forward(B, s1, s2, Wh, alpha=alpha)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, gO):
+        s1, s2, Wh = ctx.saved_tensors
+        A, alpha = ctx.A, ctx.alpha
+        rows, cols, _ = (x.long() for x in _edges(A, Wh.device))
+        e_pre, s, mask = _edge_scores(A, s1, s2, alpha)
+        gO_r = gO.float().index_select(0, rows)
+        q = (gO_r * Wh.float().index_select(0, cols)).sum(dim=1)  # SDDMM of the cotangent
+        seg = lambda x, idx, n: torch.zeros((n, *x.shape[1:]), dtype=x.dtype, device=x.device).index_add_(0, idx, x)
+        # the softmax Jacobian, dE = s (q - sum_row(s q)), times LeakyReLU'
+        t = seg(s * q, rows, A.n_rows)
+        dE = s * (q - t.index_select(0, rows)) * torch.where(e_pre > 0, 1.0, alpha)
+        dE = torch.where(mask, dE, 0.0)
+        ds1 = seg(dE, rows, A.n_rows)[: s1.shape[0]]
+        ds2 = seg(dE, cols, A.n_cols)[: s2.shape[0]]
+        dWh = seg(gO_r * s[:, None], cols, Wh.shape[0])  # the transposed aggregation
+        return None, None, None, ds1.to(s1.dtype), ds2.to(s2.dtype), dWh.to(Wh.dtype)
+
+
+def gat_attention_agg(A: SparseMatrix, B: BSRMatrix, s1, s2, Wh, alpha: float = 0.2):
+    """Single-head flash GAT aggregation with the reference's edge
+    backward (JAX ``gat_attention_agg``): K3 on ``B`` forward; under grad
+    the backward runs on the edge list ``A`` of the same adjacency
+    (per-edge softmax with ``mask = vals > 0``, the Jacobian identity,
+    segment sums), not K4/K5 (``gat_attention_agg_fused``). s1, s2 are
+    [N], Wh is [N, F]; gradients flow to all three."""
+    if _needs_grad(s1, s2, Wh):
+        return _EdgeBwd.apply(A, B, alpha, s1, s2, Wh)
+    return flash_gat_forward(B, s1, s2, Wh, alpha=alpha)
 
 
 def gat_attention_agg_fused(B: BSRMatrix, s1, s2, Wh, alpha: float = 0.2):

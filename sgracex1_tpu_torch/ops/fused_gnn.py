@@ -1,11 +1,13 @@
-"""The two-stage GNN layer ``D = ReLU?(A @ (X @ W))``, and its variant
-with a quantized backward."""
+"""The two-stage GNN layer ``D = ReLU?(A @ (X @ W))``, its variant with a
+quantized backward, and the edge-list GAT op and layer (as
+``sgracex1_tpu.ops.fused_gnn``)."""
 
 from __future__ import annotations
 
 import torch
 
 from sgracex1_tpu_torch.graph.csr import SparseMatrix
+from sgracex1_tpu_torch.ops.sddmm import edge_softmax, leaky_relu, sddmm
 from sgracex1_tpu_torch.ops.spmm import _edges, spmm
 from sgracex1_tpu_torch.quant.affine import QuantConstants, dequantize, quantize
 
@@ -27,6 +29,47 @@ def gnn_layer(
     else:
         H = torch.matmul(X.to(accum_dtype), W.to(accum_dtype)).to(X.dtype)
     out = spmm(A, H, accum_dtype=accum_dtype)
+    return relu_hw(out) if relu else out
+
+
+def gat_attention(
+    A: SparseMatrix, Wh: torch.Tensor, a_src: torch.Tensor, a_dst: torch.Tensor, *,
+    alpha: float = 0.2, straight_through_scores: bool = True,
+) -> tuple:
+    """Per-edge GAT attention ``(e, s)``: the LeakyReLU logits and their
+    row softmax over the edges with a positive value (the reference's E and
+    S read-back buffers). With ``straight_through_scores`` the scores read
+    ``Wh`` detached, so gradients reach ``a_src`` / ``a_dst`` but not
+    ``Wh`` through the attention weights (the reference's backward)."""
+    Wh_s = Wh.detach() if straight_through_scores else Wh
+    e = leaky_relu(sddmm(A, Wh_s, a_src, a_dst), alpha)
+    return e, edge_softmax(A, e)
+
+
+def edges_to_dense(A: SparseMatrix, edge_vals: torch.Tensor) -> torch.Tensor:
+    """Per-edge values ``[E_pad]`` summed into a dense ``[n_rows, n_cols]``
+    matrix, the padding entries zeroed (``A.pad_mask()``)."""
+    rows, cols, _ = _edges(A, edge_vals.device)
+    keep = torch.as_tensor(A.pad_mask(), device=edge_vals.device)
+    vals = torch.where(keep, edge_vals, torch.zeros_like(edge_vals))
+    out = torch.zeros((A.n_rows, A.n_cols), dtype=edge_vals.dtype, device=edge_vals.device)
+    return out.index_put_((rows.long(), cols.long()), vals, accumulate=True)
+
+
+def gat_layer(
+    A: SparseMatrix, X: torch.Tensor, W: torch.Tensor, attention: torch.Tensor, *,
+    alpha: float = 0.2, relu: bool = False, accum_dtype=torch.float32,
+) -> torch.Tensor:
+    """One-head GAT layer on the edge list: ``Wh = X @ W`` aggregated with
+    the attention weights of ``gat_attention``. ``attention`` is the
+    reference's ``[2F, 1]`` vector: the first F entries score the source
+    (row) node, the last F the destination (column) node."""
+    F = W.shape[1]
+    a = attention.reshape(-1)
+    Wh = torch.matmul(X.to(accum_dtype), W.to(accum_dtype)).to(X.dtype)
+    _, s = gat_attention(A, Wh, a[:F], a[F:], alpha=alpha)
+    vals = _edges(A, X.device)[2]
+    out = spmm(A.with_vals(s.to(vals.dtype)), Wh, accum_dtype=accum_dtype)
     return relu_hw(out) if relu else out
 
 

@@ -1,9 +1,10 @@
 """The one-hot plan SpMM (the ``pallas`` kind): ``out = A @ H`` over edge
 groups sorted into (row block, column block) tiles.
 
-Host side (numpy, then one move to the device): ``plan_spmm`` sorts the
-edges by tile, row and column and pads every tile's edges to groups of
-``be`` slots, exactly as ``sgracex1_tpu.ops.pallas_spmm.plan_spmm`` does;
+Host side (the native library or numpy, then one move to the device):
+``plan_spmm`` sorts the edges by tile, row and column and pads every
+tile's edges to groups of ``be`` slots, exactly as
+``sgracex1_tpu.ops.pallas_spmm.plan_spmm`` does;
 the arrays are stored ``[G, be]`` (the JAX package's ``[G*8, be/8]``
 sublane layout reshaped ``(-1, be)`` holds the same numbers in the same
 order). ``plan_with_vals`` substitutes runtime edge values, which this
@@ -40,6 +41,7 @@ from sgracex1_tpu_torch.ops.bsr import (
     _tensor,
     run_segments,
 )
+from sgracex1_tpu_torch.runtime import native
 
 # slots of one output row that one worker sums before the row is split
 # over several workers (a starting point, not tuned)
@@ -105,26 +107,12 @@ class SpMMPlan:
         })
 
 
-def plan_spmm(
-    A: SparseMatrix, *, rb: int = 1024, cb: int = 1024, be: int = 1024,
-    device="cpu",
-) -> SpMMPlan:
-    """Sort edges into (row-block, col-block) tiles and pad to edge groups
-    (host numpy; the tensors land on ``device``).
-
-    Groups never straddle a tile boundary and are ordered by (row block,
-    column block), so one row block's groups form one contiguous run.
-    ``be`` must be a multiple of 1024, as in the JAX package, so that both
-    build the same plans. An empty matrix gets one all-padding group."""
-    if be % 1024:
-        raise ValueError(f"edge block must be a multiple of 1024, got {be}")
-    r = _np(A.rows)[: A.nnz].astype(np.int64)
-    c = _np(A.cols)[: A.nnz].astype(np.int64)
-    v = _np(A.vals)[: A.nnz].astype(np.float32)
+def _plan_arrays(r, c, v, rb: int, cb: int, be: int) -> tuple:
+    """The numpy spec of ``runtime/native.plan_tiles``: (lrow, lcol, val,
+    perm) each [G*be] linear and (tile_rb, tile_cb) each [G]."""
     trb, tcb = r // rb, c // cb
     order = np.lexsort((c, r, tcb, trb))
     r, c, v, trb, tcb = r[order], c[order], v[order], trb[order], tcb[order]
-
     uniq, starts, counts = np.unique(
         trb * (1 << 32) + tcb, return_index=True, return_counts=True
     )
@@ -147,14 +135,37 @@ def plan_spmm(
         lcol[slot] = c - tcb * cb
         val[slot] = v
         perm[slot] = order
-        # launch schedule: the live slots by output row, then slot
-        by_row = np.argsort(r, kind="stable")
-        slot_idx, row_of = slot[by_row], r[by_row]
-        col_of, val_of = c[by_row], v[by_row]
-    else:
-        slot_idx = row_of = col_of = np.zeros(0, np.int64)
-        val_of = np.zeros(0, np.float32)
-    slot_cv = np.stack([col_of.astype(np.int32), val_of.astype(np.float32).view(np.int32)], axis=1)
+    return lrow, lcol, val, perm, tile_rb, tile_cb
+
+
+def plan_spmm(
+    A: SparseMatrix, *, rb: int = 1024, cb: int = 1024, be: int = 1024,
+    device="cpu",
+) -> SpMMPlan:
+    """Sort edges into (row-block, col-block) tiles and pad to edge groups
+    (on the host: the native library's ``plan_tiles`` where it is
+    available, as the JAX package, else the numpy spec; the tensors land on
+    ``device``).
+
+    Groups never straddle a tile boundary and are ordered by (row block,
+    column block), so one row block's groups form one contiguous run.
+    ``be`` must be a multiple of 1024, as in the JAX package, so that both
+    build the same plans. An empty matrix gets one all-padding group."""
+    if be % 1024:
+        raise ValueError(f"edge block must be a multiple of 1024, got {be}")
+    r = _np(A.rows)[: A.nnz].astype(np.int64)
+    c = _np(A.cols)[: A.nnz].astype(np.int64)
+    v = _np(A.vals)[: A.nnz].astype(np.float32)
+    fast = native.plan_tiles(r, c, v, rb, cb, be) if A.nnz else None
+    lrow, lcol, val, perm, tile_rb, tile_cb = fast if fast is not None else _plan_arrays(r, c, v, rb, cb, be)
+    G = tile_rb.shape[0]
+    # launch schedule: the live slots by output row, then slot
+    slot_idx = np.flatnonzero(perm >= 0)
+    row = tile_rb[slot_idx // be].astype(np.int64) * rb + lrow[slot_idx]
+    by_row = np.argsort(row, kind="stable")
+    slot_idx, row_of = slot_idx[by_row], row[by_row]
+    col_of = tile_cb[slot_idx // be].astype(np.int64) * cb + lcol[slot_idx]
+    slot_cv = np.stack([col_of.astype(np.int32), val[slot_idx].view(np.int32)], axis=1)
     shape2 = lambda a: _tensor(a.reshape(G, be), device)
     return SpMMPlan(
         lrow=shape2(lrow), lcol=shape2(lcol), val=shape2(val), perm=shape2(perm),

@@ -45,3 +45,18 @@ def spmm_t(
 ) -> torch.Tensor:
     """out = A.T @ H without materializing the transpose."""
     return spmm(A.transpose(), H, accum_dtype=accum_dtype)
+
+
+def spmm_dense_rhs(
+    A: SparseMatrix, X_dense: torch.Tensor, W: torch.Tensor, *, accum_dtype=torch.float32
+) -> torch.Tensor:
+    """``A @ (X_dense @ W)``, the reference's dense-feature call: the
+    matmul accumulates in ``accum_dtype`` and rounds to X's dtype before
+    the aggregation."""
+    H = torch.matmul(X_dense.to(accum_dtype), W.to(accum_dtype)).to(X_dense.dtype)
+    return spmm(A, H, accum_dtype=accum_dtype)
+
+
+def spmv(A: SparseMatrix, x: torch.Tensor) -> torch.Tensor:
+    """Sparse matrix-vector product ``A @ x``."""
+    return spmm(A, x[:, None])[:, 0]

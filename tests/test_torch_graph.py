@@ -134,8 +134,10 @@ def test_degree_order_and_permute():
 
 
 def test_rcm_order_reduces_bandwidth():
-    """The JAX package's fast path is a native RCM whose order differs
-    (both valid); the port uses scipy's, and both must band the graph."""
+    """Both packages take the native RCM where the host library builds,
+    and then give the identical permutation
+    (``test_torch_native.py::test_rcm_order_identical_to_jax``); scipy's,
+    the fallback, is another valid order. Each must band the graph."""
     rng = np.random.default_rng(6)
     n = 1000
     i = np.arange(n)
