@@ -1,15 +1,18 @@
 """Drive the PyTorch port's GCN and GAT serving and training paths (with
 and without remat), its native host prepare and reference-format loaders,
 its full-integer int8 serving, its fake-quant (QAT) path, its sampled,
-multi-label and graph-classification training loops and its distributed
-layers (on the in-process mesh) once on one NVIDIA GPU.
+multi-label and graph-classification training loops, its distributed
+layers (on the in-process mesh), its backend and flash-layout cost model
+and its entry twin and examples once on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
 Phases, each raising on failure (so the run exits non-zero):
 
 1. device: require CUDA; print the card's name and power limit
-   (nvidia-smi), torch and CUDA versions; TF32 off.
+   (nvidia-smi), torch and CUDA versions; TF32 off. Then the measured
+   entries of utils/roofline.H100_PEAKS (f32 elementwise, exp, copy),
+   each beside the table's value (phase_peaks).
 2. build: compile the hand-written kernels (sgracex1_tpu_torch/csrc/*.cu)
    with nvcc for sm_90a, one nvcc per source, all started together.
 3. kernels against their plain PyTorch versions on the card at small
@@ -34,7 +37,9 @@ Phases, each raising on failure (so the run exits non-zero):
    kernel took it, the single-stage kernel as well.
 4. the GCN slice: 2^20-node power-law graph (avg degree 16, 100 features,
    16 classes, seed 0), sym_norm, degree order, one hybrid prepare with
-   the transposed plans. The host prepare runs on the native library
+   the transposed plans at SLICE_SPLIT (tb 256, threshold 64: the shapes
+   every slice phase measures; the cost model's own choices are phase
+   20's). The host prepare runs on the native library
    (runtime/native, built from csrc/sgrace_host.cpp with g++; the run fails
    if it does not build): sym_norm_edges, rcm_order and plan_spmm at
    1024/1024/1024 each timed beside its numpy spec and identical to it, K9
@@ -57,8 +62,9 @@ Phases, each raising on failure (so the run exits non-zero):
    written from a seed into a temporary directory and read by the native
    and the numpy parser (identical) and load_reference_dataset; the
    reference's call ReLU(A (X W)) with X W on the edge path and the
-   aggregation through prepare_adjacency (auto: hybrid) and agg_matmul
-   (K2), against the all-edge-path gnn_layer and spmm_dense_rhs.
+   aggregation through prepare_adjacency (auto: the cost model's kind,
+   printed; its kernel once) and agg_matmul, against the all-edge-path
+   gnn_layer and spmm_dense_rhs.
 5. the GAT slice on the same graph: K6 and K3 (the ring kernel, with the
    single-stage kernel timed in turns beside it) at H=4 and H=1, F=64; K4
    and K5 likewise (the backward ring kernels, K5 on the transposed live
@@ -79,8 +85,8 @@ Phases, each raising on failure (so the run exits non-zero):
    bound on the tiles that carry an edge and on all tiles; K7 (the ring
    kernel) on the plan's dense part timed.
 8. fake-quant GCN at 2^20, width 128: calibrate() from one float forward
-   with telemetry, the 8-bit GCNModel on a value-tile prep
-   (prepare_from_config with fake_quantization), forwards held against the
+   with telemetry, the 8-bit GCNModel on a value-tile prep (the hybrid
+   split at SLICE_SPLIT without rank-1 masks), forwards held against the
    plain-K1 forward, the adjacency quantizer's cost for what a forward
    reads and for every representation, then 3 training epochs (the ring K1
    on bsr and bsr_t).
@@ -141,9 +147,11 @@ Phases, each raising on failure (so the run exits non-zero):
 14. the neighbor-sampled loop on the GCN slice's graph
    (train_node_classifier_sampled, GCNModel(100, 128, 16), 4096 train seeds
    from default_rng(0), batches of 1024, fanouts (10, 10), 2 epochs,
-   prepare="hybrid"): every batch hybrid, K2 four times a step on the ring
-   kernel; each batch's n_pad, e_pad, tiles and chunks, host seconds of
-   sampling and prepare, step and epoch ms, peak memory.
+   prepare="auto"): each batch's kind as the cost model picks it (printed
+   with the model's prices and host seconds), four launches a step of its
+   kernel (K2, or K9 for pallas); each batch's n_pad, e_pad, tiles and
+   chunks, host seconds of sampling and prepare, step and epoch ms, peak
+   memory.
 15. PPI-shaped inductive multi-label training (train_multilabel_inductive,
    24 graphs of 2373 nodes, 50 features, 121 labels, 20/2/2;
    GATModel(50, 64, 121, nheads=4, dropout=0), lr 0.005, 2 epochs,
@@ -178,6 +186,26 @@ Phases, each raising on failure (so the run exits non-zero):
    single-stage K1-K5): every distributed layer kind, one Adam step, against
    the plain-kernel step.
 
+20. the cost model (PR 15): every device-timed entry of
+   ops/dispatch.H100_COSTS re-measured on synthetic layouts (K2's tile at
+   each candidate size and form, its chunk and slot, the step; K9's group
+   and edge; the edge path; the dense kind; the pre-pass rows; the flash
+   tile, run, chunk and backward ratio at H=4 and H=1; the remainder's
+   edge backward) and printed beside the table, failing where a held
+   entry is off by more than 2x; then, on the GCN slice, the
+   reference-format pubmed graph, one PPI graph and one molecule batch,
+   every kind auto prices, predicted beside measured agg_matmul ms (P =
+   128) and the prep's GiB, auto's choice within 1.15x of the fastest.
+   Around the GCN slice's training epochs a PowerRecorder on nvidia-smi's
+   power.draw: mean W and J an epoch.
+21. the flash layouts for_gat picks on the GAT slice for training and for
+   serving, against the split at SLICE_SPLIT and full cover where it fits
+   the budget: predicted beside measured (H=4, F=64), each choice within
+   1.15x of the fastest.
+22. the entry twin (graft_entry.entry) against the CPU edge path, and the
+   examples quantization_pipeline, ppi_gat and distributed_training on the
+   card, with their launch counts.
+
 Every main path is driven with the launch counts set to 0 just before it
 and read just after. The last two lines are the kernels' JSON record
 (name, route, source, the TPU kernel replaced, launches, error, kernel /
@@ -187,6 +215,7 @@ plain / bound / library milliseconds) and ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import contextlib
+import copy
 import dataclasses
 import json
 import os
@@ -238,6 +267,13 @@ from sgracex1_tpu_torch.quant.autocal import calibrate
 from sgracex1_tpu_torch.quant.calibration import CalibrationTable
 from sgracex1_tpu_torch.train import loop as TL
 from sgracex1_tpu_torch.train.loop import _masked_xent
+from sgracex1_tpu_torch import graft_entry
+from sgracex1_tpu_torch.examples import distributed_training as EX_DIST
+from sgracex1_tpu_torch.examples import ppi_gat as EX_PPI
+from sgracex1_tpu_torch.examples import quantization_pipeline as EX_QP
+from sgracex1_tpu_torch.utils import roofline as RL
+from sgracex1_tpu_torch.utils.power import PowerRecorder, gpu_power_limit_w, gpu_power_w
+from sgracex1_tpu_torch.utils.profiling import cuda_ms
 
 SLICE = dict(n=1 << 20, avg_degree=16, num_features=100, num_classes=16, seed=0)
 HIDDEN = 128
@@ -296,31 +332,17 @@ AGG_REF_TOL, AGG_FUSED_TOL = 1e-4, 5e-2
 # a remat step's gradients against the step without remat where they are
 # not bit-identical (float atomics in a scatter), of the largest entry
 REMAT_TOL = 1e-5
-# the card's published peaks: bytes/s of device memory, dense tensor-core
-# operations/s by operand type
-HBM_BYTES_S = 3.35e12
-PEAK_OPS = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
+# the hybrid split every slice phase measures (PERF.md §6's shapes): the
+# aggregation prep, the GAT layout, the int8 plan, the fake-quant prep and
+# the banded graph; the cost model's own choices are phase_cost_model's
+SLICE_SPLIT = (256, 64)
+EXAMPLE_TOL = 2e-2  # the entry twin's logits on the card against the CPU edge path, of the largest
+EXAMPLE_EPOCHS = 20  # quantization_pipeline's float and QAT epochs on the card
+POWER_INTERVAL_S = 0.02  # the power recorder's sampling interval (each sample runs nvidia-smi)
 
 
 def _log(msg: str) -> None:
     print(msg, flush=True)
-
-
-def _cuda_ms(fn, reps: int = 10) -> float:
-    """Median device milliseconds of ``fn`` over ``reps`` CUDA-event-timed
-    calls, after two warm-up calls."""
-    for _ in range(2):
-        fn()
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return float(np.median(times))
 
 
 def _check(name: str, out, ref, tol: float) -> float:
@@ -332,72 +354,16 @@ def _check(name: str, out, ref, tol: float) -> float:
     return float((out.float() - ref.float()).abs().max())
 
 
-def _nbytes(*tensors) -> int:
-    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
-
-
-def _bound(nbytes: float, ops: float, kind: str) -> dict:
-    """The least time the card could take: every input byte read once and
-    every output byte written once at the memory rate, or the operations at
-    the tensor cores' peak for ``kind`` (``f32``: outside the tensor
-    cores), whichever is larger."""
-    by_bytes = nbytes / HBM_BYTES_S * 1e3
-    by_ops = ops / PEAK_OPS[kind] * 1e3
-    return dict(bound_ms=max(by_bytes, by_ops), bound_by="bytes" if by_bytes >= by_ops else "operations")
-
-
-def _seg_bytes(S) -> int:
-    return _nbytes(*S.tensors().values())
-
-
-def _live_tile_bytes(B) -> int:
-    """Bytes of the live tiles (``B.live``). The empty cover tiles are all
-    zero, so the function needs none of their bytes."""
-    return int(B.live.sum()) * (B.tiles.numel() // max(B.num_tiles, 1)) * B.tiles.element_size()
-
-
-def _sched_bytes(L) -> int:
-    """The live schedule (``LiveSchedule``) a kernel walks."""
-    return _nbytes(L.step) + _seg_bytes(L.segments)
-
-
-def _plan_bytes(plan, chunk_arrays=None) -> int:
-    """The live schedule and chunk arrays a fused-plan kernel reads."""
-    chunk_arrays = chunk_arrays or (plan.lrow, plan.slot_col, plan.slot_scale, plan.colscale, plan.rowscale)
-    return _nbytes(*chunk_arrays) + _sched_bytes(plan.ring)
-
-
-def _live_slots(plan) -> int:
-    return int((plan.lrow < plan.B.tb).sum()) if plan.num_rest_chunks else 0
-
-
 def _agg_bound(B, H, out, kind, plan=None, ring=None) -> dict:
-    """Bound of one aggregation (K1, K2, K7, K8) on this run's live tiles
-    and chunks: tile products 2*tb*tb*P each, one multiply-add per live
-    slot and feature. ``ring``: count the tiles of that live schedule
-    instead of ``B.live`` (K8's ``edge_ring``: the tiles that carry an
-    edge) and read it as the schedule."""
-    P = H.shape[1]
-    n_tiles = int(B.live.sum()) if ring is None else ring.n_tile_steps
-    tile_bytes = n_tiles * (B.tiles.numel() // max(B.num_tiles, 1)) * B.tiles.element_size()
-    chunk_bytes = 0
-    if plan is not None:
-        chunk_bytes = _nbytes(plan.lrow, plan.slot_col, plan.slot_scale, plan.colscale, plan.rowscale)
-    sched = _sched_bytes(ring or (plan.ring if plan is not None else B.ring))
-    nbytes = tile_bytes + _nbytes(H, out) + chunk_bytes + sched
-    ops = 2.0 * n_tiles * B.tb * B.tb * P + (2.0 * _live_slots(plan) * P if plan is not None else 0.0)
-    return _bound(nbytes, ops, kind)
+    """Bound of one aggregation (K1, K2, K8, K10, K11) on this run's live
+    tiles and chunks (``utils/roofline.cost_tiles``)."""
+    return RL.cost_tiles(B, H.shape[1], RL.nbytes(H, out), plan=plan, ring=ring, op=kind).bound()
 
 
 def _flash_bound(B, tensors, H, F, products, plan=None) -> dict:
-    """Bound of a flash-GAT pass on this run's live tiles and chunks:
-    ``products`` tile products of 2*tb*tb*F operations per live tile and
-    head, bf16 operands."""
-    nbytes = _live_tile_bytes(B) + _nbytes(*tensors) + (
-        _plan_bytes(plan, (plan.lrow, plan.slot_col)) if plan is not None else _sched_bytes(B.ring))
-    ops = products * 2.0 * int(B.live.sum()) * B.tb * B.tb * H * F + (
-        2.0 * _live_slots(plan) * H * F if plan is not None else 0.0)
-    return _bound(nbytes, ops, "bf16")
+    """Bound of a flash-GAT pass on this run's live tiles and chunks
+    (``utils/roofline.cost_flash_gat``)."""
+    return RL.cost_flash_gat(B, H, F, RL.nbytes(*tensors), products=products, plan=plan).bound()
 
 
 def _card() -> str:
@@ -1031,7 +997,7 @@ def phase_slice_prepare(device, cfg=SLICE, graph=None):
     result where the caller made it."""
     A, data, gen_s = graph or _slice_graph(cfg)
     t0 = time.perf_counter()
-    prep = prepare_adjacency(A, method="hybrid", device=device)
+    prep = prepare_adjacency(A, method="hybrid", tb=SLICE_SPLIT[0], rest_thresh=SLICE_SPLIT[1], device=device)
     prep_s = time.perf_counter() - t0
     f, ft = prep.fused, prep.fused_t
     _log(f"slice graph: n={A.n_rows} nnz={A.nnz} (incl. zero-valued self-loops) "
@@ -1092,9 +1058,9 @@ def phase_reference_format(device):
     numpy parser (identical), then through load_reference_dataset; then the
     reference's one call ReLU(A (X W)): X W on the edge path (gnn_layer's
     sparse-feature branch), the aggregation through prepare_adjacency
-    (auto: hybrid, since the dense bf16 matrix passes 512 MiB) and
-    agg_matmul (K2), against the all-edge-path gnn_layer and
-    spmm_dense_rhs."""
+    (auto: the cost model's kind; the dense bf16 matrix passes 512 MiB)
+    and agg_matmul (its kernel once), against the all-edge-path gnn_layer
+    and spmm_dense_rhs."""
     desc = GIO.REFERENCE_DATASETS[REF_DATASET]
     n, m = desc["N_adj"], desc["M_fea"]
     rng = np.random.default_rng(11)
@@ -1133,8 +1099,8 @@ def phase_reference_format(device):
          + ", ".join(f"{k} {v:.4f}" for k, v in times.items()) + f"; load_reference_dataset {load_s:.4f} s")
 
     prep, prep_s = _timed(lambda: prepare_adjacency(adj, device=device))
-    if prep.kind != "hybrid" or prep.fused is None:
-        raise AssertionError(f"auto must prepare {REF_DATASET}'s adjacency hybrid with a fused plan, got {prep.kind}")
+    kern = _agg_kernel(prep)
+    _log(f"reference-format {REF_DATASET}: auto took {prep.kind} ({_choice(prep)})")
     fea_d, W_d = fea.to(device), torch.from_numpy(w).to(device)
 
     def forward():
@@ -1149,10 +1115,10 @@ def phase_reference_format(device):
     fwd_ms = (time.perf_counter() - t0) * 1e3
     launches = _counts()
     _all_ring("reference-format forward")
-    want = {k.__name__: 0 for k in KERNELS} | {"bsr_spmm_fused": 1}
+    want = {k.__name__: 0 for k in KERNELS} | ({kern: 1} if kern else {})
     if launches != want:
         raise AssertionError(f"reference-format forward launches {launches}, expected {want}")
-    agg_ms = _cuda_ms(forward)
+    agg_ms = cuda_ms(forward)
     adj_d = adj.to(device)
     edge = gnn_layer(adj_d, fea_d, W_d, relu=True)
     dense = relu_hw(spmm_dense_rhs(adj_d, torch.from_numpy(fea.to_dense()).to(device), W_d))
@@ -1162,12 +1128,14 @@ def phase_reference_format(device):
         torch.testing.assert_close(out, ref, rtol=REF_TOL, atol=REF_TOL * scale,
                                    msg=lambda msg: f"reference-format forward vs {name}: {msg}")
         errs.append(f"{float((out - ref).abs().max()) / scale:.3g} against {name}")
-    _log(f"reference-format forward ReLU(A (X W)) on {REF_DATASET}: prepare {prep_s:.2f} s (kind {prep.kind}, "
-         f"tb {prep.bsr.tb}, rank1 {prep.r1_row is not None}, {prep.bsr.num_tiles} tiles, "
-         f"{prep.rest.nnz if prep.rest is not None else 0} remainder edges); first forward {fwd_ms:.3f} ms, "
+    layout = "" if prep.bsr is None else (
+        f", tb {prep.bsr.tb}, rank1 {prep.r1_row is not None}, {prep.bsr.num_tiles} tiles, "
+        f"{prep.rest.nnz if prep.rest is not None else 0} remainder edges")
+    _log(f"reference-format forward ReLU(A (X W)) on {REF_DATASET}: prepare {prep_s:.2f} s (kind {prep.kind}"
+         f"{layout}); first forward {fwd_ms:.3f} ms, "
          f"forward {agg_ms:.4f} ms (CUDA events, median of 10); launches {launches}; max err / max |out| "
          + ", ".join(errs) + f" (tolerance {REF_TOL})")
-    return {"bsr_spmm_fused": launches["bsr_spmm_fused"]}
+    return {kern: launches[kern]} if kern else {}
 
 
 def phase_gat_agg(A, B, device):
@@ -1203,7 +1171,7 @@ def phase_gat_agg(A, B, device):
     want = {k.__name__: 0 for k in KERNELS} | {"flash_gat_forward": 1}
     if launches != want:
         raise AssertionError(f"gat_attention_agg forward + backward launches {launches}, expected {want}")
-    ms = _cuda_ms(lambda: run(agg), reps=5)
+    ms = cuda_ms(lambda: run(agg), reps=5)
     with torch.no_grad():
         if not torch.equal(out, FG.flash_gat_forward(B, s1, s2, Wh)):
             raise AssertionError("gat_attention_agg's forward differs from flash_gat_forward on the same inputs")
@@ -1268,8 +1236,8 @@ def phase_kernels_slice(A, prep, device):
     B, plan = prep.bsr, prep.fused
     n_ct_rows = -(-B.n_cols // B.tb) * B.tb
     stage_ms = {
-        "bsr_spmm_fused": _cuda_ms(lambda: K1._stage_h(H, plan.colscale, n_ct_rows, B.n_cols)),
-        "bsr_spmm": _cuda_ms(lambda: K1._stage_h(H, None, n_ct_rows, B.n_cols)),
+        "bsr_spmm_fused": cuda_ms(lambda: K1._stage_h(H, plan.colscale, n_ct_rows, B.n_cols)),
+        "bsr_spmm": cuda_ms(lambda: K1._stage_h(H, None, n_ct_rows, B.n_cols)),
     }
     _log(f"pre-pass (H rounded to bf16 once, [n={n_ct_rows}, P={HIDDEN}]): with the column scale "
          f"{stage_ms['bsr_spmm_fused']:.4f} ms, without {stage_ms['bsr_spmm']:.4f} ms (inside the ring kernels' times)")
@@ -1292,12 +1260,12 @@ def phase_kernels_slice(A, prep, device):
         _check(f"{name} single-stage on the live steps", single(live_op, H), ref, tol)
         _check(f"{name} single-stage on the live steps, H staged", staged(), ref, tol)
         # in turns within one call: ring, single-stage, single-stage, ring
-        ms = [_cuda_ms(lambda: kern(op, H)), 0.0]
-        earlier = [_cuda_ms(lambda: single(op, H)), _cuda_ms(lambda: single(op, H))]
-        ms[1] = _cuda_ms(lambda: kern(op, H))
-        step1_ms = _cuda_ms(lambda: single(live_op, H))
-        step12_ms = _cuda_ms(staged)
-        plain_ms = _cuda_ms(lambda: plain(op, H), reps=5)
+        ms = [cuda_ms(lambda: kern(op, H)), 0.0]
+        earlier = [cuda_ms(lambda: single(op, H)), cuda_ms(lambda: single(op, H))]
+        ms[1] = cuda_ms(lambda: kern(op, H))
+        step1_ms = cuda_ms(lambda: single(live_op, H))
+        step12_ms = cuda_ms(staged)
+        plain_ms = cuda_ms(lambda: plain(op, H), reps=5)
         bound = _agg_bound(B, H, out, "bf16", plan=op if op is plan else None)
         rec[name] = dict(max_abs_err=err, ms=min(ms), plain_ms=plain_ms, **bound, library_ms=lib_ms,
                          earlier_ms=min(earlier))
@@ -1314,7 +1282,7 @@ def phase_kernels_slice(A, prep, device):
     _check("bsr_spmm_fused without the remainder", K2.bsr_spmm_fused(bare, H),
            K2.bsr_spmm_fused_plain(bare, H), K2_TOL)
     _log(f"bsr_spmm_fused on the same tiles without the {plan.num_rest_chunks} remainder chunks: "
-         f"ring kernel {_cuda_ms(lambda: K2.bsr_spmm_fused(bare, H)):.4f} ms")
+         f"ring kernel {cuda_ms(lambda: K2.bsr_spmm_fused(bare, H)):.4f} ms")
     del bare
     _profile_forward(lambda: K2.bsr_spmm_fused(plan, H), "bsr_spmm_fused", "1 call")
     _profile_forward(lambda: K1.bsr_spmm(B, H), "bsr_spmm", "1 call")
@@ -1330,7 +1298,7 @@ def phase_kernels_slice(A, prep, device):
          K2.bsr_spmm_fused_plain, prep.fused_t, gb, K2_TOL),
     ):
         err = _check(name, kern(op, arg), plain(op, arg), tol)
-        ms_t, single_t = _cuda_ms(lambda: kern(op, arg)), _cuda_ms(lambda: single(op, arg))
+        ms_t, single_t = cuda_ms(lambda: kern(op, arg)), cuda_ms(lambda: single(op, arg))
         _log(f"{name}: ring kernel {ms_t:.4f} ms, single-stage kernel {single_t:.4f} ms, max abs err {err:.3g}")
 
     # RING_SEG_STEPS: the same live steps cut into shorter or longer work items
@@ -1344,7 +1312,7 @@ def phase_kernels_slice(A, prep, device):
             L = K1.recut_live_schedule(sched, op.B.n_row_tiles if op is plan else op.n_row_tiles, seg)
             cut = dataclasses.replace(op, ring=L)
             _check(f"{name} at RING_SEG_STEPS={seg}", kern(cut, arg), ref, tol)
-            times.append(f"{seg}: {_cuda_ms(lambda: kern(cut, arg)):.4f} ms ({L.segments.n_seg} items, "
+            times.append(f"{seg}: {cuda_ms(lambda: kern(cut, arg)):.4f} ms ({L.segments.n_seg} items, "
                          f"{L.segments.n_part} partials)")
         _log(f"{name} over RING_SEG_STEPS (chosen {K1.RING_SEG_STEPS}): " + "; ".join(times))
     return rec
@@ -1360,7 +1328,7 @@ def _sparse_mm_ms(A, H) -> tuple:
         crow, torch.from_numpy(A.cols[: A.nnz].astype(np.int64)).to(H.device),
         torch.from_numpy(A.vals[: A.nnz].astype(np.float32)).to(H.device), size=A.shape)
     ref = torch.sparse.mm(csr, H)
-    ms = _cuda_ms(lambda: torch.sparse.mm(csr, H))
+    ms = cuda_ms(lambda: torch.sparse.mm(csr, H))
     _log(f"library call torch.sparse.mm (CSR, f32, nnz={A.nnz}) on [n={A.n_rows}, P={H.shape[1]}]: {ms:.4f} ms")
     return ms, ref
 
@@ -1413,7 +1381,7 @@ def phase_slice_serve(A, x, prep, device, cfg=SLICE):
     with torch.no_grad():
         _profile_forward(lambda: net(prep, x), "GCN slice")
         H1 = torch.matmul(x, net.conv1.weight)
-        agg_ms = _cuda_ms(lambda: agg_matmul(prep, H1))
+        agg_ms = cuda_ms(lambda: agg_matmul(prep, H1))
         ref = _plain_forward(net, prep, x)
     _log(f"slice aggregation (layer-1 input, K2): {agg_ms:.4f} ms, "
          f"{A.nnz / (agg_ms * 1e-3) / 1e6:.1f} M edges/s")
@@ -1444,10 +1412,12 @@ def _gat_weights(rng, F, hidden, H, C):
     }
 
 
-def phase_gat_prepare(A, device, label):
-    """for_gat prepare (the port's fixed rule) and its layout."""
+def phase_gat_prepare(A, device, label, split=None):
+    """for_gat prepare and its layout: the hybrid split ``split`` = (tb,
+    threshold) where given, else the layout chooser's."""
     t0 = time.perf_counter()
-    prep = prepare_adjacency(A, method="xla", for_gat=True, device=device)
+    kw = {} if split is None else dict(gat_tb=split[0], gat_rest_thresh=split[1])
+    prep = prepare_adjacency(A, method="xla", for_gat=True, device=device, **kw)
     prep_s = time.perf_counter() - t0
     B, plan = prep.flash_tiles, prep.gat_plan
     msg = (f"{label} GAT prepare: {prep_s:.1f} s tb={B.tb} tiles={B.num_tiles} "
@@ -1478,7 +1448,7 @@ def phase_gat_kernels_slice(prep, device):
          f"{int(((L6.step[:, 3] + 63) // 64).sum())}, {L6.segments.n_seg} segments, {L6.segments.n_fin} split runs")
     for H in (GAT_HEADS, 1):
         s1, s2, Wh = _scores(n, H, GAT_HIDDEN, gen, device)
-        cast_ms = _cuda_ms(lambda: Wh.to(torch.bfloat16))
+        cast_ms = cuda_ms(lambda: Wh.to(torch.bfloat16))
         for name, kern, single, plain, op in (
             ("flash_gat_hybrid_forward", FG.flash_gat_hybrid_forward, FG._flash_gat_hybrid_forward_single,
              FG.flash_gat_hybrid_forward_plain, plan),
@@ -1491,9 +1461,9 @@ def phase_gat_kernels_slice(prep, device):
             err = _check_flash(label, res, ref)
             _check_flash(f"{label}, single-stage kernel", single(op, s1, s2, Wh, return_stats=True), ref)
             del res
-            ms = [_cuda_ms(lambda: kern(op, s1, s2, Wh)), 0.0]
-            earlier = [_cuda_ms(lambda: single(op, s1, s2, Wh)), _cuda_ms(lambda: single(op, s1, s2, Wh))]
-            ms[1] = _cuda_ms(lambda: kern(op, s1, s2, Wh))
+            ms = [cuda_ms(lambda: kern(op, s1, s2, Wh)), 0.0]
+            earlier = [cuda_ms(lambda: single(op, s1, s2, Wh)), cuda_ms(lambda: single(op, s1, s2, Wh))]
+            ms[1] = cuda_ms(lambda: kern(op, s1, s2, Wh))
             out = ref[0]
             bound = _flash_bound(plan.B, (s1, s2, Wh, out), H, GAT_HIDDEN, 1, plan=plan if op is plan else None)
             msg = (f"{label} [n={prep.A.n_rows}, F={GAT_HIDDEN}]: ring kernel {ms[0]:.4f} / {ms[1]:.4f} ms "
@@ -1501,7 +1471,7 @@ def phase_gat_kernels_slice(prep, device):
                    f"{earlier[0]:.4f} / {earlier[1]:.4f} ms, bound {bound['bound_ms']:.4f} ms by {bound['bound_by']}, "
                    f"max abs err {err:.3g}")
             if H == GAT_HEADS:
-                plain_ms = _cuda_ms(lambda: plain(op, s1, s2, Wh), reps=3)
+                plain_ms = cuda_ms(lambda: plain(op, s1, s2, Wh), reps=3)
                 rec[name] = dict(max_abs_err=err, ms=min(ms), plain_ms=plain_ms, **bound, library_ms=None,
                                  earlier_ms=min(earlier))
                 msg += f", plain {plain_ms:.4f} ms (median of 3)"
@@ -1526,7 +1496,7 @@ def _gat_bwd_slice(plan, n, gen, device):
     Bt = B.live_t  # K5's transposed live tiles, built once and kept with B
     torch.cuda.synchronize()
     _log(f"GAT slice transposed live tiles (K5's ring): {Bt.num_tiles} of {B.num_tiles} tiles, "
-         f"{_nbytes(Bt.tiles) / 1e9:.4f} GB of tiles + {_sched_bytes(Bt.ring) / 1e6:.3f} MB of schedule, "
+         f"{RL.nbytes(Bt.tiles) / 1e9:.4f} GB of tiles + {RL.sched_bytes(Bt.ring) / 1e6:.3f} MB of schedule, "
          f"built in {time.perf_counter() - t0:.2f} s; K4 {B.ring.segments.n_seg} work items "
          f"({B.ring.segments.n_fin} split runs), K5 {Bt.ring.segments.n_seg} ({Bt.ring.segments.n_fin} split runs)")
     for H in (GAT_HEADS, 1):
@@ -1547,11 +1517,11 @@ def _gat_bwd_slice(plan, n, gen, device):
             err = max(_check(label, g, r, GAT_TOL) for g, r in zip(outs, ref))
             for g, r in zip(single(B, **args), ref):
                 _check(f"{label}, single-stage kernel", g, r, GAT_TOL)
-            ms = [_cuda_ms(lambda: kern(B, **args)), 0.0]
-            earlier = [_cuda_ms(lambda: single(B, **args)), _cuda_ms(lambda: single(B, **args))]
-            ms[1] = _cuda_ms(lambda: kern(B, **args))
+            ms = [cuda_ms(lambda: kern(B, **args)), 0.0]
+            earlier = [cuda_ms(lambda: single(B, **args)), cuda_ms(lambda: single(B, **args))]
+            ms[1] = cuda_ms(lambda: kern(B, **args))
             f32_in = dict(args, Wh=Wh, gO=gO)  # the f32 operands: each call casts them to bf16
-            f32_ms = _cuda_ms(lambda: kern(B, **f32_in))
+            f32_ms = cuda_ms(lambda: kern(B, **f32_in))
             # K4: the q product; K5: the q product and p^T @ gO
             bound = _flash_bound(T, (*args.values(), *outs), H, GAT_HIDDEN, products)
             msg = (f"{label} [n={n}, live tiles {int(B.live.sum())}, F={GAT_HIDDEN}, bf16 Wh/gO]: ring kernel "
@@ -1559,7 +1529,7 @@ def _gat_bwd_slice(plan, n, gen, device):
                    f"ring on f32 Wh/gO (casts included) {f32_ms:.4f} ms, bound {bound['bound_ms']:.4f} ms "
                    f"by {bound['bound_by']}, max abs err {err:.3g}")
             if H == GAT_HEADS:
-                plain_ms = _cuda_ms(lambda: plain(B, **args), reps=3)
+                plain_ms = cuda_ms(lambda: plain(B, **args), reps=3)
                 rec[name] = dict(max_abs_err=err, ms=min(ms), plain_ms=plain_ms, **bound, library_ms=None,
                                  earlier_ms=min(earlier), f32_in_ms=f32_ms)
                 msg += f", plain {plain_ms:.4f} ms (median of 3)"
@@ -1718,14 +1688,15 @@ def _all_ring(label: str) -> None:
                                  f"redesigned kernel and {k.launches_single} on the first one")
 
 
-def phase_train(data, prep, net, device, label, per_epoch, k1_view=False, cfg_kw=None, remat=None):
+def phase_train(data, prep, net, device, label, per_epoch, k1_view=False, cfg_kw=None, remat=None, power=None):
     """train_node_classifier for TRAIN_EPOCHS epochs on ``prep`` (the main
     path: counts reset just before, read just after, each kernel launched
     ``per_epoch[name]`` times an epoch); then timed steps, a profiler
     window over one step, optionally one step through the K1 view of the
     prep, one step's gradients against the plain-kernel step, and with
     ``remat`` = (the same model with remat=True, its launches a step) one
-    remat step against the step without remat."""
+    remat step against the step without remat. ``power``: a
+    ``PowerRecorder`` recording the training run alone."""
     x = torch.from_numpy(data.x).to(device)
     y = torch.from_numpy(data.y).to(device).long()
     mask = torch.from_numpy(data.train_mask).to(device).float()
@@ -1742,11 +1713,20 @@ def phase_train(data, prep, net, device, label, per_epoch, k1_view=False, cfg_kw
     cfg = SGRACEConfig(num_epochs=TRAIN_EPOCHS, learning_rate=0.01, **(cfg_kw or {}))
     _reset_counts()
     t0 = time.perf_counter()
-    state, hist = train_node_classifier(net, data, cfg, seed=0, prepare=prep, device=device)
-    torch.cuda.synchronize()
+    with power.record(POWER_INTERVAL_S) if power is not None else contextlib.nullcontext():
+        state, hist = train_node_classifier(net, data, cfg, seed=0, prepare=prep, device=device)
+        torch.cuda.synchronize()
     total_ms = (time.perf_counter() - t0) * 1e3
     launches = _counts()
     _all_ring(f"{label} training")
+    if power is not None:
+        # nvidia-smi's power.draw is the board's draw averaged over about a
+        # second: a few samples over the epochs; J an epoch = mean W x the
+        # epoch's seconds
+        epoch_s = total_ms / 1e3 / TRAIN_EPOCHS
+        _log(f"power over the {label} training run ({_card()}; limit {gpu_power_limit_w():.2f} W): "
+             f"{len(power.frame)} samples over {power.duration_s:.3f} s, mean {power.mean_w:.2f} W; "
+             f"{power.mean_w * epoch_s:.3f} J an epoch of {epoch_s * 1e3:.3f} ms")
     peak = torch.cuda.max_memory_allocated()
     _log(f"{label} train_node_classifier: {TRAIN_EPOCHS} epochs in {total_ms:.3f} ms "
          f"({total_ms / TRAIN_EPOCHS:.3f} ms an epoch: step + evaluation); loss {hist.loss}, "
@@ -1904,13 +1884,13 @@ def phase_int8_hybrid_slice(A, device):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    plan = Q.prepare_int8_hybrid(A, c_a, tb=INT8_TB, rest_thresh=D.DEFAULT_REST_THRESH, K=K2.DEFAULT_K,
+    plan = Q.prepare_int8_hybrid(A, c_a, tb=INT8_TB, rest_thresh=SLICE_SPLIT[1], K=K2.DEFAULT_K,
                                  device=device)
     torch.cuda.synchronize()
     prep_s = time.perf_counter() - t0
     B = plan.B
     _log(f"int8 hybrid prepare: {prep_s:.1f} s tb={B.tb} tiles={B.num_tiles} "
-         f"({_nbytes(B.tiles) / 1e9:.3f} GB {B.tiles.dtype}) rest_edges={_live_slots(plan)} "
+         f"({RL.nbytes(B.tiles) / 1e9:.3f} GB {B.tiles.dtype}) rest_edges={RL.live_slots(plan)} "
          f"rest_chunks={plan.num_rest_chunks} K={plan.K} steps={plan.num_steps} "
          f"segments={plan.segments.n_seg} split_runs={plan.segments.n_fin}")
     L = plan.edge_ring
@@ -1932,13 +1912,13 @@ def phase_int8_hybrid_slice(A, device):
     err = _check_equal("K8 at slice shapes", out, K2.bsr_spmm_int8_fused_plain(plan, Hq))
     _check_equal("K8 single-stage at slice shapes", K2._bsr_spmm_int8_fused_single(plan, Hq), out)
     # the first kernel and the ring kernel in turns: single, ring, ring, single
-    single = [_cuda_ms(lambda: K2._bsr_spmm_int8_fused_single(plan, Hq))]
-    ring = [_cuda_ms(lambda: K2._bsr_spmm_int8_fused_ring(plan, Hq)) for _ in range(2)]
-    single.append(_cuda_ms(lambda: K2._bsr_spmm_int8_fused_single(plan, Hq)))
+    single = [cuda_ms(lambda: K2._bsr_spmm_int8_fused_single(plan, Hq))]
+    ring = [cuda_ms(lambda: K2._bsr_spmm_int8_fused_ring(plan, Hq)) for _ in range(2)]
+    single.append(cuda_ms(lambda: K2._bsr_spmm_int8_fused_single(plan, Hq)))
     n_pad = (B.n_cols + B.tb - 1) // B.tb * B.tb
-    pre_ms = _cuda_ms(lambda: K1._stage_hqt(Hq, n_pad, B.n_cols))
+    pre_ms = cuda_ms(lambda: K1._stage_hqt(Hq, n_pad, B.n_cols))
     ms = float(np.median(ring))
-    plain_ms = _cuda_ms(lambda: K2.bsr_spmm_int8_fused_plain(plan, Hq), reps=5)
+    plain_ms = cuda_ms(lambda: K2.bsr_spmm_int8_fused_plain(plan, Hq), reps=5)
     bound = _agg_bound(B, Hq, out, "int8", plan=plan, ring=L)
     all_tiles = _agg_bound(B, Hq, out, "int8", plan=plan)
     rec["bsr_spmm_int8_fused"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, **bound, library_ms=None)
@@ -1951,8 +1931,8 @@ def phase_int8_hybrid_slice(A, device):
          f"plain version")
     out7 = K1.bsr_spmm_int8(B, Hq)
     _check_equal("K7 on the hybrid plan's dense part", out7, K1.bsr_spmm_int8_plain(B, Hq))
-    ms7 = _cuda_ms(lambda: K1.bsr_spmm_int8(B, Hq))
-    plain7 = _cuda_ms(lambda: K1.bsr_spmm_int8_plain(B, Hq), reps=5)
+    ms7 = cuda_ms(lambda: K1.bsr_spmm_int8(B, Hq))
+    plain7 = cuda_ms(lambda: K1.bsr_spmm_int8_plain(B, Hq), reps=5)
     b7 = _agg_bound(B, Hq, out7, "int8")
     _log(f"bsr_spmm_int8 on the same dense part [T={B.num_tiles}, P={HIDDEN}]: int8 ring kernel {ms7:.4f} ms, "
          f"plain {plain7:.4f} ms (median of 5), bound {b7['bound_ms']:.4f} ms by {b7['bound_by']}, equal")
@@ -2051,14 +2031,9 @@ def _int8_gcn_serve(A, label, device, cfg, rel_limit, tb=INT8_TB):
 
 
 def _k7_bound(B, Hq, out) -> dict:
-    """Bound of K7 on this run's tiles: the row pieces that carry an edge
-    (``B.edge_ring``; a piece of -128 bytes only is Aq = 0, and the function
-    needs none of its bytes), Hq, the output and the schedule; a u8 x s8
-    product of 2*th*tb*P operations a piece."""
-    L, P = B.edge_ring, Hq.shape[1]
-    piece = K1.k7_row_piece(B.tb) * B.tb
-    nbytes = L.n_tile_steps * piece + _nbytes(Hq, out) + _sched_bytes(L)
-    return _bound(nbytes, 2.0 * L.n_tile_steps * piece * P, "int8")
+    """Bound of K7 on the row pieces that carry an edge
+    (``utils/roofline.cost_k7``)."""
+    return RL.cost_k7(B, Hq.shape[1], RL.nbytes(Hq, out)).bound()
 
 
 def _k7_times(B, label, rng, device, Ps) -> dict:
@@ -2072,12 +2047,12 @@ def _k7_times(B, label, rng, device, Ps) -> dict:
         o = K1._bsr_spmm_int8_ring(B, Hq)
         err = _check_equal(f"K7 ring {label} P={P}", o, K1.bsr_spmm_int8_plain(B, Hq))
         _check_equal(f"K7 single-stage {label} P={P}", K1._bsr_spmm_int8_single(B, Hq), o)
-        single = [_cuda_ms(lambda: K1._bsr_spmm_int8_single(B, Hq))]
-        ring = [_cuda_ms(lambda: K1._bsr_spmm_int8_ring(B, Hq)) for _ in range(2)]
-        single.append(_cuda_ms(lambda: K1._bsr_spmm_int8_single(B, Hq)))
+        single = [cuda_ms(lambda: K1._bsr_spmm_int8_single(B, Hq))]
+        ring = [cuda_ms(lambda: K1._bsr_spmm_int8_ring(B, Hq)) for _ in range(2)]
+        single.append(cuda_ms(lambda: K1._bsr_spmm_int8_single(B, Hq)))
         n_pad = (B.n_cols + B.tb - 1) // B.tb * B.tb
-        pre_ms = _cuda_ms(lambda: K1._stage_hqt(Hq, n_pad, B.n_cols))
-        p_ms = _cuda_ms(lambda: K1.bsr_spmm_int8_plain(B, Hq), reps=3)
+        pre_ms = cuda_ms(lambda: K1._stage_hqt(Hq, n_pad, B.n_cols))
+        p_ms = cuda_ms(lambda: K1.bsr_spmm_int8_plain(B, Hq), reps=3)
         bound = _k7_bound(B, Hq, o)
         all_tiles = _agg_bound(B, Hq, o, "int8")
         ms = float(np.median(ring))
@@ -2185,8 +2160,9 @@ def phase_int8_gat(device, cfg=GAT_SMALL):
 
 def phase_fake_quant(A, data, device, cfg=SLICE):
     """Fake-quant (QAT) GCN at 2^20, width 128: calibrate from one float
-    forward, the 8-bit model on a value-tile prep (``prepare_from_config``
-    with ``fake_quantization``), one forward against the same forward on
+    forward, the 8-bit model on a value-tile prep (the hybrid split
+    SLICE_SPLIT without rank-1 masks, as ``prepare_from_config`` keeps for
+    ``fake_quantization``), one forward against the same forward on
     the plain K1, then three training epochs (K1, the ring kernel, on
     ``bsr`` and ``bsr_t``). ``map_adjacency_vals`` remaps a tile set when
     it is first read: a forward rewrites ``bsr`` and the remainder, the
@@ -2195,11 +2171,12 @@ def phase_fake_quant(A, data, device, cfg=SLICE):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    prep = prepare_from_config(A, qcfg, device=device)
+    prep = prepare_adjacency(A, method="hybrid", tb=SLICE_SPLIT[0], rest_thresh=SLICE_SPLIT[1], rank1=False,
+                             device=device)
     torch.cuda.synchronize()
     _log(f"fake-quant prepare (value tiles, no rank-1 masks): {time.perf_counter() - t0:.1f} s kind={prep.kind} "
          f"tiles={prep.bsr.num_tiles} form={prep.bsr.tiles.dtype}{list(prep.bsr.tiles.shape[1:])} "
-         f"({_nbytes(prep.bsr.tiles) / 1e9:.3f} GB a direction) rest_edges={prep.rest.nnz}")
+         f"({RL.nbytes(prep.bsr.tiles) / 1e9:.3f} GB a direction) rest_edges={prep.rest.nnz}")
     if prep.r1_row is not None or prep.bsr.tiles.dtype != torch.bfloat16:
         raise AssertionError("a fake_quantization prep must hold value tiles")
     x = torch.from_numpy(data.x).to(device)
@@ -2239,8 +2216,8 @@ def phase_fake_quant(A, data, device, cfg=SLICE):
             for name in names:
                 getattr(m, name)
 
-        read_ms = _cuda_ms(lambda: remap(("bsr", "rest")), reps=5)
-        all_ms = _cuda_ms(lambda: remap(("bsr", "rest", "bsr_t", "A")), reps=5)
+        read_ms = cuda_ms(lambda: remap(("bsr", "rest")), reps=5)
+        all_ms = cuda_ms(lambda: remap(("bsr", "rest", "bsr_t", "A")), reps=5)
         with _plain_kernels():
             ref = net(prep, x)
     _log("fake-quant GCN forwards (K1 on remapped value tiles): " + ", ".join(f"{m:.3f}" for m in ms) + " ms")
@@ -2456,25 +2433,21 @@ def phase_variant_kernels_small(device):
             err_cut = _check(f"K12 {name} F={F} sb={sb} cleared bitmap",
                              FG.flash_gat_forward_subskip(B, cut, s1, s2, Wh, sb=sb),
                              FG.flash_gat_forward_subskip_plain(B, cut, s1, s2, Wh, sb=sb), GAT_TOL)
-            bits = _pop_bits(pop)
+            bits = RL.pop_bits(pop)
             _log(f"  K12 {name} F={F} sb={sb}: {'ring (and single-stage)' if ring else 'single-stage'} "
                  f"T={B.num_tiles} populated sub-blocks {bits} of {B.num_tiles * (B.tb // sb) ** 2} err {err:.3g} "
-                 f"(cleared bitmap, {_pop_bits(cut)} set: {err_cut:.3g}), equal to K3 on the same route")
+                 f"(cleared bitmap, {RL.pop_bits(cut)} set: {err_cut:.3g}), equal to K3 on the same route")
 
 
 def _k9_bound(plan, H, out) -> dict:
-    """Bound of K9: the live slots' 12 bytes of plan (slot_idx, lcol, val),
-    the group and segment arrays, H and out once; two f32 operations per
-    live slot and feature, outside the tensor cores. Also returns the bytes
-    and operations counted."""
-    live = plan.slot_idx.numel()
-    nbytes = 12 * live + _nbytes(plan.tile_cb, H, out) + _seg_bytes(plan.segments)
-    ops = 2.0 * live * H.shape[1]
-    return dict(_bound(nbytes, ops, "f32"), nbytes=nbytes, ops=ops)
+    """Bound of K9 (``utils/roofline.cost_pallas``); also the bytes and
+    operations counted."""
+    c = RL.cost_pallas(plan, H.shape[1], RL.nbytes(H, out))
+    return dict(c.bound(), nbytes=c.bytes, ops=c.total_flops)
 
 
 def _plan_bytes_k9(plan) -> int:
-    return _nbytes(plan.lrow, plan.lcol, plan.val, plan.perm)
+    return RL.nbytes(plan.lrow, plan.lcol, plan.val, plan.perm)
 
 
 def phase_pallas_slice(A, data, device, k2_logits, cfg=SLICE):
@@ -2522,16 +2495,16 @@ def phase_pallas_slice(A, data, device, k2_logits, cfg=SLICE):
     e_old = _check("spmm_plan against the first kernel", out, K9._spmm_plan_single(plan, H), K9_TOL)
     del lib
     # the first kernel and the gather kernel in turns: first, gather, gather, first
-    first = [_cuda_ms(lambda: K9._spmm_plan_single(plan, H))]
-    gather = [_cuda_ms(lambda: K9._spmm_plan_gather(plan, H)) for _ in range(2)]
-    first.append(_cuda_ms(lambda: K9._spmm_plan_single(plan, H)))
-    pre_ms = _cuda_ms(lambda: K1._stage_h(H, None, A.n_cols, A.n_cols))
+    first = [cuda_ms(lambda: K9._spmm_plan_single(plan, H))]
+    gather = [cuda_ms(lambda: K9._spmm_plan_gather(plan, H)) for _ in range(2)]
+    first.append(cuda_ms(lambda: K9._spmm_plan_single(plan, H)))
+    pre_ms = cuda_ms(lambda: K1._stage_h(H, None, A.n_cols, A.n_cols))
     Hb = H.to(torch.bfloat16)
-    bf16_ms = _cuda_ms(lambda: K9._spmm_plan_gather(plan, Hb))
+    bf16_ms = cuda_ms(lambda: K9._spmm_plan_gather(plan, Hb))
     ms = float(np.median(gather))
-    plain_ms = _cuda_ms(lambda: K9.spmm_plan_plain(plan, H), reps=3)
+    plain_ms = cuda_ms(lambda: K9.spmm_plan_plain(plan, H), reps=3)
     bound = _k9_bound(plan, H, out)
-    b8 = _bound(bound["nbytes"] - 4 * plan.slot_idx.numel(), bound["ops"], "f32")["bound_ms"]
+    b8 = RL.CostModel({"f32": bound["ops"]}, bound["nbytes"] - 4 * plan.slot_idx.numel()).bound()["bound_ms"]
     rec = {"spmm_plan": dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                              bound_ms=bound["bound_ms"], bound_by=bound["bound_by"], library_ms=lib_ms)}
     _log(f"spmm_plan at slice shapes [n={A.n_rows}, P={HIDDEN}]: gather kernel "
@@ -2544,15 +2517,15 @@ def phase_pallas_slice(A, data, device, k2_logits, cfg=SLICE):
     g = torch.randn(A.n_rows, HIDDEN, generator=gen, device=device)
     err_t = _check("spmm_plan on plan_t at slice shapes", K9.spmm_plan(plan_t, g),
                    K9.spmm_plan_plain(plan_t, g), K9_TOL)
-    ms_t = _cuda_ms(lambda: K9._spmm_plan_gather(plan_t, g))
-    ms_t1 = _cuda_ms(lambda: K9._spmm_plan_single(plan_t, g))
+    ms_t = cuda_ms(lambda: K9._spmm_plan_gather(plan_t, g))
+    ms_t1 = cuda_ms(lambda: K9._spmm_plan_single(plan_t, g))
     _log(f"spmm_plan on plan_t: gather kernel {ms_t:.4f} ms, first kernel {ms_t1:.4f} ms, max abs err {err_t:.3g}")
     # the row pieces: slots a worker sums before a row is split (ROW_SEG_SLOTS)
     sweep = []
     for seg in (16, 32, 64, 128, 256):
         cut = K9.recut_rows(plan, seg)
         e = _check(f"spmm_plan at ROW_SEG_SLOTS={seg}", K9.spmm_plan(cut, H), out, K9_TOL)
-        sweep.append(f"{seg}: {_cuda_ms(lambda: K9._spmm_plan_gather(cut, H)):.4f} ms "
+        sweep.append(f"{seg}: {cuda_ms(lambda: K9._spmm_plan_gather(cut, H)):.4f} ms "
                      f"({cut.segments.n_seg} pieces, {cut.segments.n_fin} split rows, err {e:.3g})")
         del cut
     _log(f"spmm_plan gather kernel over ROW_SEG_SLOTS (plan default {K9.ROW_SEG_SLOTS}): " + "; ".join(sweep))
@@ -2579,7 +2552,7 @@ def phase_pallas_slice(A, data, device, k2_logits, cfg=SLICE):
         with _plain_kernels():
             ref = net(prep, x)
         H1 = torch.matmul(x, net.conv1.weight)
-        agg_ms = _cuda_ms(lambda: agg_matmul(prep, H1))
+        agg_ms = cuda_ms(lambda: agg_matmul(prep, H1))
     _log("pallas GCN forwards (K9 route): " + ", ".join(f"{m:.3f}" for m in times) + " ms")
     _log(f"launches in the pallas serving run: {launches} (K9 per request: {per_request})")
     _log(f"pallas aggregation (layer-1 input, K9): {agg_ms:.4f} ms")
@@ -2643,7 +2616,7 @@ def phase_pallas_slice(A, data, device, k2_logits, cfg=SLICE):
     prep_s = time.perf_counter() - t0
     out = K9.spmm_plan(small, H)
     err = _check("spmm_plan at the default tiling", out, K9.spmm_plan_plain(small, H), K9_TOL)
-    ms_d = _cuda_ms(lambda: K9.spmm_plan(small, H))
+    ms_d = cuda_ms(lambda: K9.spmm_plan(small, H))
     b_d = _k9_bound(small, H, out)
     _log(f"spmm_plan at the config's default tiling (forward plan only, plan_spmm): prepare {prep_s:.1f} s "
          f"rb={small.rb} cb={small.cb} be={small.be} groups={small.num_groups} "
@@ -2669,9 +2642,9 @@ def _timed_variant(name, kern, plain, args, tol, reps_plain=3):
     ref = plain(*args)
     e1.record()
     err = _check(name, out, ref, tol)
-    ms = _cuda_ms(lambda: kern(*args))
+    ms = cuda_ms(lambda: kern(*args))
     # a slow plain version is timed once, on the call that made ``ref``
-    plain_ms = e0.elapsed_time(e1) if reps_plain <= 1 else _cuda_ms(lambda: plain(*args), reps=reps_plain)
+    plain_ms = e0.elapsed_time(e1) if reps_plain <= 1 else cuda_ms(lambda: plain(*args), reps=reps_plain)
     return out, dict(max_abs_err=err, ms=ms, plain_ms=plain_ms), launches
 
 
@@ -2711,10 +2684,6 @@ def phase_variants_agg_slice(A, prep, device, lib_ms):
     n_sm = torch.cuda.get_device_properties(device).multi_processor_count
     mode = K1._tile_mode(B.tiles, B.tb)
 
-    def k10_bound(B, H, out):
-        nbytes = _live_tile_bytes(B) + _sched_bytes(B.ring) + _nbytes(H, out)
-        return _bound(nbytes, 2.0 * int(B.live.sum()) * B.tb * B.tb * H.shape[1], "bf16")
-
     occ = {C: K1.rowloop_cluster_occupancy(mode, C) for C in K1.ROWLOOP_CLUSTERS}
     _log(f"cluster K10 occupancy (cudaOccupancyMaxActiveClusters, {B.tiles.dtype} tiles, "
          f"{n_sm} SMs): " + ", ".join(f"C={C}: {n} clusters ({n * C} CTAs)" for C, n in occ.items()))
@@ -2730,10 +2699,10 @@ def phase_variants_agg_slice(A, prep, device, lib_ms):
            K1.bsr_spmm_rowloop_cluster_plain(B, H, sched), K1_TOL)
     k1 = K1.bsr_spmm(B, H)
     e1 = _check("bsr_spmm_rowloop against K1", out, k1, K1_TOL)
-    k1_ms = _cuda_ms(lambda: K1.bsr_spmm(B, H))
-    single_ms = _cuda_ms(lambda: K1._bsr_spmm_rowloop_single(B, H), reps=3)
+    k1_ms = cuda_ms(lambda: K1.bsr_spmm(B, H))
+    single_ms = cuda_ms(lambda: K1._bsr_spmm_rowloop_single(B, H), reps=3)
     _check("single-stage bsr_spmm_rowloop at slice shapes", K1._bsr_spmm_rowloop_single(B, H), out, K1_TOL)
-    bound = k10_bound(B, H, out)
+    bound = _agg_bound(B, H, out, "bf16")
     rec["bsr_spmm_rowloop"] = dict(**r, **bound, library_ms=lib_ms, earlier_ms=single_ms)
     _add(launches, n)
     longest = int(torch.bincount(B.ring.rb.long()).max())
@@ -2748,22 +2717,23 @@ def phase_variants_agg_slice(A, prep, device, lib_ms):
         oc = K1._bsr_spmm_rowloop_cluster(B, H, C)
         ec = _check(f"cluster K10 C={C} at slice shapes", oc, K1.bsr_spmm_rowloop_cluster_plain(B, H, sc), K1_TOL)
         _check(f"cluster K10 C={C} at slice shapes against the plain K10", oc, ref, K1_TOL)
-        ms_c = _cuda_ms(lambda: K1._bsr_spmm_rowloop_cluster(B, H, C))
+        ms_c = cuda_ms(lambda: K1._bsr_spmm_rowloop_cluster(B, H, C))
         _log(f"  cluster K10 C={C} on the slice: {ms_c:.4f} ms, max abs err {ec:.3g}; {_cluster_split(sc)}")
     del out, k1, ref
 
     band = _banded_graph(A.n_rows, A.n_rows // 4, 0)
-    bp = prepare_adjacency(band, method="hybrid", build_transpose=False, device=device)
+    bp = prepare_adjacency(band, method="hybrid", tb=SLICE_SPLIT[0], rest_thresh=SLICE_SPLIT[1], build_transpose=False,
+                           device=device)
     Bb = bp.bsr
     ob = K1.bsr_spmm_rowloop(Bb, H)
     sb = _cluster_sched(Bb, K1.ROWLOOP_CLUSTER)
     eb = _check("bsr_spmm_rowloop on the banded graph", ob, K1.bsr_spmm_rowloop_plain(Bb, H), K1_TOL)
     _check("bsr_spmm_rowloop on the banded graph against its cluster plain version", ob,
            K1.bsr_spmm_rowloop_cluster_plain(Bb, H, sb), K1_TOL)
-    bb = k10_bound(Bb, H, ob)
-    times = {f"cluster C={C}": _cuda_ms(lambda: K1._bsr_spmm_rowloop_cluster(Bb, H, C)) for C in K1.ROWLOOP_CLUSTERS}
-    times["single-stage"] = _cuda_ms(lambda: K1._bsr_spmm_rowloop_single(Bb, H))
-    times["K1 (ring)"] = _cuda_ms(lambda: K1.bsr_spmm(Bb, H))
+    bb = _agg_bound(Bb, H, ob, "bf16")
+    times = {f"cluster C={C}": cuda_ms(lambda: K1._bsr_spmm_rowloop_cluster(Bb, H, C)) for C in K1.ROWLOOP_CLUSTERS}
+    times["single-stage"] = cuda_ms(lambda: K1._bsr_spmm_rowloop_single(Bb, H))
+    times["K1 (ring)"] = cuda_ms(lambda: K1.bsr_spmm(Bb, H))
     _log(f"bsr_spmm_rowloop on the banded graph's tiles [n={band.n_rows}, T={Bb.num_tiles}, live "
          f"{Bb.ring.n_tile_steps}, longest live run {int(torch.bincount(Bb.ring.rb.long()).max())} tiles, "
          f"{sb.n_heavy} heavy items]: " + ", ".join(f"{k} {v:.4f} ms" for k, v in times.items())
@@ -2776,7 +2746,7 @@ def phase_variants_agg_slice(A, prep, device, lib_ms):
     heavy = K1.cluster_schedule(Bb, C, 0, K1.rowloop_cluster_occupancy(K1._tile_mode(Bb.tiles, Bb.tb), C))
     oh = K1._bsr_spmm_rowloop_cluster(Bb, H, C, sched=heavy)
     eh = _check("bsr_spmm_rowloop with every row block heavy", oh, ob, K1_TOL)
-    ms_h = _cuda_ms(lambda: K1._bsr_spmm_rowloop_cluster(Bb, H, C, sched=heavy))
+    ms_h = cuda_ms(lambda: K1._bsr_spmm_rowloop_cluster(Bb, H, C, sched=heavy))
     per_cluster = heavy.n_heavy / heavy.n_clusters
     _log(f"cluster reduction cost on the banded graph: every row block heavy ({heavy.n_heavy} half-height "
          f"items, {per_cluster:.0f} a cluster of {C}) {ms_h:.4f} ms against {times[f'cluster C={C}']:.4f} ms "
@@ -2786,7 +2756,7 @@ def phase_variants_agg_slice(A, prep, device, lib_ms):
     del bp, Bb, ob
 
     k2 = K2.bsr_spmm_fused(prep.fused, H)
-    k2_ms = _cuda_ms(lambda: K2.bsr_spmm_fused(prep.fused, H))
+    k2_ms = cuda_ms(lambda: K2.bsr_spmm_fused(prep.fused, H))
     r1 = dict(r1_row=prep.r1_row.cpu().numpy(), r1_col=prep.r1_col.cpu().numpy())
     for k in (2, 4):
         t0 = time.perf_counter()
@@ -2803,7 +2773,7 @@ def phase_variants_agg_slice(A, prep, device, lib_ms):
         equal = bool(torch.equal(out, k2))
         if same and k == 2 and not equal:
             raise AssertionError("the ring K11 at k=2 on K2's ring schedule must equal K2's ring bit for bit")
-        single_ms = _cuda_ms(lambda: K2._bsr_spmm_fused_k_single(plan, H), reps=3)
+        single_ms = cuda_ms(lambda: K2._bsr_spmm_fused_k_single(plan, H), reps=3)
         bound = _agg_bound(B, H, out, "bf16", plan=plan)
         _add(launches, n)
         _log(f"bsr_spmm_fused_k k={k} on the slice's split [steps {prep.fused.num_steps} -> {plan.num_steps}, "
@@ -2818,17 +2788,9 @@ def phase_variants_agg_slice(A, prep, device, lib_ms):
     return rec, launches
 
 
-def _pop_bits(pop) -> int:
-    """Populated sub-blocks in a K12 bitmap."""
-    return int(sum(((pop >> j) & 1).sum() for j in range(32)))
-
-
 def _k12_bound(B, pop, sb, tensors, F) -> dict:
-    """Bound of K12 on this run's bitmap: the mask bytes and the product of
-    the populated sub-blocks only."""
-    bits = _pop_bits(pop)
-    nbytes = bits * sb * sb * B.tiles.element_size() + _nbytes(*tensors, B.tile_cb) + pop.nbytes + _seg_bytes(B.segments)
-    return _bound(nbytes, 2.0 * bits * sb * sb * F, "bf16")
+    """Bound of K12 on this run's bitmap (``utils/roofline.cost_subskip``)."""
+    return RL.cost_subskip(B, pop, sb, F, RL.nbytes(*tensors)).bound()
 
 
 def phase_subskip(B, edges, device, label, record=False, plain_min_sb=1):
@@ -2844,8 +2806,8 @@ def phase_subskip(B, edges, device, label, record=False, plain_min_sb=1):
     s1, s2, Wh = (x[:, 0] for x in _scores(n, 1, GAT_HIDDEN, gen, device))
     ring = FG._takes_ring(B, Wh)
     k3 = FG.flash_gat_forward(B, s1, s2, Wh)  # K3 on the route K12 takes
-    k3_ms = _cuda_ms(lambda: FG._flash_gat_forward_single(B, s1, s2, Wh))
-    k3_ring_ms = _cuda_ms(lambda: FG.flash_gat_forward(B, s1, s2, Wh))
+    k3_ms = cuda_ms(lambda: FG._flash_gat_forward_single(B, s1, s2, Wh))
+    k3_ring_ms = cuda_ms(lambda: FG.flash_gat_forward(B, s1, s2, Wh))
     rec, launches = {}, {}
     for sb in (8, 16, 32, 64, 128, 256):
         if B.tb % sb:
@@ -2867,23 +2829,23 @@ def phase_subskip(B, edges, device, label, record=False, plain_min_sb=1):
         err, ms, plain_ms = r["max_abs_err"], r["ms"], r["plain_ms"]
         if not torch.equal(out, k3):
             raise AssertionError(f"K12 sb={sb} ({label}) differs from K3 on the same tiles and route")
-        single = [_cuda_ms(lambda: FG._flash_gat_forward_subskip_single(*args, sb=sb))]
+        single = [cuda_ms(lambda: FG._flash_gat_forward_subskip_single(*args, sb=sb))]
         if ring:
             _check(f"K12 sb={sb} ({label}) single-stage", FG._flash_gat_forward_subskip_single(*args, sb=sb),
                    out, GAT_TOL)
-            times = [ms, _cuda_ms(lambda: FG._flash_gat_forward_subskip_ring(*args, sb=sb))]
-            single.append(_cuda_ms(lambda: FG._flash_gat_forward_subskip_single(*args, sb=sb)))
+            times = [ms, cuda_ms(lambda: FG._flash_gat_forward_subskip_ring(*args, sb=sb))]
+            single.append(cuda_ms(lambda: FG._flash_gat_forward_subskip_single(*args, sb=sb)))
             ms = float(np.median(times))
         slabs = FG.subskip_schedule(B, pop_t, sb).step
         fold_ms = None
         if ring:
-            fold_ms = _cuda_ms(lambda: FG._subskip_fold(B, pop_t, sb))
+            fold_ms = cuda_ms(lambda: FG._subskip_fold(B, pop_t, sb))
             if not torch.equal(FG._subskip_fold(B, pop_t, sb).step, slabs):
                 raise AssertionError(f"K12 sb={sb} ({label}): the fold kernel differs from subskip_schedule")
         slabs = slabs[:, 3]
         n_slabs = int(sum(((slabs >> j) & 1).sum() for j in range(4)))
         bound = _k12_bound(B, pop, sb, (s1, s2, Wh, out), GAT_HIDDEN)
-        bits = _pop_bits(pop)
+        bits = RL.pop_bits(pop)
         _add(launches, n_l)
         _log(f"flash_gat_forward_subskip sb={sb} on the {label} tiles [T={B.num_tiles}, tb={B.tb}, H=1, "
              f"F={GAT_HIDDEN}, populated sub-blocks {bits} of {B.num_tiles * (B.tb // sb) ** 2}, 64-column "
@@ -2902,6 +2864,21 @@ def phase_subskip(B, edges, device, label, record=False, plain_min_sb=1):
 
 
 # ------------------------------------------- the sampled, PPI and molecule loops
+
+
+def _agg_kernel(prep):
+    """The kernel ``agg_matmul`` launches on ``prep`` (None: its kind runs
+    none)."""
+    if prep.kind in ("bsr", "hybrid"):
+        return "bsr_spmm_fused" if prep.fused is not None else "bsr_spmm"
+    return "spmm_plan" if prep.kind == "pallas" else None
+
+
+def _choice(prep) -> str:
+    """What the cost model priced for ``prep`` (ms by kind) and its host seconds."""
+    ch = prep.choice or {}
+    costs = ", ".join(f"{k} {v * 1e3:.4f}" for k, v in ch.get("costs", {}).items())
+    return f"model ms {{{costs}}}, split {ch.get('split')}, {ch.get('seconds', 0.0):.3f} s of host"
 
 
 @contextlib.contextmanager
@@ -3009,9 +2986,10 @@ def phase_sampled(device, data, cfg=SAMPLED_GRAPH):
     """train_node_classifier_sampled on the products-density graph ``data``
     (``_products_graph(cfg)``): GCNModel(100, 128, 16), 4096 train seeds
     drawn with default_rng(0), batches of SAMPLED_BATCH, fanouts (10, 10),
-    2 epochs, prepare="auto". Every batch must prepare hybrid (the rule's
-    dense limit lies far below its node count) and every step launch K2
-    four times (two forward, two on fused_t), all on the ring kernel."""
+    2 epochs, prepare="auto": each batch takes the kind the cost model
+    prices cheapest (printed with its prices and the model's host seconds),
+    and every step launches that kind's kernel four times (two forward, two
+    on the transposed plan), all on the redesigned kernels."""
     t_phase = time.perf_counter()
     train = np.nonzero(data.train_mask)[0]
     seeds = np.random.default_rng(0).choice(train, SAMPLED_SEEDS, replace=False)
@@ -3028,8 +3006,8 @@ def phase_sampled(device, data, cfg=SAMPLED_GRAPH):
         {"sym_norm": norm, "make_neighbor_batches": sampled, "_prepare_backend": preps})
     full_s = preps[0][0]  # sym_norm runs inside the full graph's _prepare_backend
     full = preps[0][1]
-    _log(f"  full graph (evaluation): kind={full.kind} n_pad={full.A.n_rows} tiles={full.bsr.num_tiles} "
-         f"rest chunks={full.fused.num_rest_chunks}")
+    _log(f"  full graph (evaluation): kind={full.kind} n_pad={full.A.n_rows} ({_choice(full)})"
+         + ("" if full.fused is None else f" tiles={full.bsr.num_tiles} rest chunks={full.fused.num_rest_chunks}"))
     batch_preps = preps[1:]
     n_batches = len(batch_preps)
     for i, (sec, p, _, _) in enumerate(batch_preps):
@@ -3039,14 +3017,20 @@ def phase_sampled(device, data, cfg=SAMPLED_GRAPH):
             f"ring steps={f.ring.step.shape[0]} work items={f.ring.segments.n_seg}")
         _log(f"  sampled batch {i}: kind={p.kind} n_pad={p.A.n_rows} (dense bf16 {p.A.n_rows ** 2 * 2 / 2**20:.0f} "
              f"MiB, limit {D.DENSE_MAX_BYTES / 2**20:.0f}) e_pad={p.A.e_pad} nonzero edges="
-             f"{int((p.A.vals != 0).sum())}{layout}; prepare {sec:.3f} s")
-    if full.kind != "hybrid" or any(p.kind != "hybrid" or p.fused is None for _, p, _, _ in batch_preps):
-        raise AssertionError(f"sampled GCN: full graph {full.kind}, batch preps "
-                             f"{[p.kind for _, p, _, _ in batch_preps]}; all must be hybrid")
-    _want_per_step("sampled GCN", per_step, {"bsr_spmm_fused": 4})
-    want = 4 * n_batches + 2 * SAMPLED_EPOCHS
-    if launches["bsr_spmm_fused"] != want or sum(launches.values()) != want:
-        raise AssertionError(f"sampled GCN launches {launches}, expected bsr_spmm_fused {want} and nothing else")
+             f"{int((p.A.vals != 0).sum())}{layout}; prepare {sec:.3f} s, of it the model {p.choice['seconds']:.3f} s "
+             f"({_choice(p)})")
+    # each step launches its batch's kernel four times (two forward, two on
+    # the transposed plan), each evaluation the full graph's twice
+    kerns = [_agg_kernel(p) for _, p, _, _ in batch_preps]
+    for i, (k, got) in enumerate(zip(kerns, per_step)):
+        if got != ({k: 4} if k else {}):
+            raise AssertionError(f"sampled GCN: step {i} ({batch_preps[i][1].kind}) launched {got}")
+    want = {}
+    for k, c in [(k, 4) for k in kerns] + [(_agg_kernel(full), 2 * SAMPLED_EPOCHS)]:
+        if k:
+            want[k] = want.get(k, 0) + c
+    if {k: v for k, v in launches.items() if v} != want:
+        raise AssertionError(f"sampled GCN launches {launches}, expected {want}")
     sample_s = [sec for sec, _, _, _ in sampled]
     prep_s = [sec for sec, _, _, _ in batch_preps]
     epoch_ms = (wall - full_s) / SAMPLED_EPOCHS * 1e3
@@ -3055,9 +3039,15 @@ def phase_sampled(device, data, cfg=SAMPLED_GRAPH):
          f"{np.mean(prep_s):.3f} s (min {min(prep_s):.3f}, max {max(prep_s):.3f}); full graph: sym_norm "
          f"{norm[0][0]:.3f} s, prepare {full_s - norm[0][0]:.3f} s; epoch {epoch_ms:.3f} ms (sampling, prepares, "
          f"{n_batches // SAMPLED_EPOCHS} steps and the full-graph evaluation); loop wall {wall:.3f} s")
-    # one step of the loop on the last batch, against the plain kernels
-    b = sampled[-1][1][-1]
-    p = batch_preps[-1][1]
+    # one step of the loop on the last batch whose kind runs a kernel,
+    # against the plain kernels
+    last = max((i for i, k in enumerate(kerns) if k), default=None)
+    if last is None:
+        _log("sampled GCN: no batch's kind runs a kernel; no step to hold against the plain kernels")
+        _log(f"phase sampled: {time.perf_counter() - t_phase:.1f} s wall")
+        return {k: v for k, v in launches.items() if v}
+    b = [bb for _, batches, _, _ in sampled for bb in batches][last]
+    p = batch_preps[last][1]
     x = torch.from_numpy(b.x).to(device)
     y = torch.from_numpy(b.y).to(device).long()
     m = torch.from_numpy(b.seed_mask).to(device).float()
@@ -3067,7 +3057,7 @@ def phase_sampled(device, data, cfg=SAMPLED_GRAPH):
     _check_loop_step("sampled GCN", state.model, lambda g: state.model(p, x, generator=g),
                      lambda lg: _masked_xent(lg, y, m))
     _log(f"phase sampled: {time.perf_counter() - t_phase:.1f} s wall")
-    return {"bsr_spmm_fused": launches["bsr_spmm_fused"]}
+    return {k: v for k, v in launches.items() if v}
 
 
 def phase_ppi(device):
@@ -3332,8 +3322,8 @@ def phase_dist_gcn(device, data, cfg=SAMPLED_GRAPH):
     raw, bal = shard_edge_counts(A, S), shard_edge_counts(A_s, S)
     _log(f"dist GCN shard edges: contiguous split {raw.tolist()} (max/mean {raw.max() / raw.mean():.3f}), "
          f"degree-balanced {bal.tolist()} (max/mean {bal.max() / bal.mean():.3f})")
-    _log(f"dist GCN halo plan: n_pad={n_pad} n_local={G.n_local} L={G.halo_len} tb={FP.tb} K={FP.K} "
-         f"rank1={FP.rank1}")
+    _log(f"dist GCN halo plan: n_pad={n_pad} n_local={G.n_local} L={G.halo_len} tb={FP.tb} (the shard chooser's, "
+         f"tb='auto') threshold {D._rest_thresh(FP.tb, FP.rank1, 2)} K={FP.K} rank1={FP.rank1}")
     for s in range(S):
         loc, rem = _shard_edges(G, s)
         p, pt = FP.preps[s].fused, FP.preps[s].fused_t
@@ -3381,7 +3371,7 @@ def phase_dist_gcn(device, data, cfg=SAMPLED_GRAPH):
     launches = _counts()
     _log(f"peak device memory in the dist GCN steps: {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
     H = torch.randn(n_pad, HIDDEN, device=device)
-    ex_ms = _cuda_ms(lambda: HALO._exchange(mesh, G, mesh.split(H)))
+    ex_ms = cuda_ms(lambda: HALO._exchange(mesh, G, mesh.split(H)))
     _log(f"dist GCN in-process exchange of one layer's rows (gather the send buffers, all_to_all as a device "
          f"copy, [{S}, {S}, {G.halo_len}, {HIDDEN}] f32): {ex_ms:.4f} ms (CUDA events; not a link)")
     _profile_forward(step, "dist GCN train", "1 training step")
@@ -3422,8 +3412,8 @@ def phase_dist_gat(A, x_np, device):
     n_tiles = sum(B.num_tiles for B in Bs)
     _log(f"dist GAT prepare: build_halo {halo_s:.2f} s (L={G.halo_len}), build_halo_bsr(tb=256, mask=True) "
          f"{bsr_s:.2f} s: {n_tiles} full-cover local tiles ({sum(int(B.live.sum()) for B in Bs)} live; "
-         f"{sum(_nbytes(B.tiles) for B in Bs) / 1e9:.3f} GB of int8 forward, "
-         f"{sum(_nbytes(B.tiles) for B in Bts) / 1e9:.3f} GB transposed), local edges "
+         f"{sum(RL.nbytes(B.tiles) for B in Bs) / 1e9:.3f} GB of int8 forward, "
+         f"{sum(RL.nbytes(B.tiles) for B in Bts) / 1e9:.3f} GB transposed), local edges "
          f"{sum(a for a, _ in loc)} of {sum(a + b for a, b in loc)} "
          f"({sum(a for a, _ in loc) / max(sum(a + b for a, b in loc), 1):.4f})")
     for s in range(S):
@@ -3467,8 +3457,8 @@ def phase_dist_gat(A, x_np, device):
     BPv = HALO.build_halo_bsr(G, tb=256)
     torch.cuda.synchronize()
     _log(f"dist GCN-on-K1 prepare: build_halo_bsr(tb=256) bf16 value tiles {time.perf_counter() - t0:.2f} s, "
-         f"{sum(_nbytes(p.bsr.tiles) for p in BPv.preps) / 1e9:.3f} GB forward, "
-         f"{sum(_nbytes(p.bsr_t.tiles) for p in BPv.preps) / 1e9:.3f} GB transposed")
+         f"{sum(RL.nbytes(p.bsr.tiles) for p in BPv.preps) / 1e9:.3f} GB forward, "
+         f"{sum(RL.nbytes(p.bsr_t.tiles) for p in BPv.preps) / 1e9:.3f} GB transposed")
     p1 = {"x": x, "W": t(x_np.shape[1], HIDDEN).requires_grad_()}
 
     def gcn(layer, *plan):
@@ -3515,12 +3505,508 @@ def phase_dist_dryrun(device):
     _log(f"phase dist dry run: {time.perf_counter() - t_phase:.1f} s wall")
     return launches
 
+# ------------------------------------------------- PR 15: peaks, cost model, examples
+
+
+COST_TOL = 2.0  # a device-timed cost-table entry may sit within 2x of its re-measurement
+ROUTE_TOL = 1.15  # auto's and for_gat's choice against the fastest measured candidate
+COST_P = 128  # the model's lane width: every route is timed at P = 128, f32 H
+COST_BUILD_BYTES = 8 << 30  # build a candidate only where its tiles fit this
+COST_SHRINK = 0  # _measure_costs' node counts shifted down by this (a CPU rehearsal's sizes)
+TIMING_ROUNDS = 5  # rounds of _interleaved_ms: host-bound calls drift by tens of percent between minutes
+
+
+def _interleaved_ms(fns: dict, rounds: int = TIMING_ROUNDS, reps: int = 10) -> dict:
+    """Each callable's ``cuda_ms`` in ``rounds`` rounds, the callables taken
+    in turns in every round, so that a drift of the host's speed reaches
+    all alike; the median of the rounds' medians."""
+    got = {k: [] for k in fns}
+    for _ in range(rounds):
+        for k, fn in fns.items():
+            got[k].append(cuda_ms(fn, reps=reps))
+    return {k: float(np.median(v)) for k, v in got.items()}
+
+
+def phase_peaks(device) -> dict:
+    """The measured entries of ``utils/roofline.H100_PEAKS``: f32
+    elementwise operations (chains of multiply-adds, two operations each,
+    in registers), ``__expf`` and a device-to-device copy, each beside the
+    table's value. The two compute rates run in a kernel compiled at run
+    time by ``torch.cuda.jiterator`` (a measurement, on no path of the
+    port)."""
+    t0 = time.perf_counter()
+    n, iters = 1 << 24, 256
+    x = torch.rand(n, device=device)
+    fma = torch.cuda.jiterator._create_jit_fn(
+        "template <typename T> T fma_chain(T x) { T a = x, b = x + T(1), c = x + T(2), d = x + T(3); "
+        f"for (int i = 0; i < {iters}; ++i) {{ a = a * T(0.999) + T(0.001); b = b * T(0.999) + T(0.001); "
+        "c = c * T(0.999) + T(0.001); d = d * T(0.999) + T(0.001); } return a + b + c + d; }")
+    ex = torch.cuda.jiterator._create_jit_fn(
+        "template <typename T> T exp_chain(T x) { T a = x, b = x + T(0.5), c = x - T(0.5), d = -x; "
+        f"for (int i = 0; i < {iters}; ++i) {{ a = __expf(a) - T(1); b = __expf(b) - T(1); "
+        "c = __expf(c) - T(1); d = __expf(d) - T(1); } return a + b + c + d; }")
+    ms_fma = cuda_ms(lambda: fma(x))
+    ms_exp = cuda_ms(lambda: ex(x))
+    src = torch.empty(1 << 28, device=device)
+    dst = torch.empty_like(src)
+    ms_copy = cuda_ms(lambda: dst.copy_(src))
+    got = dict(elementwise_s=n * iters * 4 * 2 / (ms_fma * 1e-3),
+               # each step of a chain: one exp and one subtraction, the exp's share counted
+               exp_s=n * iters * 4 / (ms_exp * 1e-3),
+               copy_bytes_s=2 * src.numel() * 4 / (ms_copy * 1e-3))
+    for k, v in got.items():
+        _log(f"peak {k}: measured {v:.4g} /s, table {getattr(RL.H100_PEAKS, k):.4g} /s")
+    _log(f"published: memory {RL.H100_PEAKS.memory_bytes_s:.4g} B/s, operations {RL.H100_PEAKS.operations}; "
+         f"phase peaks: {time.perf_counter() - t0:.1f} s wall")
+    del src, dst
+    return got
+
+
+def _tile_graph(n, tb, per_rb, seed, values, edges=4, rows=None):
+    """Edges in ``per_rb`` distinct tiles of every row block (column blocks
+    spread over the width), ``edges`` random positions each; unit values
+    (a rank-1 adjacency: mask tiles) or random ones (value tiles). ``rows``
+    limits the row blocks that get tiles."""
+    rng = np.random.default_rng(seed)
+    n_rt = n // tb
+    rb = np.arange(n_rt if rows is None else rows)
+    cb = (rb[:, None] + np.arange(per_rb)[None, :] * max(n_rt // per_rb, 1)) % n_rt
+    rb = np.broadcast_to(rb[:, None], cb.shape).reshape(-1)
+    cb = cb.reshape(-1)
+    r = np.repeat(rb * tb, edges) + rng.integers(0, tb, len(rb) * edges)
+    c = np.repeat(cb * tb, edges) + rng.integers(0, tb, len(cb) * edges)
+    key = np.unique(r.astype(np.int64) * n + c)
+    v = rng.uniform(0.5, 1.5, len(key)).astype(np.float32) if values else np.ones(len(key), np.float32)
+    return SparseMatrix.from_coo(key // n, key % n, v, (n, n))
+
+
+def _chunk_graph(n, tb, per_rb, seed, dense_edges=0):
+    """``per_rb`` remainder edges a row block (each in a tile of its own
+    edges, under any threshold above 1) and, with ``dense_edges``, one
+    tile a row block on the diagonal holding that many."""
+    rng = np.random.default_rng(seed)
+    n_rt = n // tb
+    r = np.repeat(np.arange(n_rt) * tb, per_rb) + rng.integers(0, tb, n_rt * per_rb)
+    c = (np.tile(np.arange(per_rb), n_rt) * tb + np.repeat(np.arange(n_rt), per_rb) * tb + tb) % n \
+        + rng.integers(0, tb, n_rt * per_rb)
+    if dense_edges:
+        d = rng.integers(0, tb, (2, n_rt * dense_edges))
+        r = np.concatenate([r, np.repeat(np.arange(n_rt) * tb, dense_edges) + d[0]])
+        c = np.concatenate([c, np.repeat(np.arange(n_rt) * tb, dense_edges) + d[1]])
+    key = np.unique(r.astype(np.int64) * n + c % n)
+    return SparseMatrix.from_coo(key // n, key % n, np.ones(len(key), np.float32), (n, n))
+
+
+def _measure_costs(device) -> dict:
+    """Re-measure every device-timed entry of ``ops/dispatch.H100_COSTS``
+    on synthetic layouts: one ``agg_matmul`` at P = 128, f32 H, CUDA
+    events (the flash passes at H = 4, F = 64, and at H = 1 beside them).
+    Each kind's fixed seconds a call on a small graph (1024 nodes, ~4 k
+    edges; the kinds in turns, ``_interleaved_ms``), and its seconds a
+    node row on a 2^20-node graph of a few edges. Slopes between two
+    layouts on the same rows, so that those cancel: K2's live tile at each
+    candidate size and form (few and many tiles a row block), its chunk at
+    each size (few and many full chunks a row block: a chunk with its 128
+    slots), a slot alone (one chunk of 16 and of 128 slots a row block, tb
+    256; printed); K9's edge (the same groups full and sparse). With the call's and rows' seconds taken off: K9's
+    group, the edge path's edge, the dense kind's bytes a second. The flash tile: K3 over full-cover tiles
+    a head, a run from the same tiles over twice the row blocks, the
+    backward's ratio from K4 + K5; a flash chunk: K6 at two chunk counts;
+    the remainder backward: its torch terms at two edge counts."""
+    gen = torch.Generator(device=device).manual_seed(5)
+    P = COST_P
+    got = {}
+
+    def agg_ms(prep, n, reps=10):
+        H = torch.randn(n, P, generator=gen, device=device)
+        return cuda_ms(lambda: agg_matmul(prep, H), reps=reps)
+
+    def two(preps, n):
+        """Seconds of agg_matmul on each prep, the preps in turns."""
+        H = torch.randn(n, P, generator=gen, device=device)
+        return {k: v * 1e-3 for k, v in _interleaved_ms({k: (lambda p=p: agg_matmul(p, H))
+                                                         for k, p in preps.items()}).items()}
+
+    def prep_of(kind, A, **kw):
+        return prepare_adjacency(A, method=kind, build_transpose=False, device=device, **kw)
+
+    # each kind's fixed seconds a call, on a small graph (1024 nodes, ~4 k
+    # edges in 16 tiles: the size where they decide), its kinds in turns;
+    # and its seconds a node row
+    call, row = {}, {}
+    nd, n_small, n_big = 8192 >> COST_SHRINK, 1024, 1 << 20 >> COST_SHRINK
+    kinds = (("dense", {}), ("xla", {}), ("bsr", dict(tb=256)), ("hybrid", dict(tb=256, rest_thresh=2)),
+             ("pallas", {}))
+    Hs = torch.randn(n_small, P, generator=gen, device=device)
+    As = _tile_graph(n_small, 256, 4, 1, values=False, edges=256)
+    small = {kind: prep_of(kind, As, **kw) for kind, kw in kinds}
+    call = {k: v * 1e-3 for k, v in _interleaved_ms(
+        {kind: (lambda p=p: agg_matmul(p, Hs)) for kind, p in small.items()}, reps=20).items()}
+    t_big = agg_ms(prep_of("dense", _tile_graph(nd, 256, 1, 1, values=False)), nd) * 1e-3
+    got["dense_bps"] = (nd * nd - n_small * n_small) * 2 / (t_big - call["dense"])
+    call["dense"] -= n_small * n_small * 2 / got["dense_bps"]
+    for kind, kw in kinds[1:]:
+        t = agg_ms(prep_of(kind, _tile_graph(n_big, 256, 1, 2, values=False, rows=1), **kw), n_big) * 1e-3
+        row[kind] = max(t - call[kind], 0.0) / n_big
+    got["call_s"], got["row_s"] = call, row
+    stamp = time.perf_counter()
+
+    def section(name):
+        nonlocal stamp
+        _log(f"  cost measurement {name}: {time.perf_counter() - stamp:.1f} s")
+        stamp = time.perf_counter()
+    fixed = lambda kind, n: call[kind] + n * row[kind]
+    # K2 a live tile: the ring at tb 64-256, the single-stage kernel past it;
+    # the slope between two tile counts on the same rows (n, tiles a row
+    # block: few, many), so the call's and the rows' seconds cancel
+    tile_s = {}
+    for tb, n, lo, hi in ((64, 1 << 16, 4, 32), (128, 1 << 16, 4, 32), (256, 1 << 16, 4, 28),
+                          (512, 1 << 17, 1, 5), (1024, 1 << 17, 1, 3)):
+        n >>= COST_SHRINK
+        for rank1 in (True, False):
+            preps = {per_rb: prep_of("bsr", _tile_graph(n, tb, per_rb, tb + per_rb, values=not rank1), tb=tb,
+                                     rank1=rank1) for per_rb in (lo, hi)}
+            if any((p.r1_row is not None) != rank1 for p in preps.values()):
+                raise AssertionError(f"tile graph tb={tb}: rank1 {rank1} expected")
+            t = two(preps, n)
+            T = {k: int(p.bsr.live.sum()) for k, p in preps.items()}
+            tile_s[(tb, D._tile_itemsize(tb, rank1, 2))] = (t[hi] - t[lo]) / (T[hi] - T[lo])
+            del preps
+    got["tile_s"] = tile_s
+    section("tiles")
+    # K2's remainder: a chunk at each size (full chunks, few and many a row
+    # block), a slot (one chunk of 16 and of 128 slots a row block, tb 256)
+    chunk_s = {}
+    # (the ring's chunk, the same at tb 64-256 in calibration runs, is timed at 256)
+    for tb, n, lo, hi in ((256, 1 << 19, 128, 1152), (512, 1 << 18, 128, 1152), (1024, 1 << 18, 128, 1152),
+                          (256, 1 << 20, 16, 128)):
+        n >>= COST_SHRINK
+        preps = {per_rb: prep_of("hybrid", _chunk_graph(n, tb, per_rb, 7 + per_rb), tb=tb, rest_thresh=1 << 30)
+                 for per_rb in (lo, hi)}
+        t = two(preps, n)
+        (c1, s1_, t1), (c2, s2_, t2) = ((p.fused.num_rest_chunks, RL.live_slots(p.fused), t[k])
+                                        for k, p in preps.items())
+        del preps
+        if c1 == c2:
+            got["rest_slot_s"] = (t2 - t1) / (s2_ - s1_)
+        else:
+            chunk_s[tb] = (t2 - t1) / (c2 - c1)  # full chunks: a chunk with its 128 slots
+    got["rest_chunk_s"] = chunk_s.pop(256)
+    got["chunk_s"] = chunk_s
+    section("chunks")
+    # K9: the same groups full and sparse, then the groups' share
+    n = 1 << 19 >> COST_SHRINK
+    graphs = {k: _tile_graph(n, 1024, 4, 9, values=True, edges=k) for k in (1024, 64)}  # one group a tile
+    preps = {k: prep_of("pallas", A) for k, A in graphs.items()}
+    t = two(preps, n)
+    (g1, e1, t1), (g2, e2, t2) = ((p.plan.num_groups, graphs[k].nnz, t[k] - fixed("pallas", n))
+                                  for k, p in preps.items())
+    edge_A = graphs[1024]
+    del preps
+    got["pallas_edge_s"] = (t1 - t2) / (e1 - e2)
+    got["pallas_group_s"] = (t2 - e2 * got["pallas_edge_s"]) / g2
+    section("K9")
+    # the edge path an edge
+    got["xla_edge_s"] = (agg_ms(prep_of("xla", edge_A), n) * 1e-3 - fixed("xla", n)) / edge_A.nnz
+    # flash: a live tile (K3), a run, the backward's ratio (K4 + K5), per head
+    flash_tile, per_head = {}, {}
+    for tb, packed in ((64, False), (128, False), (256, False), (512, False), (1024, False), (1024, True)):
+        n = (1 << 15 >> COST_SHRINK) if tb <= 256 else (1 << 16 >> COST_SHRINK)
+        A = _tile_graph(n, tb, 6 if tb <= 512 else 3, 11 + tb, values=False)
+        build = K1.bsr_bitmask_from_sparse if packed else K1.bsr_mask_from_sparse
+        B = build(A, tb=tb, device=device)
+        T = B.num_tiles
+        heads = []
+        for H in (4, 1):
+            s1, s2, Wh = _scores(n, H, GAT_HIDDEN, gen, device)
+            heads.append(cuda_ms(lambda: FG.flash_gat_forward(B, s1, s2, Wh)) * 1e-3 / T / H)
+        per_head[(tb, packed)] = heads
+        if not packed:
+            flash_tile[tb] = heads[0]
+        else:
+            got["flash_packed_mult"] = heads[0] / flash_tile[1024]
+        if tb == 256:
+            s1, s2, Wh = _scores(n, 4, GAT_HIDDEN, gen, device)
+            _, m, l = FG.flash_gat_forward(B, s1, s2, Wh, return_stats=True)
+            gO = torch.randn(Wh.shape, generator=gen, device=device)
+            ops = FG.bwd_operands(B, s1, s2, Wh, gO, m, l)
+            t = FG.flash_gat_bwd_row(B, **ops)[0]
+            bwd = cuda_ms(lambda: (FG.flash_gat_bwd_row(B, **ops), FG.flash_gat_bwd_col(B, **ops, t=t))) * 1e-3
+            fwd = cuda_ms(lambda: FG.flash_gat_forward(B, s1, s2, Wh)) * 1e-3
+            got["flash_train_passes"] = (fwd + bwd) / fwd
+            # a run: the same tiles over twice the row blocks
+            B2 = K1.bsr_mask_from_sparse(_tile_graph(2 * n, tb, 3, 12, values=False), tb=tb, device=device)
+            s1b, s2b, Whb = _scores(2 * n, 4, GAT_HIDDEN, gen, device)
+            fwd2 = cuda_ms(lambda: FG.flash_gat_forward(B2, s1b, s2b, Whb)) * 1e-3
+            got["flash_run_elt_s"] = max((fwd2 - fwd) / (n // tb), 0.0) / 4 / tb
+            del ops, m, l, gO, B2, s1b, s2b, Whb
+        del B
+    got["flash_tile_s"] = flash_tile
+    got["flash_per_head_h4_h1"] = per_head
+    section("flash tiles")
+    # a flash chunk (K6) at two chunk counts; the remainder's backward terms
+    n, tb = 1 << 18 >> COST_SHRINK, 256
+    times, bwd_times = [], []
+    for per_rb in (256, 1280):
+        A = _chunk_graph(n, tb, per_rb, 13, dense_edges=128)
+        prep = prepare_adjacency(A, method="xla", for_gat=True, gat_tb=tb, gat_rest_thresh=64, device=device)
+        plan, rest = prep.gat_plan, prep.gat_rest
+        heads = []
+        for H in (4, 1):
+            s1, s2, Wh = _scores(n, H, GAT_HIDDEN, gen, device)
+            heads.append(cuda_ms(lambda: FG.flash_gat_hybrid_forward(plan, s1, s2, Wh)) * 1e-3)
+        k3 = cuda_ms(lambda: FG.flash_gat_forward(plan.B, s1, s2, Wh)) * 1e-3  # H = 1: the tiles alone
+        s1, s2, Wh = _scores(n, 4, GAT_HIDDEN, gen, device)
+        _, m, l = FG.flash_gat_hybrid_forward(plan, s1, s2, Wh, return_stats=True)
+        gO = torch.randn(n, 4, GAT_HIDDEN, generator=gen, device=device)
+
+        def rest_bwd():
+            edge, t, _, _ = FG._rest_row_terms(rest, s1, s2, Wh, gO, m[:n], l[:n], 0.2)
+            return FG._rest_fan_in(edge, gO, t, n)
+
+        bwd_times.append((rest.nnz, cuda_ms(rest_bwd, reps=5) * 1e-3))
+        times.append((plan.num_rest_chunks, heads, k3))
+        del prep, plan, rest, m, l, gO
+    (c1, r1, k31), (c2, r2, _) = times
+    got["flash_chunk_res_s"] = (r2[0] - r1[0]) / (c2 - c1) / 4
+    got["flash_chunk_per_head_h4_h1"] = ((r2[0] - r1[0]) / (c2 - c1) / 4, (r2[1] - r1[1]) / (c2 - c1))
+    got["flash_hybrid_fixed_s"] = max(r1[1] - c1 * (r2[1] - r1[1]) / (c2 - c1) - k31, 0.0)
+    (e1, b1), (e2, b2) = bwd_times
+    got["flash_edge_bwd_s"] = (b2 - b1) / (e2 - e1)
+    got["flash_bwd_fixed_s"] = max(b1 - e1 * got["flash_edge_bwd_s"], 0.0)
+    section("flash chunks")
+    return got
+
+
+# table entries held to COST_TOL of their re-measurement (CUDA-event times
+# and their slopes); the intercepts and the second unknown of a two-point
+# solve are printed beside them but move with noise
+COST_HELD = ("tile_s", "chunk_s", "rest_chunk_s", "call_s", "pallas_edge_s", "xla_edge_s", "dense_bps", "row_s",
+             "flash_tile_s", "flash_packed_mult", "flash_train_passes", "flash_chunk_res_s", "flash_edge_bwd_s")
+
+
+def phase_cost_model(device) -> dict:
+    """Re-measure ``H100_COSTS`` (``_measure_costs``) and print each entry
+    measured beside the table; fail where a held entry is off by more than
+    COST_TOL (the table is stale)."""
+    t0 = time.perf_counter()
+    got = _measure_costs(device)
+    table = D.H100_COSTS
+    bad = []
+    for k, v in got.items():
+        if k.endswith("_h4_h1"):
+            _log(f"cost {k}: " + (", ".join(f"{kk}: {vv[0]:.4g} / {vv[1]:.4g} s a head" for kk, vv in v.items())
+                                   if isinstance(v, dict) else f"{v[0]:.4g} / {v[1]:.4g} s a head"))
+            continue
+        want = getattr(table, k)
+        pairs = [(kk, vv, want.get(kk)) for kk, vv in v.items()] if isinstance(v, dict) else [("", v, want)]
+        for kk, m, w in pairs:
+            held = k in COST_HELD
+            ratio = m / w if w else float("inf")
+            _log(f"cost {k}{'' if kk == '' else f'[{kk}]'}: measured {m:.4g}, table {w if w is None else f'{w:.4g}'}"
+                 f" (x{ratio:.3f}){'' if held else ', printed only'}")
+            if held and not (1.0 / COST_TOL <= ratio <= COST_TOL):
+                bad.append(f"{k}{kk}: measured {m:.4g} against {w}")
+    _log(f"cost table ({table.card}): {len(bad)} held entries off by more than {COST_TOL}x; "
+         f"phase cost model (measure): {time.perf_counter() - t0:.1f} s wall")
+    if bad:
+        raise AssertionError("ops/dispatch.H100_COSTS is stale: " + "; ".join(bad))
+    return got
+
+
+def _route_check(label, A, device) -> dict:
+    """Every kind ``method="auto"`` prices on ``A``, built at the model's
+    tile size or split (bsr only where its tiles fit COST_BUILD_BYTES) with
+    its transposed plans as a training user gets them: the model's
+    predicted ms of one ``agg_matmul`` at P = COST_P beside the measured ms
+    (CUDA events: ``_interleaved_ms``, the routes in turns; f32 H,
+    pre-pass and casts included), the prep's device GiB and the call's
+    peak above it. ``auto``'s kind must
+    measure within ROUTE_TOL of the fastest."""
+    t0 = time.perf_counter()
+    auto, auto_s = _timed(lambda: prepare_adjacency(A, device=device))
+    ch = auto.choice
+    est, (hy_tb, hy_thr) = ch["costs"], ch["best_hy"]
+    fac = rank1_factor(A)
+    kw = dict(rank1_factors=fac) if fac is not None else dict(rank1=False)
+    H = torch.randn(A.n_cols, COST_P, generator=torch.Generator(device=device).manual_seed(8), device=device)
+    rows, preps = [], {}
+    for kind in est:
+        if kind == auto.kind:
+            prep, build_s = auto, auto_s
+        elif kind == "bsr":
+            r, c = D._edge_keys(A)
+            T = len(D._tile_populations(r, c, (ch["best_tb"],))[ch["best_tb"]][0])
+            nbytes = T * ch["best_tb"] ** 2 * (1 if fac is not None else 2)
+            if nbytes > COST_BUILD_BYTES:
+                rows.append(f"    bsr tb={ch['best_tb']}: predicted {est[kind] * 1e3:.4f} ms; not built "
+                            f"({T} tiles, {nbytes / 2**30:.1f} GiB a direction)")
+                continue
+            prep, build_s = _timed(lambda: prepare_adjacency(A, method="bsr", tb=ch["best_tb"], device=device, **kw))
+        elif kind == "hybrid":
+            prep, build_s = _timed(lambda: prepare_adjacency(A, method="hybrid", tb=hy_tb, rest_thresh=hy_thr,
+                                                             device=device, **kw))
+        else:
+            prep, build_s = _timed(lambda: prepare_adjacency(A, method=kind, device=device))
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        agg_matmul(prep, H)
+        torch.cuda.synchronize()
+        preps[kind] = (prep, build_s, torch.cuda.max_memory_allocated() - base)
+    measured = _interleaved_ms({kind: (lambda p=p: agg_matmul(p, H)) for kind, (p, _, _) in preps.items()})
+    for kind, (prep, build_s, peak) in preps.items():
+        where = {"bsr": f" tb={prep.bsr.tb}" if prep.bsr is not None else "",
+                 "hybrid": f" tb={hy_tb} threshold {hy_thr}"}.get(kind, "")
+        rows.append(f"    {kind}{where}: predicted {est[kind] * 1e3:.4f} ms, measured {measured[kind]:.4f} ms; prep "
+                    f"{_tensor_bytes(prep) / 2**30:.3f} GiB, call peak +{peak / 2**30:.3f} GiB, build {build_s:.2f} s")
+    del preps
+    torch.cuda.empty_cache()
+    best = min(measured, key=measured.get)
+    _log(f"routes on {label} (n={A.n_rows}, nnz={A.nnz}): auto took {auto.kind} in {ch['seconds']:.3f} s of "
+         f"the model (prepare {auto_s:.2f} s); fastest measured {best}")
+    for r in rows:
+        _log(r)
+    ratio = measured[auto.kind] / measured[best]
+    _log(f"  auto's {auto.kind}: {ratio:.3f} x the fastest (limit {ROUTE_TOL}); phase routes {label}: "
+         f"{time.perf_counter() - t0:.1f} s wall")
+    if ratio > ROUTE_TOL:
+        raise AssertionError(f"{label}: auto took {auto.kind} at {measured[auto.kind]:.4f} ms, {ratio:.3f} x the "
+                             f"fastest {best} ({measured[best]:.4f} ms)")
+    return dict(auto=auto.kind, measured=measured, predicted={k: v * 1e3 for k, v in est.items()})
+
+
+def _reference_adjacency():
+    """phase_reference_format's adjacency, made as there (pubmed's
+    descriptor, default_rng(11)) without the files."""
+    desc = GIO.REFERENCE_DATASETS[REF_DATASET]
+    n = desc["N_adj"]
+    rng = np.random.default_rng(11)
+    ptr, cols = _random_csr(rng, n, n, desc["NNZ_adj"])
+    vals = rng.uniform(0.05, 1.0, desc["NNZ_adj"]).astype(np.float32)
+    return SparseMatrix.from_coo(np.repeat(np.arange(n), np.diff(ptr)), cols, vals, (n, n))
+
+
+def phase_routes(A, device) -> dict:
+    """``_route_check`` on the GCN slice's graph ``A``, the reference-format
+    pubmed graph, one PPI graph (padded as the loop pads it) and one
+    molecule batch."""
+    t0 = time.perf_counter()
+    out = {"GCN slice": _route_check("the GCN slice (2^20, d16, degree order)", A, device)}
+    out["pubmed"] = _route_check(f"the reference-format {REF_DATASET} graph", _reference_adjacency(), device)
+    g = synthetic_ppi(**PPI)[0][0]
+    n_pad = -(-g.num_nodes // 128) * 128
+    out["PPI"] = _route_check("one PPI graph", TL._pad_multilabel_graph(g, n_pad, 1.0)[0], device)
+    b = make_batches(synthetic_molecules(num_graphs=150, seed=4)[:32], 32, pad_to=64)[0]
+    out["molecules"] = _route_check("one molecule batch", b.A, device)
+    _log(f"phase routes: {time.perf_counter() - t0:.1f} s wall")
+    return out
+
+
+def _gat_entry(prep):
+    if prep.gat_plan is not None:
+        return lambda s1, s2, Wh: FG.gat_attention_agg_hybrid(prep.gat_plan, prep.gat_rest, s1, s2, Wh)
+    return lambda s1, s2, Wh: FG.gat_attention_agg_fused(prep.flash_tiles, s1, s2, Wh)
+
+
+def phase_gat_layouts(A, split_prep, device) -> None:
+    """The flash layouts ``for_gat`` picks on the GAT slice's graph, for
+    training (forward + backward: K6 or K3, then K4 + K5) and for serving
+    (``gat_train=False``: the forward), against the hybrid split at
+    SLICE_SPLIT (``split_prep``) and full cover where its tiles (reckoned
+    from the keys) fit the table's budget; each predicted beside measured
+    at H = 4, F = 64 (CUDA events). Each choice must measure within
+    ROUTE_TOL of the fastest candidate for its use."""
+    t0 = time.perf_counter()
+    n = A.n_rows
+    est = {u: D._flash_layout_costs(A, train=u == "train") for u in ("train", "serve")}
+    preps = {(SLICE_SPLIT[0], False, SLICE_SPLIT[1]): split_prep}
+    chosen = {}
+    for use in ("train", "serve"):
+        p, sec = _timed(lambda: prepare_adjacency(A, method="xla", for_gat=True, gat_train=use == "train",
+                                                  device=device))
+        lay = p.choice["flash"]
+        chosen[use] = lay
+        _log(f"for_gat ({use}) chose {lay} in {p.choice['seconds']:.2f} s of the model (prepare {sec:.1f} s)")
+        preps.setdefault(lay, p)
+    full = [k for k in est["train"] if k[2] is None and k[1] == D._packs(k[0])]
+    if full:
+        lay = min(full, key=est["train"].get)
+        preps.setdefault(lay, prepare_adjacency(A, method="xla", for_gat=True, gat_tb=lay[0], device=device))
+    else:
+        _log(f"full cover: no tile size fits the table's budget of {D.H100_COSTS.flash_tile_budget / 2**30:.0f} GiB")
+    gen = torch.Generator(device=device).manual_seed(6)
+    s1, s2, Wh = _scores(n, GAT_HEADS, GAT_HIDDEN, gen, device)
+    gO = torch.randn(Wh.shape, generator=gen, device=device)
+    leaves = [t.clone().requires_grad_(True) for t in (s1, s2, Wh)]
+    meas = {"train": {}, "serve": {}}
+    for lay, p in preps.items():
+        fn = _gat_entry(p)
+        meas["serve"][lay] = cuda_ms(lambda: fn(s1, s2, Wh))
+
+        def step():
+            fn(*leaves).backward(gO)
+
+        meas["train"][lay] = cuda_ms(step, reps=5)
+        B = p.flash_tiles
+        _log(f"  layout {lay}: {B.num_tiles} tiles ({RL.nbytes(B.tiles) / 2**30:.3f} GiB), "
+             f"{p.gat_plan.num_rest_chunks if p.gat_plan is not None else 0} chunks; serve predicted "
+             f"{est['serve'].get(lay, float('nan')) * 1e3:.4f} ms measured {meas['serve'][lay]:.4f} ms; train "
+             f"predicted {est['train'].get(lay, float('nan')) * 1e3:.4f} ms measured {meas['train'][lay]:.4f} ms")
+    for use in ("train", "serve"):
+        m = meas[use]
+        best = min(m, key=m.get)
+        ratio = m[chosen[use]] / m[best]
+        _log(f"for_gat {use}: {chosen[use]} at {ratio:.3f} x the fastest ({best}; limit {ROUTE_TOL})")
+        if ratio > ROUTE_TOL:
+            raise AssertionError(f"for_gat {use} chose {chosen[use]}: {ratio:.3f} x the fastest {best}")
+    _log(f"phase GAT layouts: {time.perf_counter() - t0:.1f} s wall")
+
+
+def phase_examples(device) -> dict:
+    """The entry twin (``graft_entry.entry``) on the card against the same
+    model on the CPU edge path (EXAMPLE_TOL of the largest logit); then
+    the examples ``quantization_pipeline`` (default size, EXAMPLE_EPOCHS
+    epochs: K2 or what auto picks, then K7), ``ppi_gat`` (synthetic, 1
+    epoch) and ``distributed_training`` (4 in-process shards, 1 epoch),
+    each with its launch counts."""
+    t0 = time.perf_counter()
+    total = {}
+    _reset_counts()
+    fn, (model, prep, x) = graft_entry.entry(device)
+    out = fn(model, prep, x)
+    launches = _counts()
+    cpu = copy.deepcopy(model).cpu()
+    with torch.no_grad():
+        ref = cpu(prep.A.to("cpu"), x.cpu())
+    err = float((out.cpu() - ref).abs().max() / ref.abs().max())
+    _log(f"entry twin on the card: logits {tuple(out.shape)}, {err:.3g} of the largest from the CPU edge path "
+         f"(limit {EXAMPLE_TOL}); prep kind {prep.kind}, flash layout {prep.choice['flash']}; launches "
+         f"{ {k: v for k, v in launches.items() if v} }")
+    if not (err <= EXAMPLE_TOL and torch.isfinite(out).all()):
+        raise AssertionError(f"entry twin: {err} of the largest logit from the CPU edge path")
+    _add(total, launches)
+    dev = ["--device", str(device)]
+    for name, run in (("quantization_pipeline", lambda: EX_QP.main(["--epochs", str(EXAMPLE_EPOCHS)] + dev)),
+                      ("ppi_gat", lambda: EX_PPI.main(["--epochs", "1"] + dev)),
+                      ("distributed_training", lambda: EX_DIST.main(["--shards", "4", "--epochs", "1"] + dev))):
+        _reset_counts()
+        t1 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in _counts().items() if v}
+        _log(f"example {name}: {time.perf_counter() - t1:.1f} s, launches {launches}")
+        _add(total, launches)
+    _log(f"phase examples: {time.perf_counter() - t0:.1f} s wall")
+    return total
+
 
 def main() -> None:
     t_run = time.perf_counter()
     phase_device()
     phase_build()
     device = torch.device("cuda")
+    phase_peaks(device)
     phase_kernels_small(device)
     phase_int8_kernels_small(device)
     phase_variant_kernels_small(device)
@@ -3529,13 +4015,18 @@ def main() -> None:
     launches, k2_logits = phase_slice_serve(A, data.x, prep, device)
     # remat: the ReLU layer's aggregation is recomputed, the last layer's is
     # not (its backward reads no output of it), so K2 five times a step
+    _log(f"power before the GCN slice's training: {gpu_power_w():.2f} W")
     _add(launches, phase_train(data, prep, _gcn_net(SLICE), device, "GCN slice",
                                {"bsr_spmm_fused": 6}, k1_view=True,
-                               remat=(_gcn_net(SLICE, remat=True), {"bsr_spmm_fused": 5})))
+                               remat=(_gcn_net(SLICE, remat=True), {"bsr_spmm_fused": 5}),
+                               power=PowerRecorder(gpu_power_w)))
     more_rec, more = phase_variants_agg_slice(A, prep, device, rec["bsr_spmm"]["library_ms"])
     rec.update(more_rec)
     _add(launches, more)
     del prep
+    torch.cuda.empty_cache()
+    phase_cost_model(device)
+    phase_routes(A, device)
     torch.cuda.empty_cache()
     _add(launches, phase_reference_format(device))
     more_rec, more = phase_pallas_slice(A, data, device, k2_logits)
@@ -3543,9 +4034,9 @@ def main() -> None:
     _add(launches, more)
     del k2_logits
     torch.cuda.empty_cache()
-    gat_prep = phase_gat_prepare(A, device, "slice")
+    gat_prep = phase_gat_prepare(A, device, "slice", split=SLICE_SPLIT)
     rec.update(phase_gat_kernels_slice(gat_prep, device))
-    dense_part = split_by_tile_density(A, gat_prep.gat_bsr.tb, D.DEFAULT_GAT_REST_THRESH)[0]
+    dense_part = split_by_tile_density(A, gat_prep.gat_bsr.tb, SLICE_SPLIT[1])[0]
     more_rec, more = phase_subskip(gat_prep.gat_bsr, dense_part, device, "slice's attention", record=True,
                                    plain_min_sb=64)
     rec.update(more_rec)
@@ -3558,6 +4049,7 @@ def main() -> None:
     remat = (_gat_net(SLICE, remat=True),
              {"flash_gat_hybrid_forward": 4, "flash_gat_bwd_row": 2, "flash_gat_bwd_col": 2})
     _add(launches, phase_train(data, gat_prep, _gat_net(SLICE), device, "GAT slice", per_epoch, remat=remat))
+    phase_gat_layouts(A, gat_prep, device)
     del gat_prep
     torch.cuda.empty_cache()
     _add(launches, phase_gat_small(device))
@@ -3578,6 +4070,8 @@ def main() -> None:
     _add(launches, phase_ppi(device))
     torch.cuda.empty_cache()
     _add(launches, phase_molecules(device))
+    torch.cuda.empty_cache()
+    _add(launches, phase_examples(device))
     torch.cuda.empty_cache()
     _add(launches, phase_dist_gcn(device, products))
     del products

@@ -12,7 +12,7 @@ Kinds, as in ``sgracex1_tpu.ops.dispatch``:
 - ``pallas``: the edges sorted into (row block, column block) groups
   (``ops/pallas_spmm``, kernel K9). The only kind whose values can be
   substituted per call for the price of a gather
-  (``agg_matmul_with_vals``); ``method="auto"`` never picks it.
+  (``agg_matmul_with_vals``).
 - ``xla``: gather + scatter-add on the edge list (``ops/spmm``), the
   always-correct spec.
 
@@ -20,18 +20,23 @@ A rank-1 factored adjacency (sym-normalized, unweighted) stores its tiles
 as {0,1} masks, 1-bit packed when tb is a multiple of 1024, with the two
 diagonal scalings applied around the tile products.
 
-The JAX package picks the backend and tile size with a cost model
-calibrated on the TPU. Those constants do not carry over, so here
-``method="auto"`` is a fixed rule: ``dense`` when the dense matrix in
-``dense_dtype`` fits ``dense_max_bytes``, else ``hybrid`` at ``DEFAULT_TB`` / ``DEFAULT_REST_THRESH``
-— unmeasured starting points, to be calibrated on the H100.
-
-``for_gat=True`` also attaches the flash-GAT layout that ``GATConv`` reads
-(``flash_tiles``; ``gat_plan`` for the hybrid split). The JAX package picks
-it with a TPU cost model (``_choose_flash_plan``); here it is a fixed rule:
-full-cover int8 mask tiles at tb=256 up to 8192 nodes (the JAX rule
-there), else the hybrid split at ``DEFAULT_GAT_TB`` /
-``DEFAULT_GAT_REST_THRESH`` — unmeasured starting points.
+``method="auto"`` prices every kind with the JAX package's cost model
+(``_estimate_backend_costs``: the dense matrix's bytes, the edge path's
+seconds an edge, the seconds of a live tile and of a remainder chunk and
+slot over this graph's own tile populations at each candidate tile size,
+K9's edge groups) and takes the cheapest, as the JAX ``prepare_adjacency``
+does; ``method="hybrid"`` without ``tb`` takes the model's tile size and
+threshold. ``for_gat=True`` also attaches the flash-GAT layout that
+``GATConv`` reads (``flash_tiles``; ``gat_plan`` for the hybrid split),
+chosen by ``_choose_flash_plan``: full cover or a hybrid split, at a tile
+size and threshold, priced for training (forward and the K4 + K5
+backward) or, with ``gat_train=False``, for serving. The model's structure
+and formulas are the JAX package's; its constants are a ``CostTable``, by
+default ``H100_COSTS``, the card's own (measured on an NVIDIA H100 80GB
+HBM3 at 700.00 W by ``chip_smoke.phase_cost_model``, which re-measures
+them). Every function of the model takes ``costs=``: a table holding the
+JAX constants gives the JAX numbers and choices. The prep records what the
+model priced and the host seconds it took (``PreparedAdjacency.choice``).
 
 ``map_adjacency_vals`` remaps the values of every representation (the
 quantized layers' adjacency quantizer), each at its first read; it needs
@@ -50,8 +55,9 @@ package. A backward through a bsr or hybrid prep built with
 from __future__ import annotations
 
 import dataclasses
+import time
 import warnings
-from typing import Callable, Optional
+from typing import Callable, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -78,11 +84,9 @@ from sgracex1_tpu_torch.ops.pallas_spmm import SpMMPlan, plan_spmm, plan_with_va
 from sgracex1_tpu_torch.ops.spmm import spmm, spmm_into
 
 DENSE_MAX_BYTES = 512 << 20  # dense adjacency budget
-DEFAULT_TB = 256  # hybrid/bsr tile size: unmeasured starting point
-DEFAULT_REST_THRESH = 64  # edges a tile needs to stay a tile: unmeasured
-GAT_FULL_COVER_MAX_N = 8192  # full-cover flash tiles up to here (JAX rule)
-DEFAULT_GAT_TB = 256  # hybrid flash-GAT tile size: unmeasured starting point
-DEFAULT_GAT_REST_THRESH = 64  # edges a flash tile needs to stay a tile
+# the tile size of an explicit ``bsr`` kind, or of a flash layout given
+# only a threshold, without ``tb`` (the JAX default)
+DEFAULT_TB = 256
 
 
 @dataclasses.dataclass(frozen=True)
@@ -114,6 +118,11 @@ class PreparedAdjacency:
     gat_bsr: Optional[BSRMatrix] = None
     gat_rest: Optional[SparseMatrix] = None
     gat_plan: Optional[FusedAggPlan] = None
+    # what the cost model priced: {"costs": seconds by kind, "best_tb",
+    # "best_hy": the bsr and hybrid kinds' best (auto, or hybrid without
+    # tb), "split": (tb, threshold), "flash": (tb, packed, threshold),
+    # "seconds": the model's host seconds}
+    choice: Optional[dict] = None
 
     @property
     def flash_tiles(self) -> Optional[BSRMatrix]:
@@ -164,6 +173,353 @@ def _packs(tb: int) -> bool:
     return tb % 8 == 0 and (tb // 8) % 128 == 0
 
 
+# ------------------------------------------------------------ cost model
+
+
+@dataclasses.dataclass(frozen=True)
+class CostTable:
+    """The constants of the backend and flash-layout cost model (the JAX
+    module's ``_HBM_BPS`` ... ``_FLASH_HYBRID_FIXED_S`` under lower-case
+    names, with its candidate sizes and ladders). ``tile_s``, ``chunk_s``,
+    ``row_s``, ``call_s`` and ``pallas_edge_s`` are the card's additions
+    (measured tile and chunk seconds by size, a kind's seconds a node row
+    and a call: host work and launches, which the TPU's jitted step hid;
+    K9's seconds an edge): each is empty or 0 in a table of the JAX
+    constants, and every formula then gives the JAX number. Seconds are one
+    call's at P = 128 (the JAX model's lane width)."""
+
+    card: str  # where the constants were measured
+    # a live tile of K1/K2: max(tile + H-block bytes / hbm_bps, the product
+    # at mxu_flops + the 1-bit unpack at vpu_ops) + step_s, unless tile_s
+    # holds its measured seconds at (tb, bytes a tile element)
+    hbm_bps: float
+    step_s: float  # the JAX grid step's fixed seconds (the card: in call_s)
+    mxu_flops: float
+    vpu_ops: float
+    tile_s: Mapping[Tuple[int, float], float]
+    tbs: Tuple[int, ...]  # candidate tile sizes of the bsr and hybrid kinds
+    # K2's remainder: a chunk of rest_k slots, and a slot holding an edge
+    rest_chunk_s: float
+    rest_slot_s: float
+    rest_k: int
+    chunk_s: Mapping[int, float]  # a chunk's seconds at a tile size, where measured
+    dense_bps: float  # the dense kind's adjacency bytes a second
+    xla_edge_s: float  # the edge path's seconds an edge
+    pallas_group_s: float  # K9: an edge group of pallas_block slots
+    pallas_edge_s: float  # K9: an edge
+    pallas_block: int  # the pallas kind's rb = cb = be the model prices
+    row_s: Mapping[str, float]  # a kind's seconds a node row and call (casts, pre-passes)
+    call_s: Mapping[str, float]  # a kind's fixed seconds a call
+    # the flash-GAT layout (K3/K6 forward, K4 + K5 backward): a live tile,
+    # a row-block run, a chunk, each per head, times flash_heads
+    flash_tile_s: Mapping[int, float]
+    flash_run_s: Mapping[int, float]
+    flash_elt_s: float  # a tile element, for sizes outside flash_tile_s
+    flash_run_elt_s: float  # a run, a tile row, for sizes outside flash_run_s
+    flash_packed_mult: float  # a 1-bit packed tile against an int8 one
+    flash_tile_budget: float  # bytes of mask tiles a layout may hold
+    flash_chunk_k: int
+    flash_chunk_res_s: float  # a chunk while the chunks fit flash_resident_budget
+    flash_chunk_stream_s: float  # a chunk past it
+    flash_payload_f: int
+    flash_resident_budget: float
+    flash_heads: int  # the heads a price is for
+    flash_train_passes: float  # (forward + backward) / forward tile seconds
+    flash_edge_bwd_s: float  # a remainder edge's backward on the edge path
+    flash_bwd_fixed_s: float
+    flash_hybrid_fixed_s: float
+    flash_tbs: Tuple[int, ...]
+    flash_packed_tbs: Tuple[int, ...]  # candidate sizes also priced 1-bit packed
+    flash_threshs: Tuple[int, ...]  # the hybrid split's threshold ladder
+    flash_full_cover_n: int  # full cover at tb 256 up to this many nodes
+    shard_tbs: Tuple[int, ...]  # candidate tile sizes of a shard's local block
+
+
+# Measured on an NVIDIA H100 80GB HBM3 at 700.00 W: the mean of two runs
+# of chip_smoke._measure_costs (pallas_group_s measured below 0 in both:
+# 0), which chip_smoke.phase_cost_model re-measures in every full run,
+# failing where a held entry is off by more than 2x. Seconds of one
+# agg_matmul at P = 128 with f32 H. The ring kernels take tiles of height
+# 64-256; 512 and the 1-bit packed 1024 run the single-stage kernels and
+# are priced at those kernels' seconds, a chunk past 256 likewise
+# (chunk_s; the ring's chunk, 4.4-5.1e-8 s at tb 64-256 in the two runs,
+# is rest_chunk_s). A chunk's seconds are a full chunk's, its 128 slots
+# included, and rest_slot_s is 0: the slot alone (~1-3e-10 s, printed by
+# the phase) is below the noise of that slope. step_s is 0: the card's
+# fixed seconds are per kind (call_s). hbm_bps, mxu_flops and vpu_ops only
+# price a tile size outside tile_s: the published memory rate, the ring's
+# effective product rate at tb 256, the measured f32 elementwise rate.
+# flash_heads: the flash prices are for 4 heads (the GAT slice's and PPI's
+# first layer), measured per head at H = 4 (H = 1 beside it in the phase's
+# output).
+H100_COSTS = CostTable(
+    card="NVIDIA H100 80GB HBM3, 700.00 W",
+    hbm_bps=3.35e12,
+    step_s=0.0,
+    mxu_flops=2.6e14,
+    vpu_ops=6.2e13,
+    tile_s={(64, 1.0): 1.55e-08, (128, 1.0): 3.12e-08, (256, 1.0): 5.91e-08, (512, 1.0): 6.63e-07,
+            (1024, 0.125): 2.72e-06, (64, 2.0): 1.04e-08, (128, 2.0): 2.37e-08, (256, 2.0): 5.83e-08,
+            (512, 2.0): 6.40e-07, (1024, 2.0): 2.60e-06},
+    tbs=(64, 128, 256, 512, 1024),
+    rest_chunk_s=5.09e-08,
+    rest_slot_s=0.0,
+    rest_k=128,
+    chunk_s={512: 1.69e-07, 1024: 3.52e-07},
+    dense_bps=2.76e11,
+    xla_edge_s=1.94e-09,
+    pallas_group_s=0.0,
+    pallas_edge_s=9.83e-11,
+    pallas_block=1024,
+    row_s={"xla": 8.38e-11, "bsr": 6.75e-10, "hybrid": 6.26e-10, "pallas": 4.66e-10},
+    call_s={"dense": 8.43e-05, "xla": 1.0e-04, "bsr": 1.92e-04, "hybrid": 1.89e-04, "pallas": 1.2e-04},
+    flash_tile_s={64: 2.21e-08, 128: 3.74e-08, 256: 7.48e-08, 512: 3.9e-07, 1024: 1.46e-06},
+    flash_run_s={},
+    flash_elt_s=3e-12,
+    flash_run_elt_s=1.58e-10,
+    flash_packed_mult=0.765,
+    flash_tile_budget=8 << 30,
+    flash_chunk_k=128,
+    flash_chunk_res_s=2.75e-08,
+    flash_chunk_stream_s=2.75e-08,
+    flash_payload_f=64,
+    flash_resident_budget=float("inf"),
+    flash_heads=4,
+    flash_train_passes=3.22,
+    flash_edge_bwd_s=1.01e-08,
+    flash_bwd_fixed_s=2.94e-04,
+    flash_hybrid_fixed_s=1.08e-04,
+    flash_tbs=(64, 128, 256, 512, 1024),
+    flash_packed_tbs=(1024,),
+    flash_threshs=(2, 4, 8, 16, 32, 64, 128, 256, 768, 1536, 3072),
+    flash_full_cover_n=8192,
+    shard_tbs=(64, 128, 256, 512, 1024),
+)
+
+
+def _tile_itemsize(tb: int, rank1: bool, dense_itemsize: int, costs: CostTable = H100_COSTS) -> float:
+    """Bytes a tile element: 1-bit packed masks at ``_packs(tb)``, int8
+    masks otherwise under a rank-1 factorization; value tiles in the dense
+    dtype. (``costs`` is taken for the model's one signature.)"""
+    if not rank1:
+        return float(dense_itemsize)
+    return 0.125 if _packs(tb) else 1.0
+
+
+def _chunk_cost_s(tb: int, costs: CostTable = H100_COSTS) -> float:
+    """Seconds of one remainder chunk of K2 at ``tb``: ``chunk_s`` where
+    measured, else ``rest_chunk_s``."""
+    return costs.chunk_s.get(tb, costs.rest_chunk_s)
+
+
+def _rest_slot_cost_s(tb: int, costs: CostTable = H100_COSTS) -> float:
+    """An edge's seconds on the remainder's chunk path at ``tb``: its slot
+    and its share of a full chunk."""
+    return costs.rest_slot_s + _chunk_cost_s(tb, costs) / costs.rest_k
+
+
+def _tile_cost_s(tb: int, itemsize: float, costs: CostTable = H100_COSTS) -> float:
+    """Seconds of one live tile of K1/K2 (JAX ``_tile_cost_s``): the
+    measured ``costs.tile_s`` where it holds this size and form, else the
+    larger of the tile's bytes and its product (plus the 1-bit unpack) at
+    the table's rates, plus the step."""
+    measured = costs.tile_s.get((tb, float(itemsize)))
+    if measured is not None:
+        return measured
+    dma = (tb * tb * itemsize + tb * 128 * 2 * 2) / costs.hbm_bps
+    mxu = 2.0 * tb * tb * 128 / costs.mxu_flops
+    vpu = (tb * tb * 4.0 / costs.vpu_ops) if itemsize < 1 else 0.0
+    return max(dma, mxu + vpu) + costs.step_s
+
+
+def _edge_keys(A: SparseMatrix) -> tuple:
+    r = _np(A.rows)[: A.nnz].astype(np.int64)
+    c = _np(A.cols)[: A.nnz].astype(np.int64)
+    return r, c
+
+
+def _tile_populations(r: np.ndarray, c: np.ndarray, tbs) -> dict:
+    """``{tb: (keys, counts)}``: the sorted ``(row // tb) << 32 | col // tb``
+    keys of the tiles holding an edge, and their edge counts. ``np.unique``
+    runs over the edges once, at the finest size; each size that a smaller
+    one divides is merged from that one's keys (far fewer than the edges)."""
+    out, prev = {}, None
+    for tb in sorted(set(tbs)):
+        if prev is not None and tb % prev[0] == 0:
+            f = tb // prev[0]
+            keys = ((prev[1] >> 32) // f) << 32 | ((prev[1] & 0xFFFFFFFF) // f)
+            uniq, inv = np.unique(keys, return_inverse=True)
+            counts = np.bincount(inv, weights=prev[2], minlength=len(uniq)).astype(np.int64)
+        else:
+            uniq, counts = np.unique((r // tb) << 32 | (c // tb), return_counts=True)
+        out[tb] = (uniq, counts)
+        prev = (tb, uniq, counts)
+    return out
+
+
+def _estimate_backend_costs(
+    A: SparseMatrix, dense_dtype=torch.bfloat16, tbs=None, rank1: bool = False,
+    costs: CostTable = H100_COSTS,
+):
+    """Seconds of one ``agg_matmul`` at P = 128 on each kind (JAX
+    ``_estimate_backend_costs``): the dense matrix's bytes; the edge path's
+    edges; the bsr kind's tiles at its best tile size; the hybrid kind's
+    dense tiles, chunks and slots at its best (tile size, threshold), the
+    threshold where one tile's seconds equal its edges' on the chunk path;
+    K9's groups (and, on the card, edges). ``rank1`` marks a rank-1
+    factorization (mask tiles, ``_tile_itemsize``). Returns (costs by kind,
+    the best bsr tile size, the best (tile size, threshold))."""
+    itemsize = torch.empty((), dtype=dense_dtype).element_size()
+    n = max(A.n_rows, A.n_cols)
+    row = lambda kind: n * costs.row_s.get(kind, 0.0) + costs.call_s.get(kind, 0.0)
+    tbs = costs.tbs if tbs is None else tuple(tbs)
+    r, c = _edge_keys(A)
+    pops = _tile_populations(r, c, tbs + (costs.pallas_block,))
+    est = {
+        "dense": n * n * itemsize / costs.dense_bps + costs.step_s + row("dense"),
+        "xla": A.nnz * costs.xla_edge_s + costs.step_s + row("xla"),
+    }
+    best_tb, best_t = None, np.inf
+    best_hy, best_hy_t = None, np.inf
+    for tb in tbs:
+        uniq, counts = pops[tb]
+        if len(counts) == 0:
+            uniq = np.zeros(1, np.int64)
+            counts = np.ones(1, np.int64)
+        tc = _tile_cost_s(tb, _tile_itemsize(tb, rank1, itemsize), costs)
+        t = len(counts) * tc
+        if t < best_t:
+            best_tb, best_t = tb, t
+        thresh = int(np.ceil(tc / _rest_slot_cost_s(tb, costs)))
+        dense_tiles = counts >= thresh
+        rest_by_rb = np.bincount(
+            (uniq >> 32)[~dense_tiles].astype(np.int64),
+            weights=counts[~dense_tiles].astype(np.float64),
+        )
+        n_chunks = int(np.ceil(rest_by_rb / costs.rest_k).sum())
+        t_hy = (
+            int(dense_tiles.sum()) * tc
+            + n_chunks * _chunk_cost_s(tb, costs)
+            + int(counts[~dense_tiles].sum()) * costs.rest_slot_s
+            + costs.step_s
+        )
+        if t_hy < best_hy_t:
+            best_hy, best_hy_t = (tb, thresh), t_hy
+    est["bsr"] = best_t + row("bsr")
+    est["hybrid"] = best_hy_t + row("hybrid")
+    blk = costs.pallas_block
+    counts = pops[blk][1]
+    n_groups = int(np.sum(-(-counts // blk))) if len(counts) else 1
+    est["pallas"] = n_groups * costs.pallas_group_s + A.nnz * costs.pallas_edge_s + row("pallas")
+    return est, best_tb, best_hy
+
+
+def _rest_thresh(tb: int, rank1: bool, dense_itemsize: int, costs: CostTable = H100_COSTS) -> int:
+    """The hybrid split's threshold at ``tb``: the edges whose chunk-path
+    seconds equal one tile's (JAX ``prepare_adjacency`` with an explicit
+    ``tb``)."""
+    tc = _tile_cost_s(tb, _tile_itemsize(tb, rank1, dense_itemsize, costs), costs)
+    return int(np.ceil(tc / _rest_slot_cost_s(tb, costs)))
+
+
+def _flash_tile_s(tb: int, packed: bool, costs: CostTable = H100_COSTS) -> float:
+    base = costs.flash_tile_s.get(tb, tb * tb * costs.flash_elt_s + costs.step_s)
+    return base * (costs.flash_packed_mult if packed else 1.0) * costs.flash_heads
+
+
+def _flash_run_s(tb: int, costs: CostTable = H100_COSTS) -> float:
+    return costs.flash_run_s.get(tb, tb * costs.flash_run_elt_s) * costs.flash_heads
+
+
+def _flash_chunk_s(tb: int, n_chunks: int = 1, K: Optional[int] = None, costs: CostTable = H100_COSTS) -> float:
+    """Seconds of one flash chunk at this chunk population. The JAX table
+    switches at a VMEM residency budget, which means nothing on the card:
+    there the budget is infinite and a chunk is priced per head, times
+    ``flash_heads``."""
+    K = costs.flash_chunk_k if K is None else K
+    payload = n_chunks * K * (costs.flash_payload_f + 9) * 4
+    per = costs.flash_chunk_res_s if payload <= costs.flash_resident_budget else costs.flash_chunk_stream_s
+    return per * costs.flash_heads
+
+
+def _choose_flash_tb(A: SparseMatrix, n: int, costs: CostTable = H100_COSTS) -> tuple:
+    """(tb, packed) of full-cover flash mask tiles."""
+    tb, packed, _ = _choose_flash_plan(A, n, hybrid=False, costs=costs)
+    return tb, packed
+
+
+def _flash_layout_costs(
+    A: SparseMatrix, *, hybrid: bool = True, train: bool = True, costs: CostTable = H100_COSTS,
+) -> dict:
+    """``{(tb, packed, rest_thresh): seconds}`` of every flash layout whose
+    mask tiles fit ``flash_tile_budget``, in the JAX chooser's order: full
+    cover (``rest_thresh`` None) and, with ``hybrid``, the split at each
+    threshold of the ladder; the tiles ``flash_train_passes`` times for
+    training (forward + backward) and once for serving, the hybrid's
+    remainder backward on the edge path."""
+    r, c = _edge_keys(A)
+    K = costs.flash_chunk_k
+    passes = costs.flash_train_passes if train else 1.0
+    pops = _tile_populations(r, c, costs.flash_tbs)
+    out = {}
+    for tb in costs.flash_tbs:
+        uniq, counts = pops[tb]
+        T = len(uniq)
+        runs_full = len(np.unique(uniq >> 32))
+        for packed in ((False, True) if tb in costs.flash_packed_tbs else (False,)):
+            tile_bytes = tb * tb / (8.0 if packed else 1.0)
+            tc = _flash_tile_s(tb, packed, costs)
+            if T * tile_bytes <= costs.flash_tile_budget:
+                out[(tb, packed, None)] = passes * (T * tc + runs_full * _flash_run_s(tb, costs))
+            if not hybrid:
+                continue
+            # a row or column block without a dense tile takes one zero
+            # cover tile; a row block's rest rounds up to whole chunks
+            n_rt = -(-A.n_rows // tb)
+            n_ct = -(-A.n_cols // tb)
+            for thresh in costs.flash_threshs:
+                dense = counts >= thresh
+                T_d = int(dense.sum())
+                if T_d == 0:
+                    continue
+                rest_by_rb = np.bincount(
+                    (uniq >> 32)[~dense].astype(np.int64),
+                    weights=counts[~dense].astype(np.float64),
+                )
+                n_chunks = int(np.ceil(rest_by_rb / K).sum())
+                cc = _flash_chunk_s(tb, n_chunks, costs=costs)
+                runs_d = len(np.unique((uniq >> 32)[dense]))
+                cover = (n_rt - runs_d) + (n_ct - len(np.unique((uniq & 0xFFFFFFFF)[dense])))
+                e_rest = int(counts[~dense].sum())
+                if (T_d + cover) * tile_bytes <= costs.flash_tile_budget:
+                    out[(tb, packed, thresh)] = (
+                        passes * ((T_d + cover) * tc + n_rt * _flash_run_s(tb, costs))
+                        + n_chunks * cc
+                        + costs.flash_hybrid_fixed_s
+                        + (e_rest * costs.flash_edge_bwd_s + costs.flash_bwd_fixed_s if train else 0.0)
+                    )
+    return out
+
+
+def _choose_flash_plan(
+    A: SparseMatrix, n: int, *, hybrid: bool = True, train: bool = True, costs: CostTable = H100_COSTS,
+) -> tuple:
+    """(tb, packed, rest_thresh) of the flash-GAT layout (JAX
+    ``_choose_flash_plan``): full cover at tb 256 up to
+    ``flash_full_cover_n`` nodes, else the cheapest of
+    ``_flash_layout_costs`` (full cover, ``rest_thresh`` None, or the
+    hybrid split, whose tiles holding >= ``rest_thresh`` edges stay tiles
+    and cover every row and column block while the rest rides chunk
+    steps), the first of equal prices; 1-bit packed tb 1024 full cover
+    where nothing fits the budget."""
+    if n <= costs.flash_full_cover_n:
+        return 256, False, None
+    est = _flash_layout_costs(A, hybrid=hybrid, train=train, costs=costs)
+    if not est:
+        return 1024, True, None  # nothing fits as int8: packed capacity
+    return min(est, key=est.get)
+
+
 def prepare_adjacency(
     A: SparseMatrix,
     *,
@@ -183,6 +539,7 @@ def prepare_adjacency(
     gat_tb: Optional[int] = None,
     gat_rest_thresh: Optional[int] = None,
     gat_train: bool = True,
+    costs: CostTable = H100_COSTS,
     device=None,
 ) -> PreparedAdjacency:
     """Prepare ``A`` for one backend, with its tensors on ``device``: the
@@ -208,27 +565,52 @@ def prepare_adjacency(
     tile kernel K1 plus a remainder scatter instead of the fused kernel K2;
     it keeps f32 accumulation where K2 writes bf16.
 
+    ``method="auto"`` takes the kind the cost model prices cheapest
+    (``_estimate_backend_costs`` with ``costs``; ``dense`` only where the
+    matrix fits ``dense_max_bytes``), at the model's tile size (``bsr``) or
+    split (``hybrid``); ``method="hybrid"`` without ``tb`` takes the
+    model's split, with ``tb`` the model's threshold at that size. An
+    explicit ``tb`` / ``rest_thresh`` overrides the model's.
+
     ``for_gat`` attaches the flash-GAT layout unless the prep's own tiles
-    already serve (``flash_tiles``). ``gat_tb`` / ``gat_rest_thresh``
-    override the fixed rule; an explicit ``gat_rest_thresh`` asks for the
-    hybrid split at any size. ``gat_train`` (the JAX argument: price the
-    layout for training, not serving alone) is accepted for the JAX
-    signature; the fixed rule ignores it until a layout chooser prices
-    it."""
+    already serve (``flash_tiles``): ``_choose_flash_plan`` with ``costs``,
+    priced for training, or for serving alone with ``gat_train=False``.
+    ``gat_tb`` / ``gat_rest_thresh`` override it: full cover at ``gat_tb``
+    without a threshold, the hybrid split at ``gat_rest_thresh`` (at
+    ``gat_tb``, else ``DEFAULT_TB``)."""
     device = resolve_device(device)
     n = max(A.n_rows, A.n_cols)
-    if method == "auto":
-        itemsize = torch.empty((), dtype=dense_dtype).element_size()
-        method = "dense" if n * n * itemsize <= dense_max_bytes else "hybrid"
-    if method not in ("dense", "bsr", "hybrid", "pallas", "xla"):
+    if method not in ("auto", "dense", "bsr", "hybrid", "pallas", "xla"):
         raise ValueError(f"unknown method {method!r}")
+    itemsize = torch.empty((), dtype=dense_dtype).element_size()
+    fac = None
+    if method in ("auto", "hybrid", "bsr"):
+        if rank1_factors is not None:
+            fac = tuple(np.asarray(f, np.float32) for f in rank1_factors)
+        elif rank1:
+            fac = rank1_factor(A)
+    choice = None
+    if method == "auto" or (method == "hybrid" and tb is None):
+        t0 = time.perf_counter()
+        est, best_tb, best_hy = _estimate_backend_costs(A, dense_dtype, rank1=fac is not None, costs=costs)
+        if method == "auto":
+            if n * n * itemsize > dense_max_bytes:
+                est.pop("dense")
+            method = min(est, key=est.get)
+            if method == "bsr" and tb is None:
+                tb = best_tb
+        if method == "hybrid" and tb is None:
+            tb, rest_thresh = best_hy[0], (best_hy[1] if rest_thresh is None else rest_thresh)
+        choice = dict(costs=est, best_tb=best_tb, best_hy=best_hy, seconds=time.perf_counter() - t0)
     A_dev = A.to(device)
 
     def finish(prep: PreparedAdjacency) -> PreparedAdjacency:
+        if choice is not None:
+            prep = dataclasses.replace(prep, choice=choice)
         if not for_gat or prep.flash_tiles is not None:
             return prep
         return dataclasses.replace(
-            prep, **_gat_layout(A, n, gat_tb, gat_rest_thresh, device)
+            prep, **_gat_layout(A, n, gat_tb, gat_rest_thresh, gat_train, costs, choice, device)
         )
 
     if method == "xla":
@@ -246,10 +628,6 @@ def prepare_adjacency(
         ))
 
     tb = DEFAULT_TB if tb is None else tb
-    if rank1_factors is not None:
-        fac = tuple(np.asarray(f, np.float32) for f in rank1_factors)
-    else:
-        fac = rank1_factor(A) if rank1 else None
 
     def tiles_pair(M: SparseMatrix):
         """(forward, transposed) tiles: values, int8 masks, or packed
@@ -293,8 +671,11 @@ def prepare_adjacency(
             r1_col=torch.from_numpy(fac[1]).to(device),
         )
     if method == "hybrid":
-        thresh = DEFAULT_REST_THRESH if rest_thresh is None else rest_thresh
-        part, rest = split_by_tile_density(A, tb, thresh)
+        if rest_thresh is None:
+            rest_thresh = _rest_thresh(tb, fac is not None, itemsize, costs)
+        if choice is not None:
+            choice["split"] = (tb, rest_thresh)
+        part, rest = split_by_tile_density(A, tb, rest_thresh)
         if fac is not None and rest.nnz:
             rest = _drop_zero_val_edges(rest)
         rest = rest if rest.nnz else None
@@ -314,21 +695,28 @@ def prepare_adjacency(
 
 
 def _gat_layout(
-    A: SparseMatrix, n: int, tb: Optional[int], thresh: Optional[int], device
+    A: SparseMatrix, n: int, tb: Optional[int], thresh: Optional[int], train: bool,
+    costs: CostTable, choice: Optional[dict], device,
 ) -> dict:
-    """The flash-GAT fields of a prep (``_finish`` of the JAX prepare).
+    """The flash-GAT fields of a prep (``_finish`` of the JAX prepare): the
+    layout ``_choose_flash_plan`` prices cheapest, or the one ``tb`` /
+    ``thresh`` ask for.
 
-    Hybrid split: the tiles holding >= ``thresh`` edges become int8 (or,
-    at tb % 1024 == 0, packed) mask tiles covering every row and column
-    block; the remainder, without its zero-valued edges (GAT masks on
-    val > 0), rides the chunks of a value-mode fused plan. Full cover
-    (small graphs, or a degenerate split): mask tiles of the whole
-    adjacency."""
-    hybrid = thresh is not None or n > GAT_FULL_COVER_MAX_N
-    tb = tb if tb is not None else (DEFAULT_GAT_TB if hybrid else 256)
-    build = bsr_bitmask_from_sparse if _packs(tb) else bsr_mask_from_sparse
-    if hybrid:
-        thresh = DEFAULT_GAT_REST_THRESH if thresh is None else thresh
+    Hybrid split: the tiles holding >= ``thresh`` edges become int8 (or
+    packed) mask tiles covering every row and column block; the remainder,
+    without its zero-valued edges (GAT masks on val > 0), rides the chunks
+    of a value-mode fused plan. Full cover (or a degenerate split): mask
+    tiles of the whole adjacency."""
+    if tb is None and thresh is None:
+        t0 = time.perf_counter()
+        tb, packed, thresh = _choose_flash_plan(A, n, train=train, costs=costs)
+        choice = dict(choice or {}, seconds=(choice or {}).get("seconds", 0.0) + time.perf_counter() - t0)
+    else:
+        tb = DEFAULT_TB if tb is None else tb
+        packed = _packs(tb)
+    choice = dict(choice or {}, flash=(tb, packed, thresh))
+    build = bsr_bitmask_from_sparse if packed else bsr_mask_from_sparse
+    if thresh is not None:
         part, grest = split_by_tile_density(A, tb, thresh)
         grest = _drop_zero_val_edges(grest)
         if part.nnz and grest.nnz:
@@ -338,8 +726,8 @@ def _gat_layout(
                 tiles, grest, K=DEFAULT_K, attach_chunks=True,
                 tile_keys=bsr_tile_keys(part, tb, **cover),
             )
-            return dict(gat_bsr=tiles, gat_rest=grest.to(device), gat_plan=plan)
-    return dict(gat_bsr=build(A, tb=tb, device=device))
+            return dict(gat_bsr=tiles, gat_rest=grest.to(device), gat_plan=plan, choice=choice)
+    return dict(gat_bsr=build(A, tb=tb, device=device), choice=choice)
 
 
 def prepare_from_config(
@@ -348,7 +736,7 @@ def prepare_from_config(
 ) -> PreparedAdjacency:
     """``prepare_adjacency`` driven by an ``SGRACEConfig``: ``method`` when
     it names a backend, else the ``pallas`` kind with ``cfg.use_pallas``,
-    else the port's fixed rule (``method="auto"``). The config's tiling
+    else the cost model's choice (``method="auto"``). The config's tiling
     (``row_block`` / ``col_block`` / ``edge_block``) reaches the ``pallas``
     kind clamped as in the JAX package: at least 8 rows, 128 columns and
     1024 edges, the edge block rounded up to a multiple of 1024. Mask

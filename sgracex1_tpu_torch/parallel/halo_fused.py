@@ -7,13 +7,14 @@ plan. The boundary edges keep the halo all_to_all and the edge path of
 ``parallel/halo``.
 
 The JAX package stacks the shards' plans into padded ``[S, ...]`` arrays
-for ``shard_map`` and picks the tile size, split threshold and chunk width
-with a TPU cost model. Here each shard keeps its own prep (its fused plan
+for ``shard_map``. Here each shard keeps its own prep (its fused plan
 pair: the rows of the JAX stack for that shard, with their ring
 schedules), made by the single-device ``prepare_adjacency`` with the
-sliced global factors as ``rank1_factors``, at the single-device rule's
-tile size, threshold and chunk width (``ops/dispatch.DEFAULT_TB``,
-``DEFAULT_REST_THRESH``, ``ops/fused_agg.DEFAULT_K``).
+sliced global factors as ``rank1_factors``. The tile size is the JAX
+package's choice (``_choose_shard_tb``: the single-device model's hybrid
+price summed over every shard's tile population, on ``ops/dispatch``'s
+``CostTable``), the split threshold the same model's at that size, the
+chunk width ``ops/fused_agg.DEFAULT_K``.
 """
 
 from __future__ import annotations
@@ -32,6 +33,35 @@ from sgracex1_tpu_torch.ops.fused_gnn import relu_hw
 from sgracex1_tpu_torch.ops.spmm import spmm
 from sgracex1_tpu_torch.parallel.halo import HaloGraph, _exchange
 from sgracex1_tpu_torch.parallel.mesh import Mesh
+
+
+def _choose_shard_tb(A_ls, rank1: bool, tbs=None, costs: D.CostTable = D.H100_COSTS) -> int:
+    """Tile size of the shards' local blocks (JAX ``_choose_shard_tb``):
+    the hybrid kind's price at each candidate (its dense tiles, chunks and
+    slots at the model's threshold) summed over every shard's tile
+    population. A shard's block has S-fold fewer rows than the graph, so
+    the best size is often smaller than the single-device choice."""
+    tbs = costs.shard_tbs if tbs is None else tuple(tbs)
+    tots = {tb: 0.0 for tb in tbs}
+    for A_l in A_ls:
+        r, c = D._edge_keys(A_l)
+        pops = D._tile_populations(r, c, tbs)
+        for tb in tbs:
+            uniq, counts = pops[tb]
+            if len(counts) == 0:
+                continue
+            tc = D._tile_cost_s(tb, D._tile_itemsize(tb, rank1, 2, costs), costs)
+            thresh = int(np.ceil(tc / D._rest_slot_cost_s(tb, costs)))
+            dense = counts >= thresh
+            rest_by_rb = np.bincount(
+                (uniq >> 32)[~dense].astype(np.int64), weights=counts[~dense].astype(np.float64),
+            )
+            tots[tb] += (
+                int(dense.sum()) * tc
+                + np.ceil(rest_by_rb / costs.rest_k).sum() * D._chunk_cost_s(tb, costs)
+                + counts[~dense].sum() * costs.rest_slot_s
+            )
+    return min(tots, key=tots.get)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -55,6 +85,7 @@ class HaloFusedPlan:
 
 def build_halo_fused(
     G: HaloGraph, *, tb="auto", rank1_factors=None, threads: Optional[int] = None,
+    costs: D.CostTable = D.H100_COSTS,
 ) -> HaloFusedPlan:
     """Per-shard fused plans of the local blocks of ``G``, on ``G``'s
     device: each block through ``prepare_adjacency(method="hybrid")``.
@@ -66,10 +97,11 @@ def build_halo_fused(
     a factorization turns every shard to value tiles (mask tiles beside
     value tiles would corrupt the mask shards' output).
 
-    ``tb="auto"`` takes ``DEFAULT_TB``; the threshold and the chunk width
-    are the prepare's (``DEFAULT_REST_THRESH``, ``DEFAULT_K``). The S
-    prepares run on ``threads`` threads (default min(S, 8); numpy's sorts
-    release the interpreter lock in stretches)."""
+    ``tb="auto"`` takes ``_choose_shard_tb`` on ``costs``; the threshold
+    is the model's at that size (the prepare's, on ``costs``) and the chunk
+    width ``DEFAULT_K``. The S prepares run on ``threads`` threads
+    (default min(S, 8); numpy's sorts release the interpreter lock in
+    stretches)."""
     S, n_local = G.n_shards, G.n_local
     device = G.send_idx.device
     A_ls, facs = [], []
@@ -93,10 +125,11 @@ def build_halo_fused(
             facs.append(rank1_factor(A_l))
     if any(f is None for f in facs):
         facs = [None] * S  # one mode for every shard: value tiles
-    tb = D.DEFAULT_TB if tb == "auto" else tb
+    if tb == "auto":
+        tb = _choose_shard_tb(A_ls, facs[0] is not None, costs=costs)
     threads = min(S, 8) if threads is None else threads
     prep = lambda af: D.prepare_adjacency(af[0], method="hybrid", tb=tb, rank1=False, rank1_factors=af[1],
-                                        device=device)
+                                        costs=costs, device=device)
     with cf.ThreadPoolExecutor(max_workers=max(threads, 1)) as ex:
         preps = list(ex.map(prep, zip(A_ls, facs)))
     return HaloFusedPlan(preps=preps, tb=tb, n_local=n_local)

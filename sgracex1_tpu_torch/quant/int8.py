@@ -427,27 +427,29 @@ def int8_gat_layer_flash(
 
 def prepare_int8_hybrid(
     A: SparseMatrix, c_a: QuantConstants, *, tb: Optional[int] = None,
-    K: int = DEFAULT_K, rest_thresh: Optional[int] = None, device=None,
+    K: int = DEFAULT_K, rest_thresh: Optional[int] = None, costs=None, device=None,
 ) -> FusedAggPlan:
     """Full-integer aggregation plan for large graphs: the hybrid density
     split with shifted-int8 dense tiles and quantized remainder chunks in
     one fused schedule (K8, ``ops.fused_agg.bsr_spmm_int8_fused``). The
     full-adjacency int8 tile set of ``Int8GCN2Sparse`` grows with the
     square of the node count; the hybrid dense part stays small and the
-    remainder rides value-carrying chunks. ``tb`` and ``rest_thresh``
-    default to the port's fixed split (``ops.dispatch.DEFAULT_TB`` /
-    ``DEFAULT_REST_THRESH``). Returns a value-mode ``FusedAggPlan`` whose
-    slot scales are the remainder's unsigned-grid values."""
-    from sgracex1_tpu_torch.ops.dispatch import (
-        DEFAULT_REST_THRESH,
-        DEFAULT_TB,
-        split_by_tile_density,
-    )
+    remainder rides value-carrying chunks. ``tb`` defaults to the ring
+    kernels' ``ops.dispatch.DEFAULT_TB`` (the JAX default, 1024, runs the
+    single-stage kernel here); ``rest_thresh`` to the JAX package's
+    threshold at ``tb``: one int8 tile's seconds over a chunk slot's, on
+    the cost table ``costs`` (default ``ops.dispatch.H100_COSTS``).
+    Returns a value-mode ``FusedAggPlan`` whose slot scales are the
+    remainder's unsigned-grid values."""
+    from sgracex1_tpu_torch.ops import dispatch as D
 
     device = resolve_device(device)
-    tb = DEFAULT_TB if tb is None else tb
-    thresh = DEFAULT_REST_THRESH if rest_thresh is None else rest_thresh
-    part, rest = split_by_tile_density(A, tb, thresh)
+    tb = D.DEFAULT_TB if tb is None else tb
+    costs = D.H100_COSTS if costs is None else costs
+    thresh = rest_thresh
+    if thresh is None:
+        thresh = int(np.ceil(D._tile_cost_s(tb, 1.0, costs) / D._rest_slot_cost_s(tb, costs)))
+    part, rest = D.split_by_tile_density(A, tb, thresh)
     B8 = bsr_int8_from_sparse(part, c_a, tb=tb, cover_cols=True, device=device)
     rest_q = None
     if rest.nnz:

@@ -41,6 +41,38 @@ def graph(kind, n=1024):
     return to_jax(T), T
 
 
+def jax_cost_table():
+    """The port's ``CostTable`` holding the JAX package's constants (its
+    v5e calibration), read from the JAX modules: with it, the port's cost
+    model must give the JAX numbers and choices."""
+    import inspect
+
+    from sgracex1_tpu.ops import flash_gat as jfg
+    from sgracex1_tpu.parallel import halo_fused as jhf
+
+    default = lambda fn, name: inspect.signature(fn).parameters[name].default
+    return tdis.CostTable(
+        card="the JAX package's constants", hbm_bps=jdis._HBM_BPS, step_s=jdis._STEP_S,
+        mxu_flops=jdis._MXU_FLOPS, vpu_ops=jdis._VPU_OPS, tile_s={},
+        tbs=default(jdis._estimate_backend_costs, "tbs"), rest_chunk_s=jdis._REST_CHUNK_S,
+        rest_slot_s=jdis._REST_SLOT_S, rest_k=jdis._REST_K, chunk_s={}, dense_bps=jdis._HBM_BPS,
+        xla_edge_s=jdis._XLA_EDGE_S, pallas_group_s=jdis._PALLAS_GROUP_S, pallas_edge_s=0.0,
+        pallas_block=1024, row_s={}, call_s={}, flash_tile_s=dict(jdis._FLASH_TILE_S),
+        flash_run_s=dict(jdis._FLASH_RUN_S), flash_elt_s=jdis._FLASH_ELT_S,
+        flash_run_elt_s=3.8e-9,  # the literal of the JAX _flash_run_s
+        flash_packed_mult=jdis._FLASH_PACKED_MULT, flash_tile_budget=jdis._FLASH_TILE_BUDGET,
+        flash_chunk_k=jdis._FLASH_CHUNK_K, flash_chunk_res_s=jdis._FLASH_CHUNK_RES_S,
+        flash_chunk_stream_s=jdis._FLASH_CHUNK_STREAM_S, flash_payload_f=jdis._FLASH_PAYLOAD_F,
+        flash_resident_budget=jfg._RESIDENT_CHUNK_BUDGET, flash_heads=1,
+        flash_train_passes=jdis._FLASH_TRAIN_PASSES, flash_edge_bwd_s=jdis._FLASH_EDGE_BWD_S,
+        flash_bwd_fixed_s=jdis._FLASH_BWD_FIXED_S, flash_hybrid_fixed_s=jdis._FLASH_HYBRID_FIXED_S,
+        # the literals of the JAX _choose_flash_plan's loops and size rule
+        flash_tbs=(256, 512, 1024), flash_packed_tbs=(1024,),
+        flash_threshs=(2, 8, 32, 96, 256, 768, 1536, 3072), flash_full_cover_n=8192,
+        shard_tbs=default(jhf._choose_shard_tb, "tbs"),
+    )
+
+
 def jax_thresh(tb, rank1):
     """The remainder threshold JAX's hybrid prepare derives at this tb."""
     item = jdis._tile_itemsize(tb, rank1, 2)
@@ -68,11 +100,12 @@ def model_pair(kind, n=512, F=16, C=4, hidden=16, H=2, monkeypatch=None):
         model = JGCN(num_features=F, hidden_channels=hidden, num_classes=C, dropout=0.0)
         net = pt.GCNModel(F, hidden, C, dropout=0.0)
     else:
-        forced, kw = {"gat-full": (None, {}), "gat-hybrid": ((64, False, 3), dict(gat_tb=64, gat_rest_thresh=3))}[kind]
-        if forced is not None:
+        forced = {"gat-full": None, "gat-hybrid": (64, False, 3)}[kind]
+        if forced is not None:  # both choosers forced (a small graph takes full cover)
             monkeypatch.setattr(jdis, "_choose_flash_plan", lambda A, n, hybrid=True, train=True: forced)
+            monkeypatch.setattr(tdis, "_choose_flash_plan", lambda A, n, **kw: forced)
         jp = jdis.prepare_adjacency(J, method="xla", for_gat=True)
-        tp = tdis.prepare_adjacency(T, method="xla", for_gat=True, **kw, device="cpu")
+        tp = tdis.prepare_adjacency(T, method="xla", for_gat=True, device="cpu")
         assert (tp.gat_plan is not None) == (kind == "gat-hybrid")
         model = JGAT(num_features=F, hidden_channels=hidden, num_classes=C, nheads=H, dropout=0.0)
         net = pt.GATModel(F, hidden, C, nheads=H, dropout=0.0)

@@ -97,10 +97,16 @@ def test_transposed_plans_and_auto():
     Hg = torch.randn(T.n_rows, 8, generator=torch.Generator().manual_seed(1))
     out = tdis.bsr_spmm_fused(tp.fused_t, Hg).float().numpy()
     np.testing.assert_allclose(out, T.to_scipy().T @ Hg.numpy(), rtol=5e-2, atol=5e-2)
-    assert tdis.prepare_adjacency(T, device="cpu").kind == "dense"
-    auto = tdis.prepare_adjacency(T, dense_max_bytes=0, build_transpose=False, device="cpu")
-    assert auto.kind == "hybrid" and auto.bsr.tb == tdis.DEFAULT_TB
-    # the pallas kind is prepared on request, never by the fixed rule
+    # auto takes the cheapest kind the cost model prices, at its tile size
+    # or split; dense only within the budget
+    for budget in (tdis.DENSE_MAX_BYTES, 0):
+        auto = tdis.prepare_adjacency(T, dense_max_bytes=budget, build_transpose=False, device="cpu")
+        est = auto.choice["costs"]
+        assert ("dense" in est) == (budget > 0) and auto.kind == min(est, key=est.get)
+        if auto.kind in ("bsr", "hybrid"):
+            _, best_tb, best_hy = tdis._estimate_backend_costs(T, rank1=True)
+            assert auto.bsr.tb == (best_tb if auto.kind == "bsr" else best_hy[0])
+    # the pallas kind on request, at the JAX tiling
     pp = tdis.prepare_adjacency(T, method="pallas", device="cpu")
     assert pp.kind == "pallas" and pp.plan is not None and pp.plan_t is not None
     assert (pp.plan.rb, pp.plan.cb, pp.plan.be) == (1024, 1024, 1024)  # the JAX defaults

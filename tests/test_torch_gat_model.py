@@ -43,8 +43,8 @@ def _graphs(n, F=24, C=5):
 # monkeypatch (None: its own rule), and the port's keywords
 LAYOUTS = {
     "full": (2048, None, {}),
-    "full-packed": (2048, (1024, True, None), dict(gat_tb=1024)),
-    "hybrid": (600, (64, False, 3), dict(gat_tb=64, gat_rest_thresh=3)),
+    "full-packed": (2048, (1024, True, None), {}),
+    "hybrid": (600, (64, False, 3), {}),
 }
 
 
@@ -52,9 +52,12 @@ def _preps(layout, monkeypatch, method="xla"):
     n, forced, kw = LAYOUTS[layout]
     J, T, x = _graphs(n)
     if forced is not None:
+        # both choosers forced to the layout (a small graph takes full cover)
         monkeypatch.setattr(jdis, "_choose_flash_plan", lambda A, n, hybrid=True, train=True: forced)
+        monkeypatch.setattr(pt.ops.dispatch, "_choose_flash_plan", lambda A, n, **kw: forced)
     jp = jdis.prepare_adjacency(J, method=method, for_gat=True)
-    tp = pt.prepare_adjacency(T, method=method, for_gat=True, **kw, device="cpu")
+    tp = pt.prepare_adjacency(T, method=method, for_gat=True, device="cpu")
+    assert tp.choice["flash"] == (forced or (256, False, None))
     return jp, tp, x
 
 
@@ -89,11 +92,13 @@ def test_for_gat_rule_and_reuse():
     # a bsr prep's own tiles serve the flash kernels: nothing is attached
     bsr = pt.prepare_adjacency(T, method="bsr", rank1=False, for_gat=True, build_transpose=False, device="cpu")
     assert bsr.gat_bsr is None and bsr.flash_tiles is bsr.bsr and bsr.bsr.tiles.dtype == torch.bfloat16
-    # the fixed rule: full cover at tb=256 up to 8192 nodes, else hybrid
+    # the chooser: full cover at tb=256 up to its size rule; an explicit
+    # threshold asks for the hybrid split (at DEFAULT_TB without gat_tb)
     small = pt.prepare_adjacency(T, method="xla", for_gat=True, device="cpu")
-    assert small.gat_plan is None and small.gat_bsr.tb == 256
+    assert 2048 <= pt.ops.dispatch.H100_COSTS.flash_full_cover_n
+    assert small.gat_plan is None and small.gat_bsr.tb == 256 and small.choice["flash"] == (256, False, None)
     hyb = pt.prepare_adjacency(T, method="xla", for_gat=True, gat_rest_thresh=8, device="cpu")
-    assert hyb.gat_plan is not None and hyb.gat_bsr.tb == pt.ops.dispatch.DEFAULT_GAT_TB
+    assert hyb.gat_plan is not None and hyb.gat_bsr.tb == pt.ops.dispatch.DEFAULT_TB
     # a hybrid GCN prep's partial tiles are no mask: the layout is attached
     h = pt.prepare_adjacency(T, method="hybrid", tb=128, for_gat=True, build_transpose=False, device="cpu")
     assert h.gat_bsr is not None and h.flash_tiles is h.gat_bsr

@@ -1,9 +1,10 @@
 """The port's distributed fused aggregation (sgracex1_tpu_torch.parallel.
 halo_fused, K2 per shard) against sgracex1_tpu.parallel.halo_fused on the
 same numpy inputs, the JAX side on the conftest's virtual CPU mesh with its
-Pallas kernels in interpret mode, at the JAX plan's tile size and split
-threshold and the port's chunk width K = 128, forced on the JAX side (the
-port's are fixed values).
+Pallas kernels in interpret mode, at the JAX plan's tile size, the split
+threshold of both packages' cost model (the port's on a table of the JAX
+constants, ``jax_cost_table``) and the port's chunk width K = 128, forced
+on the JAX side (the port's is a fixed value).
 
 Tolerances: host arrays ``array_equal``; outputs and gradients 2e-2 (both
 kernels write bf16, as tests/test_halo_fused.py holds them)."""
@@ -24,21 +25,22 @@ from sgracex1_tpu_torch.parallel import halo as th
 from sgracex1_tpu_torch.parallel import halo_fused as thf
 from sgracex1_tpu_torch.parallel.mesh import make_mesh
 from sgracex1_tpu_torch.parallel.partition import pad_nodes
-from tests._torch_common import dist_graph, grads_of, jax_mesh_put, jax_thresh, leaf, to_jax
+from tests._torch_common import dist_graph, grads_of, jax_cost_table, jax_mesh_put, leaf, to_jax
 
 torch.set_num_threads(1)
 
 BF16 = 2e-2
 K = 128
+JT = jax_cost_table()  # the JAX constants: the JAX threshold at each tb
 STEP_FIELDS = ("step_cb", "step_tile", "step_chunk", "step_kind")
 
 
 def _plans(monkeypatch, J, T, JG, TG, tb, rank1):
     """Both packages' plans at the JAX tile size, K and threshold."""
-    monkeypatch.setattr(tdis, "DEFAULT_REST_THRESH", jax_thresh(tb, rank1))
     fac = j_rank1(J) if rank1 else None
     JP = jhf.build_halo_fused(JG, tb=tb, K=K, rank1_factors=fac)
-    TP = thf.build_halo_fused(TG, tb=tb, rank1_factors=rank1_factor(T) if rank1 else None)
+    TP = thf.build_halo_fused(TG, tb=tb, rank1_factors=rank1_factor(T) if rank1 else None, costs=JT)
+
     return JP, TP
 
 
@@ -88,9 +90,8 @@ def test_build_halo_fused_mixed_rank1_degrades_uniformly(monkeypatch):
     T = TSparse.from_coo(np.concatenate([k0 // n, k1 // n]), np.concatenate([k0 % n, k1 % n]),
                          np.concatenate([v0[: len(k0)], np.full(len(k1), 0.7, np.float32)]), (n, n))
     JG, TG = jh.build_halo(to_jax(T), 2)[0], th.build_halo(T, 2, device="cpu")[0]
-    monkeypatch.setattr(tdis, "DEFAULT_REST_THRESH", jax_thresh(64, False))
     JP = jhf.build_halo_fused(JG, tb=64, K=K)
-    TP = thf.build_halo_fused(TG, tb=64)
+    TP = thf.build_halo_fused(TG, tb=64, costs=JT)
     assert not TP.rank1 and JP.colscale is None
     _check_identical(JP, TP)
     H = rng.standard_normal((n, 12)).astype(np.float32)

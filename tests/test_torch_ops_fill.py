@@ -219,15 +219,27 @@ def test_dense_dtype_float32_matches_jax():
 def test_dense_dtype_sets_the_auto_budget_and_gat_train_is_kept():
     T, _ = _weighted(300, seed=15)
     budget = 300 * 300 * 3  # holds the bf16 matrix, not the f32 one
-    assert tdis.prepare_adjacency(T, dense_max_bytes=budget, device="cpu").kind == "dense"
-    kind = tdis.prepare_adjacency(T, dense_max_bytes=budget, dense_dtype=torch.float32, device="cpu").kind
-    assert kind == "hybrid"
-    # gat_train is kept in the signature; the fixed layout rule ignores it
+    for dtype, fits in ((torch.bfloat16, True), (torch.float32, False)):
+        p = tdis.prepare_adjacency(T, dense_max_bytes=budget, dense_dtype=dtype, device="cpu")
+        est = p.choice["costs"]
+        assert ("dense" in est) == fits and p.kind == min(est, key=est.get)
+    # gat_train reaches the layout chooser: below its size rule both take
+    # full cover at tb 256; past it the chooser prices training and serving
     p = tdis.prepare_adjacency(T, method="xla", for_gat=True, gat_train=False, device="cpu")
     q = tdis.prepare_adjacency(T, method="xla", for_gat=True, device="cpu")
-    assert p.flash_tiles is not None and q.flash_tiles is not None
+    assert p.choice["flash"] == q.choice["flash"] == (256, False, None)
     for k in ("tiles", "tile_rb", "tile_cb"):
         assert torch.equal(getattr(p.flash_tiles, k), getattr(q.flash_tiles, k)), k
+    seen = []
+    big = dataclasses.replace(tdis.H100_COSTS, flash_full_cover_n=0)
+    real = tdis._flash_layout_costs
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(tdis, "_flash_layout_costs", lambda A, **kw: seen.append(kw["train"]) or real(A, **kw))
+        for train in (False, True):
+            r = tdis.prepare_adjacency(T, method="xla", for_gat=True, gat_train=train, costs=big, device="cpu")
+            est = real(T, train=train, costs=big)
+            assert r.choice["flash"] == min(est, key=est.get)
+    assert seen == [False, True]
 
 
 # ---------------------------------------------------------------- remat

@@ -79,8 +79,12 @@ def test_padded_graph_flash_tiles_identical(monkeypatch):
     At = tloop._pad_multilabel_graph(g_t, 384, 1.0)[0]
     Aj, At = (A.pad_edges_to(A.e_pad + 512).with_uniform_nnz() for A in (Aj, At))
     jp = jdis.prepare_adjacency(Aj, method="xla", for_gat=True)
-    tp = tdis.prepare_from_config(At, pt.SGRACEConfig(), for_gat=True, device="cpu")
-    assert tp.kind == "dense" and tp.gat_plan is None
+    tp = tdis.prepare_from_config(At, pt.SGRACEConfig(), method="xla", for_gat=True, device="cpu")
+    assert tp.gat_plan is None
+    # the config's auto prepare takes the model's cheapest kind (dense fits)
+    auto = tdis.prepare_from_config(At, pt.SGRACEConfig(), device="cpu")
+    est = auto.choice["costs"]
+    assert "dense" in est and auto.kind == min(est, key=est.get)
     Bj, Bt = jp.flash_tiles, tp.flash_tiles
     assert Bt.tb == 256 and Bt.tiles.dtype == torch.int8
     for k in ("tiles", "tile_rb", "tile_cb"):
