@@ -205,6 +205,18 @@ Phases, each raising on failure (so the run exits non-zero):
 22. the entry twin (graft_entry.entry) against the CPU edge path, and the
    examples quantization_pipeline, ppi_gat and distributed_training on the
    card, with their launch counts.
+23. the last ported JAX functions: bsr_spmm_xla, pack_mask_bsr and the
+   sharded train-state pair, one call each (phase_fill_ins); the fused
+   plan's chunk-width chooser on the GCN slice, K2 at K 128 / 256 / 512
+   against the plain K2, the chosen K within 1.15x of the fastest
+   (phase_k_chooser); the flash kernels' ablation options on the GAT slice
+   at H=4 and H=1, K3/K4/K5 exact and with fast_exp, K6 at chunk modes
+   full / noscore / off, each against its plain version at the same option
+   and timed in turns (phase_flash_variants, small cases in
+   _flash_variants_small); the sticky padding of the sampled loop at
+   prepare="hybrid" and of the molecule loop at prepare="bsr": padded preps
+   keep the unpadded live schedules and their steps match the unpadded
+   steps (phase_padding).
 
 Every main path is driven with the launch counts set to 0 just before it
 and read just after. The last two lines are the kernels' JSON record
@@ -224,6 +236,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from collections import Counter
 
 import numpy as np
 import torch
@@ -402,23 +415,28 @@ def phase_build():
              f"{regs} registers at entry (consumers raise to 232, the producer drops to 40), {spills.strip()}")
     if _cuda.build_log and len(ring) != 7:  # no log when the library was built by an earlier run
         raise AssertionError(f"expected the seven ring kernels (K1, K2, K11) in the build log, found {len(ring)}")
-    # the flash ring kernels by tile mode and head count: K3/K6, and K12's own (H=1, the bitmap)
-    flash = re.findall(r"Function properties for \S*flash_ring_kernelILi(\d)ELi(\d)ELb(\d)E\S*\n\s*(.*)\n.*Used (\d+) "
-                       r"registers", _cuda.build_log)
-    for mode, heads, sub, spills, regs in flash:
-        _log(f"  flash ring kernel ({'K12' if sub == '1' else 'K3/K6'}) {'int8' if mode == '2' else 'bf16'} tiles, "
-             f"H={heads}: {regs} registers at entry (consumers raise to 232, the producer drops to 40), {spills.strip()}")
-    if _cuda.build_log and len(flash) != 8:
-        raise AssertionError(f"expected the eight flash ring kernels (six K3/K6, two K12) in the build log, "
-                             f"found {len(flash)}")
-    # the backward ring kernels (K4 / K5) by tile mode and head count
-    bwd = re.findall(r"Function properties for \S*bwd_ring_kernelILi(\d)ELi(\d)ELb(\d)E\S*\n\s*(.*)\n.*Used (\d+) registers",
-                     _cuda.build_log)
-    for mode, heads, col, spills, regs in bwd:
-        _log(f"  backward ring kernel ({'K5' if col == '1' else 'K4'}) {'int8' if mode == '2' else 'bf16'} tiles, "
-             f"H={heads}: {regs} registers at entry (consumers raise to 232, the producer drops to 40), {spills.strip()}")
-    if _cuda.build_log and len(bwd) != 12:
-        raise AssertionError(f"expected the twelve backward ring kernels in the build log, found {len(bwd)}")
+    # the flash ring kernels by tile mode and head count: K3/K6, and K12's own (H=1, the bitmap); and
+    # the variants of K3/K6 (VAR 1 fast_exp, 2 K6's noscore chunks), each from a source of its own
+    flash = re.findall(r"Function properties for \S*flash_ring_kernelILi(\d)ELi(\d)ELb(\d)ELi(\d)E\S*\n\s*(.*)\n"
+                       r".*Used (\d+) registers", _cuda.build_log)
+    variant = {"0": "", "1": ", fast_exp variant", "2": ", noscore variant"}
+    for mode, heads, sub, var, spills, regs in flash:
+        _log(f"  flash ring kernel ({'K12' if sub == '1' else 'K3/K6'}{variant[var]}) "
+             f"{'int8' if mode == '2' else 'bf16'} tiles, H={heads}: {regs} registers at entry (consumers raise to "
+             f"232, the producer drops to 40), {spills.strip()}")
+    if _cuda.build_log and sorted(Counter(v for *_, v, _, _ in flash).items()) != [("0", 8), ("1", 6), ("2", 6)]:
+        raise AssertionError(f"expected the eight flash ring kernels (six K3/K6, two K12) and six of each variant "
+                             f"in the build log, found {len(flash)}")
+    # the backward ring kernels (K4 / K5) by tile mode and head count, and their fast_exp variants
+    bwd = re.findall(r"Function properties for \S*bwd_ring_kernelILi(\d)ELi(\d)ELb(\d)ELb(\d)E\S*\n\s*(.*)\n"
+                     r".*Used (\d+) registers", _cuda.build_log)
+    for mode, heads, col, fast, spills, regs in bwd:
+        _log(f"  backward ring kernel ({'K5' if col == '1' else 'K4'}{', fast_exp variant' if fast == '1' else ''}) "
+             f"{'int8' if mode == '2' else 'bf16'} tiles, H={heads}: {regs} registers at entry (consumers raise to "
+             f"232, the producer drops to 40), {spills.strip()}")
+    if _cuda.build_log and sorted(Counter(f for *_, f, _, _ in bwd).items()) != [("0", 12), ("1", 12)]:
+        raise AssertionError(f"expected the twelve backward ring kernels and their twelve fast_exp variants in the "
+                             f"build log, found {len(bwd)}")
     # the cluster K10 by tile mode and cluster size
     clus = re.findall(r"Function properties for \S*rowloop_cluster_kernelILi(\d)ELi(\d+)E\S*\n\s*(.*)\n.*Used (\d+) registers",
                       _cuda.build_log)
@@ -531,6 +549,7 @@ def phase_kernels_small(device):
     _log(f"  small GCN (3001 nodes) K2 route vs f32 edge path: max err {e:.3g}")
     _gat_kernels_small(device, gen)
     _bwd_kernels_small(device, gen)
+    _flash_variants_small(device, gen)
 
 
 def _scores(n, H, F, gen, device):
@@ -1432,6 +1451,17 @@ def phase_gat_prepare(A, device, label, split=None):
     return prep
 
 
+def _timed_once(fn):
+    """(fn(), its device ms): one call between two CUDA events, for a plain
+    version that takes seconds at the slice's sizes."""
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    e0.record()
+    out = fn()
+    e1.record()
+    e1.synchronize()
+    return out, e0.elapsed_time(e1)
+
+
 def phase_gat_kernels_slice(prep, device):
     """K6 on the slice's plan and K3 on its tile set at H=4, F=64 (the first
     GAT layer) and H=1, F=64 (the second): the ring kernel and the
@@ -1456,7 +1486,7 @@ def phase_gat_kernels_slice(prep, device):
              plan.B),
         ):
             label = f"{name} at slice shapes H={H}"
-            ref = plain(op, s1, s2, Wh, return_stats=True)
+            ref, plain_ms = _timed_once(lambda: plain(op, s1, s2, Wh, return_stats=True))
             res = _flash_route(kern, True, label, lambda: kern(op, s1, s2, Wh, return_stats=True))
             err = _check_flash(label, res, ref)
             _check_flash(f"{label}, single-stage kernel", single(op, s1, s2, Wh, return_stats=True), ref)
@@ -1471,10 +1501,9 @@ def phase_gat_kernels_slice(prep, device):
                    f"{earlier[0]:.4f} / {earlier[1]:.4f} ms, bound {bound['bound_ms']:.4f} ms by {bound['bound_by']}, "
                    f"max abs err {err:.3g}")
             if H == GAT_HEADS:
-                plain_ms = cuda_ms(lambda: plain(op, s1, s2, Wh), reps=3)
                 rec[name] = dict(max_abs_err=err, ms=min(ms), plain_ms=plain_ms, **bound, library_ms=None,
                                  earlier_ms=min(earlier))
-                msg += f", plain {plain_ms:.4f} ms (median of 3)"
+                msg += f", plain {plain_ms:.4f} ms (once, with the stats)"
             _log(msg)
             del ref, out
     rec.update(_gat_bwd_slice(plan, n, gen, device))
@@ -1512,7 +1541,7 @@ def _gat_bwd_slice(plan, n, gen, device):
              dict(ops, t=t), Bt, 2),
         ):
             label = f"{name} at slice shapes H={H}"
-            ref = plain(B, **args)
+            ref, plain_ms = _timed_once(lambda: plain(B, **args))
             outs = _flash_route(kern, True, label, lambda: kern(B, **args))
             err = max(_check(label, g, r, GAT_TOL) for g, r in zip(outs, ref))
             for g, r in zip(single(B, **args), ref):
@@ -1529,10 +1558,9 @@ def _gat_bwd_slice(plan, n, gen, device):
                    f"ring on f32 Wh/gO (casts included) {f32_ms:.4f} ms, bound {bound['bound_ms']:.4f} ms "
                    f"by {bound['bound_by']}, max abs err {err:.3g}")
             if H == GAT_HEADS:
-                plain_ms = cuda_ms(lambda: plain(B, **args), reps=3)
                 rec[name] = dict(max_abs_err=err, ms=min(ms), plain_ms=plain_ms, **bound, library_ms=None,
                                  earlier_ms=min(earlier), f32_in_ms=f32_ms)
-                msg += f", plain {plain_ms:.4f} ms (median of 3)"
+                msg += f", plain {plain_ms:.4f} ms (once)"
             _log(msg)
             del outs, ref
         del ops, t, m, l, gO, s1, s2, Wh
@@ -3323,7 +3351,7 @@ def phase_dist_gcn(device, data, cfg=SAMPLED_GRAPH):
     _log(f"dist GCN shard edges: contiguous split {raw.tolist()} (max/mean {raw.max() / raw.mean():.3f}), "
          f"degree-balanced {bal.tolist()} (max/mean {bal.max() / bal.mean():.3f})")
     _log(f"dist GCN halo plan: n_pad={n_pad} n_local={G.n_local} L={G.halo_len} tb={FP.tb} (the shard chooser's, "
-         f"tb='auto') threshold {D._rest_thresh(FP.tb, FP.rank1, 2)} K={FP.K} rank1={FP.rank1}")
+         f"tb='auto') threshold {D._rest_thresh(FP.tb, FP.rank1, 2, K=FP.K)} K={FP.K} rank1={FP.rank1}")
     for s in range(S):
         loc, rem = _shard_edges(G, s)
         p, pt = FP.preps[s].fused, FP.preps[s].fused_t
@@ -3605,10 +3633,10 @@ def _measure_costs(device) -> dict:
     edges; the kinds in turns, ``_interleaved_ms``), and its seconds a
     node row on a 2^20-node graph of a few edges. Slopes between two
     layouts on the same rows, so that those cancel: K2's live tile at each
-    candidate size and form (few and many tiles a row block), its chunk at
-    each size (few and many full chunks a row block: a chunk with its 128
-    slots), a slot alone (one chunk of 16 and of 128 slots a row block, tb
-    256; printed); K9's edge (the same groups full and sparse). With the call's and rows' seconds taken off: K9's
+    candidate size and form (few and many tiles a row block), the ring's
+    full chunk at each width the plan's chooser takes (tb 256, K 128, 256
+    and 512), the single-stage kernel's at tb 512 and 1024, a slot alone
+    (one chunk of 64 and of 512 slots a row block, tb 256); K9's edge (the same groups full and sparse). With the call's and rows' seconds taken off: K9's
     group, the edge path's edge, the dense kind's bytes a second. The flash tile: K3 over full-cover tiles
     a head, a run from the same tiles over twice the row blocks, the
     backward's ratio from K4 + K5; a flash chunk: K6 at two chunk counts;
@@ -3674,14 +3702,19 @@ def _measure_costs(device) -> dict:
             del preps
     got["tile_s"] = tile_s
     section("tiles")
-    # K2's remainder: a chunk at each size (full chunks, few and many a row
-    # block), a slot (one chunk of 16 and of 128 slots a row block, tb 256)
-    chunk_s = {}
-    # (the ring's chunk, the same at tb 64-256 in calibration runs, is timed at 256)
-    for tb, n, lo, hi in ((256, 1 << 19, 128, 1152), (512, 1 << 18, 128, 1152), (1024, 1 << 18, 128, 1152),
-                          (256, 1 << 20, 16, 128)):
+    # K2's remainder: the ring's full chunk at each width the plan's chooser
+    # takes (tb 256, the same at tb 64-256 in calibration runs; one and five
+    # chunks a row block, the row blocks halved as the width doubles, so each
+    # layout holds ~0.65 M edges), the single-stage kernel's at 512 and 1024
+    # (K = DEFAULT_K), and a slot (one chunk of 64 and of 512 slots a row
+    # block)
+    chunk_s, rest_chunk_s = {}, {}
+    for tb, K, n, lo, hi in ((256, 128, 1 << 18, 128, 640), (256, 256, 1 << 17, 256, 1280),
+                             (256, 512, 1 << 16, 512, 2560), (512, K2.DEFAULT_K, 1 << 18, 128, 1152),
+                             (1024, K2.DEFAULT_K, 1 << 18, 128, 1152), (256, 512, 1 << 19, 64, 512)):
         n >>= COST_SHRINK
-        preps = {per_rb: prep_of("hybrid", _chunk_graph(n, tb, per_rb, 7 + per_rb), tb=tb, rest_thresh=1 << 30)
+        preps = {per_rb: prep_of("hybrid", _chunk_graph(n, tb, per_rb, 7 + per_rb), tb=tb, rest_thresh=1 << 30,
+                                 fused_k=K)
                  for per_rb in (lo, hi)}
         t = two(preps, n)
         (c1, s1_, t1), (c2, s2_, t2) = ((p.fused.num_rest_chunks, RL.live_slots(p.fused), t[k])
@@ -3689,9 +3722,11 @@ def _measure_costs(device) -> dict:
         del preps
         if c1 == c2:
             got["rest_slot_s"] = (t2 - t1) / (s2_ - s1_)
+        elif tb == 256:
+            rest_chunk_s[K] = (t2 - t1) / (c2 - c1)  # full chunks: a chunk with its K slots
         else:
-            chunk_s[tb] = (t2 - t1) / (c2 - c1)  # full chunks: a chunk with its 128 slots
-    got["rest_chunk_s"] = chunk_s.pop(256)
+            chunk_s[tb] = (t2 - t1) / (c2 - c1)
+    got["rest_chunk_s"] = rest_chunk_s
     got["chunk_s"] = chunk_s
     section("chunks")
     # K9: the same groups full and sparse, then the groups' share
@@ -3781,8 +3816,8 @@ def _measure_costs(device) -> dict:
 # table entries held to COST_TOL of their re-measurement (CUDA-event times
 # and their slopes); the intercepts and the second unknown of a two-point
 # solve are printed beside them but move with noise
-COST_HELD = ("tile_s", "chunk_s", "rest_chunk_s", "call_s", "pallas_edge_s", "xla_edge_s", "dense_bps", "row_s",
-             "flash_tile_s", "flash_packed_mult", "flash_train_passes", "flash_chunk_res_s", "flash_edge_bwd_s")
+COST_HELD = ("tile_s", "chunk_s", "rest_chunk_s", "rest_slot_s", "call_s", "pallas_edge_s", "xla_edge_s",
+             "dense_bps", "row_s", "flash_tile_s", "flash_packed_mult", "flash_train_passes", "flash_chunk_res_s", "flash_edge_bwd_s")
 
 
 def phase_cost_model(device) -> dict:
@@ -4001,6 +4036,533 @@ def phase_examples(device) -> dict:
     return total
 
 
+# --------------------- the last JAX functions: the K chooser, padding, the ablations
+
+PAD_SEEDS = 2048  # the padding phase's sampled loop: two batches an epoch
+# its products-density graph: batches of ~36 k nodes (hybrid, as at 2^20),
+# and the loop's full-graph hybrid prepare in seconds, not half a minute
+PAD_GRAPH = dict(SAMPLED_GRAPH, n=1 << 17)
+L2E = 1.4426950408889634  # log2(e), the ring kernels' f32 constant
+
+
+def _fast_ex2(y):
+    """The ring kernels' ``fast_ex2`` (csrc/tile_ring.cuh), bit for bit:
+    Schraudolph's exp of a base-2 exponent, int32(max(2^23 y + B, 0)) as
+    f32 (one rounding after the sum; torch adds no FMA between two ops)."""
+    return torch.clamp(y * 8388608.0 + 1064986816.0, min=0.0).to(torch.int32).view(torch.float32)
+
+
+def _k3_fast_reference(B, L, s1, s2, Wh, m, ring: bool, alpha: float = 0.2):
+    """K3 with fast_exp by the arithmetic of the kernel that walks the
+    schedule ``L`` (the ring kernel: ``B.ring``, its live steps cut into
+    segments; the single-stage kernel: ``B.segments``, every tile). Each segment's
+    rows keep a running max from -1e5, moved once a 64-column slab (ring)
+    or once a tile (single-stage) to LeakyReLU(s1 + the largest s2 over the
+    row's edges there). An edge's p is Schraudolph's exp at the running max
+    it meets: the ring's ``_fast_ex2`` of max(s2 L2E + (s1 - m) L2E,
+    alpha s2 L2E + (alpha s1 - m) L2E), the single-stage kernel's
+    ``FG._fast_exp`` of LeakyReLU(s1 + s2) - m. The kernels' rescales and
+    the split runs' merge weigh it by exp(running max - ``m``), ``m`` the
+    run's max. Returns out = sum bf16(p) bf16(Wh) / sum p and l."""
+    if s1.dim() == 1:
+        s1, s2, Wh = s1[:, None], s2[:, None], Wh[:, None]
+    tb, H, F, dev = B.tb, Wh.shape[1], Wh.shape[2], Wh.device
+    slab = 64 if ring else tb
+    ns = tb // slab
+    n_rt, n_ct = B.n_row_tiles, -(-B.n_cols // tb)
+    S1 = torch.zeros(n_rt * tb, H, device=dev)
+    S1[: s1.shape[0]] = s1
+    S2 = torch.zeros(n_ct * tb, H, device=dev)
+    S2[: s2.shape[0]] = s2
+    W = torch.zeros(n_ct * tb, H, F, device=dev)
+    W[: Wh.shape[0]] = Wh.to(torch.bfloat16).float()
+    if ring:
+        tiles, cbs, rbs = L.step[:, 0].long(), L.step[:, 1].long(), L.rb.long()
+    else:
+        tiles = torch.arange(B.num_tiles, device=dev)
+        cbs, rbs = B.tile_cb.long(), B.tile_rb.long()
+    S, G = L.segments if ring else L, tiles.shape[0]
+    iota = torch.arange(tb, device=dev)
+    batch = max(1, (1 << 24) // (tb * tb * H))
+
+    def steps(i0):
+        t, c, r = tiles[i0: i0 + batch], cbs[i0: i0 + batch], rbs[i0: i0 + batch]
+        mask = FG._mask01(B.tiles[t], tb) > 0  # [b, rows, cols]
+        return mask[..., None], r[:, None] * tb + iota, S1[r[:, None] * tb + iota], S2[c[:, None] * tb + iota], c
+
+    run = torch.empty(G, ns, tb, H, device=dev)  # each (step, slab)'s max, then the running max
+    for i0 in range(0, G, batch):
+        mask, _, s1b, s2b, _ = steps(i0)
+        big = torch.where(mask, s2b[:, None], -torch.inf).view(-1, tb, ns, slab, H).amax(3)
+        x = s1b[:, :, None] + big
+        run[i0: i0 + batch] = torch.maximum(x, alpha * x).permute(0, 2, 1, 3)
+    run = run.view(G * ns, tb, H)
+    lo, ln = S.seg_lo.long() * ns, (S.seg_hi.long() - S.seg_lo.long()) * ns
+    run[lo[ln > 0]] = torch.clamp(run[lo[ln > 0]], min=-1e5)
+    for j in range(1, int(ln.max()) if len(ln) else 0):
+        q = lo[ln > j] + j
+        run[q] = torch.maximum(run[q], run[q - 1])
+    run = run.view(G, ns, tb, H)
+    acc = torch.zeros(n_rt * tb, H, F, device=dev)
+    lsum = torch.zeros(n_rt * tb, H, device=dev)
+    for i0 in range(0, G, batch):
+        mask, grow, s1b, s2b, c = steps(i0)
+        ms = run[i0: i0 + batch].permute(0, 2, 1, 3)  # [b, rows, slabs, H]
+        w = torch.exp(ms - m[grow][:, :, None])
+        mc = ms.repeat_interleave(slab, dim=2)  # [b, rows, cols, H]
+        if ring:
+            sp = (s2b * L2E)[:, None]
+            y = torch.maximum(sp + (s1b[:, :, None] - mc) * L2E, alpha * sp + (alpha * s1b[:, :, None] - mc) * L2E)
+            p = _fast_ex2(y)
+        else:
+            e = s1b[:, :, None] + s2b[:, None]
+            p = FG._fast_exp(torch.maximum(e, alpha * e) - mc)
+        p = torch.where(mask, p, 0.0)
+        b = p.shape[0]
+        lsum.index_add_(0, grow.reshape(-1), (p.view(b, tb, ns, slab, H).sum(3) * w).sum(2).reshape(-1, H))
+        q = p.to(torch.bfloat16).float() * w.repeat_interleave(slab, dim=2)
+        prod = torch.einsum("brch,bchf->brhf", q, W[c[:, None] * tb + iota])
+        acc.index_add_(0, grow.reshape(-1), prod.reshape(-1, H, F))
+    out = acc / torch.clamp(lsum, min=1e-30)[..., None]
+    return out[: B.n_rows].view(B.n_rows, *Wh.shape[1:]), lsum
+
+
+def _check_fast(name, res, ref, exact, B, ring, s1, s2, Wh) -> tuple:
+    """K3 with fast_exp: m equal to the plain version's (it takes no exp);
+    out and l at GAT_TOL of ``_k3_fast_reference`` on the schedule the
+    kernel walks; the exact kernel's out must lie farther from that
+    reference. Returns (the error against it, against the plain version at
+    fast_exp, the exact kernel's against it)."""
+    _check(name + " m", res[1], ref[1], 0.0)
+    want, l = _k3_fast_reference(B, B.ring if ring else B.segments, s1, s2, Wh, ref[1], ring)
+    err = _check(name, res[0].view(want.shape), want, GAT_TOL)
+    torch.testing.assert_close(res[2], l, rtol=GAT_TOL, atol=1e-30, msg=lambda m: f"{name} l: {m}")
+    far = float((exact.view(want.shape) - want).abs().max())
+    if torch.equal(res[0], exact) or far <= err:
+        raise AssertionError(f"{name}: fast_exp changed nothing (exact kernel {far:.3g} from the reference, "
+                             f"the fast one {err:.3g})")
+    return err, float((res[0].float() - ref[0].float()).abs().max()), far
+
+
+def _unsplit_rows(S, tb: int, n_rows: int):
+    """bool [n_rows]: the rows whose run the launch schedule's segments ``S``
+    keep in one work item. K6 at ``noscore`` adds a chunk at the running max
+    of its work item, so a run split over work items weighs its chunks
+    otherwise than the plain version's one pass (JAX's semantics)."""
+    rb = torch.arange(n_rows, device=S.fin_rb.device) // tb
+    return ~torch.isin(rb, S.fin_rb.long())
+
+
+def _flash_variants_small(device, gen):
+    """The flash kernels' runtime flags on small cases, through the ring
+    kernel and the single-stage one: K3 with fast_exp (``_check_fast``), K4/K5 with
+    fast_exp under the same stats (GAT_TOL), K6 at noscore (on the rows of
+    unsplit runs) and off, each against its plain version at the same flag;
+    a flag must change the result."""
+    A = _random_graph(3001, False, seed=40, isolated=5)
+    for tb, H, F in ((128, 4, 64), (1024, 2, 16)):  # int8 masks (ring); packed masks (single-stage)
+        B = prepare_adjacency(A, method="xla", for_gat=True, gat_tb=tb, build_transpose=False,
+                              device=device).flash_tiles
+        s1, s2, Wh = _scores(3001, H, F, gen, device)
+        ring, bring = _flash_ring_rule(B, H, F), _bwd_ring_rule(B, H, F)
+        ref = FG.flash_gat_forward_plain(B, s1, s2, Wh, return_stats=True, fast_exp=True)
+        exact = FG.flash_gat_forward(B, s1, s2, Wh)
+        for kern, r in [(FG.flash_gat_forward, ring)] + ([(FG._flash_gat_forward_single, False)] if ring else []):
+            res = _flash_route(FG.flash_gat_forward, r, f"K3 fast_exp tb{tb}",
+                               lambda: kern(B, s1, s2, Wh, return_stats=True, fast_exp=True))
+            err, plain_err, far = _check_fast(f"K3 fast_exp tb{tb} {'ring' if r else 'single-stage'}", res, ref,
+                                              exact, B, r, s1, s2, Wh)
+            _log(f"  K3 fast_exp tb{tb} H{H} F{F} [{'ring' if r else 'single-stage'}]: err {err:.3g} against "
+                 f"the kernel's arithmetic (the exact kernel: {far:.3g}; the plain version at fast_exp: "
+                 f"{plain_err:.3g})")
+        m, l = ref[1], ref[2]
+        gO = torch.randn(Wh.shape, generator=gen, device=device)
+        tref = FG.flash_gat_bwd_row_plain(B, s1, s2, m, l, Wh, gO, fast_exp=True)
+        cref = FG.flash_gat_bwd_col_plain(B, s1, s2, m, l, tref[0], Wh, gO, fast_exp=True)
+        exact_t = FG.flash_gat_bwd_row(B, s1, s2, m, l, Wh, gO)[0]
+        runs = [(FG.flash_gat_bwd_row, FG.flash_gat_bwd_col, bring)]
+        if bring:
+            runs.append((FG._flash_gat_bwd_row_single, FG._flash_gat_bwd_col_single, False))
+        for row, col, r in runs:
+            label = f"tb{tb} {'ring' if r else 'single-stage'}"
+            got = _flash_route(FG.flash_gat_bwd_row, r, f"K4 fast_exp {label}",
+                               lambda: row(B, s1, s2, m, l, Wh, gO, fast_exp=True))
+            err = max(_check(f"K4 fast_exp {label}", g, rf, GAT_TOL) for g, rf in zip(got, tref))
+            if torch.equal(got[0], exact_t):
+                raise AssertionError(f"K4 {label}: fast_exp changed nothing")
+            got = _flash_route(FG.flash_gat_bwd_col, r, f"K5 fast_exp {label}",
+                               lambda: col(B, s1, s2, m, l, tref[0], Wh, gO, fast_exp=True))
+            err = max(err, *(_check(f"K5 fast_exp {label}", g, rf, GAT_TOL) for g, rf in zip(got, cref)))
+            _log(f"  K4/K5 fast_exp {label} H{H} F{F}: err {err:.3g}")
+    tb = 128
+    part, rest = split_by_tile_density(A, tb, 40)
+    B = K1.bsr_mask_from_sparse(part, tb=tb, cover_rows=True, cover_cols=True, device=device)
+    plan = K2.build_fused_plan(B, _drop_zero_val_edges(rest), attach_chunks=True)
+    s1, s2, Wh = _scores(3001, 4, 64, gen, device)
+    full = FG.flash_gat_hybrid_forward_plain(plan, s1, s2, Wh)
+    if not _flash_ring_rule(B, 4, 64, plan.K):
+        raise AssertionError("the K6 mode case must take the ring kernel")
+    for mode in ("noscore", "off"):
+        ref = FG.flash_gat_hybrid_forward_plain(plan, s1, s2, Wh, _chunk_mode=mode)
+        if torch.equal(ref, full):
+            raise AssertionError(f"K6 {mode}: the mode changed nothing")
+        for kern, S, r in ((FG.flash_gat_hybrid_forward, plan.ring.segments, True),
+                           (FG._flash_gat_hybrid_forward_single, plan.segments, False)):
+            name = f"K6 {mode} {'ring' if r else 'single-stage'}"
+            out = _flash_route(FG.flash_gat_hybrid_forward, r, name, lambda: kern(plan, s1, s2, Wh, _chunk_mode=mode))
+            keep = _unsplit_rows(S, tb, out.shape[0]) if mode == "noscore" else torch.ones_like(out[:, 0, 0], dtype=bool)
+            err = _check(name, out[keep], ref[keep], GAT_TOL)
+            # with the stats the chunks are scored whatever the mode (the backward's forward)
+            stats = kern(plan, s1, s2, Wh, return_stats=True, _chunk_mode=mode)
+            _check(f"{name} with stats (full)", stats[0], full, GAT_TOL)
+            _log(f"  {name}: err {err:.3g} on {int(keep.sum())} of {keep.numel()} rows (split runs: {S.n_fin})")
+
+
+def phase_fill_ins(device) -> None:
+    """The ported JAX functions that are plain tensor code, one short call
+    each on the card: ``bsr_spmm_xla`` against the plain K1 (the same bf16
+    products, f32 sums in another order: K1_TOL); ``pack_mask_bsr``
+    equal to the host bitmask build and unpacking to the mask tiles; the
+    sharded train-state pair round-tripping a GCNModel's parameters and Adam
+    state."""
+    from sgracex1_tpu_torch.train.checkpoint import load_train_state_sharded, save_train_state_sharded
+
+    t0 = time.perf_counter()
+    stamp = [t0]
+
+    def lap():
+        torch.cuda.synchronize()
+        stamp.append(time.perf_counter())
+        return stamp[-1] - stamp[-2]
+
+    gen = torch.Generator(device=device).manual_seed(13)
+    A = _random_graph(4096, True, seed=50)
+    B = K1.bsr_from_sparse(A, tb=256, cover_rows=True, device=device)
+    H = torch.randn(A.n_cols, 64, generator=gen, device=device)
+    err = _check("bsr_spmm_xla", K1.bsr_spmm_xla(B, H), K1.bsr_spmm_plain(B, H), K1_TOL)
+    laps = [lap()]
+    M = K1.bsr_mask_from_sparse(A, tb=1024, cover_rows=True, device=device)
+    P = K1.pack_mask_bsr(M, batch_tiles=3)
+    if not torch.equal(P.tiles, K1.bsr_bitmask_from_sparse(A, tb=1024, cover_rows=True, device=device).tiles):
+        raise AssertionError("pack_mask_bsr differs from bsr_bitmask_from_sparse")
+    if not (torch.equal(K1.unpack_mask01_tile(P.tiles, 1024), M.tiles.float())
+            and torch.equal(K1.unpack_mask_tile(P.tiles, 1024), M.tiles > 0)):
+        raise AssertionError("unpacking pack_mask_bsr's tiles does not give the mask tiles")
+    laps.append(lap())
+    prep = prepare_adjacency(_random_graph(4096, False, seed=51), method="xla", device=device)
+    x = torch.randn(A.n_rows, 16, generator=gen, device=device)
+    y = torch.randint(0, 4, (A.n_rows,), generator=gen, device=device)
+    m = torch.ones(A.n_rows, device=device)
+    laps.append(lap())
+    # one training step, lapped by part: the run's first backward and Adam step on the card
+    net = GCNModel(16, 32, 4, generator=torch.Generator().manual_seed(0)).to(device)
+    laps.append(lap())
+    a = TL.TrainState(model=net, optimizer=torch.optim.Adam(net.parameters(), lr=0.01))
+    laps.append(lap())
+    loss = _masked_xent(net(prep, x), y, m)
+    laps.append(lap())
+    loss.backward()
+    laps.append(lap())
+    a.optimizer.step()
+    a.step += 1
+    laps.append(lap())
+    # the state to load into: a copy with every parameter and Adam entry moved
+    b = copy.deepcopy(a)
+    with torch.no_grad():
+        for q in list(b.model.parameters()) + [v for st in b.optimizer.state.values() for v in st.values()]:
+            q.add_(1.0)
+    b.step = 0
+    with tempfile.TemporaryDirectory() as d:
+        save_train_state_sharded(d, a, a.step)
+        load_train_state_sharded(d, b, a.step)
+    oa, ob = a.optimizer.state_dict()["state"], b.optimizer.state_dict()["state"]
+    if not (all(torch.equal(p, q) for p, q in zip(a.model.state_dict().values(), b.model.state_dict().values()))
+            and all(torch.equal(oa[i][k], ob[i][k]) for i in oa for k in oa[i]) and b.step == a.step):
+        raise AssertionError("the sharded train state did not round-trip")
+    laps.append(lap())
+    _log(f"fill-ins on the card: bsr_spmm_xla err {err:.3g} on {B.num_tiles} tiles; pack_mask_bsr equal to the "
+         f"host bitmask on {P.num_tiles} tiles; sharded train state ({len(oa)} Adam entries) round-tripped; "
+         f"seconds: xla {laps[0]:.2f}, pack {laps[1]:.2f}, the edge-path prep {laps[2]:.2f}, one GCN step on "
+         f"it: the model {laps[3]:.2f}, the run's first optimizer {laps[4]:.2f}, forward {laps[5]:.2f}, "
+         f"backward {laps[6]:.2f}, Adam step {laps[7]:.2f}; save and load {laps[8]:.2f}; phase fill-ins: "
+         f"{time.perf_counter() - t0:.1f} s wall")
+
+
+# the K chooser's second graph: uniform random pairs, both directions, so
+# each row block of 256 holds ~190 remainder edges (tiles of ~1 edge stay
+# below the split's threshold), where the card's table takes K = 256
+KC_SPARSE = dict(n=1 << 19, pairs_a_node=0.375, seed=60)
+
+
+def _k_widths(label, prep, device, gen) -> dict:
+    """K2 on ``prep``'s forward and transposed plans rebuilt at K 128, 256
+    and 512 (the prep's own, at the chosen K, among them), each held
+    against ``bsr_spmm_fused_plain`` on the same plan and timed in turns;
+    the chosen K within ROUTE_TOL of the fastest."""
+    H = torch.randn(prep.A.n_cols, HIDDEN, generator=gen, device=device)
+    g = torch.randn(prep.A.n_rows, HIDDEN, generator=gen, device=device)
+    r1 = {} if prep.r1_row is None else dict(r1_row=prep.r1_row.cpu().numpy(), r1_col=prep.r1_col.cpu().numpy())
+    rt = {} if not r1 else dict(r1_row=r1["r1_col"], r1_col=r1["r1_row"])
+    rest_t = prep.rest.transpose() if prep.rest is not None else None
+    out = {}
+    for name, own, B, rest, kw, arg in (("fused", prep.fused, prep.bsr, prep.rest, r1, H),
+                                        ("fused_t", prep.fused_t, prep.bsr_t, rest_t, rt, g)):
+        plans = {K: own if own.K == K else K2.build_fused_plan(B, rest, K=K, attach_chunks=True, **kw)
+                 for K in (128, 256, 512)}
+        for K, p in plans.items():
+            _check(f"K2 on {label}'s {name} at K={K}", K2.bsr_spmm_fused(p, arg), K2.bsr_spmm_fused_plain(p, arg),
+                   K2_TOL)
+        ms = _interleaved_ms({K: (lambda p=p: K2.bsr_spmm_fused(p, arg)) for K, p in plans.items()})
+        best = min(ms, key=ms.get)
+        rows = []
+        for K, p in plans.items():
+            live = RL.live_slots(p)
+            slots = p.num_rest_chunks * K
+            rows.append(f"K={K}{' (chosen)' if K == own.K else ''}: {ms[K]:.4f} ms, {p.num_rest_chunks} chunks, "
+                        f"{live} live slots of {slots}, dead share {1 - live / max(slots, 1):.4f}")
+        _log(f"K chooser on {label}'s {name} (K2 at P={HIDDEN}, f32 in): " + "; ".join(rows))
+        if ms[own.K] > ROUTE_TOL * ms[best]:
+            raise AssertionError(f"K chooser on {label}'s {name}: chose K={own.K} at {ms[own.K]:.4f} ms, "
+                                 f"K={best} measures {ms[best]:.4f} ms")
+        out[name] = dict(chosen=own.K, ms=ms)
+        del plans
+    return out
+
+
+def phase_k_chooser(prep, device, cfg=KC_SPARSE) -> dict:
+    """The fused plan's K chooser where the card's table takes the default
+    width and where it takes a wider one (``_k_widths``): the GCN slice's
+    hybrid prep (SLICE_SPLIT) and the hybrid prep at tb SLICE_SPLIT[0] of a
+    sparse uniform graph (``cfg``), whose plans must take K > DEFAULT_K.
+    Chunks, live slots and the dead-slot share at each K."""
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=device).manual_seed(11)
+    out = {"the slice": _k_widths("the slice", prep, device, gen)}
+    n = cfg["n"]
+    pairs = np.random.default_rng(cfg["seed"]).integers(0, n, (2, int(cfg["pairs_a_node"] * n)))
+    A = sym_norm(np.concatenate([pairs, pairs[::-1]], axis=1), n)
+    t1 = time.perf_counter()
+    sparse = prepare_adjacency(A, method="hybrid", tb=SLICE_SPLIT[0], device=device)
+    _log(f"K chooser's sparse graph {cfg}: {A.nnz} edges; hybrid prepare at tb {SLICE_SPLIT[0]} in "
+         f"{time.perf_counter() - t1:.2f} s: {sparse.bsr.num_tiles} tiles, {sparse.rest.nnz} remainder edges, "
+         f"chosen K {sparse.fused.K} / {sparse.fused_t.K}")
+    if min(sparse.fused.K, sparse.fused_t.K) <= K2.DEFAULT_K:
+        raise AssertionError(f"the sparse graph's plans took K {sparse.fused.K} / {sparse.fused_t.K}")
+    out["the sparse graph"] = _k_widths("the sparse graph", sparse, device, gen)
+    del sparse
+    _log(f"phase k chooser: {time.perf_counter() - t0:.1f} s wall")
+    return out
+
+
+def phase_flash_variants(prep, device) -> dict:
+    """The JAX package's ablations of the flash kernels' consumer work on
+    the GAT slice's split (ring kernels): K3 with exact and with fast_exp
+    exps and K4/K5 likewise (under K6's stats), at H=4 and H=1, F=64; K6 at
+    chunk modes full, noscore and off. Each variant is held against its
+    plain version at the same flag (K6 noscore on the rows of unsplit runs;
+    K3 at fast_exp through ``_check_fast``: its m against the plain version,
+    out and l against the kernel's own arithmetic) and the variants of a
+    kernel are timed in turns (CUDA events, median of rounds); their
+    differences in ms and %."""
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=device).manual_seed(12)
+    plan = prep.gat_plan
+    B, n = plan.B, prep.A.n_cols
+    keep = _unsplit_rows(plan.ring.segments, B.tb, B.n_rows)
+    rec = {}
+
+    def report(label, ms: dict):
+        base = next(iter(ms))
+        diffs = ", ".join(f"{k} {v:.4f} ms ({v - ms[base]:+.4f} ms, {100 * (v / ms[base] - 1):+.1f}%)"
+                          for k, v in list(ms.items())[1:])
+        _log(f"{label}: {base} {ms[base]:.4f} ms, {diffs}")
+        rec[label] = ms
+
+    for H in (GAT_HEADS, 1):
+        s1, s2, Wh = _scores(n, H, GAT_HIDDEN, gen, device)
+        ref = FG.flash_gat_forward_plain(B, s1, s2, Wh, return_stats=True, fast_exp=True)
+        err, plain_err, far = _check_fast(
+            f"K3 fast_exp at slice shapes H={H}", FG.flash_gat_forward(B, s1, s2, Wh, return_stats=True,
+                                                                       fast_exp=True),
+            ref, FG.flash_gat_forward(B, s1, s2, Wh), B, FG._takes_ring(B, Wh), s1, s2, Wh)
+        del ref
+        _log(f"  K3 fast_exp H={H}: max abs err {err:.3g} against the kernel's arithmetic (the exact kernel: "
+             f"{far:.3g}; the plain version at fast_exp, a tile's running max: {plain_err:.3g})")
+        report(f"K3 at slice shapes H={H} (fast_exp err {err:.3g})", _interleaved_ms({
+            "exact": lambda: FG.flash_gat_forward(B, s1, s2, Wh),
+            "fast_exp": lambda: FG.flash_gat_forward(B, s1, s2, Wh, fast_exp=True)}, rounds=3))
+        for mode in ("noscore", "off"):
+            want = FG.flash_gat_hybrid_forward_plain(plan, s1, s2, Wh, _chunk_mode=mode)
+            got = FG.flash_gat_hybrid_forward(plan, s1, s2, Wh, _chunk_mode=mode)
+            rows = keep if mode == "noscore" else torch.ones_like(keep)
+            e = _check(f"K6 {mode} at slice shapes H={H}", got[rows], want[rows], GAT_TOL)
+            # noscore: rows whose edges are all chunks keep l = 0, so their sums come out over 1e-30
+            _log(f"  K6 {mode} H={H}: max abs err {e:.3g} of max |out| {float(want[rows].abs().max()):.3g}, "
+                 f"on {int(rows.sum())} of {rows.numel()} rows")
+            del want, got
+        report(f"K6 at slice shapes H={H}", _interleaved_ms({
+            mode: (lambda mode=mode: FG.flash_gat_hybrid_forward(plan, s1, s2, Wh, _chunk_mode=mode))
+            for mode in FG.CHUNK_MODES}, rounds=3))
+        _, m, l = FG.flash_gat_hybrid_forward(plan, s1, s2, Wh, return_stats=True)
+        gO = torch.randn(Wh.shape, generator=gen, device=device)
+        ops = FG.bwd_operands(B, s1, s2, Wh, gO, m, l)
+        t = FG.flash_gat_bwd_row_plain(B, **ops, fast_exp=True)
+        e4 = max(_check(f"K4 fast_exp at slice shapes H={H}", a, b, GAT_TOL)
+                 for a, b in zip(FG.flash_gat_bwd_row(B, **ops, fast_exp=True), t))
+        c = FG.flash_gat_bwd_col_plain(B, **ops, t=t[0], fast_exp=True)
+        e5 = max(_check(f"K5 fast_exp at slice shapes H={H}", a, b, GAT_TOL)
+                 for a, b in zip(FG.flash_gat_bwd_col(B, **ops, t=t[0], fast_exp=True), c))
+        del c
+        tt = t[0]
+        report(f"K4 at slice shapes H={H} (fast_exp err {e4:.3g})", _interleaved_ms({
+            "exact": lambda: FG.flash_gat_bwd_row(B, **ops),
+            "fast_exp": lambda: FG.flash_gat_bwd_row(B, **ops, fast_exp=True)}, rounds=3))
+        report(f"K5 at slice shapes H={H} (fast_exp err {e5:.3g})", _interleaved_ms({
+            "exact": lambda: FG.flash_gat_bwd_col(B, **ops, t=tt),
+            "fast_exp": lambda: FG.flash_gat_bwd_col(B, **ops, t=tt, fast_exp=True)}, rounds=3))
+        del ops, t, tt, m, l, gO, s1, s2, Wh
+    _log(f"phase flash variants: {time.perf_counter() - t0:.1f} s wall")
+    return rec
+
+
+def _same_schedule(name, a, b) -> None:
+    """Two live schedules hold equal tensors."""
+    if a is b:
+        return
+    pairs = [("step", a.step, b.step), ("rb", a.rb, b.rb)] + [
+        (k, v, getattr(b.segments, k)) for k, v in a.segments.tensors().items()]
+    for k, x, y in pairs:
+        if not torch.equal(x, y):
+            raise AssertionError(f"{name}: the padded prep's {k} differs from the unpadded prep's")
+
+
+def _padded_steps(label, net, pairs, loss_of) -> None:
+    """Each (unpadded, padded) prep: its live schedules equal, and one step
+    (train mode, dropout from a generator seeded 0, the loop's loss,
+    backward) from the same parameters on both, the loss and every gradient
+    within 1e-6 of the largest (the same kernels walk the same live steps);
+    the step's ms on both (synchronised host clock, median of 3)."""
+    dev = next(net.parameters()).device
+    ms = {"unpadded": [], "padded": []}
+    equal = 0
+    for i, (u, p) in enumerate(pairs):
+        for f in ("bsr", "bsr_t", "gat_bsr"):
+            if getattr(u, f) is not None:
+                _same_schedule(f"{label} batch {i} {f}.ring", getattr(u, f).ring, getattr(p, f).ring)
+        for f in ("fused", "fused_t"):
+            if getattr(u, f) is not None:
+                _same_schedule(f"{label} batch {i} {f}.ring", getattr(u, f).ring, getattr(p, f).ring)
+        got = []
+        for key, prep in (("unpadded", u), ("padded", p)):
+            def step():
+                net.train()
+                net.zero_grad(set_to_none=True)
+                loss = loss_of(i, prep, torch.Generator(device=dev).manual_seed(0))
+                loss.backward()
+                return loss.detach()
+            loss = step()
+            got.append((loss, {k: q.grad.clone() for k, q in net.named_parameters()}))
+            times = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                s = time.perf_counter()
+                step()
+                torch.cuda.synchronize()
+                times.append(1e3 * (time.perf_counter() - s))
+            ms[key].append(float(np.median(times)))
+        (l0, g0), (l1, g1) = got
+        torch.testing.assert_close(l1, l0, rtol=1e-6, atol=1e-6 * float(l0.abs()),
+                                   msg=lambda m: f"{label} batch {i} loss: {m}")
+        for k in g0:
+            torch.testing.assert_close(g1[k], g0[k], rtol=1e-6, atol=1e-6 * float(g0[k].abs().max()),
+                                       msg=lambda m: f"{label} batch {i} grad {k}: {m}")
+        equal += bool(torch.equal(l0, l1) and all(torch.equal(g0[k], g1[k]) for k in g0))
+    _log(f"{label}: {len(pairs)} padded preps with the unpadded live schedules; steps on them match "
+         f"({equal} bit for bit); step ms (forward and backward) median unpadded {np.median(ms['unpadded']):.3f}, "
+         f"padded {np.median(ms['padded']):.3f} (by batch: "
+         + ", ".join(f"{a:.3f}/{b:.3f}" for a, b in zip(ms["unpadded"], ms["padded"])) + ")")
+
+
+def phase_padding(device, cfg=PAD_GRAPH) -> dict:
+    """Sticky padding (``train/loop._pad_prep_tiles``) where the batch loops
+    call it: ``train_node_classifier_sampled`` at prepare="hybrid" on a
+    products-density graph (``cfg``; PAD_SEEDS seeds in batches of
+    SAMPLED_BATCH, two batches an epoch, 2 epochs: each batch padded to the
+    maxima of the batches before it, and some batch must grow) and
+    ``train_graph_classifier`` at prepare="bsr" on the molecules (2
+    epochs). The loop must pad each batch's prep; every padded
+    prep then keeps its unpadded prep's live schedules, and a step on it
+    matches the step on the unpadded prep (``_padded_steps``)."""
+    t_phase = time.perf_counter()
+    data = _products_graph(cfg)
+    train = np.nonzero(data.train_mask)[0]
+    mask = np.zeros_like(data.train_mask)
+    mask[np.random.default_rng(1).choice(train, PAD_SEEDS, replace=False)] = True
+    sdata = dataclasses.replace(data, train_mask=mask)
+    net = _gcn_net(cfg)
+    scfg = SGRACEConfig(num_epochs=2, learning_rate=0.01)
+    sampled, preps, pads = [], [], []
+    state, hist, launches, per_step, wall = _run_loop(
+        "sampled GCN, hybrid, padded", lambda: train_node_classifier_sampled(
+            net, sdata, scfg, batch_size=SAMPLED_BATCH, fanouts=(10, 10), seed=0, prepare="hybrid",
+            device=device),
+        {"make_neighbor_batches": sampled, "_prepare_backend": preps, "_pad_prep_tiles": pads})
+    unpadded = [p for _, p, _, _ in preps[1:]]
+    padded = [p for _, p, _, _ in pads]
+    if len(padded) != len(unpadded) or any(p.kind != "hybrid" or p.fused is None for p in unpadded):
+        raise AssertionError(f"sampled loop: {len(padded)} padded preps for {len(unpadded)} batches")
+    _want_per_step("sampled GCN, hybrid, padded", per_step, {"bsr_spmm_fused": 4})
+    for i, (u, p) in enumerate(zip(unpadded, padded)):
+        f, fp = u.fused, p.fused
+        _log(f"  sampled batch {i}: tiles {u.bsr.num_tiles} -> {p.bsr.num_tiles}, fused (S, R, K) "
+             f"({f.num_steps}, {f.num_chunks}, {f.K}) -> ({fp.num_steps}, {fp.num_chunks}, {fp.K}), fused_t "
+             f"({u.fused_t.num_steps}, {u.fused_t.num_chunks}, {u.fused_t.K}) -> ({p.fused_t.num_steps}, "
+             f"{p.fused_t.num_chunks}, {p.fused_t.K}); rest dropped: {p.rest is None}")
+    # past its own shape (the chunk target keeps one dead chunk past the largest R)
+    grew = lambda u, p: (p.bsr.num_tiles > u.bsr.num_tiles or p.fused.num_steps > u.fused.num_steps
+                         or p.fused.num_chunks > u.fused.num_chunks + 1
+                         or p.fused_t.num_chunks > u.fused_t.num_chunks + 1)
+    if len(padded) < 4 or not any(grew(u, p) for u, p in zip(unpadded, padded)):
+        raise AssertionError(f"sampled loop: {len(padded)} batches, none padded past its own shape")
+    batches = [b for _, bs, _, _ in sampled for b in bs]
+    t = lambda a: torch.from_numpy(a).to(device)
+    _padded_steps("sampled GCN, hybrid", state.model, list(zip(unpadded, padded)),
+                  lambda i, prep, g: _masked_xent(state.model(prep, t(batches[i].x), generator=g),
+                                                  t(batches[i].y).long(), t(batches[i].seed_mask).float()))
+    out = {k: v for k, v in launches.items() if v}
+
+    graphs = synthetic_molecules(num_graphs=150, seed=4)
+    rng = np.random.default_rng(0)
+    idx = rng.permutation(len(graphs))
+    train_b = make_batches([graphs[i] for i in idx[:120]], 32, rng=rng, pad_to=64)
+    test_b = make_batches([graphs[i] for i in idx[120:]], 32, pad_to=64)
+    mnet = MoleculeGCN(7, MOL_HIDDEN, 2)
+    mnet.load_state_dict({k: torch.from_numpy(v) for k, v in
+                          _slice_weights(np.random.default_rng(0), 7, MOL_HIDDEN, 2).items()})
+    preps, pads = [], []
+    mstate, _, mlaunches, m_per_step, _ = _run_loop(
+        "MoleculeGCN, padded", lambda: train_graph_classifier(
+            mnet, train_b, test_b, SGRACEConfig(num_epochs=2, learning_rate=0.01), seed=0, prepare="bsr",
+            device=device),
+        {"_prepare_backend": preps, "_pad_prep_tiles": pads})
+    unpadded = [p for _, p, _, _ in preps]
+    padded = [p for _, p, _, _ in pads[len(unpadded):]]  # the second pass: every batch at the final maxima
+    if len(pads) != 2 * len(unpadded):
+        raise AssertionError(f"molecule loop: {len(pads)} padding calls for {len(unpadded)} batches")
+    _want_per_step("MoleculeGCN, padded", m_per_step, {"bsr_spmm_fused": 4})
+    shapes = {(p.bsr.num_tiles, p.fused.num_steps, p.fused.num_chunks, p.fused.K) for p in padded}
+    if len(shapes) != 1:
+        raise AssertionError(f"molecule batches padded to several shapes: {shapes}")
+    _log(f"  molecule batches: tiles {sorted(p.bsr.num_tiles for p in unpadded)} -> {shapes}")
+    _padded_steps("MoleculeGCN, bsr", mstate.model, list(zip(unpadded, padded))[: len(train_b)],
+                  lambda i, prep, g: _masked_xent(
+                      mstate.model(prep, t(train_b[i].x), t(train_b[i].graph_ids).long(), train_b[i].num_graphs,
+                                   generator=g), t(train_b[i].y).long(), t(train_b[i].label_mask).float()))
+    _add(out, {k: v for k, v in mlaunches.items() if v})
+    _log(f"phase padding: {time.perf_counter() - t_phase:.1f} s wall")
+    return out
+
+
 def main() -> None:
     t_run = time.perf_counter()
     phase_device()
@@ -4010,8 +4572,10 @@ def main() -> None:
     phase_kernels_small(device)
     phase_int8_kernels_small(device)
     phase_variant_kernels_small(device)
+    phase_fill_ins(device)
     A, data, prep = phase_slice_prepare(device, graph=phase_native_prepare(device))
     rec = phase_kernels_slice(A, prep, device)
+    phase_k_chooser(prep, device)
     launches, k2_logits = phase_slice_serve(A, data.x, prep, device)
     # remat: the ReLU layer's aggregation is recomputed, the last layer's is
     # not (its backward reads no output of it), so K2 five times a step
@@ -4036,6 +4600,7 @@ def main() -> None:
     torch.cuda.empty_cache()
     gat_prep = phase_gat_prepare(A, device, "slice", split=SLICE_SPLIT)
     rec.update(phase_gat_kernels_slice(gat_prep, device))
+    phase_flash_variants(gat_prep, device)
     dense_part = split_by_tile_density(A, gat_prep.gat_bsr.tb, SLICE_SPLIT[1])[0]
     more_rec, more = phase_subskip(gat_prep.gat_bsr, dense_part, device, "slice's attention", record=True,
                                    plain_min_sb=64)
@@ -4066,6 +4631,7 @@ def main() -> None:
     _add(launches, phase_int8_gat(device))
     products = _products_graph()
     _add(launches, phase_sampled(device, products))
+    _add(launches, phase_padding(device))
     torch.cuda.empty_cache()
     _add(launches, phase_ppi(device))
     torch.cuda.empty_cache()

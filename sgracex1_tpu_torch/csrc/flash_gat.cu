@@ -27,6 +27,13 @@
 // merge kernel combines in a fixed order (M = max m_i, weights
 // exp(m_i - M)). No atomics.
 //
+// Runtime flags (Args::flags; warp-uniform, no template axis): fast_exp
+// (K3) takes Schraudolph's exp (fast_exp of tile_gemm.cuh) for p; K6's
+// chunk mode noscore adds onehot(lrow) @ Wh to the sums with no score, max
+// or l (p = 1 on each slot's row), and off skips the chunk steps: the JAX
+// package's ablations (flash_gat_forward(fast_exp=),
+// flash_gat_hybrid_forward(_chunk_mode=)).
+//
 // K12 (sgracex1_tpu/ops/flash_gat.py:flash_gat_forward_subskip, Pallas
 // kernel _flash_gat_kernel_subskip) is K3 with a host-built population
 // bitmap pop[T, nw] (subblock.cuh): bit (i * ns + j) of tile t says whether
@@ -98,6 +105,10 @@ struct Args {
   float alpha;
   float* out; int n_rows; float* m_out; float* l_out;
   float* pm; float* pl; float* pacc;
+  // runtime flags, warp-uniform (ops/flash_gat._kernel_flags): bit 0 the
+  // scores' exps by fast_exp (K3); bits 1-2 K6's chunk mode, 0 full, 1
+  // noscore (onehot(lrow) @ Wh into the sums, no score, max or l), 2 off
+  int flags;
 };
 
 using namespace nvcuda;
@@ -150,6 +161,8 @@ __device__ __forceinline__ void step(Smem& s, const Args& a, const Lane& ln, lon
   // scores, ~-1e9, lose to m >= -1e5 as well). Chunks of 64 columns with
   // no edge in the CTA's rows are marked dead for pass 2.
   const int nchunk = (ncols + COLS - 1) / COLS;
+  const bool noscore = CHUNK && (a.flags >> 1) == 1;  // m and l stay, corr is 1
+  const bool fast = (a.flags & 1) != 0;
   float smax[4] = {-INFINITY, -INFINITY, -INFINITY, -INFINITY};
   for (int kc = 0; kc < nchunk; ++kc) {
     const int c = kc * COLS + ln.g * 8;
@@ -169,7 +182,7 @@ __device__ __forceinline__ void step(Smem& s, const Args& a, const Lane& ln, lon
           if (kp) bits = tile_mask8<MODE>(a.tiles, id, tb, lr, c) & kp;
         }
       }
-      if (bits) {
+      if (bits && !noscore) {
 #pragma unroll
         for (int q = 0; q < 8; ++q)
           if ((bits >> q) & 1u) smax[i] = fmaxf(smax[i], s.s2[c + q]);
@@ -241,9 +254,13 @@ __device__ __forceinline__ void step(Smem& s, const Args& a, const Lane& ln, lon
 #pragma unroll
         for (int q = 0; q < 8; ++q) {
           if ((bits >> q) & 1u) {
+            if (noscore) {
+              pb[q] = __float2bfloat16_rn(1.f);
+              continue;
+            }
             float x = s1r[i] + s.s2[c + q];
             x = fmaxf(x, a.alpha * x);
-            const float p = __expf(x - mnew[i]);
+            const float p = fast ? fast_exp(x - mnew[i]) : __expf(x - mnew[i]);
             psum[i] += p;
             pb[q] = __float2bfloat16_rn(p);
           }
@@ -333,7 +350,7 @@ __global__ void __launch_bounds__(NTHREADS, 4) flash_gat_kernel(Args a) {
     if (kind != 1)
       step<MODE, false>(s, a, ln, a.step_tile[g], a.step_cb[g], rb, row0, h, f0, nf, s1r, m,
                         l, acc);
-    if (kind >= 1)
+    if (kind >= 1 && (a.flags >> 1) != 2)  // chunk mode off: chunks skipped
       step<MODE, true>(s, a, ln, a.step_chunk[g], 0, rb, row0, h, f0, nf, s1r, m, l, acc);
   }
 
@@ -431,7 +448,8 @@ static cudaError_t launch(const Args& a, int n_seg, cudaStream_t stream) {
 }  // namespace sg
 
 // K3 (step_kind == nullptr: step g is tile g, column block tile_cb[g]), K12
-// (K3 with the sub-block bitmap pop) and K6 (steps of a fused plan). Returns the cudaError_t of the launches.
+// (K3 with the sub-block bitmap pop) and K6 (steps of a fused plan), with
+// the runtime flags of Args. Returns the cudaError_t of the launches.
 extern "C" int sg_flash_gat(const void* tiles, int tile_mode, int tb, int n_seg,
                             const int* seg_rb, const int* seg_lo, const int* seg_hi,
                             const int* seg_part, int n_fin, const int* fin_rb,
@@ -441,7 +459,7 @@ extern "C" int sg_flash_gat(const void* tiles, int tile_mode, int tb, int n_seg,
                             const int* pop, int sb, const float* s1, int n_s1, const float* s2, int n_s2,
                             const void* Wh, int wvec, int H, int F, float alpha,
                             float* out, int n_rows, float* m_out, float* l_out, float* pm,
-                            float* pl, float* pacc, void* stream_ptr) {
+                            float* pl, float* pacc, int flags, void* stream_ptr) {
   using namespace sg;
   using namespace sg::flash;
   if (tb % 32 || tb > MAX_TB || K > MAX_K || H < 1 || F < 1)
@@ -454,7 +472,7 @@ extern "C" int sg_flash_gat(const void* tiles, int tile_mode, int tb, int n_seg,
          seg_rb, seg_lo, seg_hi, seg_part, tile_cb,
          step_cb, step_tile, step_chunk, step_kind, lrow, slot_col, K,
          {pop, sb, ns, (ns * ns + 31) / 32}, s1, n_s1, s2, n_s2, static_cast<const __nv_bfloat16*>(Wh), wvec, alpha,
-         out, n_rows, m_out, l_out, pm, pl, pacc};
+         out, n_rows, m_out, l_out, pm, pl, pacc, flags};
   cudaError_t err;
   switch (tile_mode) {
     case TILE_BF16: err = launch<TILE_BF16>(a, n_seg, stream); break;

@@ -15,7 +15,9 @@
 // Masked entries have p = 0 in the TPU kernel (exp of a score 1e9 below m
 // underflows); here they are never computed, and a 64 x 64 chunk of a tile
 // with no edge in it is skipped whole (one block-wide vote on the mask
-// bits). Rows without an edge (m = -1e5, l = 0) add exactly 0.
+// bits). Rows without an edge (m = -1e5, l = 0) add exactly 0. With the
+// runtime flag fast_exp (warp-uniform) p takes Schraudolph's exp
+// (fast_exp of tile_gemm.cuh), the TPU passes' fast_exp option.
 //
 // The TPU grid walks runs of tiles in order and keeps the sums resident.
 // Here K4 walks the row-block runs of ops/bsr.RunSegments as K1 and K3 do:
@@ -58,6 +60,7 @@ struct Args {
   const __nv_bfloat16* Wh; const __nv_bfloat16* gO;
   int H, F, n_fs, wvec;  // wvec: rows copy as 16-byte pieces
   float alpha;
+  int fast;  // the probabilities' exps by fast_exp (warp-uniform)
   float* out; float* partial;    // K4 [*, 3H] (t | u1 | u2); K5 dWh [*, H*F]
   float* out2; float* partial2;  // K5 ds2 [*, H]
 };
@@ -191,7 +194,8 @@ __global__ void __launch_bounds__(NTHREADS, 3) bwd_row_kernel(Args a) {
           if (!((bits[i] >> e) & 1u)) continue;
           const float x = s1r[i] + s2c[g * 8 + e];
           const float lrv = x > 0.f ? 1.f : a.alpha;
-          const float p = __expf(fmaxf(x, a.alpha * x) - mr[i]) * linv[i];
+          const float y = fmaxf(x, a.alpha * x) - mr[i];
+          const float p = (a.fast ? fast_exp(y) : __expf(y)) * linv[i];
           const float pq = p * qrow[e];
           t[i] += pq;
           u1[i] += pq * lrv;
@@ -311,7 +315,8 @@ __global__ void __launch_bounds__(NTHREADS) bwd_col_kernel(Args a) {
         if ((mb[r][c >> 3] >> (c & 7)) & 1u) {
           const float x = rs1[r] + s2c;
           const float lrv = x > 0.f ? 1.f : a.alpha;
-          const float p = __expf(fmaxf(x, a.alpha * x) - rm[r]) * rli[r];
+          const float y = fmaxf(x, a.alpha * x) - rm[r];
+          const float p = (a.fast ? fast_exp(y) : __expf(y)) * rli[r];
           ds2 += p * (qst[r * Q_LD + c] - rt[r]) * lrv;
           pb = __float2bfloat16_rn(p);
         }
@@ -395,14 +400,15 @@ static cudaError_t finalize(const float* partial, const int* fin_rb, const int* 
 }  // namespace sg
 
 // K4 over the row-block runs (segments of B.segments): tuu [n_rt*tb, 3H]
-// holds t | u1 | u2. Returns the cudaError_t of the launches.
+// holds t | u1 | u2; fast_exp != 0 takes fast_exp for the probabilities'
+// exps. Returns the cudaError_t of the launches.
 extern "C" int sg_flash_gat_bwd_row(const void* tiles, int tile_mode, int tb, int n_seg,
                                     const int* seg_rb, const int* seg_lo, const int* seg_hi,
                                     const int* seg_part, int n_fin, const int* fin_rb,
                                     const int* fin_p0, const int* fin_np, const int* tile_cb,
                                     const float* s1, const float* s2, const float* m,
                                     const float* l, const void* Wh, const void* gO, int wvec,
-                                    int H, int F, float alpha, float* tuu, int n_rows_pad,
+                                    int H, int F, float alpha, int fast_exp, float* tuu, int n_rows_pad,
                                     float* partial, void* stream_ptr) {
   using namespace sg::flash_bwd;
   if (tb % 32 || tb > 1024 || H < 1 || F < 1) return (int)cudaErrorInvalidValue;
@@ -410,7 +416,7 @@ extern "C" int sg_flash_gat_bwd_row(const void* tiles, int tile_mode, int tb, in
   Args a{tiles, tb, seg_rb, seg_lo, seg_hi, seg_part, nullptr, tile_cb, nullptr,
          s1, s2, m, l, nullptr,
          static_cast<const __nv_bfloat16*>(Wh), static_cast<const __nv_bfloat16*>(gO),
-         H, F, (F + FS - 1) / FS, wvec, alpha, tuu, partial, nullptr, nullptr};
+         H, F, (F + FS - 1) / FS, wvec, alpha, fast_exp, tuu, partial, nullptr, nullptr};
   cudaError_t err = run(false, tile_mode, a, n_seg, stream);
   if (err != cudaSuccess || n_fin == 0) return (int)err;
   return (int)finalize(partial, fin_rb, fin_p0, fin_np, n_fin, tb, 3 * H, n_rows_pad, tuu,
@@ -426,7 +432,7 @@ extern "C" int sg_flash_gat_bwd_col(const void* tiles, int tile_mode, int tb, in
                                     const int* tile_rb, const float* s1, const float* s2,
                                     const float* m, const float* l, const float* t,
                                     const void* Wh, const void* gO, int wvec, int H, int F,
-                                    float alpha, float* dwh, float* ds2, int n_cols_pad,
+                                    float alpha, int fast_exp, float* dwh, float* ds2, int n_cols_pad,
                                     float* pdwh, float* pds2, void* stream_ptr) {
   using namespace sg::flash_bwd;
   if (tb % 32 || tb > 1024 || H < 1 || F < 1) return (int)cudaErrorInvalidValue;
@@ -434,7 +440,7 @@ extern "C" int sg_flash_gat_bwd_col(const void* tiles, int tile_mode, int tb, in
   Args a{tiles, tb, seg_cb, seg_lo, seg_hi, seg_part, tile_rb, nullptr, col_perm,
          s1, s2, m, l, t,
          static_cast<const __nv_bfloat16*>(Wh), static_cast<const __nv_bfloat16*>(gO),
-         H, F, (F + FS - 1) / FS, wvec, alpha, dwh, pdwh, ds2, pds2};
+         H, F, (F + FS - 1) / FS, wvec, alpha, fast_exp, dwh, pdwh, ds2, pds2};
   cudaError_t err = run(true, tile_mode, a, n_seg, stream);
   if (err != cudaSuccess || n_fin == 0) return (int)err;
   err = finalize(pdwh, fin_cb, fin_p0, fin_np, n_fin, tb, H * F, n_cols_pad, dwh, stream);

@@ -40,6 +40,15 @@ __device__ __forceinline__ float bf16r(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
 
+// Schraudolph's exp, the flash kernels' fast_exp (ops/flash_gat._fast_exp):
+// bitcast_f32(int32(max(A x + B, 0))), A = 2^23 / ln 2, B = 127 * 2^23 - 366400.
+// The _rn intrinsics keep nvcc from contracting A x + B into an FMA, so the
+// bits are the plain version's (one rounding after the product, one after
+// the sum).
+__device__ __forceinline__ float fast_exp(float x) {
+  return __int_as_float(__float2int_rz(fmaxf(__fadd_rn(__fmul_rn(12102203.161561485f, x), 1064986816.f), 0.f)));
+}
+
 __device__ __forceinline__ float h_load(const float* H, long i) { return H[i]; }
 __device__ __forceinline__ float h_load(const __nv_bfloat16* H, long i) {
   return __bfloat162float(H[i]);

@@ -209,6 +209,14 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
+// Schraudolph's exp of a base-2 exponent y = x / ln 2 (the flash ring
+// kernels' fast_exp; ops/flash_gat._fast_exp): A x = 2^23 y exactly, so
+// bitcast_f32(int32(max(2^23 y + B, 0))), B = 127 * 2^23 - 366400. The _rn
+// intrinsics keep nvcc from contracting it into an FMA.
+__device__ __forceinline__ float fast_ex2(float y) {
+  return __int_as_float(__float2int_rz(fmaxf(__fadd_rn(__fmul_rn(8388608.f, y), 1064986816.f), 0.f)));
+}
+
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);

@@ -19,6 +19,7 @@ from typing import List, Tuple
 import numpy as np
 
 from sgracex1_tpu_torch.graph.batch import GraphSample
+from sgracex1_tpu_torch.graph.csr import unique_sorted
 
 
 @dataclasses.dataclass(frozen=True)
@@ -205,7 +206,7 @@ def powerlaw_node_classification(
     keep = src != dst
     src, dst = src[keep], dst[keep]
     # symmetrize + dedupe via int64 keys (lexsorted edge list)
-    k = np.unique(
+    k = unique_sorted(
         np.concatenate(
             [src.astype(np.int64) * n + dst, dst.astype(np.int64) * n + src]
         )
@@ -250,7 +251,7 @@ def products_density_graph(
     src = np.repeat(i, ring)
     dst = (src + np.tile(offs, n)) % n
     ei = np.concatenate([base.edge_index, np.stack([src, dst])], axis=1)
-    k = np.unique(np.concatenate([ei[0] * n + ei[1], ei[1] * n + ei[0]]))
+    k = unique_sorted(np.concatenate([ei[0] * n + ei[1], ei[1] * n + ei[0]]))
     und = np.stack([k // n, k % n])
     return NodeClassificationData(
         und, base.x, base.y, base.train_mask, base.val_mask, base.test_mask,

@@ -14,7 +14,7 @@ from typing import Optional, Tuple
 
 import numpy as np
 
-from sgracex1_tpu_torch.graph.csr import SparseMatrix
+from sgracex1_tpu_torch.graph.csr import SparseMatrix, unique_sorted
 from sgracex1_tpu_torch.runtime import native
 
 
@@ -92,7 +92,7 @@ def rank1_factor(
         return None
     r, c, v = r[pos], c[pos], v[pos]
     key = r * n_c + c
-    if len(np.unique(key)) != len(key):
+    if len(unique_sorted(key)) != len(key):
         return None  # duplicate edges sum in the matrix
     w = np.log(v)
     cnt_r = np.maximum(np.bincount(r, minlength=n_r), 1)

@@ -166,7 +166,7 @@ def _declare(lib: ctypes.CDLL) -> None:
         p, i, p, i,  # s1, n_s1, s2, n_s2
         p, i, i, i, ctypes.c_float,  # Wh (bf16), wvec, H, F, alpha
         p, i, p, p,  # out, n_rows, m_out, l_out
-        p, p, p, p,  # pm, pl, pacc, stream
+        p, p, p, i, p,  # pm, pl, pacc, flags, stream
     ]
     lib.sg_flash_gat_ring.restype = i
     lib.sg_flash_gat_ring.argtypes = [
@@ -175,7 +175,7 @@ def _declare(lib: ctypes.CDLL) -> None:
         p, p, p, i,  # step, lrow, slot_col, K
         p, i, p, p, i, i, ctypes.c_float,  # s1, n_s1, s2p, Wh (bf16), n_wh, H, alpha
         p, i, p, p,  # out, n_rows, m_out, l_out
-        p, p, p, p, i, i, p,  # pm, pl, pacc, pop, sb (K12), n_sm, stream
+        p, p, p, p, i, i, i, p,  # pm, pl, pacc, pop, sb (K12), flags, n_sm, stream
     ]
     lib.sg_subskip_fold.restype = i
     lib.sg_subskip_fold.argtypes = [p, i, p, i, i, p, p]  # step, n_step, pop, tb, sb, out, stream
@@ -184,7 +184,7 @@ def _declare(lib: ctypes.CDLL) -> None:
         i, p, i, i, ctypes.c_long, i, p, p, p, p,  # col, tiles, mode, tb, n_tiles, n_seg, seg_rb/lo/hi/part
         i, p, p, p,  # n_fin, fin_rb/p0/np
         p, p, p, ctypes.c_long, p,  # step, slab_stat, op (bf16), n_op, res (bf16)
-        p, p, p, i, ctypes.c_float,  # s_own, m_own, l_own, H, alpha
+        p, p, p, i, ctypes.c_float, i,  # s_own, m_own, l_own, H, alpha, fast_exp
         p, p, p, p, i, p,  # out, out2, part, part2, n_sm, stream
     ]
     lib.sg_plan_spmm.restype = i
@@ -233,7 +233,7 @@ def _declare(lib: ctypes.CDLL) -> None:
         i, p, p, p,  # n_fin, fin_rb/p0/np
         p,  # tile_cb
         p, p, p, p,  # s1, s2, m, l
-        p, p, i, i, i, ctypes.c_float,  # Wh, gO (bf16), wvec, H, F, alpha
+        p, p, i, i, i, ctypes.c_float, i,  # Wh, gO (bf16), wvec, H, F, alpha, fast_exp
         p, i, p, p,  # tuu, n_rows_pad, partial, stream
     ]
     lib.sg_flash_gat_bwd_col.restype = i
@@ -242,7 +242,7 @@ def _declare(lib: ctypes.CDLL) -> None:
         i, p, p, p,  # n_fin, fin_cb/p0/np
         p, p,  # col_perm, tile_rb
         p, p, p, p, p,  # s1, s2, m, l, t
-        p, p, i, i, i, ctypes.c_float,  # Wh, gO (bf16), wvec, H, F, alpha
+        p, p, i, i, i, ctypes.c_float, i,  # Wh, gO (bf16), wvec, H, F, alpha, fast_exp
         p, p, i, p, p, p,  # dwh, ds2, n_cols_pad, pdwh, pds2, stream
     ]
 

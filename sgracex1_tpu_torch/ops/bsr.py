@@ -42,7 +42,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from sgracex1_tpu_torch.graph.csr import SparseMatrix, _np, _round_up
+from sgracex1_tpu_torch.graph.csr import SparseMatrix, _np, _round_up, unique_sorted
 from sgracex1_tpu_torch.ops import _cuda
 
 # schedule steps per CTA segment: bounds the work of one CTA so the long
@@ -303,7 +303,7 @@ def bsr_tile_keys(
     r = _np(A.rows)[: A.nnz]
     c = _np(A.cols)[: A.nnz]
     key = (r // tb).astype(np.int64) << 32 | (c // tb).astype(np.int64)
-    uniq = np.unique(key)
+    uniq = unique_sorted(key)
     extra = []
     if cover_rows:
         n_rt = _round_up(A.n_rows, tb) // tb
@@ -430,11 +430,73 @@ def bsr_bitmask_from_sparse(
     return _bsr(torch.from_numpy(packed), uniq, live, A, tb, device)
 
 
+def pack_mask_bsr(B: BSRMatrix, *, batch_tiles: Optional[int] = None) -> BSRMatrix:
+    """int8 {0,1} mask tiles [T, tb, tb] -> 1-bit packed uint8 [T, tb, tb/8]
+    on the tiles' device, in batches of ``batch_tiles`` tiles (default: 512
+    MiB of int32 intermediates a batch), as JAX ``pack_mask_bsr``. Byte i,
+    bit j of a row holds column ``j*(tb/8) + i``: the layout
+    ``bsr_bitmask_from_sparse`` builds on the host, and needs tb % 128 == 0
+    for the same reason. The tile layout and schedules are kept."""
+    tb = B.tb
+    if tb % 128 or B.packed:
+        raise ValueError(f"pack_mask_bsr takes unpacked mask tiles with tb % 128 == 0, got tb={tb}")
+    T = B.num_tiles
+    if batch_tiles is None:
+        batch_tiles = max(1, (512 << 20) // (tb * tb * 4))
+    nb = tb // 8
+    parts = []
+    for b0 in range(0, T, batch_tiles):
+        planes = B.tiles[b0 : b0 + batch_tiles].to(torch.int32).view(-1, tb, 8, nb)
+        packed = planes[:, :, 0, :]
+        for j in range(1, 8):
+            packed = packed | (planes[:, :, j, :] << j)
+        parts.append(packed.to(torch.uint8))
+    return dataclasses.replace(B, tiles=torch.cat(parts))
+
+
+def unpack_mask_tile(t: torch.Tensor, tb: int) -> torch.Tensor:
+    """Packed mask tiles [..., tb, tb/8] -> bool [..., tb, tb]."""
+    return unpack_mask01_tile(t, tb) > 0.5
+
+
 def unpack_mask01_tile(t: torch.Tensor, tb: int, dtype=torch.float32) -> torch.Tensor:
     """Packed mask tiles [..., tb, tb/8] -> {0,1} [..., tb, tb] in ``dtype``
     (the eight bit planes concatenated along the columns)."""
     ti = t.to(torch.int32) & 0xFF
     return torch.cat([(ti >> j) & 1 for j in range(8)], dim=-1).to(dtype)
+
+
+def pad_bsr_tile_count(B: BSRMatrix, T_pad: int) -> BSRMatrix:
+    """``B`` padded to ``T_pad`` tiles with all-zero tiles, as JAX
+    ``pad_bsr_tile_count``: a zero value or mask tile adds nothing, so
+    only the tile count changes (re-prepared batches keep one shape). The
+    pad tiles take the last tile's row block, extending its run (a run of
+    its own at a visited row block would restart that block's sum in the
+    single-stage kernels), and column block 0. They are dead (``live``
+    False): the live schedules ``ring``, and ``live_t`` and ``edge_ring``
+    where built, are carried over unchanged, so the ring kernels walk the
+    same steps; ``segments`` and the column order take the pad tiles in."""
+    T = B.num_tiles
+    if T_pad <= T:
+        return B
+    pad = T_pad - T
+    dev = B.tiles.device
+    tiles = torch.cat([B.tiles, B.tiles.new_zeros((pad,) + tuple(B.tiles.shape[1:]))])
+    tile_rb = torch.cat([B.tile_rb, B.tile_rb[-1:].expand(pad)])
+    tile_cb = torch.cat([B.tile_cb, B.tile_cb.new_zeros(pad)])
+    live = torch.cat([B.live, B.live.new_zeros(pad)])
+    rb, cb = _np(tile_rb), _np(tile_cb)
+    col_perm = np.argsort(cb, kind="stable")
+    out = dataclasses.replace(
+        B, tiles=tiles, tile_rb=tile_rb, tile_cb=tile_cb, live=live,
+        segments=run_segments(rb, B.n_row_tiles, dev),
+        col_perm=_tensor(col_perm.astype(np.int32), dev),
+        col_segments=run_segments(cb[col_perm], _round_up(B.n_cols, B.tb) // B.tb, dev),
+    )
+    for name in ("live_t", "edge_ring"):  # cached schedules of the live tiles
+        if name in B.__dict__:
+            out.__dict__[name] = B.__dict__[name]
+    return out
 
 
 def bsr_transpose(B: BSRMatrix) -> BSRMatrix:
@@ -516,7 +578,21 @@ def bsr_spmm_plain(B: BSRMatrix, H: torch.Tensor) -> torch.Tensor:
     return acc.view(-1, P)[: B.n_rows]
 
 
-_TILE_MODES = {torch.bfloat16: 0, torch.float32: 1, torch.int8: 2}
+def bsr_spmm_xla(B: BSRMatrix, H: torch.Tensor) -> torch.Tensor:
+    """out = A @ H by one batched product of every tile with its H block
+    (bf16 operands, f32 sums) and a segment sum over the tiles' row blocks,
+    f32 [n_rows, P]: JAX ``bsr_spmm_xla``, a plain XLA function there and
+    torch ops here (``bmm`` + ``index_add_``)."""
+    tb, P = B.tb, H.shape[1]
+    n_ct = _round_up(B.n_cols, tb) // tb
+    Hg = _h_block_rows(H, n_ct * tb).view(n_ct, tb, P)[B.tile_cb.long()]
+    prod = torch.bmm(_tile_values(B.tiles, tb), Hg)
+    out = torch.zeros((B.n_row_tiles, tb, P), dtype=torch.float32, device=H.device)
+    out.index_add_(0, B.tile_rb.long(), prod)
+    return out.view(-1, P)[: B.n_rows]
+
+
+_TILE_MODES ={torch.bfloat16: 0, torch.float32: 1, torch.int8: 2}
 
 
 def _tile_mode(tiles: torch.Tensor, tb: int) -> int:

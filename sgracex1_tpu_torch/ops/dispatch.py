@@ -198,11 +198,18 @@ class CostTable:
     vpu_ops: float
     tile_s: Mapping[Tuple[int, float], float]
     tbs: Tuple[int, ...]  # candidate tile sizes of the bsr and hybrid kinds
-    # K2's remainder: a chunk of rest_k slots, and a slot holding an edge
-    rest_chunk_s: float
+    # K2's remainder: a full chunk's seconds at each slot width K that the
+    # fused plan's chooser takes (its candidates, choose_chunk_k), and a
+    # slot's seconds
+    rest_chunk_s: Mapping[int, float]
     rest_slot_s: float
-    rest_k: int
-    chunk_s: Mapping[int, float]  # a chunk's seconds at a tile size, where measured
+    # a table of the JAX package's constants: its model's fixed remainder
+    # price (a chunk's seconds, a slot's, the width); None on the card,
+    # whose model prices the remainder at the width the plan will take
+    rest_fixed: Optional[Tuple[float, float, int]]
+    # a chunk of DEFAULT_K slots at a tile size past the ring's, where
+    # measured (the single-stage kernel), scaled to the width taken
+    chunk_s: Mapping[int, float]
     dense_bps: float  # the dense kind's adjacency bytes a second
     xla_edge_s: float  # the edge path's seconds an edge
     pallas_group_s: float  # K9: an edge group of pallas_block slots
@@ -242,10 +249,14 @@ class CostTable:
 # agg_matmul at P = 128 with f32 H. The ring kernels take tiles of height
 # 64-256; 512 and the 1-bit packed 1024 run the single-stage kernels and
 # are priced at those kernels' seconds, a chunk past 256 likewise
-# (chunk_s; the ring's chunk, 4.4-5.1e-8 s at tb 64-256 in the two runs,
-# is rest_chunk_s). A chunk's seconds are a full chunk's, its 128 slots
-# included, and rest_slot_s is 0: the slot alone (~1-3e-10 s, printed by
-# the phase) is below the noise of that slope. step_s is 0: the card's
+# (chunk_s, at 128 slots). rest_chunk_s is the ring's full chunk (its slots
+# included) at each width the plan's chooser takes, tb 256, and rest_slot_s
+# a slot alone (one chunk of 64 and of 512 slots a row block): these three
+# entries from one later run of the measurement on the same card. The
+# chunk's seconds grow with its width at about a slot's seconds
+# a slot, so the chooser's rule (chunks x a chunk + chunks x K x a slot)
+# takes 128 wherever a wider chunk would not save a chunk without adding
+# dead slots. step_s is 0: the card's
 # fixed seconds are per kind (call_s). hbm_bps, mxu_flops and vpu_ops only
 # price a tile size outside tile_s: the published memory rate, the ring's
 # effective product rate at tb 256, the measured f32 elementwise rate.
@@ -262,10 +273,10 @@ H100_COSTS = CostTable(
             (1024, 0.125): 2.72e-06, (64, 2.0): 1.04e-08, (128, 2.0): 2.37e-08, (256, 2.0): 5.83e-08,
             (512, 2.0): 6.40e-07, (1024, 2.0): 2.60e-06},
     tbs=(64, 128, 256, 512, 1024),
-    rest_chunk_s=5.09e-08,
-    rest_slot_s=0.0,
-    rest_k=128,
-    chunk_s={512: 1.69e-07, 1024: 3.52e-07},
+    rest_chunk_s={128: 5.48e-08, 256: 1.06e-07, 512: 2.19e-07},
+    rest_slot_s=4.1e-10,
+    rest_fixed=None,
+    chunk_s={512: 1.63e-07, 1024: 3.41e-07},
     dense_bps=2.76e11,
     xla_edge_s=1.94e-09,
     pallas_group_s=0.0,
@@ -306,16 +317,62 @@ def _tile_itemsize(tb: int, rank1: bool, dense_itemsize: int, costs: CostTable =
     return 0.125 if _packs(tb) else 1.0
 
 
-def _chunk_cost_s(tb: int, costs: CostTable = H100_COSTS) -> float:
-    """Seconds of one remainder chunk of K2 at ``tb``: ``chunk_s`` where
-    measured, else ``rest_chunk_s``."""
-    return costs.chunk_s.get(tb, costs.rest_chunk_s)
+def _chunk_cost_s(tb: int, K: int, costs: CostTable = H100_COSTS) -> float:
+    """Seconds of one remainder chunk of K2 with ``K`` slots at ``tb``:
+    ``chunk_s`` scaled to K slots where measured at this size, else the
+    ring's ``rest_chunk_s[K]``."""
+    if tb in costs.chunk_s:
+        return costs.chunk_s[tb] * K / DEFAULT_K
+    return costs.rest_chunk_s[K]
 
 
-def _rest_slot_cost_s(tb: int, costs: CostTable = H100_COSTS) -> float:
-    """An edge's seconds on the remainder's chunk path at ``tb``: its slot
-    and its share of a full chunk."""
-    return costs.rest_slot_s + _chunk_cost_s(tb, costs) / costs.rest_k
+def choose_chunk_k(counts: np.ndarray, tb: int, costs: CostTable = H100_COSTS) -> int:
+    """The fused plan's slot width, by the JAX package's rule
+    (``build_fused_plan(K=None)``): among the widths ``rest_chunk_s`` prices,
+    in increasing order, the first whose chunks cost least, chunks x a
+    chunk's seconds + chunks x K x a slot's, for ``counts`` remainder edges
+    a row block."""
+    best = None
+    for k in sorted(costs.rest_chunk_s):
+        nck = -(-counts // k)
+        cost = nck.sum() * _chunk_cost_s(tb, k, costs) + nck.sum() * k * costs.rest_slot_s
+        if best is None or cost < best[0]:
+            best = (cost, k)
+    return best[1]
+
+
+def _rest_slot_cost_s(tb: int, K: int = DEFAULT_K, costs: CostTable = H100_COSTS) -> float:
+    """An edge's seconds on the remainder's chunk path at ``tb`` in chunks
+    of ``K`` slots (``rest_fixed`` where the table fixes the price): its
+    slot and its share of a full chunk."""
+    if costs.rest_fixed is not None:
+        chunk, slot, k = costs.rest_fixed
+        return slot + chunk / k
+    return costs.rest_slot_s + _chunk_cost_s(tb, K, costs) / K
+
+
+def _hybrid_split(tb: int, uniq: np.ndarray, counts: np.ndarray, tc: float, costs: CostTable = H100_COSTS,
+                  K: Optional[int] = None) -> tuple:
+    """The hybrid split of a tile population at ``tb`` (sorted tile keys
+    ``uniq``, their edge ``counts``; ``tc`` a live tile's seconds) and its
+    remainder's price: (threshold, dense flags, remainder edges a row block,
+    a chunk's seconds, a slot's, the chunk width). A tile stays dense where
+    its edges' seconds on the chunk path reach a tile's (JAX's rule), in
+    chunks of ``K`` slots (DEFAULT_K where None). The remainder is priced
+    at ``rest_fixed`` where the table fixes the price, at ``K`` where given
+    (a plan of fixed width), else at the width the plan's chooser takes for
+    it (``choose_chunk_k``)."""
+    thresh = int(np.ceil(tc / _rest_slot_cost_s(tb, DEFAULT_K if K is None else K, costs)))
+    dense = counts >= thresh
+    rest_by_rb = np.bincount(
+        (uniq >> 32)[~dense].astype(np.int64), weights=counts[~dense].astype(np.float64),
+    )
+    if costs.rest_fixed is not None:
+        chunk, slot, k = costs.rest_fixed
+    else:
+        k = choose_chunk_k(rest_by_rb, tb, costs) if K is None else K
+        chunk, slot = _chunk_cost_s(tb, k, costs), costs.rest_slot_s
+    return thresh, dense, rest_by_rb, chunk, slot, k
 
 
 def _tile_cost_s(tb: int, itemsize: float, costs: CostTable = H100_COSTS) -> float:
@@ -390,17 +447,12 @@ def _estimate_backend_costs(
         t = len(counts) * tc
         if t < best_t:
             best_tb, best_t = tb, t
-        thresh = int(np.ceil(tc / _rest_slot_cost_s(tb, costs)))
-        dense_tiles = counts >= thresh
-        rest_by_rb = np.bincount(
-            (uniq >> 32)[~dense_tiles].astype(np.int64),
-            weights=counts[~dense_tiles].astype(np.float64),
-        )
-        n_chunks = int(np.ceil(rest_by_rb / costs.rest_k).sum())
+        thresh, dense_tiles, rest_by_rb, chunk, slot, k = _hybrid_split(tb, uniq, counts, tc, costs)
+        n_chunks = int(np.ceil(rest_by_rb / k).sum())
         t_hy = (
             int(dense_tiles.sum()) * tc
-            + n_chunks * _chunk_cost_s(tb, costs)
-            + int(counts[~dense_tiles].sum()) * costs.rest_slot_s
+            + n_chunks * chunk
+            + int(counts[~dense_tiles].sum()) * slot
             + costs.step_s
         )
         if t_hy < best_hy_t:
@@ -414,12 +466,13 @@ def _estimate_backend_costs(
     return est, best_tb, best_hy
 
 
-def _rest_thresh(tb: int, rank1: bool, dense_itemsize: int, costs: CostTable = H100_COSTS) -> int:
+def _rest_thresh(tb: int, rank1: bool, dense_itemsize: int, costs: CostTable = H100_COSTS,
+                 K: int = DEFAULT_K) -> int:
     """The hybrid split's threshold at ``tb``: the edges whose chunk-path
-    seconds equal one tile's (JAX ``prepare_adjacency`` with an explicit
-    ``tb``)."""
+    seconds, in chunks of ``K`` slots, equal one tile's (JAX
+    ``prepare_adjacency`` with an explicit ``tb``; ``_hybrid_split``)."""
     tc = _tile_cost_s(tb, _tile_itemsize(tb, rank1, dense_itemsize, costs), costs)
-    return int(np.ceil(tc / _rest_slot_cost_s(tb, costs)))
+    return int(np.ceil(tc / _rest_slot_cost_s(tb, K, costs)))
 
 
 def _flash_tile_s(tb: int, packed: bool, costs: CostTable = H100_COSTS) -> float:
@@ -540,6 +593,7 @@ def prepare_adjacency(
     gat_rest_thresh: Optional[int] = None,
     gat_train: bool = True,
     costs: CostTable = H100_COSTS,
+    fused_k: Optional[int] = None,
     device=None,
 ) -> PreparedAdjacency:
     """Prepare ``A`` for one backend, with its tensors on ``device``: the
@@ -563,7 +617,11 @@ def prepare_adjacency(
     that only a backward reads; the ``pallas`` kind builds ``plan_t``
     whatever the flag, as the JAX package does. ``fuse=False`` runs the
     tile kernel K1 plus a remainder scatter instead of the fused kernel K2;
-    it keeps f32 accumulation where K2 writes bf16.
+    it keeps f32 accumulation where K2 writes bf16. ``fused_k`` fixes the
+    fused plans' chunk width; by default each plan takes the width the
+    JAX package's rule prices cheapest on ``costs`` for its own remainder
+    (``build_fused_plan(K=None)``), and the hybrid threshold is priced at
+    DEFAULT_K slots (at ``fused_k`` where given).
 
     ``method="auto"`` takes the kind the cost model prices cheapest
     (``_estimate_backend_costs`` with ``costs``; ``dense`` only where the
@@ -653,14 +711,14 @@ def prepare_adjacency(
         keys = lambda M: bsr_tile_keys(M, tb, cover_rows=True, cover_cols=True)
         fused = build_fused_plan(
             B, rest_m, r1_row=r1r, r1_col=r1c, tile_keys=keys(src),
-            attach_chunks=True,
+            attach_chunks=True, K=fused_k, costs=costs,
         )
         fused_t = None
         if Bt is not None:
             fused_t = build_fused_plan(
                 Bt, rest_m.transpose() if rest_m is not None else None,
                 r1_row=r1c, r1_col=r1r, tile_keys=keys(src.transpose()),
-                attach_chunks=True,
+                attach_chunks=True, K=fused_k, costs=costs,
             )
         return fused, fused_t
 
@@ -672,7 +730,7 @@ def prepare_adjacency(
         )
     if method == "hybrid":
         if rest_thresh is None:
-            rest_thresh = _rest_thresh(tb, fac is not None, itemsize, costs)
+            rest_thresh = _rest_thresh(tb, fac is not None, itemsize, costs, K=fused_k or DEFAULT_K)
         if choice is not None:
             choice["split"] = (tb, rest_thresh)
         part, rest = split_by_tile_density(A, tb, rest_thresh)
@@ -723,7 +781,7 @@ def _gat_layout(
             cover = dict(cover_rows=True, cover_cols=True)
             tiles = build(part, tb=tb, device=device, **cover)
             plan = build_fused_plan(
-                tiles, grest, K=DEFAULT_K, attach_chunks=True,
+                tiles, grest, K=costs.flash_chunk_k, attach_chunks=True,
                 tile_keys=bsr_tile_keys(part, tb, **cover),
             )
             return dict(gat_bsr=tiles, gat_rest=grest.to(device), gat_plan=plan, choice=choice)

@@ -25,6 +25,11 @@ vector ever exists.
   (the hybrid one adds its remainder edges' terms in plain torch).
 - ``gat_attention_agg``: K3 forward with the reference's per-edge backward
   on the edge list (single head).
+- ``fast_exp`` (K3, K4, K5: Schraudolph's exp, ``_fast_exp``) and K6's
+  ``_chunk_mode`` (``CHUNK_MODES``): the JAX package's ablations of the
+  consumer work, as options of the kernels. The ring kernels run them as
+  variants built from sources of their own (``_ring_var``), the
+  single-stage kernels as runtime flags (``_kernel_flags``).
 - ``flash_gat_halo_agg``: one shard of the distributed layer
   (``parallel/halo.dist_gat_layer_halo_flash``): K3 with its stats on the
   shard's local tiles, merged with its halo edges' softmax terms; the
@@ -81,6 +86,39 @@ _M_INIT = -1e5  # running-max start: exp(masked - m) underflows to 0
 _MASK_BIG = 1e9  # additive mask: masked scores sit 1e9 below real ones
 _MASKED = -1e9  # a masked halo edge's score (JAX ``_MASKED``)
 
+# Schraudolph's exp (JAX ``_fast_exp``): bitcast_f32(int32(max(A x + B, 0))),
+# x <= 0 here (a score less the running max); the clamp sends deep-negative x
+# to 0.0. Relative error at most ~3% on [-30, 0] with this B.
+_FEXP_A = 12102203.161561485  # 2^23 / ln 2
+_FEXP_B = 1064986816.0  # 127 * 2^23 - 366400
+
+# K6's chunk steps (``flash_gat_hybrid_forward(_chunk_mode=)``), the JAX
+# package's ablations: "full" scores them; "noscore" adds onehot(lrow) @ Wh
+# with no score, max or denominator; "off" skips them
+CHUNK_MODES = ("full", "noscore", "off")
+
+
+def _fast_exp(x: torch.Tensor) -> torch.Tensor:
+    """The bits of JAX ``_fast_exp`` on f32 ``x``."""
+    i = torch.clamp(_FEXP_A * x + _FEXP_B, min=0.0).to(torch.int32)
+    return i.view(torch.float32)
+
+
+def _kernel_flags(fast_exp: bool = False, chunk_mode: str = "full") -> int:
+    """The single-stage flash kernels' runtime flags: bit 0 fast_exp, bits
+    1-2 the chunk mode's index in ``CHUNK_MODES``."""
+    if chunk_mode not in CHUNK_MODES:
+        raise ValueError(f"_chunk_mode must be one of {CHUNK_MODES}, got {chunk_mode!r}")
+    return int(bool(fast_exp)) | CHUNK_MODES.index(chunk_mode) << 1
+
+
+def _ring_var(fast_exp: bool = False, chunk_mode: str = "full") -> int:
+    """The flash ring kernel's variant (its template's VAR, each built from
+    a source of its own): 1 fast_exp, 2 K6's noscore chunks, 0 the kernel.
+    K6's ``off`` is no variant: the wrapper runs K3 over the plan's tiles."""
+    _kernel_flags(fast_exp, chunk_mode)
+    return 1 if fast_exp else 2 if chunk_mode == "noscore" else 0
+
 
 def _norm_heads(s1, s2, Wh):
     """(s1 [N, H], s2 [N, H], Wh [N, H, F], squeeze): 1-D scores with a
@@ -134,12 +172,13 @@ class _Online:
         self.l = torch.zeros((n_rt, H, tb), dtype=torch.float32, device=device)
         self.acc = torch.zeros((n_rt, H, tb, F), dtype=torch.float32, device=device)
 
-    def update(self, rb: torch.Tensor, e: torch.Tensor, feats: torch.Tensor) -> None:
+    def update(self, rb: torch.Tensor, e: torch.Tensor, feats: torch.Tensor, exp=torch.exp) -> None:
         """One online-softmax step for the row blocks ``rb``: masked scores
-        e [b, H, tb, X], bf16-rounded features feats [b, H, X, F]."""
+        e [b, H, tb, X], bf16-rounded features feats [b, H, X, F]; ``exp``
+        for the scores' exps (the rescale's stays exact)."""
         m_old = self.m[rb]
         m_new = torch.maximum(m_old, e.amax(dim=-1))
-        p = torch.exp(e - m_new[..., None])
+        p = exp(e - m_new[..., None])
         corr = torch.exp(m_old - m_new)
         self.l[rb] = self.l[rb] * corr + p.sum(dim=-1)
         self.acc[rb] = self.acc[rb] * corr[..., None] + torch.matmul(_bf16r(p), feats)
@@ -198,19 +237,21 @@ def _lrelu_masked(e, m01, alpha):
     return e + (m01 * _MASK_BIG - _MASK_BIG)
 
 
-def _tile_update(st, B, S1, S2, W, alpha, rb, tile, cb):
+def _tile_update(st, B, S1, S2, W, alpha, rb, tile, cb, exp=torch.exp):
     m01 = _mask01(B.tiles[tile], B.tb)[:, None]  # [b, 1, tb, tb]
     e = S1[rb][..., :, None] + S2[cb][..., None, :]
-    st.update(rb, _lrelu_masked(e, m01, alpha), W[cb])
+    st.update(rb, _lrelu_masked(e, m01, alpha), W[cb], exp)
 
 
 def flash_gat_forward_plain(
-    B: BSRMatrix, s1, s2, Wh, *, alpha: float = 0.2, return_stats: bool = False
+    B: BSRMatrix, s1, s2, Wh, *, alpha: float = 0.2, return_stats: bool = False,
+    fast_exp: bool = False,
 ):
     """Plain PyTorch K3: each row block's tiles in order, one tile step of
     every run at a time. Returns out [n_rows, H, F] (or [n_rows, F] for
     the single-head call) and with ``return_stats`` the true (m, l)
-    [n_rt*tb, H]."""
+    [n_rt*tb, H]. ``fast_exp`` takes ``_fast_exp`` for the scores' exps."""
+    exp = _fast_exp if fast_exp else torch.exp
     s1, s2, Wh, squeeze = _norm_heads(s1, s2, Wh)
     tb, H, F = B.tb, Wh.shape[1], Wh.shape[2]
     n_rt, n_ct = B.n_row_tiles, _round_up(B.n_cols, tb) // tb
@@ -219,19 +260,23 @@ def flash_gat_forward_plain(
     tile_cb = B.tile_cb.long()
     _walk_runs(
         B.tile_rb, n_rt, 4 * H * tb * (4 * tb + 2 * F),
-        lambda rb, t: _tile_update(st, B, S1, S2, W, alpha, rb, t, tile_cb[t]),
+        lambda rb, t: _tile_update(st, B, S1, S2, W, alpha, rb, t, tile_cb[t], exp),
     )
     return st.result(B.n_rows, squeeze, return_stats)
 
 
 def flash_gat_hybrid_forward_plain(
     plan: FusedAggPlan, s1, s2, Wh, *, alpha: float = 0.2,
-    return_stats: bool = False,
+    return_stats: bool = False, _chunk_mode: str = "full",
 ):
     """Plain PyTorch K6: each row block's steps in schedule order; a step
     of kind != 1 is a tile step, kind >= 1 a chunk step (kind 3: the tile,
     then the chunk). A chunk scores its K slots on a one-hot [tb, K] grid,
-    as the TPU kernel does; dead slots (lrow == tb) match no row."""
+    as the TPU kernel does; dead slots (lrow == tb) match no row.
+    ``_chunk_mode`` (``CHUNK_MODES``) applies without ``return_stats`` only,
+    as in JAX: with the stats every chunk is scored."""
+    mode = "full" if return_stats else _chunk_mode
+    _kernel_flags(chunk_mode=mode)
     B = plan.B
     s1, s2, Wh, squeeze = _norm_heads(s1, s2, Wh)
     tb, K, H, F = B.tb, plan.K, Wh.shape[1], Wh.shape[2]
@@ -251,14 +296,17 @@ def flash_gat_hybrid_forward_plain(
         if t.any():
             _tile_update(st, B, S1, S2, W, alpha, rb[t], tile[g[t]], cb[g[t]])
         c = kind[g] >= 1
-        if c.any():
+        if c.any() and mode != "off":
             ch = chunk[g[c]]
             slots = (ch[:, None] * K + kar).reshape(-1)
             cols = plan.slot_col[slots].long()
             oh = (iota[:, None] == plan.lrow[ch][:, None, :]).to(torch.float32)  # [b, tb, K]
+            feats = Wflat[cols].view(-1, K, H, F).permute(0, 2, 1, 3)
+            if mode == "noscore":  # onehot(lrow) @ Wh into the sums alone
+                st.acc[rb[c]] = st.acc[rb[c]] + torch.matmul(oh[:, None], feats)
+                return
             sg = S2flat[cols].view(-1, K, H).permute(0, 2, 1)  # [b, H, K]
             e = S1[rb[c]][..., :, None] + sg[..., None, :]
-            feats = Wflat[cols].view(-1, K, H, F).permute(0, 2, 1, 3)
             st.update(rb[c], _lrelu_masked(e, oh[:, None], alpha), feats)
 
     _walk_runs(
@@ -287,11 +335,13 @@ def _head_major(x: torch.Tensor, tb: int) -> torch.Tensor:
     return x.permute(0, 2, 1) if x.dim() == 3 else x.permute(0, 2, 1, 3)
 
 
-def _bwd_walk(B: BSRMatrix, s1, s2, m, l, Wh, gO, alpha: float, fn) -> None:
+def _bwd_walk(B: BSRMatrix, s1, s2, m, l, Wh, gO, alpha: float, fn, fast_exp: bool = False) -> None:
     """Call ``fn(rb, cb, p, lr, q)`` for batches of tiles, with the TPU
     kernel's per-tile terms (``_tile_probs`` and the cotangent SDDMM)
-    [b, H, tb(rows), tb(cols)]: p = exp(masked e - m) / max(l, 1e-30),
-    lr = LeakyReLU', q = bf16(gO) @ bf16(Wh)^T with f32 sums."""
+    [b, H, tb(rows), tb(cols)]: p = exp(masked e - m) / max(l, 1e-30)
+    (``_fast_exp`` with ``fast_exp``), lr = LeakyReLU', q = bf16(gO) @
+    bf16(Wh)^T with f32 sums."""
+    exp = _fast_exp if fast_exp else torch.exp
     tb, H, F = B.tb, Wh.shape[1], Wh.shape[2]
     n_rt, n_ct = B.n_row_tiles, _round_up(B.n_cols, tb) // tb
     S1, M, L = (_head_major(_grid(x, n_rt, tb), tb) for x in (s1, m, l))
@@ -305,12 +355,12 @@ def _bwd_walk(B: BSRMatrix, s1, s2, m, l, Wh, gO, alpha: float, fn) -> None:
         rb, cb = B.tile_rb[ids].long(), B.tile_cb[ids].long()
         e_pre = S1[rb][..., :, None] + S2[cb][..., None, :]
         e = _lrelu_masked(e_pre, _mask01(B.tiles[ids], tb)[:, None], alpha)
-        p = torch.exp(e - M[rb][..., None]) * Linv[rb][..., None]
+        p = exp(e - M[rb][..., None]) * Linv[rb][..., None]
         lr = torch.where(e_pre > 0, 1.0, alpha)
         fn(rb, cb, p, lr, torch.matmul(G[rb], W[cb].transpose(-1, -2)))
 
 
-def flash_gat_bwd_row_plain(B: BSRMatrix, s1, s2, m, l, Wh, gO, *, alpha: float = 0.2):
+def flash_gat_bwd_row_plain(B: BSRMatrix, s1, s2, m, l, Wh, gO, *, alpha: float = 0.2, fast_exp: bool = False):
     """Plain PyTorch K4 (JAX ``_bwd_row_pass``): the row reductions
     ``t = sum_c p q``, ``u1 = sum_c p q lr``, ``u2 = sum_c p lr`` over
     ``B``'s tiles, each f32 [n_rt*tb, H]. ``s1`` [N, H], ``s2`` [M, H],
@@ -325,12 +375,13 @@ def flash_gat_bwd_row_plain(B: BSRMatrix, s1, s2, m, l, Wh, gO, *, alpha: float 
         for k, v in enumerate((pq, pq * lr, p * lr)):
             sums[k].index_add_(0, rb, v.sum(dim=-1))
 
-    _bwd_walk(B, s1, s2, m, l, Wh, gO, alpha, add)
+    _bwd_walk(B, s1, s2, m, l, Wh, gO, alpha, add, fast_exp)
     t, u1, u2 = (x.permute(0, 2, 1).reshape(n_rt * tb, H) for x in sums)
     return t, u1, u2
 
 
-def flash_gat_bwd_col_plain(B: BSRMatrix, s1, s2, m, l, t, Wh, gO, *, alpha: float = 0.2):
+def flash_gat_bwd_col_plain(B: BSRMatrix, s1, s2, m, l, t, Wh, gO, *, alpha: float = 0.2,
+                            fast_exp: bool = False):
     """Plain PyTorch K5 (JAX ``_bwd_col_pass``): the column reductions
     ``dWh = bf16(p)^T @ bf16(gO)`` f32 [n_ct*tb, H, F] and ``ds2 =
     colsum(p (q - t) lr)`` f32 [n_ct*tb, H]. ``t`` is the full row
@@ -347,7 +398,7 @@ def flash_gat_bwd_col_plain(B: BSRMatrix, s1, s2, m, l, t, Wh, gO, *, alpha: flo
         dW.index_add_(0, cb, torch.matmul(_bf16r(p).transpose(-1, -2), G[rb]))
         ds2.index_add_(0, cb, (p * (q - T[rb][..., None]) * lr).sum(dim=-2))
 
-    _bwd_walk(B, s1, s2, m, l, Wh, gO, alpha, add)
+    _bwd_walk(B, s1, s2, m, l, Wh, gO, alpha, add, fast_exp)
     return (
         dW.permute(0, 2, 1, 3).reshape(n_ct * tb, H, F),
         ds2.permute(0, 2, 1).reshape(n_ct * tb, H),
@@ -378,10 +429,10 @@ def _check_scores(s1, s2, Wh, rows: int, cols: int) -> tuple:
 
 
 def _launch(name, B, S: RunSegments, s1, s2, Wh, alpha, return_stats, plan=None,
-            pop=None, sb=0):
+            pop=None, sb=0, flags=0):
     """Launch csrc/flash_gat.cu over run segments ``S``: K3 on ``B``'s
     tiles (K12 with the sub-block bitmap ``pop``), or K6 on ``plan``'s
-    steps."""
+    steps, with the runtime ``flags`` of ``_kernel_flags``."""
     s1, s2, Wh, squeeze = _norm_heads(s1, s2, Wh)
     dev = Wh.device
     tb = B.tb
@@ -428,7 +479,7 @@ def _launch(name, B, S: RunSegments, s1, s2, Wh, alpha, return_stats, plan=None,
         _ptr(B.tiles), mode, tb, *_seg_args(S), _ptr(B.tile_cb), *chunk_args,
         _ptr(pop), sb, _ptr(s1), s1.shape[0], _ptr(s2), s2.shape[0],
         _ptr(Whb), wvec, H, F, float(alpha),
-        _ptr(out), B.n_rows, _ptr(m), _ptr(l), _ptr(pm), _ptr(pl), _ptr(pacc),
+        _ptr(out), B.n_rows, _ptr(m), _ptr(l), _ptr(pm), _ptr(pl), _ptr(pacc), flags,
         ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream),
     )
     _cuda.check(err, name)
@@ -456,12 +507,13 @@ def _takes_ring(B: BSRMatrix, Wh: torch.Tensor, K: Optional[int] = None) -> bool
 
 
 def _launch_ring(name, B, L: LiveSchedule, s1, s2, Wh, alpha, return_stats, plan=None,
-                 pop=None, sb=0):
+                 pop=None, sb=0, var=0):
     """Launch csrc/flash_gat_ring.cu over the live schedule ``L``: K3 on
     ``B``'s live tiles (``B.ring``), K6 on ``plan``'s live steps
     (``plan.ring``), or K12 with the bitmap ``pop`` on
     ``subskip_schedule``'s steps. s2 goes over zero-padded to the tile grid
-    and Wh in bf16 (rounded once here, as the single-stage launch does)."""
+    and Wh in bf16 (rounded once here, as the single-stage launch does);
+    ``var`` the kernel's variant (``_ring_var``)."""
     s1, s2, Wh, squeeze = _norm_heads(s1, s2, Wh)
     dev = Wh.device
     tb = B.tb
@@ -500,7 +552,7 @@ def _launch_ring(name, B, L: LiveSchedule, s1, s2, Wh, alpha, return_stats, plan
         _ptr(B.tiles), mode, tb, B.num_tiles, *_seg_args(S), _ptr(L.step),
         _ptr(ints.get("lrow")), _ptr(ints.get("slot_col")), K,
         _ptr(s1), s1.shape[0], _ptr(s2p), _ptr(Whb), Whb.shape[0], H, float(alpha),
-        _ptr(out), B.n_rows, _ptr(m), _ptr(l), _ptr(pm), _ptr(pl), _ptr(pacc), _ptr(pop), sb,
+        _ptr(out), B.n_rows, _ptr(m), _ptr(l), _ptr(pm), _ptr(pl), _ptr(pacc), _ptr(pop), sb, var,
         torch.cuda.get_device_properties(dev).multi_processor_count,
         ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream),
     )
@@ -516,40 +568,44 @@ def _device_of(Wh: torch.Tensor, name: str) -> str:
 
 
 def _flash_gat_forward_single(
-    B: BSRMatrix, s1, s2, Wh, *, alpha: float = 0.2, return_stats: bool = False
+    B: BSRMatrix, s1, s2, Wh, *, alpha: float = 0.2, return_stats: bool = False, fast_exp: bool = False,
 ):
     """K3 by the single-stage kernel ``csrc/flash_gat.cu``: every tile form
     and shape, every tile of ``B.segments``."""
-    res = _launch("flash_gat_forward", B, B.segments, s1, s2, Wh, alpha, return_stats)
+    res = _launch("flash_gat_forward", B, B.segments, s1, s2, Wh, alpha, return_stats,
+                  flags=_kernel_flags(fast_exp))
     flash_gat_forward.launches += 1
     flash_gat_forward.launches_single += 1
     return res
 
 
 def _flash_gat_forward_ring(
-    B: BSRMatrix, s1, s2, Wh, *, alpha: float = 0.2, return_stats: bool = False
+    B: BSRMatrix, s1, s2, Wh, *, alpha: float = 0.2, return_stats: bool = False, fast_exp: bool = False,
 ):
     """K3 by the ring kernel ``csrc/flash_gat_ring.cu`` over ``B.ring``."""
-    res = _launch_ring("flash_gat_forward", B, B.ring, s1, s2, Wh, alpha, return_stats)
+    res = _launch_ring("flash_gat_forward", B, B.ring, s1, s2, Wh, alpha, return_stats,
+                       var=_ring_var(fast_exp))
     flash_gat_forward.launches += 1
     flash_gat_forward.launches_ring += 1
     return res
 
 
 def flash_gat_forward(
-    B: BSRMatrix, s1, s2, Wh, *, alpha: float = 0.2, return_stats: bool = False
+    B: BSRMatrix, s1, s2, Wh, *, alpha: float = 0.2, return_stats: bool = False, fast_exp: bool = False,
 ):
     """K3: the masked online-softmax aggregation over ``B``'s tiles (mask
-    ``> 0``; int8 and packed masks as stored). A CPU tensor runs
-    ``flash_gat_forward_plain``; a CUDA tensor launches the ring kernel
+    ``> 0``; int8 and packed masks as stored); ``fast_exp`` swaps the
+    scores' exps for Schraudolph's (``_fast_exp``), as JAX. A CPU tensor
+    runs ``flash_gat_forward_plain``; a CUDA tensor launches the ring kernel
     where ``flash_ring_shape_ok`` holds, else the single-stage kernel, or
     raises. ``launches`` counts both; ``launches_ring`` /
     ``launches_single`` each one."""
+    kw = dict(alpha=alpha, return_stats=return_stats, fast_exp=fast_exp)
     if _device_of(Wh, "flash_gat_forward") == "cpu":
-        return flash_gat_forward_plain(B, s1, s2, Wh, alpha=alpha, return_stats=return_stats)
+        return flash_gat_forward_plain(B, s1, s2, Wh, **kw)
     if _takes_ring(B, Wh):
-        return _flash_gat_forward_ring(B, s1, s2, Wh, alpha=alpha, return_stats=return_stats)
-    return _flash_gat_forward_single(B, s1, s2, Wh, alpha=alpha, return_stats=return_stats)
+        return _flash_gat_forward_ring(B, s1, s2, Wh, **kw)
+    return _flash_gat_forward_single(B, s1, s2, Wh, **kw)
 
 
 flash_gat_forward.launches = 0
@@ -726,33 +782,36 @@ flash_gat_forward_subskip.launches_single = 0
 
 def flash_gat_hybrid_forward(
     plan: FusedAggPlan, s1, s2, Wh, *, alpha: float = 0.2,
-    return_stats: bool = False,
+    return_stats: bool = False, _chunk_mode: str = "full",
 ):
     """K6: tile steps and remainder chunk steps of a value-mode fused plan
-    in one exact row softmax over all edges. A CPU tensor runs
+    in one exact row softmax over all edges. ``_chunk_mode`` is the JAX
+    package's ablation of the chunk steps (``CHUNK_MODES``), taken without
+    ``return_stats`` only: a forward that saves stats for the backward
+    always scores its chunks. A CPU tensor runs
     ``flash_gat_hybrid_forward_plain``; a CUDA tensor launches the ring
     kernel where ``flash_ring_shape_ok`` holds, else the single-stage
     kernel, or raises. ``launches`` counts both; ``launches_ring`` /
     ``launches_single`` each one."""
     if plan.colscale is not None:
         raise ValueError("the hybrid flash forward takes a value-mode plan (no rank-1 scalings)")
+    kw = dict(alpha=alpha, return_stats=return_stats, _chunk_mode=_chunk_mode)
     if _device_of(Wh, "flash_gat_hybrid_forward") == "cpu":
-        return flash_gat_hybrid_forward_plain(
-            plan, s1, s2, Wh, alpha=alpha, return_stats=return_stats
-        )
+        return flash_gat_hybrid_forward_plain(plan, s1, s2, Wh, **kw)
     if _takes_ring(plan.B, Wh, plan.K):
-        return _flash_gat_hybrid_forward_ring(plan, s1, s2, Wh, alpha=alpha, return_stats=return_stats)
-    return _flash_gat_hybrid_forward_single(plan, s1, s2, Wh, alpha=alpha, return_stats=return_stats)
+        return _flash_gat_hybrid_forward_ring(plan, s1, s2, Wh, **kw)
+    return _flash_gat_hybrid_forward_single(plan, s1, s2, Wh, **kw)
 
 
 def _flash_gat_hybrid_forward_single(
     plan: FusedAggPlan, s1, s2, Wh, *, alpha: float = 0.2, return_stats: bool = False,
+    _chunk_mode: str = "full",
 ):
     """K6 by the single-stage kernel ``csrc/flash_gat.cu`` over every step
     of ``plan.segments``."""
     res = _launch(
         "flash_gat_hybrid_forward", plan.B, plan.segments, s1, s2, Wh, alpha,
-        return_stats, plan=plan,
+        return_stats, plan=plan, flags=_kernel_flags(chunk_mode="full" if return_stats else _chunk_mode),
     )
     flash_gat_hybrid_forward.launches += 1
     flash_gat_hybrid_forward.launches_single += 1
@@ -761,11 +820,19 @@ def _flash_gat_hybrid_forward_single(
 
 def _flash_gat_hybrid_forward_ring(
     plan: FusedAggPlan, s1, s2, Wh, *, alpha: float = 0.2, return_stats: bool = False,
+    _chunk_mode: str = "full",
 ):
-    """K6 by the ring kernel ``csrc/flash_gat_ring.cu`` over ``plan.ring``."""
-    res = _launch_ring(
-        "flash_gat_hybrid_forward", plan.B, plan.ring, s1, s2, Wh, alpha, return_stats, plan=plan,
-    )
+    """K6 by the ring kernel ``csrc/flash_gat_ring.cu`` over ``plan.ring``;
+    at chunk mode ``off`` the ring over the plan's tiles alone
+    (``plan.B.ring``), K3's launch."""
+    mode = "full" if return_stats else _chunk_mode
+    if mode == "off":
+        res = _launch_ring("flash_gat_hybrid_forward", plan.B, plan.B.ring, s1, s2, Wh, alpha, return_stats)
+    else:
+        res = _launch_ring(
+            "flash_gat_hybrid_forward", plan.B, plan.ring, s1, s2, Wh, alpha, return_stats, plan=plan,
+            var=_ring_var(chunk_mode=mode),
+        )
     flash_gat_hybrid_forward.launches += 1
     flash_gat_hybrid_forward.launches_ring += 1
     return res
@@ -805,7 +872,7 @@ def _bwd_check(B: BSRMatrix, Wh, gO, given: dict) -> tuple:
     return mode, H, F, n_rt, n_ct, ops
 
 
-def _launch_bwd(name, B: BSRMatrix, s1, s2, m, l, Wh, gO, alpha, t=None):
+def _launch_bwd(name, B: BSRMatrix, s1, s2, m, l, Wh, gO, alpha, t=None, fast_exp: bool = False):
     """Launch csrc/flash_gat_bwd.cu on head-last operands: K4 over the
     row-block runs (``t`` None), else K5 over the column-block runs."""
     dev = Wh.device
@@ -823,7 +890,7 @@ def _launch_bwd(name, B: BSRMatrix, s1, s2, m, l, Wh, gO, alpha, t=None):
     f32 = dict(dtype=torch.float32, device=dev)
     n_part = max(S.n_part, 1)
     common = (
-        _ptr(ops["Wh"]), _ptr(ops["gO"]), wvec, H, F, float(alpha),
+        _ptr(ops["Wh"]), _ptr(ops["gO"]), wvec, H, F, float(alpha), int(fast_exp),
     )
     stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
     if t is None:
@@ -866,7 +933,7 @@ def _takes_bwd_ring(B: BSRMatrix, Wh: torch.Tensor) -> bool:
     return Wh.dim() == 3 and flash_bwd_ring_shape_ok(_tile_mode(B.tiles, B.tb), B.tb, Wh.shape[1], Wh.shape[2])
 
 
-def _launch_bwd_ring(name, B: BSRMatrix, s1, s2, m, l, Wh, gO, alpha, t=None):
+def _launch_bwd_ring(name, B: BSRMatrix, s1, s2, m, l, Wh, gO, alpha, t=None, fast_exp: bool = False):
     """Launch csrc/flash_gat_bwd_ring.cu: K4 (``t`` None) over ``B.ring``,
     own rows A's rows, Wh streamed; K5 over ``B.live_t.ring`` (the
     transposed live tiles), own rows A's columns, gO streamed with the
@@ -901,7 +968,7 @@ def _launch_bwd_ring(name, B: BSRMatrix, s1, s2, m, l, Wh, gO, alpha, t=None):
     err = _cuda.library().sg_flash_gat_bwd_ring(
         int(t is not None), _ptr(T.tiles), mode, tb, T.num_tiles, *_seg_args(S), _ptr(L.step),
         _ptr(stat), _ptr(op), op.shape[0], _ptr(res), *(_ptr(x) for x in own), H, float(alpha),
-        _ptr(out), _ptr(out2), _ptr(part), _ptr(part2),
+        int(fast_exp), _ptr(out), _ptr(out2), _ptr(part), _ptr(part2),
         torch.cuda.get_device_properties(dev).multi_processor_count,
         ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream),
     )
@@ -919,32 +986,35 @@ def _count(kern, ring: bool) -> None:
         kern.launches_single += 1
 
 
-def _flash_gat_bwd_row_single(B: BSRMatrix, s1, s2, m, l, Wh, gO, *, alpha: float = 0.2):
+def _flash_gat_bwd_row_single(B: BSRMatrix, s1, s2, m, l, Wh, gO, *, alpha: float = 0.2,
+                             fast_exp: bool = False):
     """K4 by the single-stage kernel ``csrc/flash_gat_bwd.cu``: every tile
     form and shape, every tile of ``B.segments``, one head a CTA."""
-    res = _launch_bwd("flash_gat_bwd_row", B, s1, s2, m, l, Wh, gO, alpha)
+    res = _launch_bwd("flash_gat_bwd_row", B, s1, s2, m, l, Wh, gO, alpha, fast_exp=fast_exp)
     _count(flash_gat_bwd_row, False)
     return res
 
 
-def _flash_gat_bwd_row_ring(B: BSRMatrix, s1, s2, m, l, Wh, gO, *, alpha: float = 0.2):
+def _flash_gat_bwd_row_ring(B: BSRMatrix, s1, s2, m, l, Wh, gO, *, alpha: float = 0.2,
+                           fast_exp: bool = False):
     """K4 by the ring kernel ``csrc/flash_gat_bwd_ring.cu`` over ``B.ring``."""
-    res = _launch_bwd_ring("flash_gat_bwd_row", B, s1, s2, m, l, Wh, gO, alpha)
+    res = _launch_bwd_ring("flash_gat_bwd_row", B, s1, s2, m, l, Wh, gO, alpha, fast_exp=fast_exp)
     _count(flash_gat_bwd_row, True)
     return res
 
 
-def flash_gat_bwd_row(B: BSRMatrix, s1, s2, m, l, Wh, gO, *, alpha: float = 0.2):
+def flash_gat_bwd_row(B: BSRMatrix, s1, s2, m, l, Wh, gO, *, alpha: float = 0.2, fast_exp: bool = False):
     """K4: the backward's row reductions ``(t, u1, u2)`` over ``B``'s
-    tiles, each f32 [n_rt*tb, H]. A CPU tensor runs
+    tiles, each f32 [n_rt*tb, H]; ``fast_exp`` recomputes the
+    probabilities with ``_fast_exp``, as JAX. A CPU tensor runs
     ``flash_gat_bwd_row_plain``; a CUDA tensor launches the ring kernel
     where ``flash_bwd_ring_shape_ok`` holds, else the single-stage kernel,
     or raises. ``launches`` counts both; ``launches_ring`` /
     ``launches_single`` each one."""
     if _device_of(Wh, "flash_gat_bwd_row") == "cpu":
-        return flash_gat_bwd_row_plain(B, s1, s2, m, l, Wh, gO, alpha=alpha)
+        return flash_gat_bwd_row_plain(B, s1, s2, m, l, Wh, gO, alpha=alpha, fast_exp=fast_exp)
     kern = _flash_gat_bwd_row_ring if _takes_bwd_ring(B, Wh) else _flash_gat_bwd_row_single
-    return kern(B, s1, s2, m, l, Wh, gO, alpha=alpha)
+    return kern(B, s1, s2, m, l, Wh, gO, alpha=alpha, fast_exp=fast_exp)
 
 
 flash_gat_bwd_row.launches = 0
@@ -952,34 +1022,37 @@ flash_gat_bwd_row.launches_ring = 0
 flash_gat_bwd_row.launches_single = 0
 
 
-def _flash_gat_bwd_col_single(B: BSRMatrix, s1, s2, m, l, t, Wh, gO, *, alpha: float = 0.2):
+def _flash_gat_bwd_col_single(B: BSRMatrix, s1, s2, m, l, t, Wh, gO, *, alpha: float = 0.2,
+                             fast_exp: bool = False):
     """K5 by the single-stage kernel ``csrc/flash_gat_bwd.cu`` over every
     tile of ``B.col_segments``, one head a CTA."""
-    res = _launch_bwd("flash_gat_bwd_col", B, s1, s2, m, l, Wh, gO, alpha, t=t)
+    res = _launch_bwd("flash_gat_bwd_col", B, s1, s2, m, l, Wh, gO, alpha, t=t, fast_exp=fast_exp)
     _count(flash_gat_bwd_col, False)
     return res
 
 
-def _flash_gat_bwd_col_ring(B: BSRMatrix, s1, s2, m, l, t, Wh, gO, *, alpha: float = 0.2):
+def _flash_gat_bwd_col_ring(B: BSRMatrix, s1, s2, m, l, t, Wh, gO, *, alpha: float = 0.2,
+                           fast_exp: bool = False):
     """K5 by the ring kernel ``csrc/flash_gat_bwd_ring.cu`` over
     ``B.live_t.ring``."""
-    res = _launch_bwd_ring("flash_gat_bwd_col", B, s1, s2, m, l, Wh, gO, alpha, t=t)
+    res = _launch_bwd_ring("flash_gat_bwd_col", B, s1, s2, m, l, Wh, gO, alpha, t=t, fast_exp=fast_exp)
     _count(flash_gat_bwd_col, True)
     return res
 
 
-def flash_gat_bwd_col(B: BSRMatrix, s1, s2, m, l, t, Wh, gO, *, alpha: float = 0.2):
+def flash_gat_bwd_col(B: BSRMatrix, s1, s2, m, l, t, Wh, gO, *, alpha: float = 0.2, fast_exp: bool = False):
     """K5: the backward's column reductions ``(dWh [n_ct*tb, H, F], ds2
     [n_ct*tb, H])`` over ``B``'s tiles in column order, with ``t`` the full
-    row reduction. A CPU tensor runs ``flash_gat_bwd_col_plain``; a CUDA
+    row reduction; ``fast_exp`` as in ``flash_gat_bwd_row``. A CPU tensor
+    runs ``flash_gat_bwd_col_plain``; a CUDA
     tensor launches the ring kernel where ``flash_bwd_ring_shape_ok``
     holds (on the transposed live tiles ``B.live_t``, built at its first
     call), else the single-stage kernel, or raises. ``launches`` counts
     both; ``launches_ring`` / ``launches_single`` each one."""
     if _device_of(Wh, "flash_gat_bwd_col") == "cpu":
-        return flash_gat_bwd_col_plain(B, s1, s2, m, l, t, Wh, gO, alpha=alpha)
+        return flash_gat_bwd_col_plain(B, s1, s2, m, l, t, Wh, gO, alpha=alpha, fast_exp=fast_exp)
     kern = _flash_gat_bwd_col_ring if _takes_bwd_ring(B, Wh) else _flash_gat_bwd_col_single
-    return kern(B, s1, s2, m, l, t, Wh, gO, alpha=alpha)
+    return kern(B, s1, s2, m, l, t, Wh, gO, alpha=alpha, fast_exp=fast_exp)
 
 
 flash_gat_bwd_col.launches = 0

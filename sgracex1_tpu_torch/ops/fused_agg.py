@@ -74,8 +74,9 @@ from sgracex1_tpu_torch.ops.bsr import (
     run_segments,
 )
 
-# remainder slots per chunk: a fixed starting point for the H100 (the JAX
-# package picks among 128/256/512 by TPU-measured step costs)
+# remainder slots per chunk of a plan built with an explicit width (the
+# default of build_fused_plan; the int8 hybrid and the distributed shards'
+# plans): K=None takes ops/dispatch.choose_chunk_k's among 128/256/512
 DEFAULT_K = 128
 
 _TILE_I8 = _TILE_MODES[torch.int8]
@@ -154,11 +155,12 @@ def build_fused_plan(
     *,
     r1_row: Optional[np.ndarray] = None,
     r1_col: Optional[np.ndarray] = None,
-    K: int = DEFAULT_K,
+    K: Optional[int] = DEFAULT_K,
     tile_keys: Optional[np.ndarray] = None,
     attach_chunks: bool = False,
     k_steps: int = 1,
     edge_tiles: Optional[np.ndarray] = None,
+    costs=None,
 ) -> FusedAggPlan:
     """Host-side schedule build (numpy), moved to ``B``'s device.
 
@@ -178,7 +180,12 @@ def build_fused_plan(
 
     ``edge_tiles`` (bool [T], value mode with shifted-int8 tiles and slot
     scales on the 0..255 grid) marks the tiles that carry an edge and builds
-    the int8 ring K8's ``edge_ring`` and ``slot_lv8``."""
+    the int8 ring K8's ``edge_ring`` and ``slot_lv8``.
+
+    ``K=None`` takes the slot width the JAX package's ``build_fused_plan(K=
+    None)`` rule prices cheapest for this remainder's edges a row block
+    (``ops/dispatch.choose_chunk_k`` on the cost table ``costs``, default
+    ``ops/dispatch.H100_COSTS``)."""
     if tile_keys is not None:
         tile_rb = (tile_keys >> 32).astype(np.int64)
         tile_cb = (tile_keys & 0xFFFFFFFF).astype(np.int64)
@@ -192,8 +199,6 @@ def build_fused_plan(
     n_rt = B.n_row_tiles
     n_ct = _round_up(B.n_cols, tb) // tb
     rank1 = r1_col is not None
-    if K % 32:
-        raise ValueError(f"K must be a multiple of 32, got {K}")
 
     if rest is not None and rest.nnz:
         rows = _np(rest.rows)[: rest.nnz].astype(np.int64)
@@ -204,6 +209,12 @@ def build_fused_plan(
         counts = np.bincount(rows // tb, minlength=n_rt)
     else:
         counts = np.zeros(n_rt, np.int64)
+    if K is None:
+        from sgracex1_tpu_torch.ops import dispatch
+
+        K = dispatch.choose_chunk_k(counts, tb, dispatch.H100_COSTS if costs is None else costs)
+    if K % 32:
+        raise ValueError(f"K must be a multiple of 32, got {K}")
 
     nc = (-(-counts // K)).astype(np.int64)  # chunks per row block
     R = int(nc.sum())
@@ -347,8 +358,7 @@ def build_fused_plan(
             chunk_slots=np.where(chunk_live, last_live[s_chunk], 0),
         )
         if K % 64 == 0:
-            slabs = lambda a: a.astype(np.uint8).reshape(-1, 64)
-            slot_lv8 = _tensor(np.concatenate([slabs(lrow & 255), slabs(slot_scale)], axis=1), device)
+            slot_lv8 = _tensor(_slot_lv8(lrow, slot_scale), device)
     colscale = rowscale = None
     if rank1:
         cs = np.zeros(n_ct * tb, np.float32)
@@ -378,6 +388,70 @@ def build_fused_plan(
         ring=ring,
         k_steps=k_steps,
         edge_ring=edge_ring,
+        slot_lv8=slot_lv8,
+    )
+
+
+def _slot_lv8(lrow: np.ndarray, slot_scale: np.ndarray) -> np.ndarray:
+    """uint8 [R*K/64, 128]: each 64-slot slab's local rows (``lrow & 255``)
+    then its values as bytes (``FusedAggPlan.slot_lv8``)."""
+    slabs = lambda a: a.astype(np.uint8).reshape(-1, 64)
+    return np.concatenate([slabs(lrow & 255), slabs(slot_scale)], axis=1)
+
+
+def pad_fused_plan(plan: FusedAggPlan, *, S: int, T: int, R: int, K: int) -> FusedAggPlan:
+    """``plan`` padded to S steps, T tiles, R chunks of K slots, as JAX
+    ``pad_fused_plan`` (``train/loop._pad_prep_tiles`` drives it, so that
+    re-prepared batches keep one shape). Each padding adds nothing:
+
+    - tiles pad with all-zero tiles (``ops/bsr.pad_bsr_tile_count``) that no
+      step names;
+    - chunks pad with dead slots (local row ``tb``, column 0, scale 0), and
+      K widens every chunk with dead slots;
+    - steps pad with chunk steps on chunk ``R - 1``, which must be dead,
+      revisiting the last row block's run, so its output is written after
+      them from the same sums. ``_pad_prep_tiles`` keeps one dead chunk
+      past the true ones for that.
+
+    The ring kernels' schedules ``ring`` and ``edge_ring`` are carried over:
+    a padding step holds no live tile or slot, so the ring would drop it,
+    and a live step's chunk keeps its id and live slots whatever K. The
+    single-stage kernels' ``segments`` take the padding steps in;
+    ``slot_lv8`` is rebuilt at the new R and K. Targets below the plan's
+    raise, as does a ``k_steps`` plan (its runs are multiples of
+    ``k_steps``). JAX also refuses a plan split into several calls (its
+    SMEM step cap); the port launches a plan whole, so no plan is split."""
+    from sgracex1_tpu_torch.ops.bsr import pad_bsr_tile_count
+
+    S0, T0, R0, K0 = plan.num_steps, plan.B.num_tiles, plan.num_chunks, plan.K
+    if (S, T, R, K) == (S0, T0, R0, K0):
+        return plan
+    if not (S >= S0 and T >= T0 and R >= R0 and K >= K0):
+        raise ValueError(f"pad_fused_plan targets must dominate: have {(S0, T0, R0, K0)}, asked {(S, T, R, K)}")
+    if plan.k_steps > 1:
+        raise ValueError("cannot pad a k_steps plan: padding steps would break its runs' multiples")
+    if K % 32:
+        raise ValueError(f"K must be a multiple of 32, got {K}")
+    tb, n_rt = plan.B.tb, plan.B.n_row_tiles
+    lrow = torch.nn.functional.pad(plan.lrow, (0, K - K0, 0, R - R0), value=tb)
+    slots = lambda a: torch.nn.functional.pad(a.view(R0, K0), (0, K - K0, 0, R - R0)).reshape(-1)
+    slot_col, slot_scale = slots(plan.slot_col), slots(plan.slot_scale)
+    pad = S - S0
+    tail = lambda a, v: torch.cat([a[:S0], torch.full((pad,), int(v), dtype=a.dtype, device=a.device)])
+    step_rb = torch.cat([tail(plan.step_rb, plan.step_rb[S0 - 1]), plan.step_rb[S0:]])
+    slot_lv8 = plan.slot_lv8
+    if slot_lv8 is not None and (K, R) != (K0, R0):
+        slot_lv8 = _tensor(_slot_lv8(_np(lrow), _np(slot_scale)), slot_lv8.device)
+    return dataclasses.replace(
+        plan,
+        B=pad_bsr_tile_count(plan.B, T),
+        step_rb=step_rb,
+        step_cb=tail(plan.step_cb, plan.step_cb[S0 - 1]),
+        step_tile=tail(plan.step_tile, plan.step_tile[S0 - 1]),
+        step_chunk=tail(plan.step_chunk, R - 1),
+        step_kind=tail(plan.step_kind, 1),
+        lrow=lrow, slot_col=slot_col, slot_scale=slot_scale, K=K,
+        segments=run_segments(_np(step_rb[:S]), n_rt, step_rb.device),
         slot_lv8=slot_lv8,
     )
 

@@ -51,15 +51,11 @@ def _choose_shard_tb(A_ls, rank1: bool, tbs=None, costs: D.CostTable = D.H100_CO
             if len(counts) == 0:
                 continue
             tc = D._tile_cost_s(tb, D._tile_itemsize(tb, rank1, 2, costs), costs)
-            thresh = int(np.ceil(tc / D._rest_slot_cost_s(tb, costs)))
-            dense = counts >= thresh
-            rest_by_rb = np.bincount(
-                (uniq >> 32)[~dense].astype(np.int64), weights=counts[~dense].astype(np.float64),
-            )
+            _, dense, rest_by_rb, chunk, slot, k = D._hybrid_split(tb, uniq, counts, tc, costs, K=D.DEFAULT_K)
             tots[tb] += (
                 int(dense.sum()) * tc
-                + np.ceil(rest_by_rb / costs.rest_k).sum() * D._chunk_cost_s(tb, costs)
-                + counts[~dense].sum() * costs.rest_slot_s
+                + np.ceil(rest_by_rb / k).sum() * chunk
+                + counts[~dense].sum() * slot
             )
     return min(tots, key=tots.get)
 
@@ -129,7 +125,7 @@ def build_halo_fused(
         tb = _choose_shard_tb(A_ls, facs[0] is not None, costs=costs)
     threads = min(S, 8) if threads is None else threads
     prep = lambda af: D.prepare_adjacency(af[0], method="hybrid", tb=tb, rank1=False, rank1_factors=af[1],
-                                        costs=costs, device=device)
+                                        costs=costs, fused_k=D.DEFAULT_K, device=device)
     with cf.ThreadPoolExecutor(max_workers=max(threads, 1)) as ex:
         preps = list(ex.map(prep, zip(A_ls, facs)))
     return HaloFusedPlan(preps=preps, tb=tb, n_local=n_local)

@@ -448,7 +448,7 @@ def prepare_int8_hybrid(
     costs = D.H100_COSTS if costs is None else costs
     thresh = rest_thresh
     if thresh is None:
-        thresh = int(np.ceil(D._tile_cost_s(tb, 1.0, costs) / D._rest_slot_cost_s(tb, costs)))
+        thresh = int(np.ceil(D._tile_cost_s(tb, 1.0, costs) / D._rest_slot_cost_s(tb, K, costs)))
     part, rest = D.split_by_tile_density(A, tb, thresh)
     B8 = bsr_int8_from_sparse(part, c_a, tb=tb, cover_cols=True, device=device)
     rest_q = None

@@ -1,8 +1,10 @@
 from sgracex1_tpu_torch.train.checkpoint import (
     load_checkpoint,
     load_train_state,
+    load_train_state_sharded,
     save_checkpoint,
     save_train_state,
+    save_train_state_sharded,
 )
 from sgracex1_tpu_torch.train.loop import (
     History,
@@ -26,4 +28,6 @@ __all__ = [
     "load_checkpoint",
     "save_train_state",
     "load_train_state",
+    "save_train_state_sharded",
+    "load_train_state_sharded",
 ]

@@ -10,12 +10,11 @@ backward and Adam in ``model.train()``; each evaluation runs in
 the host and live on the device; on a prepared backend the aggregations
 and their gradients run the port's kernels.
 
-The JAX loops pad every re-prepared adjacency's tile and plan counts to
-sticky maxima (``_pad_prep_tiles``, through ``ops/bsr.pad_bsr_tile_count``
-and ``ops/fused_agg.pad_fused_plan``) so that one traced program serves
-every batch under ``jit``. Eager torch traces nothing, so each batch here
-runs on its own prep as built, and those three functions are not ported;
-a later measurement (CUDA graphs, allocator churn) may ask for them.
+The three batch loops pad every batch's prep to sticky maxima
+(``_pad_prep_tiles``, through ``ops/bsr.pad_bsr_tile_count`` and
+``ops/fused_agg.pad_fused_plan``) where the JAX loops do, so every batch's
+tensors keep one shape (what a captured CUDA graph needs); the padding
+adds no work to the ring kernels' live schedules.
 """
 
 from __future__ import annotations
@@ -34,7 +33,9 @@ from sgracex1_tpu_torch.graph.csr import SparseMatrix, _round_up
 from sgracex1_tpu_torch.graph.datasets import NodeClassificationData
 from sgracex1_tpu_torch.graph.normalize import sym_norm, sym_norm_edges
 from sgracex1_tpu_torch.graph.sampling import make_neighbor_batches
+from sgracex1_tpu_torch.ops.bsr import pad_bsr_tile_count
 from sgracex1_tpu_torch.ops.dispatch import PreparedAdjacency, prepare_from_config
+from sgracex1_tpu_torch.ops.fused_agg import pad_fused_plan
 
 
 def _uses_attention(model) -> bool:
@@ -68,6 +69,81 @@ def _prepare_backend(A, cfg: SGRACEConfig, model, prepare, device):
     return prepare_from_config(
         A, cfg, for_gat=_uses_attention(model), method=method, device=device
     )
+
+
+def _pad_prep_tiles(prep: PreparedAdjacency, sticky: dict) -> PreparedAdjacency:
+    """``prep`` padded to the sticky maxima in ``sticky`` (updated here), so
+    re-prepared batches keep one shape, as JAX ``_pad_prep_tiles``:
+
+    - tile sets (``bsr``, ``bsr_t``, ``gat_bsr``) grow to the largest tile
+      count seen at their tile size (``pad_bsr_tile_count``);
+    - fused plans grow to sticky (steps, tiles, chunks, K) maxima
+      (``pad_fused_plan``), the chunk target one past any plan's chunks, so
+      the padding steps have a dead chunk to point at (where a plan's
+      chunks reach the target and its last one is live, the target moves
+      one further: JAX keeps it there and its padding steps would read that
+      live chunk). A plan's tiles are padded once with its tile set's;
+    - ``rest`` is dropped where the fused plans carry its edges (only the
+      unfused aggregation reads it);
+    - ``gat_rest`` pads to a sticky edge count with ``nnz == e_pad``: the
+      padding edges (last row, column 0, value 0) are masked out, the GAT
+      edge mask being ``val > 0``.
+
+    The ring kernels' live schedules stay those of the unpadded prep."""
+    updates = {}
+    for f in ("bsr", "bsr_t", "gat_bsr"):
+        B = getattr(prep, f)
+        if B is None:
+            continue
+        key = (f, B.tb)
+        sticky[key] = max(sticky.get(key, 0), B.num_tiles)
+        if sticky[key] > B.num_tiles:
+            updates[f] = pad_bsr_tile_count(B, sticky[key])
+    for f, bf in (("fused", "bsr"), ("fused_t", "bsr_t")):
+        plan = getattr(prep, f)
+        if plan is None:
+            continue
+        key = (f, plan.B.tb)
+        S, T, R, K = plan.num_steps, plan.B.num_tiles, plan.num_chunks, plan.K
+        prev = sticky.get(key, (0, 0, 0, 0))
+        last_live = plan.num_rest_chunks >= R
+        tgt = (
+            max(prev[0], S),
+            max(prev[1], T, sticky.get((bf, plan.B.tb), 0)),
+            prev[2] if R < prev[2] or (R == prev[2] and not last_live) else R + 1,
+            max(prev[3], K),
+        )
+        sticky[key] = tgt
+        padded = updates.get(bf)
+        if padded is not None and plan.B is getattr(prep, bf) and padded.num_tiles == tgt[1]:
+            plan = dataclasses.replace(plan, B=padded)
+        updates[f] = pad_fused_plan(plan, S=tgt[0], T=tgt[1], R=tgt[2], K=tgt[3])
+    if updates.get("fused", prep.fused) is not None and prep.rest is not None:
+        updates["rest"] = None
+    if prep.gat_rest is not None:
+        g = prep.gat_rest
+        key = "gat_rest_pad"
+        sticky[key] = max(sticky.get(key, 0), g.e_pad)
+        pad = sticky[key] - g.e_pad
+        if pad or g.nnz != g.e_pad:
+            fill = lambda a, v: torch.cat([a, torch.full((pad,), v, dtype=a.dtype, device=a.device)])
+            updates["gat_rest"] = dataclasses.replace(
+                g, rows=fill(g.rows, max(0, g.n_rows - 1)), cols=fill(g.cols, 0), vals=fill(g.vals, 0),
+                nnz=sticky[key],
+            )
+    return dataclasses.replace(prep, **updates) if updates else prep
+
+
+def _padded_prep(A, cfg: SGRACEConfig, model, prepare, device, sticky: dict):
+    """``_prepare_backend``, then ``_pad_prep_tiles`` on a prep."""
+    bA = _prepare_backend(A, cfg, model, prepare, device)
+    return _pad_prep_tiles(bA, sticky) if isinstance(bA, PreparedAdjacency) else bA
+
+
+def _repad(A, sticky: dict):
+    """The second pass of the staging loops: a staged prep re-padded to the
+    final sticky maxima (they grew while later batches were staged)."""
+    return _pad_prep_tiles(A, sticky) if isinstance(A, PreparedAdjacency) else A
 
 
 def _per_batch(prepare) -> None:
@@ -213,7 +289,8 @@ def train_node_classifier_sampled(
     Every epoch samples fresh batches of ``batch_size`` seeds from the
     train mask (``graph/sampling.make_neighbor_batches``, drawing from one
     ``np.random.default_rng(seed)``); each batch's adjacency is prepared
-    with ``prepare`` and takes one step, the loss on its seeds. After each
+    with ``prepare``, padded to the sticky maxima of the batches so far
+    (``_pad_prep_tiles``), and takes one step, the loss on its seeds. After each
     epoch the model is evaluated on the full graph, prepared once.
     ``device``, the optimizer, dropout and the history are as in
     ``train_node_classifier``; the history's loss is the epoch's last
@@ -229,6 +306,7 @@ def train_node_classifier_sampled(
 
     hist = History()
     n_pad = e_pad = 0  # pad floors: later epochs keep the first's shapes
+    tile_pads: dict = {}  # sticky tile and plan counts of the batches' preps
     for epoch in range(cfg.num_epochs):
         batches = make_neighbor_batches(
             data.edge_index, data.x, data.y, train_nodes,
@@ -237,7 +315,7 @@ def train_node_classifier_sampled(
         n_pad = max(n_pad, batches[0].x.shape[0])
         e_pad = max(e_pad, batches[0].A.e_pad)
         for b in batches:
-            bA = _prepare_backend(b.A, cfg, model, prepare, device)
+            bA = _padded_prep(b.A, cfg, model, prepare, device, tile_pads)
             bx = torch.as_tensor(b.x, device=device)
             by = torch.as_tensor(b.y, device=device).long()
             bm = torch.as_tensor(b.seed_mask, device=device).float()
@@ -262,21 +340,24 @@ def train_graph_classifier(
     Adam at ``cfg.learning_rate``, 0.01 when unset, cross-entropy over the
     batch's labelled graph slots). Each batch's adjacency is prepared once
     (``prepare``) and its arrays moved to the device before the first
-    epoch. Accuracy counts the correct graphs over all batches.
+    epoch, each prep padded to the sticky maxima of all (``_pad_prep_tiles``).
+    Accuracy counts the correct graphs over all batches.
     ``model`` (``MoleculeGCN``), ``device``, dropout and the history are as
     in ``train_node_classifier``."""
     device = resolve_device(device)
     _per_batch(prepare)
+    tile_pads: dict = {}
 
     def stage(batches):
         t = lambda a: torch.as_tensor(a, device=device)
         return [
-            (_prepare_backend(b.A, cfg, model, prepare, device), t(b.x), t(b.graph_ids).long(),
+            (_padded_prep(b.A, cfg, model, prepare, device, tile_pads), t(b.x), t(b.graph_ids).long(),
              t(b.y).long(), t(b.label_mask).float(), b.num_graphs)
             for b in batches
         ]
 
     train_b, test_b = stage(train_batches), stage(test_batches)
+    train_b, test_b = ([(_repad(A, tile_pads), *rest) for A, *rest in split] for split in (train_b, test_b))
     lr = cfg.learning_rate if cfg.learning_rate is not None else 0.01
     state, gen = _start(model, lr, seed, device)
     model = state.model
@@ -355,7 +436,8 @@ def train_multilabel_inductive(
     Every graph is padded to one node count (a multiple of 128) and one
     edge count with ``nnz == e_pad`` (``_pad_multilabel_graph``,
     ``SparseMatrix.pad_edges_to``, ``with_uniform_nnz``), prepared once
-    with ``prepare`` and kept on the device. ``model``, ``device``,
+    with ``prepare``, padded to the sticky maxima of all
+    (``_pad_prep_tiles``) and kept on the device. ``model``, ``device``,
     dropout and the optimizer are as in ``train_node_classifier``."""
     device = resolve_device(device)
     _per_batch(prepare)
@@ -365,11 +447,13 @@ def train_multilabel_inductive(
     padded = [_pad_multilabel_graph(g, n_pad, fill) for g in graphs]
     e_pad = max(A.e_pad for A, _, _, _ in padded)
     t = lambda a: torch.as_tensor(a, device=device)
+    tile_pads: dict = {}
     staged = [
-        (_prepare_backend(A.pad_edges_to(e_pad).with_uniform_nnz(), cfg, model, prepare, device),
+        (_padded_prep(A.pad_edges_to(e_pad).with_uniform_nnz(), cfg, model, prepare, device, tile_pads),
          t(x), t(y), t(m))
         for A, x, y, m in padded
     ]
+    staged = [(_repad(A, tile_pads), *rest) for A, *rest in staged]
     n_tr, n_va = len(splits[0]), len(splits[1])
     train_b, val_b, test_b = staged[:n_tr], staged[n_tr : n_tr + n_va], staged[n_tr + n_va :]
     state, gen = _start(model, cfg.resolved_learning_rate(), seed, device)

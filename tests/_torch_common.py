@@ -48,14 +48,19 @@ def jax_cost_table():
     import inspect
 
     from sgracex1_tpu.ops import flash_gat as jfg
+    from sgracex1_tpu.ops import fused_agg as jfa
     from sgracex1_tpu.parallel import halo_fused as jhf
 
     default = lambda fn, name: inspect.signature(fn).parameters[name].default
     return tdis.CostTable(
         card="the JAX package's constants", hbm_bps=jdis._HBM_BPS, step_s=jdis._STEP_S,
         mxu_flops=jdis._MXU_FLOPS, vpu_ops=jdis._VPU_OPS, tile_s={},
-        tbs=default(jdis._estimate_backend_costs, "tbs"), rest_chunk_s=jdis._REST_CHUNK_S,
-        rest_slot_s=jdis._REST_SLOT_S, rest_k=jdis._REST_K, chunk_s={}, dense_bps=jdis._HBM_BPS,
+        tbs=default(jdis._estimate_backend_costs, "tbs"),
+        # the plan's chooser: the JAX chunk formula at each width, 4e-9 s a
+        # slot (the literal of the JAX build_fused_plan); the backend model
+        # prices the remainder apart, at its K = 128 constants
+        rest_chunk_s={k: jfa._chunk_cost_s(k) for k in (128, 256, 512)}, rest_slot_s=4e-9,
+        rest_fixed=(jdis._REST_CHUNK_S, jdis._REST_SLOT_S, jdis._REST_K), chunk_s={}, dense_bps=jdis._HBM_BPS,
         xla_edge_s=jdis._XLA_EDGE_S, pallas_group_s=jdis._PALLAS_GROUP_S, pallas_edge_s=0.0,
         pallas_block=1024, row_s={}, call_s={}, flash_tile_s=dict(jdis._FLASH_TILE_S),
         flash_run_s=dict(jdis._FLASH_RUN_S), flash_elt_s=jdis._FLASH_ELT_S,

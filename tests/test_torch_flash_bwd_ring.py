@@ -74,8 +74,10 @@ def _finish(out, part, S, tb):
     return out
 
 
-def row_emulation(B, L, ops):
-    """(t, u1, u2) [n_rt*tb, H] by the ring K4's data flow over ``L``."""
+def row_emulation(B, L, ops, fast_exp=False):
+    """(t, u1, u2) [n_rt*tb, H] by the ring K4's data flow over ``L``
+    (``fast_exp``: ``_fast_exp`` for p)."""
+    exp = tfg._fast_exp if fast_exp else torch.exp
     tb, H = B.tb, ops["s1"].shape[1]
     S1, S2, M = ops["s1"], ops["s2"], ops["m"]
     Li = 1.0 / torch.clamp(ops["l"], min=1e-30)
@@ -94,7 +96,7 @@ def row_emulation(B, L, ops):
                 x = S1[gr][:, None] + S2[gc][None]  # [r, 64, H]
                 lr = torch.where(x > 0, 1.0, ALPHA)
                 e = torch.maximum(x, ALPHA * x) - M[gr][:, None]
-                p = torch.where(mask[..., None], torch.exp(e) * Li[gr][:, None], 0.0)
+                p = torch.where(mask[..., None], exp(e) * Li[gr][:, None], 0.0)
                 q = torch.einsum("rhf,chf->rch", G[gr], W[gc])
                 acc += torch.stack(((p * q).sum(1), (p * q * lr).sum(1), (p * lr).sum(1)), dim=1)
             if pi >= 0:
@@ -105,9 +107,11 @@ def row_emulation(B, L, ops):
     return out[:, 0], out[:, 1], out[:, 2]
 
 
-def col_emulation(B, L, ops):
+def col_emulation(B, L, ops, fast_exp=False):
     """(dWh [n_ct*tb, H, F], ds2 [n_ct*tb, H]) by the ring K5's data flow
-    over ``L``, the ring of ``B.live_t`` (own rows: A's columns)."""
+    over ``L``, the ring of ``B.live_t`` (own rows: A's columns;
+    ``fast_exp``: ``_fast_exp`` for p)."""
+    exp = tfg._fast_exp if fast_exp else torch.exp
     Bt = B.live_t
     tb, H, F = B.tb, ops["s1"].shape[1], ops["Wh"].shape[2]
     S1, S2, M, T = ops["s1"], ops["s2"], ops["m"], ops["t"]
@@ -131,7 +135,7 @@ def col_emulation(B, L, ops):
                 x = S2[gc][:, None] + S1[gr][None]  # [c, 64, H]
                 lr = torch.where(x > 0, 1.0, ALPHA)
                 e = torch.maximum(x, ALPHA * x) - M[gr][None]
-                p = torch.where(mask[..., None], torch.exp(e) * Li[gr][None], 0.0)
+                p = torch.where(mask[..., None], exp(e) * Li[gr][None], 0.0)
                 q = torch.einsum("chf,rhf->crh", W[gc], G[gr])
                 ad += (p * (q - T[gr][None]) * lr).sum(1)
                 aw += torch.einsum("crh,rhf->chf", _bf16r(p), G[gr])
@@ -362,3 +366,22 @@ def test_flash_bwd_ring_shape_rule():
     got = tfg.flash_gat_bwd_col(B, s1, s2, m, l, want[0], Wh, gO)
     assert all(torch.equal(g, w) for g, w in zip(got, tfg.flash_gat_bwd_col_plain(B, s1, s2, m, l, want[0], Wh, gO)))
     assert [(k.launches, k.launches_ring, k.launches_single) for k in counters] == before
+
+
+@pytest.mark.parametrize("form,tb,n,H,weighted,seg_steps", CASES[:3])
+def test_bwd_ring_flow_fast_exp(form, tb, n, H, weighted, seg_steps):
+    """K4 and K5's ring data flow with fast_exp against the plain K4 / K5
+    with it: the same stats, so the same p up to the order of the sums."""
+    T = _graph(n, weighted, seed=n + H)
+    cover = dict(tb=tb, cover_rows=True, cover_cols=True)
+    B = tb_.bsr_mask_from_sparse(T, **cover) if form == "int8" else tb_.bsr_from_sparse(T, **cover)
+    L4 = tb_.recut_live_schedule(B.ring, B.n_row_tiles, seg_steps)
+    L5 = tb_.recut_live_schedule(B.live_t.ring, B.live_t.n_row_tiles, seg_steps)
+    s1, s2, Wh, gO = (torch.from_numpy(x) for x in _operands(n, H, 64, seed=n + 1))
+    _, m, l = tfg.flash_gat_forward_plain(B, s1, s2, Wh, return_stats=True, fast_exp=True)
+    ops = tfg.bwd_operands(B, s1, s2, Wh, gO, m, l)
+    row = row_emulation(B, L4, ops, fast_exp=True)
+    _hold(row, tfg.flash_gat_bwd_row_plain(B, **ops, fast_exp=True))
+    ops["t"] = row[0]
+    _hold(col_emulation(B, L5, ops, fast_exp=True), tfg.flash_gat_bwd_col_plain(B, **ops, fast_exp=True))
+    assert not torch.equal(row[0], row_emulation(B, L4, dict(ops, t=None))[0])

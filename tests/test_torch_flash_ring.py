@@ -11,6 +11,9 @@ populated sub-block meets) and the mask bits of empty sub-blocks cleared,
 held equal to K3's flow on a bitmap of the tiles' own edges and within 2e-2
 of the plain K12 on any bitmap."""
 
+import sys
+from pathlib import Path
+
 import numpy as np
 import pytest
 import jax.numpy as jnp
@@ -27,6 +30,9 @@ from sgracex1_tpu_torch.ops import bsr as tb_
 from sgracex1_tpu_torch.ops import dispatch as tdis
 from sgracex1_tpu_torch.ops import flash_gat as tfg
 from sgracex1_tpu_torch.ops import fused_agg as tf
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+from chip_smoke import L2E, _fast_ex2, _k3_fast_reference  # noqa: E402
 
 # one intra-op thread: the suite runs several pytest workers side by side
 torch.set_num_threads(1)
@@ -53,7 +59,8 @@ def _keep_mask(pop, tile, tb, sb):
     return bits.repeat_interleave(sb, 0).repeat_interleave(sb, 1)
 
 
-def ring_emulation(B, L, s1, s2, Wh, *, alpha=0.2, plan=None, pop=None, sb=0):
+def ring_emulation(B, L, s1, s2, Wh, *, alpha=0.2, plan=None, pop=None, sb=0, fast_exp=False,
+                   chunk_mode="full"):
     """(out [n_rows, H, F], m, l [n_rt*tb, H]) by the ring kernel's data
     flow over the live schedule ``L`` (``B.ring`` for K3, ``plan.ring`` for
     K6). Work item (segment, row group of R rows): every head at once; a
@@ -64,7 +71,12 @@ def ring_emulation(B, L, s1, s2, Wh, *, alpha=0.2, plan=None, pop=None, sb=0):
     when it grows; p = exp(e - m) on edges, l += p, acc += bf16(p) @
     bf16(Wh). A split run's partials merge in order. With ``pop`` (K12 on
     ``subskip_schedule``'s steps) a tile step loads only the slabs of its
-    last field's mask and clears the edges of empty sub-blocks."""
+    last field's mask and clears the edges of empty sub-blocks. The
+    kernel's runtime flags: ``fast_exp`` takes the ring's base-2 form of
+    Schraudolph's exp for p (``chip_smoke._fast_ex2`` of max(s2 L2E +
+    (s1 - m) L2E, alpha s2 L2E + (alpha s1 - m) L2E)); K6's
+    ``chunk_mode`` "off" loads no chunk slab, "noscore" adds a chunk slab's
+    one-hot @ bf16(Wh) to the sums with no max or l."""
     if s1.dim() == 1:
         s1, s2, Wh = s1[:, None], s2[:, None], Wh[:, None, :]
     tb, H, F = B.tb, Wh.shape[1], Wh.shape[2]
@@ -98,14 +110,17 @@ def ring_emulation(B, L, s1, s2, Wh, *, alpha=0.2, plan=None, pop=None, sb=0):
                         on = slots  # K12: the slabs to load
                     for k0 in range(0, tb, SLAB):
                         if (on >> (k0 // SLAB)) & 1:
-                            slabs.append((mask[:, k0: k0 + SLAB], cb * tb + k0 + torch.arange(SLAB)))
-                if chunk >= 0:
+                            slabs.append((mask[:, k0: k0 + SLAB], cb * tb + k0 + torch.arange(SLAB), False))
+                if chunk >= 0 and chunk_mode != "off":
                     for k0 in range(0, slots, SLAB):
                         lr = plan.lrow[chunk, k0: k0 + SLAB].long()
                         mine = (lr >= row0) & (lr < row0 + R) & (lr < tb)  # the slots this work item gathers
                         cols = torch.where(mine, plan.slot_col[chunk * plan.K + k0 + torch.arange(SLAB)].long(), 0)
-                        slabs.append(((lr[None, :] == rows[:, None]) & mine[None, :], cols))
-            for mask, cols in slabs:
+                        slabs.append(((lr[None, :] == rows[:, None]) & mine[None, :], cols, True))
+            for mask, cols, is_chunk in slabs:
+                if is_chunk and chunk_mode == "noscore":
+                    acc = acc + torch.einsum("rk,khf->rhf", mask.float(), W[cols])[:, :, :]
+                    continue
                 s2c = S2[cols].T[None]  # [1, H, 64]
                 edge = mask[:, None, :]  # [r, 1, 64]
                 big = torch.where(edge, s2c, -torch.inf).amax(dim=-1)  # [r, H]
@@ -115,7 +130,13 @@ def ring_emulation(B, L, s1, s2, Wh, *, alpha=0.2, plan=None, pop=None, sb=0):
                 corr = torch.exp(m - m_new)
                 e = S1[grow][..., None] + s2c
                 e = torch.maximum(e, alpha * e)
-                p = torch.where(edge, torch.exp(e - m_new[..., None]), 0.0)
+                if fast_exp:
+                    sp = s2c * L2E
+                    y = torch.maximum(sp + ((S1[grow] - m_new) * L2E)[..., None],
+                                      alpha * sp + ((alpha * S1[grow] - m_new) * L2E)[..., None])
+                    p = torch.where(edge, _fast_ex2(y), 0.0)
+                else:
+                    p = torch.where(edge, torch.exp(e - m_new[..., None]), 0.0)
                 l = l * corr + p.sum(dim=-1)
                 acc = acc * corr[..., None] + torch.einsum("rhk,khf->rhf", _bf16r(p), W[cols])
                 m = m_new
@@ -385,3 +406,73 @@ def test_subskip_route_rule():
         torch.testing.assert_close(k(B, pop, s1, s2, Wh, sb=sb),
                                    tfg.flash_gat_forward_subskip_plain(B, pop, s1, s2, Wh, sb=sb), rtol=0, atol=0)
         assert (k.launches, k.launches_ring, k.launches_single) == before
+
+
+FAST_TOL = 0.07  # fast_exp errs ~3% either way, taken at the slab's running max here and the tile's there
+
+
+def _hold_fast(got, ref, Wh):
+    """fast_exp: m equal, out within FAST_TOL of max |Wh|, l within FAST_TOL."""
+    out, m, l = got
+    assert torch.equal(m, ref[1])
+    assert float((out - ref[0]).abs().max()) <= FAST_TOL * float(Wh.abs().max())
+    torch.testing.assert_close(l, ref[2], rtol=FAST_TOL, atol=1e-30)
+
+
+@pytest.mark.parametrize("form,tb,n,H,weighted,seg_steps", K3_CASES[:3])
+def test_ring_flow_fast_exp_k3(form, tb, n, H, weighted, seg_steps):
+    """K3's ring data flow with fast_exp against the plain K3 with it."""
+    T = _graph(n, weighted, seed=n)
+    cover = dict(tb=tb, cover_rows=True, cover_cols=True)
+    Bt = tb_.bsr_mask_from_sparse(T, **cover) if form == "int8" else tb_.bsr_from_sparse(T, **cover)
+    L = tb_.recut_live_schedule(Bt.ring, Bt.n_row_tiles, seg_steps)
+    s1, s2, Wh = _scores(n, H, 64, seed=n + 1)
+    got = ring_emulation(Bt, L, s1, s2, Wh, fast_exp=True)
+    _hold_fast(got, tfg.flash_gat_forward_plain(Bt, s1, s2, Wh, return_stats=True, fast_exp=True), Wh)
+    assert not torch.equal(got[0], ring_emulation(Bt, L, s1, s2, Wh)[0])
+
+
+@pytest.mark.parametrize("form,tb,n,H,weighted,seg_steps", K3_CASES)
+def test_fast_reference_follows_the_kernels(form, tb, n, H, weighted, seg_steps):
+    """The script's K3 fast_exp reference (``chip_smoke._k3_fast_reference``,
+    the kernels' arithmetic over whole schedules at once): on a ring
+    schedule within 1e-5 of the ring flow at fast_exp, which moves the
+    running max once a slab; in the single-stage form (the running max once
+    a tile, ``_fast_exp``) on a schedule of whole runs within 1e-5 of the
+    plain K3 at fast_exp, which walks the tiles the same way; and the two
+    forms differ."""
+    T = _graph(n, weighted, seed=n)
+    cover = dict(tb=tb, cover_rows=True, cover_cols=True)
+    Bt = tb_.bsr_mask_from_sparse(T, **cover) if form == "int8" else tb_.bsr_from_sparse(T, **cover)
+    L = tb_.recut_live_schedule(Bt.ring, Bt.n_row_tiles, seg_steps)
+    s1, s2, Wh = _scores(n, H, 64, seed=n + 1)
+    out, m, l = ring_emulation(Bt, L, s1, s2, Wh, fast_exp=True)
+    got, got_l = _k3_fast_reference(Bt, L, s1, s2, Wh, m, ring=True)
+    torch.testing.assert_close(got, out, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(got_l, l, rtol=1e-5, atol=1e-30)
+    whole = tb_.run_segments(Bt.tile_rb.numpy(), Bt.n_row_tiles, seg_steps=1 << 20)
+    ref = tfg.flash_gat_forward_plain(Bt, s1, s2, Wh, return_stats=True, fast_exp=True)
+    single, single_l = _k3_fast_reference(Bt, whole, s1, s2, Wh, ref[1], ring=False)
+    torch.testing.assert_close(single, ref[0], rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(single_l, ref[2], rtol=1e-5, atol=1e-30)
+    assert not torch.equal(single, got)
+
+
+@pytest.mark.parametrize("mode", ["off", "noscore"])
+@pytest.mark.parametrize("attach,H,tb,K,n,density,thresh", K6_CASES[:2])
+def test_ring_flow_chunk_modes(mode, attach, H, tb, K, n, density, thresh):
+    """K6's ring data flow at the chunk modes against the plain K6 at them.
+    ``noscore`` adds a chunk at the running max of the work item that holds
+    it, the plain version at the run's: equal on the rows of the runs the
+    schedule keeps whole (all rows of a schedule of whole runs)."""
+    _, pt = _hybrid(n, density, tb, thresh, attach, K=K)
+    s1, s2, Wh = _scores(n, H, 64, seed=9)
+    ref = tfg.flash_gat_hybrid_forward_plain(pt, s1, s2, Wh, _chunk_mode=mode)
+    for seg_steps in (3, 1 << 20):
+        L = tb_.recut_live_schedule(pt.ring, pt.B.n_row_tiles, seg_steps)
+        out = ring_emulation(pt.B, L, s1, s2, Wh, plan=pt, chunk_mode=mode)[0]
+        keep = torch.ones(out.shape[0], dtype=torch.bool)
+        if mode == "noscore":
+            keep = ~torch.isin(torch.arange(out.shape[0]) // tb, L.segments.fin_rb.long())
+            assert keep.all() == (seg_steps > 3)
+        torch.testing.assert_close(out[keep], ref[keep], rtol=TOL, atol=TOL)
