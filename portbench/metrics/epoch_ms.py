@@ -1,0 +1,6 @@
+"""Window milliseconds an epoch (train cells)."""
+from portbench.readers import per_unit_ms
+
+
+def read(run):
+    return per_unit_ms(run, "train")
