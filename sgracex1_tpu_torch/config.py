@@ -6,9 +6,7 @@ under their JAX names and defaults: the training loop's (``num_epochs``,
 rule) and ``prepare_from_config``'s (``use_pallas`` with the tiling
 ``row_block`` / ``col_block`` / ``edge_block`` of the ``pallas`` kind,
 ``fake_quantization``) and the mesh's (``mesh_axis``, ``num_shards``:
-``parallel.make_mesh(cfg.num_shards, cfg.mesh_axis)``), and the
-observability flags ``profiling`` and ``track_amax``, which nothing reads
-in either package. The model's widths, heads, dropout, LeakyReLU slope
+``parallel.make_mesh(cfg.num_shards, cfg.mesh_axis)``). The model's widths, heads, dropout, LeakyReLU slope
 and calibration table are the model's own arguments.
 """
 
@@ -45,11 +43,6 @@ class SGRACEConfig:
     num_epochs: int = 100
     # checkpoint (``train/checkpoint.save_checkpoint``) to fine-tune from
     preload: Optional[str] = None
-
-    # --- observability (the reference's profiling flag and max_fea
-    # telemetry); the JAX package reads neither, and neither does the port
-    profiling: bool = False
-    track_amax: bool = True
 
     def resolved_learning_rate(self) -> float:
         """The reference's qbits-dependent rule: preload fine-tuning =>

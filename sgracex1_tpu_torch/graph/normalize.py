@@ -16,6 +16,7 @@ import numpy as np
 
 from sgracex1_tpu_torch.graph.csr import SparseMatrix, unique_sorted
 from sgracex1_tpu_torch.runtime import native
+from sgracex1_tpu_torch.utils.profiling import span
 
 
 def add_self_loops(
@@ -152,8 +153,12 @@ def sym_norm(
     *,
     pad_to: int = 128,
 ) -> SparseMatrix:
-    """The normalized adjacency as a (host) SparseMatrix."""
-    ei, ew = sym_norm_edges(edge_index, num_nodes, edge_weight, fill)
-    return SparseMatrix.from_coo(
-        ei[0], ei[1], ew, (num_nodes, num_nodes), pad_to=pad_to, sort=False
-    )
+    """The normalized adjacency as a (host) SparseMatrix, in a
+    ``sym_norm`` span that counts its nodes and edges."""
+    with span("sym_norm", n=num_nodes) as s:
+        ei, ew = sym_norm_edges(edge_index, num_nodes, edge_weight, fill)
+        A = SparseMatrix.from_coo(
+            ei[0], ei[1], ew, (num_nodes, num_nodes), pad_to=pad_to, sort=False
+        )
+        s.set(nnz=A.nnz)
+    return A

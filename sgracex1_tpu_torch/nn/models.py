@@ -6,6 +6,8 @@ under grad its activations are not kept but recomputed in the backward
 (``torch.utils.checkpoint``, non-reentrant, stopping as soon as what the
 backward reads is recomputed). Parameter names and results do not change.
 Dropout sits outside the convolutions, so no random draw is replayed.
+Each model's ``forward`` runs in a ``model.forward`` span
+(``utils/profiling``).
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ from torch.utils.checkpoint import checkpoint
 
 from sgracex1_tpu_torch.nn.layers import GATConv, GCNConv
 from sgracex1_tpu_torch.quant.calibration import CalibrationTable
+from sgracex1_tpu_torch.utils.profiling import span
 
 
 @contextlib.contextmanager
@@ -83,10 +86,11 @@ class GCNModel(nn.Module):
     def forward(
         self, A, x: torch.Tensor, *, generator: Optional[torch.Generator] = None
     ) -> torch.Tensor:
-        for i in range(self.num_layers):
-            conv = getattr(self, f"conv{i + 1}")
-            x = _conv_apply(self.remat, conv, A, x, i < self.num_layers - 1)
-        return self.head(_dropout(self, x, generator))
+        with span("model.forward"):
+            for i in range(self.num_layers):
+                conv = getattr(self, f"conv{i + 1}")
+                x = _conv_apply(self.remat, conv, A, x, i < self.num_layers - 1)
+            return self.head(_dropout(self, x, generator))
 
 
 def _dropout(model: nn.Module, x: torch.Tensor, generator) -> torch.Tensor:
@@ -139,9 +143,10 @@ class GATModel(nn.Module):
     def forward(
         self, A, x: torch.Tensor, *, generator: Optional[torch.Generator] = None
     ) -> torch.Tensor:
-        x = _conv_apply(self.remat, self.conv1, A, x, True)
-        x = _conv_apply(self.remat, self.conv2, A, x, False)
-        return self.head(_dropout(self, x, generator))
+        with span("model.forward"):
+            x = _conv_apply(self.remat, self.conv1, A, x, True)
+            x = _conv_apply(self.remat, self.conv2, A, x, False)
+            return self.head(_dropout(self, x, generator))
 
 
 def global_mean_pool(x: torch.Tensor, graph_ids: torch.Tensor, num_graphs: int) -> torch.Tensor:
@@ -189,7 +194,8 @@ class MoleculeGCN(nn.Module):
         self, A, x: torch.Tensor, graph_ids: torch.Tensor, num_graphs: int, *,
         generator: Optional[torch.Generator] = None,
     ) -> torch.Tensor:
-        x = _conv_apply(self.remat, self.conv1, A, x, True)
-        x = _conv_apply(self.remat, self.conv2, A, x, False)
-        x = global_mean_pool(x, graph_ids, num_graphs)
-        return self.head(_dropout(self, x, generator))
+        with span("model.forward"):
+            x = _conv_apply(self.remat, self.conv1, A, x, True)
+            x = _conv_apply(self.remat, self.conv2, A, x, False)
+            x = global_mean_pool(x, graph_ids, num_graphs)
+            return self.head(_dropout(self, x, generator))

@@ -82,6 +82,7 @@ from sgracex1_tpu_torch.ops.fused_agg import (
 )
 from sgracex1_tpu_torch.ops.pallas_spmm import SpMMPlan, plan_spmm, plan_with_vals, spmm_plan
 from sgracex1_tpu_torch.ops.spmm import spmm, spmm_into
+from sgracex1_tpu_torch.utils.profiling import span
 
 DENSE_MAX_BYTES = 512 << 20  # dense adjacency budget
 # the tile size of an explicit ``bsr`` kind, or of a flash layout given
@@ -636,120 +637,134 @@ def prepare_adjacency(
     ``gat_tb`` / ``gat_rest_thresh`` override it: full cover at ``gat_tb``
     without a threshold, the hybrid split at ``gat_rest_thresh`` (at
     ``gat_tb``, else ``DEFAULT_TB``)."""
-    device = resolve_device(device)
-    n = max(A.n_rows, A.n_cols)
-    if method not in ("auto", "dense", "bsr", "hybrid", "pallas", "xla"):
-        raise ValueError(f"unknown method {method!r}")
-    itemsize = torch.empty((), dtype=dense_dtype).element_size()
-    fac = None
-    if method in ("auto", "hybrid", "bsr"):
-        if rank1_factors is not None:
-            fac = tuple(np.asarray(f, np.float32) for f in rank1_factors)
-        elif rank1:
-            fac = rank1_factor(A)
-    choice = None
-    if method == "auto" or (method == "hybrid" and tb is None):
-        t0 = time.perf_counter()
-        est, best_tb, best_hy = _estimate_backend_costs(A, dense_dtype, rank1=fac is not None, costs=costs)
-        if method == "auto":
-            if n * n * itemsize > dense_max_bytes:
-                est.pop("dense")
-            method = min(est, key=est.get)
-            if method == "bsr" and tb is None:
-                tb = best_tb
-        if method == "hybrid" and tb is None:
-            tb, rest_thresh = best_hy[0], (best_hy[1] if rest_thresh is None else rest_thresh)
-        choice = dict(costs=est, best_tb=best_tb, best_hy=best_hy, seconds=time.perf_counter() - t0)
-    A_dev = A.to(device)
+    with span("prepare") as s:
+        device = resolve_device(device)
+        n = max(A.n_rows, A.n_cols)
+        if method not in ("auto", "dense", "bsr", "hybrid", "pallas", "xla"):
+            raise ValueError(f"unknown method {method!r}")
+        itemsize = torch.empty((), dtype=dense_dtype).element_size()
+        fac = None
+        if method in ("auto", "hybrid", "bsr"):
+            if rank1_factors is not None:
+                fac = tuple(np.asarray(f, np.float32) for f in rank1_factors)
+            elif rank1:
+                with span("prepare.rank1"):
+                    fac = rank1_factor(A)
+        choice = None
+        if method == "auto" or (method == "hybrid" and tb is None):
+            t0 = time.perf_counter()
+            with span("prepare.cost_model"):
+                est, best_tb, best_hy = _estimate_backend_costs(A, dense_dtype, rank1=fac is not None, costs=costs)
+            if method == "auto":
+                if n * n * itemsize > dense_max_bytes:
+                    est.pop("dense")
+                method = min(est, key=est.get)
+                if method == "bsr" and tb is None:
+                    tb = best_tb
+            if method == "hybrid" and tb is None:
+                tb, rest_thresh = best_hy[0], (best_hy[1] if rest_thresh is None else rest_thresh)
+            choice = dict(costs=est, best_tb=best_tb, best_hy=best_hy, seconds=time.perf_counter() - t0)
+        with span("prepare.upload"):
+            A_dev = A.to(device)
 
-    def finish(prep: PreparedAdjacency) -> PreparedAdjacency:
-        if choice is not None:
-            prep = dataclasses.replace(prep, choice=choice)
-        if not for_gat or prep.flash_tiles is not None:
-            return prep
-        return dataclasses.replace(
-            prep, **_gat_layout(A, n, gat_tb, gat_rest_thresh, gat_train, costs, choice, device)
-        )
-
-    if method == "xla":
-        return finish(PreparedAdjacency(A=A_dev, kind="xla"))
-    if method == "pallas":
-        tiling = dict(rb=rb, cb=cb, be=be, device=device)
-        return finish(PreparedAdjacency(
-            A=A_dev, kind="pallas", plan=plan_spmm(A, **tiling),
-            plan_t=plan_spmm(A.transpose(), **tiling),
-        ))
-    if method == "dense":
-        d = torch.from_numpy(A.to_dense().astype(np.float32))
-        return finish(PreparedAdjacency(
-            A=A_dev, kind="dense", dense=d.to(dense_dtype).to(device)
-        ))
-
-    tb = DEFAULT_TB if tb is None else tb
-
-    def tiles_pair(M: SparseMatrix):
-        """(forward, transposed) tiles: values, int8 masks, or packed
-        masks (the packed transpose is built from the transposed edges)."""
-        cover = dict(cover_rows=True, cover_cols=True, device=device)
-        if fac is not None and _packs(tb):
-            B = bsr_bitmask_from_sparse(M, tb=tb, **cover)
-            Bt = (
-                bsr_bitmask_from_sparse(M.transpose(), tb=tb, **cover)
-                if build_transpose else None
+        def finish(prep: PreparedAdjacency) -> PreparedAdjacency:
+            s.set(kind=prep.kind)
+            if choice is not None:
+                prep = dataclasses.replace(prep, choice=choice)
+            if not for_gat or prep.flash_tiles is not None:
+                return prep
+            return dataclasses.replace(
+                prep, **_gat_layout(A, n, gat_tb, gat_rest_thresh, gat_train, costs, choice, device)
             )
-            return B, Bt
-        if fac is not None:
-            B = bsr_mask_from_sparse(M, tb=tb, **cover)
-        else:
-            B = bsr_from_sparse(M, tb=tb, **cover)
-        return B, (bsr_transpose(B) if build_transpose else None)
 
-    def fused_pair(B, Bt, src: SparseMatrix, rest_m):
-        if not fuse:
-            return None, None
-        r1r, r1c = fac if fac is not None else (None, None)
-        keys = lambda M: bsr_tile_keys(M, tb, cover_rows=True, cover_cols=True)
-        fused = build_fused_plan(
-            B, rest_m, r1_row=r1r, r1_col=r1c, tile_keys=keys(src),
-            attach_chunks=True, K=fused_k, costs=costs,
-        )
-        fused_t = None
-        if Bt is not None:
-            fused_t = build_fused_plan(
-                Bt, rest_m.transpose() if rest_m is not None else None,
-                r1_row=r1c, r1_col=r1r, tile_keys=keys(src.transpose()),
+        if method == "xla":
+            return finish(PreparedAdjacency(A=A_dev, kind="xla"))
+        if method == "pallas":
+            tiling = dict(rb=rb, cb=cb, be=be, device=device)
+            return finish(PreparedAdjacency(
+                A=A_dev, kind="pallas", plan=_traced_plan(A, False, tiling),
+                plan_t=_traced_plan(A, True, tiling),
+            ))
+        if method == "dense":
+            d = torch.from_numpy(A.to_dense().astype(np.float32))
+            return finish(PreparedAdjacency(
+                A=A_dev, kind="dense", dense=d.to(dense_dtype).to(device)
+            ))
+
+        tb = DEFAULT_TB if tb is None else tb
+
+        def tiles_pair(M: SparseMatrix):
+            """(forward, transposed) tiles: values, int8 masks, or packed
+            masks (the packed transpose is built from the transposed edges)."""
+            cover = dict(cover_rows=True, cover_cols=True, device=device)
+            if fac is not None and _packs(tb):
+                B = bsr_bitmask_from_sparse(M, tb=tb, **cover)
+                Bt = (
+                    bsr_bitmask_from_sparse(M.transpose(), tb=tb, **cover)
+                    if build_transpose else None
+                )
+                return B, Bt
+            if fac is not None:
+                B = bsr_mask_from_sparse(M, tb=tb, **cover)
+            else:
+                B = bsr_from_sparse(M, tb=tb, **cover)
+            return B, (bsr_transpose(B) if build_transpose else None)
+
+        def fused_pair(B, Bt, src: SparseMatrix, rest_m):
+            if not fuse:
+                return None, None
+            r1r, r1c = fac if fac is not None else (None, None)
+            keys = lambda M: bsr_tile_keys(M, tb, cover_rows=True, cover_cols=True)
+            fused = build_fused_plan(
+                B, rest_m, r1_row=r1r, r1_col=r1c, tile_keys=keys(src),
                 attach_chunks=True, K=fused_k, costs=costs,
             )
-        return fused, fused_t
+            fused_t = None
+            if Bt is not None:
+                fused_t = build_fused_plan(
+                    Bt, rest_m.transpose() if rest_m is not None else None,
+                    r1_row=r1c, r1_col=r1r, tile_keys=keys(src.transpose()),
+                    attach_chunks=True, K=fused_k, costs=costs,
+                )
+            return fused, fused_t
 
-    r1 = {}
-    if fac is not None:
-        r1 = dict(
-            r1_row=torch.from_numpy(fac[0]).to(device),
-            r1_col=torch.from_numpy(fac[1]).to(device),
-        )
-    if method == "hybrid":
-        if rest_thresh is None:
-            rest_thresh = _rest_thresh(tb, fac is not None, itemsize, costs, K=fused_k or DEFAULT_K)
-        if choice is not None:
-            choice["split"] = (tb, rest_thresh)
-        part, rest = split_by_tile_density(A, tb, rest_thresh)
-        if fac is not None and rest.nnz:
-            rest = _drop_zero_val_edges(rest)
-        rest = rest if rest.nnz else None
-        B, Bt = tiles_pair(part)
-        fused, fused_t = fused_pair(B, Bt, part, rest)
+        r1 = {}
+        if fac is not None:
+            r1 = dict(
+                r1_row=torch.from_numpy(fac[0]).to(device),
+                r1_col=torch.from_numpy(fac[1]).to(device),
+            )
+        if method == "hybrid":
+            if rest_thresh is None:
+                rest_thresh = _rest_thresh(tb, fac is not None, itemsize, costs, K=fused_k or DEFAULT_K)
+            if choice is not None:
+                choice["split"] = (tb, rest_thresh)
+            part, rest = split_by_tile_density(A, tb, rest_thresh)
+            if fac is not None and rest.nnz:
+                rest = _drop_zero_val_edges(rest)
+            rest = rest if rest.nnz else None
+            B, Bt = tiles_pair(part)
+            fused, fused_t = fused_pair(B, Bt, part, rest)
+            return finish(PreparedAdjacency(
+                A=A_dev, kind="hybrid", bsr=B, bsr_t=Bt,
+                rest=rest.to(device) if rest is not None else None,
+                fused=fused, fused_t=fused_t, **r1,
+            ))
+        B, Bt = tiles_pair(A)
+        fused, fused_t = fused_pair(B, Bt, A, None)
         return finish(PreparedAdjacency(
-            A=A_dev, kind="hybrid", bsr=B, bsr_t=Bt,
-            rest=rest.to(device) if rest is not None else None,
-            fused=fused, fused_t=fused_t, **r1,
+            A=A_dev, kind="bsr", bsr=B, bsr_t=Bt, fused=fused, fused_t=fused_t,
+            **r1,
         ))
-    B, Bt = tiles_pair(A)
-    fused, fused_t = fused_pair(B, Bt, A, None)
-    return finish(PreparedAdjacency(
-        A=A_dev, kind="bsr", bsr=B, bsr_t=Bt, fused=fused, fused_t=fused_t,
-        **r1,
-    ))
+
+
+def _traced_plan(A: SparseMatrix, transposed: bool, tiling: dict) -> SpMMPlan:
+    """``plan_spmm`` of ``A`` (or of its transpose) in a ``prepare.plan``
+    span that counts its groups, slots (groups x ``be``) and live slots."""
+    with span("prepare.plan", transposed=int(transposed)) as s:
+        plan = plan_spmm(A.transpose() if transposed else A, **tiling)
+        s.set(groups=plan.num_groups, slots=plan.num_groups * plan.be, live_slots=plan.nnz)
+    return plan
 
 
 def _gat_layout(
@@ -827,22 +842,43 @@ class _Agg(torch.autograd.Function):
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, g):
-        op_t = getattr(ctx.prep, ctx.name_t)
-        if op_t is None:
-            raise ValueError(
-                "backward through a prep built with build_transpose=False; "
-                "re-prepare with build_transpose=True for training"
-            )
-        gH = ctx.kernel(op_t, g.contiguous()).to(ctx.h_dtype)
-        if gH.shape[0] < ctx.n_h:
-            gH = torch.cat([gH, gH.new_zeros((ctx.n_h - gH.shape[0], gH.shape[1]))])
-        return None, None, None, None, gH[: ctx.n_h]
+        with span("agg.backward") as s:
+            if s:
+                s.set(**_agg_attrs(ctx.prep, g))
+            op_t = getattr(ctx.prep, ctx.name_t)
+            if op_t is None:
+                raise ValueError(
+                    "backward through a prep built with build_transpose=False; "
+                    "re-prepare with build_transpose=True for training"
+                )
+            gH = ctx.kernel(op_t, g.contiguous()).to(ctx.h_dtype)
+            if gH.shape[0] < ctx.n_h:
+                gH = torch.cat([gH, gH.new_zeros((ctx.n_h - gH.shape[0], gH.shape[1]))])
+            return None, None, None, None, gH[: ctx.n_h]
+
+
+def _agg_attrs(prep: PreparedAdjacency, H: torch.Tensor) -> dict:
+    """An ``agg`` span's counts: the kind, the edges and the width P. The
+    edge count is left out where the prep's edge list is a remapped one
+    that no one has read yet (``map_adjacency_vals``): reading it would
+    compute it."""
+    A = object.__getattribute__(prep, "A")
+    nnz = dict(nnz=A.nnz) if isinstance(A, SparseMatrix) else {}
+    return dict(kind=prep.kind, P=H.shape[1], **nnz)
 
 
 def agg_matmul(prep: PreparedAdjacency, H: torch.Tensor) -> torch.Tensor:
     """out = A @ H through the prepared backend, in H's dtype
     (differentiable). On fused preps (bsr/hybrid default) the values round
-    through bf16, forward and in grad_H."""
+    through bf16, forward and in grad_H. Runs in an ``agg`` span (its
+    backward in ``agg.backward`` where the port's kernels take it)."""
+    with span("agg") as s:
+        if s:
+            s.set(**_agg_attrs(prep, H))
+        return _agg_matmul(prep, H)
+
+
+def _agg_matmul(prep: PreparedAdjacency, H: torch.Tensor) -> torch.Tensor:
     if prep.kind == "dense":
         out = torch.matmul(
             prep.dense.to(torch.float32), H.to(prep.dense.dtype).to(torch.float32)
@@ -875,22 +911,23 @@ class _AggVals(torch.autograd.Function):
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, g):
-        vals, H = ctx.saved_tensors
-        A, g = ctx.A, g.contiguous()
-        gH = gv = None
-        if ctx.needs_input_grad[4]:
-            gH = spmm_plan(plan_with_vals(ctx.plan_t, vals), g).to(H.dtype)
-            if gH.shape[0] < H.shape[0]:
-                gH = torch.cat([gH, gH.new_zeros((H.shape[0] - gH.shape[0], gH.shape[1]))])
-            gH = gH[: H.shape[0]]
-        if ctx.needs_input_grad[3]:
-            rows, cols = torch.as_tensor(A.rows).long(), torch.as_tensor(A.cols).long()
-            gv = torch.empty(rows.shape[0], dtype=torch.float32, device=g.device)
-            for e0 in range(0, rows.shape[0], _SDDMM_EDGES):  # bounded scratch
-                e = slice(e0, e0 + _SDDMM_EDGES)
-                gv[e] = (g.index_select(0, rows[e]) * H.index_select(0, cols[e])).sum(dim=1)
-            gv = gv.to(vals.dtype)
-        return None, None, None, gv, gH
+        with span("agg.backward", kind="pallas", nnz=ctx.A.nnz, P=g.shape[1]):
+            vals, H = ctx.saved_tensors
+            A, g = ctx.A, g.contiguous()
+            gH = gv = None
+            if ctx.needs_input_grad[4]:
+                gH = spmm_plan(plan_with_vals(ctx.plan_t, vals), g).to(H.dtype)
+                if gH.shape[0] < H.shape[0]:
+                    gH = torch.cat([gH, gH.new_zeros((H.shape[0] - gH.shape[0], gH.shape[1]))])
+                gH = gH[: H.shape[0]]
+            if ctx.needs_input_grad[3]:
+                rows, cols = torch.as_tensor(A.rows).long(), torch.as_tensor(A.cols).long()
+                gv = torch.empty(rows.shape[0], dtype=torch.float32, device=g.device)
+                for e0 in range(0, rows.shape[0], _SDDMM_EDGES):  # bounded scratch
+                    e = slice(e0, e0 + _SDDMM_EDGES)
+                    gv[e] = (g.index_select(0, rows[e]) * H.index_select(0, cols[e])).sum(dim=1)
+                gv = gv.to(vals.dtype)
+            return None, None, None, gv, gH
 
 
 def agg_matmul_with_vals(
@@ -902,10 +939,12 @@ def agg_matmul_with_vals(
     Only the ``pallas`` kind substitutes values for the price of a gather
     (the plan stores the edge values in its group layout, a permutation);
     rebuilding value tiles per call would write and read the whole tile
-    set, so every other kind takes the edge path."""
-    if prep.kind == "pallas":
-        return _AggVals.apply(prep.A, prep.plan, prep.plan_t, vals, H).to(H.dtype)
-    return spmm(prep.A.with_vals(vals), H)
+    set, so every other kind takes the edge path. Runs in an ``agg``
+    span, as ``agg_matmul``."""
+    with span("agg", kind=prep.kind, nnz=prep.A.nnz, P=H.shape[1]):
+        if prep.kind == "pallas":
+            return _AggVals.apply(prep.A, prep.plan, prep.plan_t, vals, H).to(H.dtype)
+        return spmm(prep.A.with_vals(vals), H)
 
 
 def _bsr_agg_scaled(

@@ -42,6 +42,7 @@ from sgracex1_tpu_torch.ops.bsr import (
     run_segments,
 )
 from sgracex1_tpu_torch.runtime import native
+from sgracex1_tpu_torch.utils.profiling import span
 
 # slots of one output row that one worker sums before the row is split
 # over several workers (a starting point, not tuned)
@@ -150,31 +151,38 @@ def plan_spmm(
     Groups never straddle a tile boundary and are ordered by (row block,
     column block), so one row block's groups form one contiguous run.
     ``be`` must be a multiple of 1024, as in the JAX package, so that both
-    build the same plans. An empty matrix gets one all-padding group."""
+    build the same plans. An empty matrix gets one all-padding group.
+    Spans: ``plan.tiles`` (``plan_tiles`` or its numpy spec),
+    ``plan.schedule`` (the live slots by row, ``slot_cv``),
+    ``plan.segments`` (``run_segments``) and ``plan.upload`` (the moves to
+    ``device``)."""
     if be % 1024:
         raise ValueError(f"edge block must be a multiple of 1024, got {be}")
     r = _np(A.rows)[: A.nnz].astype(np.int64)
     c = _np(A.cols)[: A.nnz].astype(np.int64)
     v = _np(A.vals)[: A.nnz].astype(np.float32)
-    fast = native.plan_tiles(r, c, v, rb, cb, be) if A.nnz else None
-    lrow, lcol, val, perm, tile_rb, tile_cb = fast if fast is not None else _plan_arrays(r, c, v, rb, cb, be)
+    with span("plan.tiles"):
+        fast = native.plan_tiles(r, c, v, rb, cb, be) if A.nnz else None
+        lrow, lcol, val, perm, tile_rb, tile_cb = fast if fast is not None else _plan_arrays(r, c, v, rb, cb, be)
     G = tile_rb.shape[0]
-    # launch schedule: the live slots by output row, then slot
-    slot_idx = np.flatnonzero(perm >= 0)
-    row = tile_rb[slot_idx // be].astype(np.int64) * rb + lrow[slot_idx]
-    by_row = np.argsort(row, kind="stable")
-    slot_idx, row_of = slot_idx[by_row], row[by_row]
-    col_of = tile_cb[slot_idx // be].astype(np.int64) * cb + lcol[slot_idx]
-    slot_cv = np.stack([col_of.astype(np.int32), val[slot_idx].view(np.int32)], axis=1)
-    shape2 = lambda a: _tensor(a.reshape(G, be), device)
-    return SpMMPlan(
-        lrow=shape2(lrow), lcol=shape2(lcol), val=shape2(val), perm=shape2(perm),
-        tile_rb=_tensor(tile_rb, device), tile_cb=_tensor(tile_cb, device),
-        n_rows=A.n_rows, n_cols=A.n_cols, rb=rb, cb=cb, nnz=A.nnz,
-        slot_idx=_tensor(slot_idx.astype(np.int32), device),
-        segments=run_segments(row_of, A.n_rows, device, seg_steps=ROW_SEG_SLOTS),
-        slot_cv=_tensor(slot_cv, device),
-    )
+    with span("plan.schedule"):  # the live slots by output row, then slot
+        slot_idx = np.flatnonzero(perm >= 0)
+        row = tile_rb[slot_idx // be].astype(np.int64) * rb + lrow[slot_idx]
+        by_row = np.argsort(row, kind="stable")
+        slot_idx, row_of = slot_idx[by_row], row[by_row]
+        col_of = tile_cb[slot_idx // be].astype(np.int64) * cb + lcol[slot_idx]
+        slot_cv = np.stack([col_of.astype(np.int32), val[slot_idx].view(np.int32)], axis=1)
+    with span("plan.segments"):
+        segments = run_segments(row_of, A.n_rows, device, seg_steps=ROW_SEG_SLOTS)
+    with span("plan.upload"):
+        shape2 = lambda a: _tensor(a.reshape(G, be), device)
+        return SpMMPlan(
+            lrow=shape2(lrow), lcol=shape2(lcol), val=shape2(val), perm=shape2(perm),
+            tile_rb=_tensor(tile_rb, device), tile_cb=_tensor(tile_cb, device),
+            n_rows=A.n_rows, n_cols=A.n_cols, rb=rb, cb=cb, nnz=A.nnz,
+            slot_idx=_tensor(slot_idx.astype(np.int32), device),
+            segments=segments, slot_cv=_tensor(slot_cv, device),
+        )
 
 
 def recut_rows(plan: SpMMPlan, seg_slots: int) -> SpMMPlan:

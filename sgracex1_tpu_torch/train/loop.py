@@ -10,6 +10,13 @@ backward and Adam in ``model.train()``; each evaluation runs in
 the host and live on the device; on a prepared backend the aggregations
 and their gradients run the port's kernels.
 
+Spans (``utils/profiling``): each epoch of the four loops in
+``loop.epoch``; a step in ``loop.step``, split into ``loop.forward``,
+``loop.backward`` and ``loop.optimizer`` (``zero_grad``, then ``step``);
+each evaluation in ``loop.eval``; ``_end_epoch``'s sync and best-state copy
+in ``loop.end_epoch``; the sampled loop's sampling in ``loop.sample`` and
+each batch's prepare in ``loop.batch_prepare``.
+
 The three batch loops pad every batch's prep to sticky maxima
 (``_pad_prep_tiles``, through ``ops/bsr.pad_bsr_tile_count`` and
 ``ops/fused_agg.pad_fused_plan``) where the JAX loops do, so every batch's
@@ -36,6 +43,7 @@ from sgracex1_tpu_torch.graph.sampling import make_neighbor_batches
 from sgracex1_tpu_torch.ops.bsr import pad_bsr_tile_count
 from sgracex1_tpu_torch.ops.dispatch import PreparedAdjacency, prepare_from_config
 from sgracex1_tpu_torch.ops.fused_agg import pad_fused_plan
+from sgracex1_tpu_torch.utils.profiling import span
 
 
 def _uses_attention(model) -> bool:
@@ -187,19 +195,24 @@ def _start(model: torch.nn.Module, lr: float, seed: int, device) -> Tuple[TrainS
 
 def _train_step(state: TrainState, loss_fn: Callable[[], torch.Tensor]) -> torch.Tensor:
     """One step: ``loss_fn()`` in train mode, backward, the Adam update."""
-    state.model.train()
-    state.optimizer.zero_grad(set_to_none=True)
-    loss = loss_fn()
-    loss.backward()
-    state.optimizer.step()
-    state.step += 1
+    with span("loop.step"):
+        state.model.train()
+        with span("loop.optimizer"):
+            state.optimizer.zero_grad(set_to_none=True)
+        with span("loop.forward"):
+            loss = loss_fn()
+        with span("loop.backward"):
+            loss.backward()
+        with span("loop.optimizer"):
+            state.optimizer.step()
+        state.step += 1
     return loss
 
 
 def _node_accuracies(model, A, x, y, masks: dict) -> dict:
     """Accuracy of the argmax over each mask, in eval mode."""
     model.eval()
-    with torch.no_grad():
+    with span("loop.eval"), torch.no_grad():
         pred = model(A, x).argmax(dim=-1)
         return {
             k: float(torch.sum((pred == y) * m) / torch.clamp(torch.sum(m), min=1.0))
@@ -211,12 +224,15 @@ def _end_epoch(hist: History, model, epoch: int, loss: torch.Tensor, tr: float, 
                select: float, log_every: int, extra: str = "") -> None:
     """Record the epoch; keep a CPU copy of the parameters when ``select``
     (the test metric, or validation's) beats the best so far."""
-    hist.loss.append(loss.item())
-    hist.train_acc.append(tr)
-    hist.test_acc.append(te)
-    if select > hist.best_test_acc:
-        hist.best_test_acc = select
-        hist.best_params = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+    with span("loop.end_epoch") as s:
+        hist.loss.append(loss.item())
+        hist.train_acc.append(tr)
+        hist.test_acc.append(te)
+        best = select > hist.best_test_acc
+        if best:
+            hist.best_test_acc = select
+            hist.best_params = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+        s.set(best_copy=int(best))
     if log_every and (epoch + 1) % log_every == 0:
         print(f"epoch {epoch + 1:03d} loss {hist.loss[-1]:.4f} train {tr:.4f} {extra}test {te:.4f}")
 
@@ -265,9 +281,10 @@ def train_node_classifier(
 
     hist = History()
     for epoch in range(cfg.num_epochs):
-        loss = _train_step(state, lambda: _masked_xent(model(A, x, generator=gen), y, masks["train"]))
-        accs = _node_accuracies(model, A, x, y, masks)
-        _end_epoch(hist, model, epoch, loss, accs["train"], accs["test"], accs["test"], log_every)
+        with span("loop.epoch", epoch=epoch):
+            loss = _train_step(state, lambda: _masked_xent(model(A, x, generator=gen), y, masks["train"]))
+            accs = _node_accuracies(model, A, x, y, masks)
+            _end_epoch(hist, model, epoch, loss, accs["train"], accs["test"], accs["test"], log_every)
     return state, hist
 
 
@@ -308,20 +325,24 @@ def train_node_classifier_sampled(
     n_pad = e_pad = 0  # pad floors: later epochs keep the first's shapes
     tile_pads: dict = {}  # sticky tile and plan counts of the batches' preps
     for epoch in range(cfg.num_epochs):
-        batches = make_neighbor_batches(
-            data.edge_index, data.x, data.y, train_nodes,
-            batch_size=batch_size, fanouts=fanouts, rng=np_rng, n_pad=n_pad, e_pad=e_pad,
-        )
-        n_pad = max(n_pad, batches[0].x.shape[0])
-        e_pad = max(e_pad, batches[0].A.e_pad)
-        for b in batches:
-            bA = _padded_prep(b.A, cfg, model, prepare, device, tile_pads)
-            bx = torch.as_tensor(b.x, device=device)
-            by = torch.as_tensor(b.y, device=device).long()
-            bm = torch.as_tensor(b.seed_mask, device=device).float()
-            loss = _train_step(state, lambda: _masked_xent(model(bA, bx, generator=gen), by, bm))
-        accs = _node_accuracies(model, A_full, x_full, y_full, masks)
-        _end_epoch(hist, model, epoch, loss, accs["train"], accs["test"], accs["test"], log_every)
+        with span("loop.epoch", epoch=epoch):
+            with span("loop.sample") as s:
+                batches = make_neighbor_batches(
+                    data.edge_index, data.x, data.y, train_nodes,
+                    batch_size=batch_size, fanouts=fanouts, rng=np_rng, n_pad=n_pad, e_pad=e_pad,
+                )
+                s.set(batches=len(batches))
+            n_pad = max(n_pad, batches[0].x.shape[0])
+            e_pad = max(e_pad, batches[0].A.e_pad)
+            for b in batches:
+                with span("loop.batch_prepare"):
+                    bA = _padded_prep(b.A, cfg, model, prepare, device, tile_pads)
+                bx = torch.as_tensor(b.x, device=device)
+                by = torch.as_tensor(b.y, device=device).long()
+                bm = torch.as_tensor(b.seed_mask, device=device).float()
+                loss = _train_step(state, lambda: _masked_xent(model(bA, bx, generator=gen), by, bm))
+            accs = _node_accuracies(model, A_full, x_full, y_full, masks)
+            _end_epoch(hist, model, epoch, loss, accs["train"], accs["test"], accs["test"], log_every)
     return state, hist
 
 
@@ -365,7 +386,7 @@ def train_graph_classifier(
     def accuracy(batches) -> float:
         model.eval()
         c = t = 0
-        with torch.no_grad():
+        with span("loop.eval"), torch.no_grad():
             for A, x, gid, y, m, ng in batches:
                 pred = model(A, x, gid, ng).argmax(dim=-1)
                 c += int(torch.sum((pred == y) * m))
@@ -374,10 +395,11 @@ def train_graph_classifier(
 
     hist = History()
     for epoch in range(cfg.num_epochs):
-        for A, x, gid, y, m, ng in train_b:
-            loss = _train_step(state, lambda: _masked_xent(model(A, x, gid, ng, generator=gen), y, m))
-        tr, te = accuracy(train_b), accuracy(test_b)
-        _end_epoch(hist, model, epoch, loss, tr, te, te, log_every)
+        with span("loop.epoch", epoch=epoch):
+            for A, x, gid, y, m, ng in train_b:
+                loss = _train_step(state, lambda: _masked_xent(model(A, x, gid, ng, generator=gen), y, m))
+            tr, te = accuracy(train_b), accuracy(test_b)
+            _end_epoch(hist, model, epoch, loss, tr, te, te, log_every)
     return state, hist
 
 
@@ -466,7 +488,7 @@ def train_multilabel_inductive(
     def eval_f1(batches) -> float:
         model.eval()
         preds, targets = [], []
-        with torch.no_grad():
+        with span("loop.eval"), torch.no_grad():
             for A, x, y, m in batches:
                 keep = m > 0
                 preds.append((model(A, x) > 0.0)[keep].cpu().numpy())
@@ -475,8 +497,9 @@ def train_multilabel_inductive(
 
     hist = History()
     for epoch in range(cfg.num_epochs):
-        for A, x, y, m in train_b:
-            loss = _train_step(state, lambda: loss_fn(A, x, y, m))
-        tr, va, te = eval_f1(train_b), eval_f1(val_b), eval_f1(test_b)
-        _end_epoch(hist, model, epoch, loss, tr, te, va, log_every, extra=f"val {va:.4f} ")
+        with span("loop.epoch", epoch=epoch):
+            for A, x, y, m in train_b:
+                loss = _train_step(state, lambda: loss_fn(A, x, y, m))
+            tr, va, te = eval_f1(train_b), eval_f1(val_b), eval_f1(test_b)
+            _end_epoch(hist, model, epoch, loss, tr, te, va, log_every, extra=f"val {va:.4f} ")
     return state, hist

@@ -108,8 +108,9 @@ def test_prepare_from_config_rule():
     qp = tdis.prepare_from_config(T, cfg.replace(fake_quantization=True), method="hybrid", device="cpu")
     assert qp.r1_row is None and qp.bsr.tiles.dtype == torch.bfloat16 and qp.fused.colscale is None
     # model settings are the model's arguments, not config fields
-    with pytest.raises(TypeError):
-        pt.SGRACEConfig(dropout=0.1)
+    for field in (dict(dropout=0.1), dict(profiling=True), dict(track_amax=False)):
+        with pytest.raises(TypeError):
+            pt.SGRACEConfig(**field)
     assert tloop._uses_attention(pt.GATModel(4, 4, 2)) and not tloop._uses_attention(pt.GCNModel(4, 4, 2))
 
 

@@ -97,4 +97,3 @@ def test_timer_and_profiler_trace(tmp_path):
     with profiling.profiler_trace(str(tmp_path)) as prof:
         torch.ones(4).sum()
     assert prof is not None and os.listdir(tmp_path)
-    assert profiling.edges_per_second(10, 2.0) == 5.0 and profiling.edges_per_second(1, 0.0) == float("inf")
