@@ -13,8 +13,8 @@
 // (plan.segments, ops/bsr.RunSegments with the row in seg_rb); a worker of
 // LPR lanes owns one piece and sums it in registers in slot order, four
 // features a lane and pass. A row of one piece is written directly; a
-// split row (a hub) leaves f32 partials that finalize_rows sums in a
-// fixed order. No atomics, every output row written once.
+// split row (a hub) leaves f32 partials that sum_split_rows (plan_rows.cuh)
+// adds in a fixed order. No atomics, every output row written once.
 //
 // Rounding points follow the TPU kernel: H rounds to bf16, the weighted
 // row f32(bf16(H)) * val rounds to bf16 again, sums are f32.
@@ -142,9 +142,7 @@ extern "C" int sg_plan_spmm(const int* lcol, const float* val, const int* tile_c
 #undef SG_BY_LPR
 #undef SG_LAUNCH
   cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || n_fin == 0) return (int)err;
+  if (err != cudaSuccess) return (int)err;
   (void)n_rows;  // a split row is a row of the matrix: fin_row < n_rows
-  dim3 grid(n_fin, (P + 31) / 32);
-  finalize_rows<<<grid, 32 * FIN_WARPS, 0, stream>>>(partial, fin_row, fin_p0, fin_np, P, out);
-  return (int)cudaGetLastError();
+  return (int)launch_sum_split_rows(partial, fin_row, fin_p0, fin_np, n_fin, P, out, stream);
 }

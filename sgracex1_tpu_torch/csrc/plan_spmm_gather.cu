@@ -28,7 +28,8 @@
 //    and a gathered row is 256 bytes at P = 128, 16 bytes a lane.
 // Sums stay in slot order in each lane, so a row's result is the same on
 // every run. A row of one piece is written directly; the pieces of a split
-// row (a hub) leave f32 partials that finalize_rows sums in a fixed order.
+// row (a hub) leave f32 partials that sum_split_rows (plan_rows.cuh) adds in
+// a fixed order.
 //
 // Rounding points are those of the TPU kernel: H to bf16, the weighted row
 // f32(bf16(H)) * val to bf16 again, sums in f32.
@@ -215,9 +216,7 @@ extern "C" int sg_plan_spmm_gather(const void* cv, int n_seg, const int* seg_row
   else if (pieces <= 16) err = SG_GATHER(16);
   else err = SG_GATHER(32);
 #undef SG_GATHER
-  if (err != cudaSuccess || n_fin == 0) return (int)err;
-  dim3 grid(n_fin, (P + 31) / 32);
-  planspmm::finalize_rows<<<grid, 32 * planspmm::FIN_WARPS, 0, stream>>>(partial, fin_row, fin_p0,
-                                                                          fin_np, P, out);
-  return (int)cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  return (int)planspmm::launch_sum_split_rows(partial, fin_row, fin_p0, fin_np, n_fin, P, out,
+                                              stream);
 }

@@ -844,7 +844,7 @@ class _Agg(torch.autograd.Function):
     def backward(ctx, g):
         with span("agg.backward") as s:
             if s:
-                s.set(**_agg_attrs(ctx.prep, g))
+                s.set(**_agg_attrs(ctx.prep, g, ctx.name_t))
             op_t = getattr(ctx.prep, ctx.name_t)
             if op_t is None:
                 raise ValueError(
@@ -857,14 +857,23 @@ class _Agg(torch.autograd.Function):
             return None, None, None, None, gH[: ctx.n_h]
 
 
-def _agg_attrs(prep: PreparedAdjacency, H: torch.Tensor) -> dict:
-    """An ``agg`` span's counts: the kind, the edges and the width P. The
-    edge count is left out where the prep's edge list is a remapped one
+def _split_attrs(plan: Optional[SpMMPlan]) -> dict:
+    """K9's split rows in ``plan`` and the partial rows they leave."""
+    if plan is None:
+        return {}
+    return dict(split_rows=plan.segments.n_fin, partials=plan.segments.n_part)
+
+
+def _agg_attrs(prep: PreparedAdjacency, H: torch.Tensor, name: str = "plan") -> dict:
+    """An ``agg`` span's counts: the kind, the edges and the width P; on the
+    ``pallas`` kind also the split rows of the plan K9 runs on (``name``).
+    The edge count is left out where the prep's edge list is a remapped one
     that no one has read yet (``map_adjacency_vals``): reading it would
     compute it."""
     A = object.__getattribute__(prep, "A")
     nnz = dict(nnz=A.nnz) if isinstance(A, SparseMatrix) else {}
-    return dict(kind=prep.kind, P=H.shape[1], **nnz)
+    split = _split_attrs(getattr(prep, name)) if prep.kind == "pallas" else {}
+    return dict(kind=prep.kind, P=H.shape[1], **nnz, **split)
 
 
 def agg_matmul(prep: PreparedAdjacency, H: torch.Tensor) -> torch.Tensor:
@@ -911,7 +920,9 @@ class _AggVals(torch.autograd.Function):
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, g):
-        with span("agg.backward", kind="pallas", nnz=ctx.A.nnz, P=g.shape[1]):
+        with span("agg.backward", kind="pallas", nnz=ctx.A.nnz, P=g.shape[1]) as s:
+            if s:
+                s.set(**_split_attrs(ctx.plan_t))
             vals, H = ctx.saved_tensors
             A, g = ctx.A, g.contiguous()
             gH = gv = None
@@ -941,8 +952,10 @@ def agg_matmul_with_vals(
     rebuilding value tiles per call would write and read the whole tile
     set, so every other kind takes the edge path. Runs in an ``agg``
     span, as ``agg_matmul``."""
-    with span("agg", kind=prep.kind, nnz=prep.A.nnz, P=H.shape[1]):
+    with span("agg", kind=prep.kind, nnz=prep.A.nnz, P=H.shape[1]) as s:
         if prep.kind == "pallas":
+            if s:
+                s.set(**_split_attrs(prep.plan))
             return _AggVals.apply(prep.A, prep.plan, prep.plan_t, vals, H).to(H.dtype)
         return spmm(prep.A.with_vals(vals), H)
 

@@ -281,6 +281,7 @@ def _spmm_plan_single(plan: SpMMPlan, H: torch.Tensor) -> torch.Tensor:
     _cuda.check(err, "spmm_plan")
     spmm_plan.launches += 1
     spmm_plan.launches_single += 1
+    spmm_plan.launches_finalize += int(S.n_fin > 0)
     return out
 
 
@@ -305,6 +306,7 @@ def _spmm_plan_gather(plan: SpMMPlan, H: torch.Tensor) -> torch.Tensor:
     _cuda.check(err, "spmm_plan_gather")
     spmm_plan.launches += 1
     spmm_plan.launches_gather += 1
+    spmm_plan.launches_finalize += int(S.n_fin > 0)
     return out
 
 
@@ -314,7 +316,8 @@ def spmm_plan(plan: SpMMPlan, H: torch.Tensor) -> torch.Tensor:
     order). A CPU tensor runs ``spmm_plan_plain``; a CUDA tensor launches
     the gather kernel where ``gather_shape_ok`` holds, else the first
     kernel, or raises. ``launches`` counts both; ``launches_gather`` /
-    ``launches_single`` each one."""
+    ``launches_single`` each one; ``launches_finalize`` those whose plan has
+    split rows, which the split rows' reduction then sums."""
     if H.device.type == "cpu":
         return spmm_plan_plain(plan, H)
     if H.device.type != "cuda":
@@ -327,3 +330,4 @@ def spmm_plan(plan: SpMMPlan, H: torch.Tensor) -> torch.Tensor:
 spmm_plan.launches = 0
 spmm_plan.launches_gather = 0
 spmm_plan.launches_single = 0
+spmm_plan.launches_finalize = 0

@@ -19,6 +19,8 @@ from sgracex1_tpu_torch.ops.dispatch import split_by_tile_density
 from sgracex1_tpu_torch.quant import int8 as Q
 from sgracex1_tpu_torch.quant.affine import generate_constants
 
+from _k9_walk import gather_walk
+
 # one intra-op thread: the suite runs several pytest workers side by side
 torch.set_num_threads(1)
 
@@ -1109,6 +1111,54 @@ def test_plan_gather_over_row_pieces(cuda_device, seg_slots):
     out = K9.spmm_plan(plan, H)
     torch.testing.assert_close(out, K9.spmm_plan_plain(plan, H), rtol=1e-3, atol=1e-3)
     assert (out[512:768] == 0).all()
+
+
+@pytest.fixture(scope="module")
+def hub_prep():
+    """The pallas prep of 8192 nodes: random edges, 40 rows of 100-1000
+    edges and two hub rows of 7000 (at 64 slots a piece, 2-16 pieces and
+    110), on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: CUDA kernels have no CPU mode")
+    n, rng = 8192, np.random.default_rng(21)
+    rows = [rng.integers(0, n, 8 * n)]
+    cols = [rng.integers(0, n, 8 * n)]
+    mid = [(r, int(rng.integers(100, 1000))) for r in rng.choice(n, 40, replace=False)]
+    for r, d in mid + [(5, 7000), (6000, 7000)]:
+        rows.append(np.full(d, r))
+        cols.append(rng.choice(n, d, replace=False))
+    ei = np.unique(np.stack([np.concatenate(rows), np.concatenate(cols)]), axis=1)
+    A = SparseMatrix.from_coo(ei[0], ei[1], rng.uniform(0.05, 1.0, ei.shape[1]).astype(np.float32), (n, n))
+    prep = pt.prepare_adjacency(A, method="pallas", rb=256, cb=256, be=1024, device="cuda")
+    assert int(K9.recut_rows(prep.plan, 64).segments.fin_np.max()) >= 100  # at every cut up to 64
+    return A, prep
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seg_slots", [1, 5, 16, 64])
+@pytest.mark.parametrize("P", [8, 64, 256, 264, 512, 100, 33])
+def test_plan_split_rows_equal_walk(cuda_device, hub_prep, seg_slots, P):
+    """K9 over row pieces of 1 to 64 slots, a hub row of >= 100 pieces, on
+    plan, plan_t and plan_with_vals: the gather kernel (one to two
+    256-feature slices) and the first kernel (P % 8 != 0: 16-byte rows at P
+    100, scalar loads at P 33) are ``torch.equal`` to the walk of
+    ``_k9_walk`` (bf16 roundings, piece sums in slot order, split rows in the
+    fixed residue order) and within 1e-3 of the plain K9 (f32 sums in
+    another order); ``launches_finalize`` moves by one where the plan has
+    split rows."""
+    A, prep = hub_prep
+    H = torch.randn(A.n_cols + 5, P, device=cuda_device)
+    pv = K9.plan_with_vals(prep.plan, torch.rand(A.vals.shape[0], device=cuda_device))
+    for plan, x in ((prep.plan, H), (prep.plan_t, torch.randn(A.n_rows, P, device=cuda_device)), (pv, H)):
+        plan = K9.recut_rows(plan, seg_slots)
+        kernel = "launches_gather" if P % 8 == 0 else "launches_single"
+        before = getattr(K9.spmm_plan, kernel), K9.spmm_plan.launches_finalize
+        out = K9.spmm_plan(plan, x)
+        torch.cuda.synchronize()
+        assert (getattr(K9.spmm_plan, kernel), K9.spmm_plan.launches_finalize) == (
+            before[0] + 1, before[1] + int(plan.segments.n_fin > 0))
+        assert torch.equal(out, gather_walk(plan, x))
+        torch.testing.assert_close(out, K9.spmm_plan_plain(plan, x), rtol=1e-3, atol=1e-3)
 
 
 @pytest.mark.cuda

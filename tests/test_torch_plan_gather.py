@@ -5,9 +5,9 @@ JAX package's Pallas kernel in interpret mode on the same numpy inputs.
 The kernel reads the compacted slot arrays ``SpMMPlan.slot_cv`` (each live
 slot's global column and value, in ``slot_idx`` order), H rounded to bf16
 once, and sums each row piece of ``plan.segments`` in slot order; a split
-row's pieces are summed by ``finalize_rows`` (8 warps, every 8th piece each,
-then the 8 sums in warp order). ``_gather_walk`` repeats that walk in
-PyTorch."""
+row's pieces are summed in a fixed order (for each feature, the pieces of
+each residue mod 8 in increasing order, then the 8 residues' sums in
+order). ``_k9_walk.gather_walk`` repeats that walk in PyTorch."""
 
 import numpy as np
 import pytest
@@ -18,16 +18,16 @@ import torch
 from sgracex1_tpu.graph.csr import SparseMatrix as JSparse
 from sgracex1_tpu.ops import pallas_spmm as jps
 from sgracex1_tpu_torch.graph.csr import SparseMatrix as TSparse
-from sgracex1_tpu_torch.ops import bsr as tbsr
 from sgracex1_tpu_torch.ops import dispatch as tdis
 from sgracex1_tpu_torch.ops import pallas_spmm as tps
+
+from _k9_walk import gather_walk
 
 # one intra-op thread: the suite runs several pytest workers side by side
 torch.set_num_threads(1)
 
 WALK = 1e-5  # the plain K9's roundings; only a split row's pieces add in another order
 KERNEL = 1e-4  # against the Pallas kernel: f32 sums in another order
-FIN_WARPS = 8  # csrc/plan_rows.cuh
 
 
 def _case(n, m, density, seed=0, hub=False):
@@ -46,36 +46,6 @@ def _case(n, m, density, seed=0, hub=False):
     J = JSparse.from_coo(coo.row, coo.col, coo.data, mat.shape)
     T = TSparse.from_coo(coo.row, coo.col, coo.data, mat.shape)
     return J, T, mat, rng
-
-
-def _gather_walk(plan, H):
-    """The gather K9's data flow: Hs = bf16(H) once; each row piece sums
-    bf16(f32(Hs[col]) * val) over its slots in slot order from 0; a piece of
-    a split row is a partial, summed in finalize_rows' order."""
-    S = plan.segments
-    Hs = tbsr.stage_h_plain(H, None, plan.n_cols, plan.n_cols).to(torch.float32)
-    col = plan.slot_cv[:, 0].long()
-    val = plan.slot_cv[:, 1].contiguous().view(torch.float32)
-    lo, hi = S.seg_lo.long(), S.seg_hi.long()
-    acc = torch.zeros((S.n_seg, H.shape[1]), dtype=torch.float32)
-    for j in range(int((hi - lo).max()) if S.n_seg else 0):
-        on = lo + j < hi
-        s = (lo + j)[on]
-        acc[on] += (Hs[col[s]] * val[s, None]).to(torch.bfloat16).to(torch.float32)
-    out = torch.zeros((plan.n_rows, H.shape[1]), dtype=torch.float32)
-    whole = S.seg_part < 0
-    out[S.seg_rb[whole].long()] = acc[whole]
-    partial = torch.zeros((max(S.n_part, 1), H.shape[1]), dtype=torch.float32)
-    partial[S.seg_part[~whole].long()] = acc[~whole]
-    for row, p0, np_ in zip(S.fin_rb.tolist(), S.fin_p0.tolist(), S.fin_np.tolist()):
-        sums = [torch.zeros(H.shape[1]) for _ in range(FIN_WARPS)]
-        for q in range(np_):
-            sums[q % FIN_WARPS] = sums[q % FIN_WARPS] + partial[p0 + q]
-        total = torch.zeros(H.shape[1])
-        for w in range(FIN_WARPS):
-            total = total + sums[w]
-        out[row] = total
-    return out
 
 
 def _slot_arrays(plan):
@@ -132,7 +102,7 @@ def test_gather_walk_matches_plain_and_pallas(n, m, density, hub, P, dtype):
     plan = tps.plan_spmm(T, rb=256, cb=256, be=1024)
     if hub:
         assert plan.segments.n_fin > 0
-    got = _gather_walk(plan, Ht)
+    got = gather_walk(plan, Ht)
     torch.testing.assert_close(got, tps.spmm_plan_plain(plan, Ht), rtol=WALK, atol=WALK)
     want = np.asarray(jps.spmm_pallas(jps.plan_spmm(J, rb=256, cb=256, be=1024),
                                       jnp.asarray(H).astype(getattr(jnp, dtype)), interpret=True))
@@ -155,7 +125,7 @@ def test_gather_walk_over_row_pieces(seg_slots):
     assert (hi - lo).sum() == T.nnz and (hi - lo).max() <= seg_slots
     assert set(S.seg_rb.tolist()) == set(range(900))
     H = torch.from_numpy(rng.standard_normal((800, 24)).astype(np.float32))
-    torch.testing.assert_close(_gather_walk(plan, H), tps.spmm_plan_plain(plan, H), rtol=WALK, atol=WALK)
+    torch.testing.assert_close(gather_walk(plan, H), tps.spmm_plan_plain(plan, H), rtol=WALK, atol=WALK)
 
 
 @pytest.mark.parametrize("P,ptr,ok", [(8, 0, True), (16, 64, True), (128, 1024, True), (264, 16, True),

@@ -4,6 +4,7 @@ the spans of a training loop, an inference forward and a prepare, and the
 same nesting on ``torch.profiler``'s timeline."""
 
 import contextlib
+import dataclasses
 import threading
 
 import numpy as np
@@ -14,7 +15,8 @@ from sgracex1_tpu_torch.config import SGRACEConfig
 from sgracex1_tpu_torch.graph.datasets import NodeClassificationData
 from sgracex1_tpu_torch.graph.normalize import sym_norm
 from sgracex1_tpu_torch.nn.models import GCNModel
-from sgracex1_tpu_torch.ops.dispatch import prepare_from_config
+from sgracex1_tpu_torch.ops.dispatch import agg_matmul, agg_matmul_with_vals, prepare_from_config
+from sgracex1_tpu_torch.ops.pallas_spmm import recut_rows
 from sgracex1_tpu_torch.train.loop import train_node_classifier
 from sgracex1_tpu_torch.utils import profiling
 
@@ -217,6 +219,27 @@ def test_training_loop_spans(pallas_prep):
         for a in [s for s in under if s.name in ("agg", "agg.backward")]:
             assert a.attrs["kind"] == "pallas" and a.attrs["nnz"] == prep.A.nnz and a.attrs["P"] == 16
     assert epochs[0].end_ns <= epochs[1].start_ns
+
+
+def test_agg_spans_count_k9s_split_rows(pallas_prep):
+    """On the pallas kind each aggregation span carries the split rows and
+    their partials of the plan K9 runs on: the plan's in ``agg`` (both entry
+    points), the transposed plan's in ``agg.backward``."""
+    d, _, prep = pallas_prep
+    cut = dataclasses.replace(prep, plan=recut_rows(prep.plan, 4), plan_t=recut_rows(prep.plan_t, 3))
+    S, St = cut.plan.segments, cut.plan_t.segments
+    assert S.n_fin > 0 and St.n_fin > 0 and (S.n_fin, S.n_part) != (St.n_fin, St.n_part)
+    x = torch.as_tensor(d.x).requires_grad_(True)
+    vals = torch.rand(prep.A.vals.shape[0], generator=torch.Generator().manual_seed(0))
+    with profiling.recording() as rec:
+        agg_matmul(cut, x).sum().backward()
+        agg_matmul_with_vals(cut, vals, x).sum().backward()
+    for name, seg in (("agg", S), ("agg.backward", St)):
+        spans = [s for s in rec.spans if s.name == name]
+        assert len(spans) == 2
+        for s in spans:
+            assert (s.attrs["split_rows"], s.attrs["partials"]) == (seg.n_fin, seg.n_part)
+            assert s.attrs["kind"] == "pallas" and s.attrs["nnz"] == prep.A.nnz and s.attrs["P"] == F
 
 
 def test_best_copy_counts_the_copies(pallas_prep):
