@@ -132,7 +132,13 @@ Phases, each raising on failure (so the run exits non-zero):
    (K9 on plan and plan_t); one agg_matmul_with_vals forward and backward
    with random positive values; every K9 launch of these runs must be the
    gather kernel; K9 alone at the config's default tiling (128 / 128 /
-   2048).
+   2048). Then the plan attention at the gat-products cell's shapes
+   (phase_plan_gat_products): its graph (2^20 nodes, mean degree 50.5),
+   sym_norm and its prepare with gat_self_loops (no mask tile); the
+   forward, the backward's row pass and its column pass at 4 heads of 128
+   and of 47 against their plain versions (2e-5 of the largest magnitude),
+   timed beside the gat family's bound; the layer's entry forward and
+   backward with its launch counters set to 0 just before it.
 13. the variants at the slice's shapes, each through its own entry point:
    K10 (the cluster kernel; the hub row block's split, the clusters the card
    holds) on the slice's tiles and on a banded graph beside the single-stage
@@ -264,6 +270,7 @@ from sgracex1_tpu_torch.ops import bsr as K1
 from sgracex1_tpu_torch.ops import fused_agg as K2
 from sgracex1_tpu_torch.ops import flash_gat as FG
 from sgracex1_tpu_torch.ops import pallas_spmm as K9
+from sgracex1_tpu_torch.ops import plan_gat as PG
 from sgracex1_tpu_torch.ops.fused_gnn import gnn_layer, relu_hw
 from sgracex1_tpu_torch.ops.spmm import spmm, spmm_dense_rhs
 from sgracex1_tpu_torch.parallel import dryrun as DR
@@ -307,6 +314,10 @@ KERNELS = (K1.bsr_spmm, K2.bsr_spmm_fused, FG.flash_gat_forward, FG.flash_gat_bw
            FG.flash_gat_forward_subskip)
 K9_TOL = 1e-3  # identical roundings, f32 sums in another order (as K1)
 PALLAS_LOGIT_TOL = 2e-2  # two K9 layers: the second rounds the first's sums to bf16
+# the plan attention against its plain version, of the largest magnitude (the
+# card tests' tolerance: the same bf16 rows, f32 sums in another order, __expf)
+PLAN_GAT_TOL = 2e-5
+PLAN_GAT_SEED = 21  # the gat-products graph's seed in phase_plan_gat_products
 # the pallas kind at the tiling prepare_adjacency defaults to
 PALLAS_CFG = dict(use_pallas=True, row_block=1024, col_block=1024, edge_block=1024)
 INT8_GCN = dict(SLICE, n=1 << 16)  # full int8 tile cover: at most 256^2 tiles of 64 KiB
@@ -2653,6 +2664,163 @@ def phase_pallas_slice(A, data, device, k2_logits, cfg=SLICE):
     return rec, launches
 
 
+def _plan_gat_close(name: str, got, want) -> float:
+    """``got`` against ``want`` at PLAN_GAT_TOL of ``want``'s largest
+    magnitude; the largest gap over that magnitude."""
+    torch.cuda.synchronize()
+    scale = max(float(want.abs().max()), 1e-30)
+    gap = float((got.float() - want.float()).abs().max())
+    if not gap <= PLAN_GAT_TOL * scale:  # a NaN fails too
+        raise AssertionError(f"{name}: largest gap {gap:.3g}, over {PLAN_GAT_TOL} of the largest magnitude {scale:.3g}")
+    return gap / scale
+
+
+def _kernel_ms(fn, names) -> dict:
+    """Device ms of each kernel whose name holds one of ``names`` in one
+    call of ``fn`` under torch.profiler (summed over its launches)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = dict.fromkeys(names, 0.0)
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            for k in names:
+                if k in e.name:
+                    out[k] += e.time_range.elapsed_us() / 1e3
+    return out
+
+
+def phase_plan_gat_products(device) -> tuple:
+    """The plan attention (ops/plan_gat) at the gat-products cell's shapes:
+    its graph (portbench's powerlaw_classes at 2^20 nodes, mean degree 50.5,
+    seed PLAN_GAT_SEED), sym_norm and its prepare (the pallas kind at 1024 x
+    1024 x 1024, ``gat_self_loops``: the plan attention, no mask tile). At 4
+    heads of 128 and of 47 (the last layer's, staged at 48) each kernel runs
+    once against its plain version on the same inputs (PLAN_GAT_TOL of the
+    largest magnitude, the row max ``m`` equal) and is timed (CUDA events,
+    median of 10; the plain version once) beside the bound of the gat
+    family's count. Then the layer's entry, forward and backward, once with
+    the counters set to 0 just before: one launch of each kernel, and no
+    flash or other kernel's launch; its kernels' device ms under
+    torch.profiler, the split rows' merge (merge_split_attention) among
+    them. Returns (records, launches)."""
+    from portbench import counts as PC
+    from portbench import gen as PGEN
+    from portbench.families import gat as FAM
+
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), "portbench", "configs",
+                           "gat-products.json")) as f:
+        cfg = json.load(f)
+    n, H = cfg["num_nodes"], cfg["heads"]
+    t0 = time.perf_counter()
+    edges = PGEN.graph(cfg, PLAN_GAT_SEED, device).edges.cpu().numpy()
+    A = sym_norm(edges, n)
+    del edges
+    gen_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    prep = prepare_from_config(A, SGRACEConfig(**cfg["prepare"]), for_gat=True, gat_self_loops=True,
+                               device=device)
+    torch.cuda.synchronize()
+    prep_s, nnz = time.perf_counter() - t0, A.nnz
+    del A
+    plan, plan_t = prep.plan, prep.plan_t
+    if prep.kind != "pallas" or not prep.gat_on_plan or prep.gat_bsr is not None:
+        raise AssertionError(f"gat-products must prepare the plan attention without mask tiles, got kind "
+                             f"{prep.kind}, gat_on_plan {prep.gat_on_plan}, choice {prep.choice}")
+    _log(f"gat-products graph: n={n} nnz={nnz} (with the zero-valued self-loops); generate + sym_norm "
+         f"{gen_s:.1f} s, prepare {prep_s:.1f} s; plan: {plan.segments.n_seg} row pieces, "
+         f"{plan.segments.n_fin} split rows, {plan.segments.n_part} partials; plan_t: {plan_t.segments.n_seg} "
+         f"pieces, {plan_t.segments.n_fin} split rows")
+    g = torch.Generator(device=device).manual_seed(PLAN_GAT_SEED)
+    kw = dict(alpha=0.2, self_loops=True)
+    rec, names = {}, ("plan_gat_fwd_kernel", "plan_gat_bwd_rows_kernel", "plan_gat_bwd_cols_kernel")
+    for F in (cfg["hidden_channels"], cfg["num_classes"]):
+        Fp = PG.plan_gat_width(H, F)
+        s1 = torch.randn(n, H, generator=g, device=device)
+        s2 = torch.randn(n, H, generator=g, device=device)
+        Whs = PG.stage(torch.randn(n, H, F, generator=g, device=device), Fp)
+        gOs = PG.stage(torch.randn(n, H, F, generator=g, device=device), Fp)
+        out, m, l = PG.plan_gat_fwd(plan, s1, s2, Whs, **kw)
+        want = PG.plan_gat_fwd_plain(plan, s1, s2, Whs, **kw)
+        if not torch.equal(m, want[1]):
+            raise AssertionError(f"plan_gat_fwd at F={F}: the row max differs from the plain version's")
+        e_f = max(_plan_gat_close(f"plan_gat_fwd out at F={F}", out, want[0]),
+                  _plan_gat_close(f"plan_gat_fwd l at F={F}", l, want[2]))
+        del want
+        t, u1, u2 = PG.plan_gat_bwd_rows(plan, s1, s2, m, l, Whs, gOs, **kw)
+        want = PG.plan_gat_bwd_rows_plain(plan, s1, s2, m, l, Whs, gOs, **kw)
+        e_r = max(_plan_gat_close(f"plan_gat_bwd_rows {k} at F={F}", a, b)
+                  for k, a, b in zip(("t", "u1", "u2"), (t, u1, u2), want))
+        del want
+        dwh, ds2 = PG.plan_gat_bwd_cols(plan_t, s1, s2, m, l, t, Whs, gOs, **kw)
+        want = PG.plan_gat_bwd_cols_plain(plan_t, s1, s2, m, l, t, Whs, gOs, **kw)
+        e_c = max(_plan_gat_close(f"plan_gat_bwd_cols {k} at F={F}", a, b)
+                  for k, a, b in zip(("dWh", "ds2"), (dwh, ds2), want))
+        del want, out, dwh, ds2
+        calls = (
+            (lambda: PG.plan_gat_fwd(plan, s1, s2, Whs, **kw),
+             lambda: PG.plan_gat_fwd_plain(plan, s1, s2, Whs, **kw), FAM.attention, e_f),
+            (lambda: PG.plan_gat_bwd_rows(plan, s1, s2, m, l, Whs, gOs, **kw),
+             lambda: PG.plan_gat_bwd_rows_plain(plan, s1, s2, m, l, Whs, gOs, **kw), FAM.attention_bwd_rows, e_r),
+            (lambda: PG.plan_gat_bwd_cols(plan_t, s1, s2, m, l, t, Whs, gOs, **kw),
+             lambda: PG.plan_gat_bwd_cols_plain(plan_t, s1, s2, m, l, t, Whs, gOs, **kw),
+             FAM.attention_bwd_cols, e_c),
+        )
+        for name, (kern, plain, count, err) in zip(names, calls):
+            ms = cuda_ms(kern)
+            plain_ms = cuda_ms(plain, reps=1, warmup=0)
+            bound_ms = PC.least_time([count(name, n, nnz, H, F)]) * 1e3
+            _log(f"{name} at gat-products shapes [n={n}, nnz={nnz}, H={H}, F={F} (staged {Fp})]: {ms:.4f} ms, "
+                 f"plain {plain_ms:.2f} ms, bound {bound_ms:.4f} ms by the gat family's count "
+                 f"({100 * bound_ms / ms:.1f}% of it), largest gap {err:.3g} of the largest magnitude")
+            if F == cfg["hidden_channels"]:
+                rec[name] = dict(max_rel_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, F=F)
+            else:
+                rec[name].update(max_rel_err_f47=err, ms_f47=ms, plain_ms_f47=plain_ms, bound_ms_f47=bound_ms)
+        del s1, s2, Whs, gOs, m, l, t, u1, u2
+
+    # the layer's entry, forward and backward, at the hidden layers' width
+    F = cfg["hidden_channels"]
+    s1 = torch.randn(n, H, generator=g, device=device, requires_grad=True)
+    s2 = torch.randn(n, H, generator=g, device=device, requires_grad=True)
+    Wh = torch.randn(n, H, F, generator=g, device=device, requires_grad=True)
+    gO = torch.randn(n, H, F, generator=g, device=device)
+
+    def entry():
+        PG.plan_gat_agg(prep, s1, s2, Wh, 0.2, self_loops=True).backward(gO)
+
+    entry()  # warm-up
+    torch.cuda.synchronize()
+    _reset_counts()
+    for k in ("launches", "launches_bwd_rows", "launches_bwd_cols", "launches_merge"):
+        setattr(PG.plan_gat_agg, k, 0)
+    entry()
+    torch.cuda.synchronize()
+    got = {k: getattr(PG.plan_gat_agg, k)
+           for k in ("launches", "launches_bwd_rows", "launches_bwd_cols", "launches_merge")}
+    split = [int(p.segments.n_fin > 0) for p in (plan, plan, plan_t)]
+    want = dict(launches=1, launches_bwd_rows=1, launches_bwd_cols=1, launches_merge=sum(split))
+    others = {k: v for k, v in _counts().items() if v}
+    if got != want or others:
+        raise AssertionError(f"plan_gat_agg forward + backward: counters {got}, expected {want}; other "
+                             f"kernels launched {others}")
+    dev_ms = _kernel_ms(entry, names + ("merge_split_attention", "sum_split_rows"))
+    _log(f"plan_gat_agg forward + backward at F={F}: counters {got} (launches_merge: the launches on a plan "
+         f"with split rows), no other kernel; device ms under torch.profiler: "
+         + ", ".join(f"{k} {v:.4f}" for k, v in dev_ms.items()))
+    rec["merge_split_attention"] = dict(ms=dev_ms["merge_split_attention"], max_rel_err=rec[names[0]]["max_rel_err"],
+                                        plain_ms=None, bound_ms=None)
+    launches = {names[0]: got["launches"], names[1]: got["launches_bwd_rows"], names[2]: got["launches_bwd_cols"],
+                "merge_split_attention": got["launches"] * split[0]}
+    del prep, plan, plan_t, s1, s2, Wh, gO
+    torch.cuda.empty_cache()
+    return rec, launches
+
+
 def _timed_variant(name, kern, plain, args, tol, reps_plain=3):
     """Drive one variant through its entry point REQUESTS times with the
     counts reset (its main path), hold it against its plain version, and
@@ -4596,6 +4764,10 @@ def main() -> None:
     more_rec, more = phase_pallas_slice(A, data, device, k2_logits)
     rec.update(more_rec)
     _add(launches, more)
+    torch.cuda.empty_cache()
+    more_rec, more = phase_plan_gat_products(device)
+    rec.update(more_rec)
+    _add(launches, more)
     del k2_logits
     torch.cuda.empty_cache()
     gat_prep = phase_gat_prepare(A, device, "slice", split=SLICE_SPLIT)
@@ -4662,6 +4834,12 @@ def main() -> None:
         "bsr_spmm_fused_k": ("sgracex1_tpu_torch/csrc/fused_agg_ring.cu", "sgracex1_tpu/ops/fused_agg.py:871"),
         "flash_gat_forward_subskip": ("sgracex1_tpu_torch/csrc/flash_gat_ring.cu",
                                       "sgracex1_tpu/ops/flash_gat.py:343"),
+        # the plan attention: no TPU kernel of its own (the flash kernels' work
+        # on a graph without id locality)
+        "plan_gat_fwd_kernel": ("sgracex1_tpu_torch/csrc/plan_gat.cu", None),
+        "plan_gat_bwd_rows_kernel": ("sgracex1_tpu_torch/csrc/plan_gat.cu", None),
+        "plan_gat_bwd_cols_kernel": ("sgracex1_tpu_torch/csrc/plan_gat.cu", None),
+        "merge_split_attention": ("sgracex1_tpu_torch/csrc/plan_rows.cuh", None),
     }
     kernels = [
         dict(name=name, route="cuda", source=src, replaces=rep, launches=launches[name], **rec[name])

@@ -56,7 +56,7 @@ from sgracex1_tpu_torch import quant
 from sgracex1_tpu_torch.config import SGRACEConfig
 from sgracex1_tpu_torch.graph.csr import SparseMatrix
 from sgracex1_tpu_torch.graph.normalize import sym_norm
-from sgracex1_tpu_torch.nn.models import GATModel, GCNModel, MoleculeGCN
+from sgracex1_tpu_torch.nn.models import GATModel, GATSkipModel, GCNModel, MoleculeGCN
 from sgracex1_tpu_torch.ops.dispatch import agg_matmul, prepare_adjacency, prepare_from_config
 from sgracex1_tpu_torch.ops.fused_gnn import gnn_layer
 from sgracex1_tpu_torch.train import (
@@ -72,6 +72,7 @@ __all__ = [
     "gnn_layer",
     "GCNModel",
     "GATModel",
+    "GATSkipModel",
     "MoleculeGCN",
     "prepare_adjacency",
     "prepare_from_config",

@@ -21,9 +21,12 @@
 // so a hub's partials are a short chain of round trips. On an H100 at the
 // 2^20-node products graph (158 K split rows, 503 K partials, P = 256): 0.27 ms
 // a launch against 0.20 for its bytes (a block a (row, 32 features): 1.80).
+// The plan attention's backward (plan_gat.cu) sums its split rows with the same
+// kernel; its forward merges them with merge_split_attention, below.
 #pragma once
 
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
 namespace sg {
@@ -148,6 +151,74 @@ static cudaError_t launch_sum_split_rows(const float* partial, const int* fin_ro
   else
     sum_split_rows<false><<<blocks, 32 * FIN_WARPS, 0, stream>>>(partial, fin_row, fin_p0, fin_np,
                                                                  n_fin, P, out);
+  return cudaGetLastError();
+}
+
+// The split rows of the plan attention's forward (plan_gat.cu): each piece of
+// a split row leaves its running softmax per head, an unnormalised f32 sum
+// acc [H, Fp] with its max m and denominator l, and merge_split_attention
+// combines them as the flash kernels combine their blocks: M = max_q m_q,
+// then in piece order from q = 0, L += l_q e^(m_q - M) and ACC += acc_q
+// e^(m_q - M), out = ACC / L (0 where L is 0), with M and L kept as the row's
+// statistics for the backward. A piece without an attended slot has m = -inf
+// and adds nothing. A warp per split row, lane l holding features f0 + 8 l ..
+// + 8 of each 256-wide slice (two 16-byte loads: Fp % 8 == 0 keeps a lane's
+// features inside one head and the rows 32-byte aligned).
+static __global__ void __launch_bounds__(32 * FIN_WARPS)
+    merge_split_attention(const float* __restrict__ pacc, const float* __restrict__ pm,
+                          const float* __restrict__ pl, const int* __restrict__ fin_row,
+                          const int* __restrict__ fin_p0, const int* __restrict__ fin_np,
+                          int n_fin, int H, int Fp, float* __restrict__ out,
+                          float* __restrict__ m_out, float* __restrict__ l_out) {
+  const int i = blockIdx.x * FIN_WARPS + (threadIdx.x >> 5);
+  if (i >= n_fin) return;
+  const int lane = threadIdx.x & 31;
+  const int np = fin_np[i], p0 = fin_p0[i], row = fin_row[i];
+  const int P = H * Fp;
+  for (int f0 = 0; f0 < P; f0 += FIN_SLICE) {
+    const int f = f0 + 8 * lane;
+    const bool mine = f < P;
+    const int h = mine ? f / Fp : 0;
+    float M = -INFINITY;
+    for (int q = 0; q < np; ++q) M = fmaxf(M, pm[(long)(p0 + q) * H + h]);
+    float L = 0.f, acc[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) acc[e] = 0.f;
+    for (int q = 0; q < np; ++q) {
+      const long p = p0 + q;
+      const float a = M == -INFINITY ? 0.f : __expf(pm[p * H + h] - M);
+      L += a * pl[p * H + h];
+      if (mine) {
+        const float4 x0 = *reinterpret_cast<const float4*>(pacc + p * P + f);
+        const float4 x1 = *reinterpret_cast<const float4*>(pacc + p * P + f + 4);
+        const float x[8] = {x0.x, x0.y, x0.z, x0.w, x1.x, x1.y, x1.z, x1.w};
+#pragma unroll
+        for (int e = 0; e < 8; ++e) acc[e] = fmaf(a, x[e], acc[e]);
+      }
+    }
+    if (!mine) continue;
+#pragma unroll
+    for (int e = 0; e < 8; ++e) acc[e] = L > 0.f ? acc[e] / L : 0.f;
+    float* dst = out + (long)row * P + f;
+    *reinterpret_cast<float4*>(dst) = make_float4(acc[0], acc[1], acc[2], acc[3]);
+    *reinterpret_cast<float4*>(dst + 4) = make_float4(acc[4], acc[5], acc[6], acc[7]);
+    if (f == h * Fp) {  // the head's first lane
+      m_out[(long)row * H + h] = M;
+      l_out[(long)row * H + h] = L;
+    }
+  }
+}
+
+static cudaError_t launch_merge_split_attention(const float* pacc, const float* pm,
+                                                const float* pl, const int* fin_row,
+                                                const int* fin_p0, const int* fin_np, int n_fin,
+                                                int H, int Fp, float* out, float* m_out,
+                                                float* l_out, cudaStream_t stream) {
+  if (n_fin == 0) return cudaSuccess;
+  const unsigned blocks = (unsigned)((n_fin + FIN_WARPS - 1) / FIN_WARPS);
+  merge_split_attention<<<blocks, 32 * FIN_WARPS, 0, stream>>>(pacc, pm, pl, fin_row, fin_p0,
+                                                              fin_np, n_fin, H, Fp, out, m_out,
+                                                              l_out);
   return cudaGetLastError();
 }
 

@@ -34,6 +34,7 @@ from sgracex1_tpu_torch.ops.flash_gat import (
     gat_attention_agg_hybrid,
 )
 from sgracex1_tpu_torch.ops.fused_gnn import gnn_layer_quant_backward, relu_hw
+from sgracex1_tpu_torch.ops.plan_gat import plan_gat_agg
 from sgracex1_tpu_torch.ops.sddmm import edge_softmax, leaky_relu
 from sgracex1_tpu_torch.ops.spmm import _edges, spmm
 from sgracex1_tpu_torch.quant.affine import (
@@ -166,16 +167,48 @@ class GCNConv(nn.Module, _AmaxMixin):
         return out
 
 
+def _with_self_loops(A_e: SparseMatrix, device) -> SparseMatrix:
+    """``A_e``'s edges with a value > 0 off the diagonal, plus one self-loop
+    a node at value 1 (PyTorch Geometric's ``add_self_loops``): the edge
+    path's mask (``val > 0``) then attends over exactly these."""
+    rows, cols, vals = _edges(A_e, device)
+    keep = (vals > 0) & (rows != cols)
+    own = torch.arange(min(A_e.n_rows, A_e.n_cols), dtype=rows.dtype, device=device)
+    rows, cols = torch.cat([rows[keep], own]), torch.cat([cols[keep], own.to(cols.dtype)])
+    vals = torch.cat([vals[keep], torch.ones(own.shape[0], dtype=vals.dtype, device=device)])
+    return SparseMatrix(rows, cols, vals, A_e.shape, int(rows.shape[0]))
+
+
 class GATConv(nn.Module, _AmaxMixin):
     """GAT convolution: ``nheads`` attention heads over the adjacency's
     edges, concatenated. ``weight`` is ``[in, F*H]`` and ``attention``
     ``[2*F*H, 1]`` (source halves, then destination halves), both Xavier
     uniform with gain 1.414, as the JAX ``GATConv``.
 
-    On a ``PreparedAdjacency`` with flash tiles the aggregation runs the
-    flash kernels (K6 on the hybrid split, K3 on full-cover tiles; K4 and
-    K5 in the backward); on a ``SparseMatrix`` (or a prep without flash
-    tiles) it runs the edge path under autograd.
+    The aggregation runs the layout the adjacency carries. On a
+    ``PreparedAdjacency`` with ``gat_on_plan`` (a ``pallas`` prep where the
+    plan attention was priced cheaper) it runs the plan attention on the
+    prep's edge-group plans (``ops/plan_gat``: forward on ``plan``, the
+    backward's row pass on ``plan`` and column pass on ``plan_t``); with
+    flash tiles, the flash kernels (K6 on the hybrid split, K3 on full-cover
+    tiles; K4 and K5 in the backward, the hybrid remainder's terms in plain
+    torch); on a ``SparseMatrix`` (or a prep with neither) the edge path
+    under autograd. The edge path and the hybrid remainder's backward
+    materialise a per-edge ``[E, H, F]`` tensor; the plan attention and the
+    flash tiles do not.
+
+    PyTorch Geometric's options, each off by default so that the JAX
+    layer's behaviour stands: ``concat=False`` averages the heads
+    (``[N, F]`` out) where the default concatenates them; ``bias=True``
+    adds a bias (``[F*H]``, or ``[F]`` averaged), zero at init;
+    ``add_self_loops=True`` attends over one self-loop a node in place of
+    the stored ones, whatever their values (the mask is otherwise ``val >
+    0``, which drops ``sym_norm``'s zero-valued self-loops). The flash
+    tiles hold no such loops: with ``add_self_loops`` a ``pallas`` prep runs
+    the plan attention whatever layout it chose, a prep of another kind
+    with flash tiles raises ``ValueError``, and one with neither (or a
+    ``SparseMatrix``) runs the edge path over the stored edges with one
+    unit self-loop a node.
 
     ``exact_gradients=False`` (the default) is the reference's backward:
     the scores read ``Wh`` detached, so ``x`` and ``weight`` get no
@@ -196,6 +229,9 @@ class GATConv(nn.Module, _AmaxMixin):
         exact_gradients: bool = False,
         telemetry: bool = False,
         generator: Optional[torch.Generator] = None,
+        concat: bool = True,
+        bias: bool = False,
+        add_self_loops: bool = False,
     ):
         super().__init__()
         self.quant, self.telemetry = quant, telemetry
@@ -205,9 +241,11 @@ class GATConv(nn.Module, _AmaxMixin):
         self.out_features = out_features
         self.nheads = nheads
         self.alpha = alpha
+        self.concat, self.add_self_loops = concat, add_self_loops
         F, H = out_features, nheads
         self.weight = nn.Parameter(torch.empty(in_features, F * H))
         self.attention = nn.Parameter(torch.empty(2 * F * H, 1))
+        self.bias = nn.Parameter(torch.zeros(F * H if concat else F)) if bias else None
         _xavier_uniform_(self.weight, generator=generator)
         _xavier_uniform_(self.attention, generator=generator)
 
@@ -245,8 +283,20 @@ class GATConv(nn.Module, _AmaxMixin):
             raise TypeError(
                 f"adjacency must be PreparedAdjacency or SparseMatrix, got {type(A)}"
             )
-        flash = A.flash_tiles if isinstance(A, PreparedAdjacency) else None
-        if flash is not None and A.gat_plan is not None:
+        prep = A if isinstance(A, PreparedAdjacency) else None
+        flash = prep.flash_tiles if prep is not None else None
+        # a pallas prep's plans carry self-loops whatever layout it chose
+        on_plan = prep is not None and (prep.gat_on_plan or (self.add_self_loops and prep.kind == "pallas"))
+        if self.add_self_loops and not on_plan and flash is not None:
+            raise ValueError(
+                f"add_self_loops: the {prep.kind} prep's flash mask tiles hold no self-loops; "
+                "prepare the pallas kind (its plan attention adds them)"
+            )
+        if self.add_self_loops and (not on_plan or return_attention):
+            A_e = _with_self_loops(A_e, Wh.device)
+        if on_plan:
+            out = plan_gat_agg(prep, S1, S2, Wh, self.alpha, self_loops=self.add_self_loops)
+        elif flash is not None and A.gat_plan is not None:
             out = gat_attention_agg_hybrid(
                 A.gat_plan, A.gat_rest, S1, S2, Wh, self.alpha,
                 A.gat_rest.rows_sorted,
@@ -258,7 +308,9 @@ class GATConv(nn.Module, _AmaxMixin):
             s_all = edge_softmax(A_e, self._logits(A_e, S1, S2))
             out = torch.zeros((A_e.n_rows, H, F), dtype=Wh.dtype, device=Wh.device)
             out.index_add_(0, rows.long(), Wh.index_select(0, cols.long()) * s_all[..., None])
-        out = out.reshape(-1, F * H)
+        out = out.reshape(-1, F * H) if self.concat else out.mean(dim=1)
+        if self.bias is not None:
+            out = out + self.bias
         if relu:
             out = relu_hw(out)
         if q is not None:

@@ -149,6 +149,75 @@ class GATModel(nn.Module):
             return self.head(_dropout(self, x, generator))
 
 
+class GATSkipModel(nn.Module):
+    """PyTorch Geometric's deep GAT with skip connections (its
+    ``examples/ogbn_products_gat.py``): ``num_layers`` GAT convolutions of
+    ``heads`` heads, each with a linear skip from its input, ``x =
+    conv(x) + skip(x)``. Hidden layers give ``hidden_channels`` a head,
+    concatenated, then ELU and dropout; the last averages its heads into
+    ``num_classes`` (no linear head). Its output is the logits, which the
+    loops' cross-entropy takes through ``log_softmax`` (PyG returns
+    ``log_softmax`` and takes the NLL: the same loss).
+
+    Every convolution has PyG's defaults: a bias, one self-loop a node in
+    the attention (``GATConv(add_self_loops=True)``), LeakyReLU slope 0.2,
+    no attention dropout; and ``exact_gradients``, so the scores' gradients
+    reach ``Wh``, as PyG's autograd's do.
+    Parameters are named ``conv{i}.weight`` ``[in, heads * out]``,
+    ``conv{i}.attention``, ``conv{i}.bias``, and ``skip{i}.weight`` /
+    ``skip{i}.bias`` (``nn.Linear``). In training one draw,
+    ``torch.rand((num_layers - 1, n, heads * hidden_channels))`` from the
+    ``generator`` passed to ``forward``, gives every dropout mask of the
+    step (inverted dropout at rate ``dropout``). ``attention_self_loops``
+    tells the training loops' prepare so (``gat_self_loops``): the
+    ``pallas`` kind's plan attention is the layout that serves it."""
+
+    uses_attention = True
+    attention_self_loops = True
+
+    def __init__(
+        self,
+        num_features: int,
+        hidden_channels: int,
+        num_classes: int,
+        *,
+        num_layers: int = 3,
+        heads: int = 4,
+        dropout: float = 0.5,
+    ):
+        super().__init__()
+        self.dropout, self.num_layers = dropout, num_layers
+        self.heads, self.hidden_channels = heads, hidden_channels
+        width = hidden_channels * heads
+        for i in range(num_layers):
+            last = i == num_layers - 1
+            f_in = num_features if i == 0 else width
+            self.add_module(f"conv{i + 1}", GATConv(
+                f_in, num_classes if last else hidden_channels, nheads=heads, exact_gradients=True,
+                concat=not last, bias=True, add_self_loops=True,
+            ))
+        for i in range(num_layers):
+            f_in = num_features if i == 0 else width
+            self.add_module(f"skip{i + 1}", nn.Linear(f_in, num_classes if i == num_layers - 1 else width))
+
+    def forward(
+        self, A, x: torch.Tensor, *, generator: Optional[torch.Generator] = None
+    ) -> torch.Tensor:
+        with span("model.forward"):
+            L, keep = self.num_layers, None
+            if self.training and self.dropout > 0 and L > 1:
+                shape = (L - 1, x.shape[0], self.heads * self.hidden_channels)
+                keep = torch.rand(shape, generator=generator, device=x.device) < 1.0 - self.dropout
+            for i in range(L):
+                h = getattr(self, f"conv{i + 1}")(A, x) + getattr(self, f"skip{i + 1}")(x)
+                if i < L - 1:
+                    h = torch.nn.functional.elu(h)
+                    if keep is not None:
+                        h = torch.where(keep[i], h / (1.0 - self.dropout), torch.zeros_like(h))
+                x = h
+            return x
+
+
 def global_mean_pool(x: torch.Tensor, graph_ids: torch.Tensor, num_graphs: int) -> torch.Tensor:
     """Mean of the node rows of each graph (PyG's ``global_mean_pool``):
     ``[num_graphs, F]``, zero for a graph without nodes. Sums and counts

@@ -201,6 +201,25 @@ def _declare(lib: ctypes.CDLL) -> None:
         i, p, p, p,  # n_fin, fin_row/p0/np
         p, i, p, p, p,  # Hs (bf16), P, out, partial, stream
     ]
+    plan_args = [
+        p, i, p, p, p, p,  # slot_cv, n_seg, seg_row/lo/hi/part
+        i, p, p, p,  # n_fin, fin_row/p0/np
+    ]
+    lib.sg_plan_gat_fwd.restype = i
+    lib.sg_plan_gat_fwd.argtypes = plan_args + [
+        p, p, p, i, i, ctypes.c_float, i,  # Whs (bf16), s1, s2, H, Fp, alpha, self_loops
+        p, p, p, p, p, p, p,  # out, m, l, pacc, pm, pl, stream
+    ]
+    lib.sg_plan_gat_bwd_rows.restype = i
+    lib.sg_plan_gat_bwd_rows.argtypes = plan_args + [
+        p, p, p, p, p, p, i, i, ctypes.c_float, i,  # Whs, gOs (bf16), s1, s2, m, l, H, Fp, alpha, self_loops
+        p, p, p,  # tuu, ptuu, stream
+    ]
+    lib.sg_plan_gat_bwd_cols.restype = i
+    lib.sg_plan_gat_bwd_cols.argtypes = plan_args + [
+        p, p, p, p, i, i, ctypes.c_float, i,  # Whs, gOs (bf16), st, s2, H, Fp, alpha, self_loops
+        p, p, p, p, p,  # dwh, ds2, pdwh, pds2, stream
+    ]
     lib.sg_stage_hqt.restype = i
     lib.sg_stage_hqt.argtypes = [p, i, i, p, i, p]  # Hq, n_valid, P, HqT, rows, stream
     lib.sg_fused_agg_int8_ring.restype = i

@@ -119,10 +119,15 @@ class PreparedAdjacency:
     gat_bsr: Optional[BSRMatrix] = None
     gat_rest: Optional[SparseMatrix] = None
     gat_plan: Optional[FusedAggPlan] = None
+    # the attention runs on ``plan`` / ``plan_t`` (ops/plan_gat), no mask
+    # tiles: a ``pallas`` prep whose plan attention the model priced cheaper
+    # than any flash layout (``for_gat``)
+    gat_on_plan: bool = False
     # what the cost model priced: {"costs": seconds by kind, "best_tb",
     # "best_hy": the bsr and hybrid kinds' best (auto, or hybrid without
     # tb), "split": (tb, threshold), "flash": (tb, packed, threshold),
-    # "seconds": the model's host seconds}
+    # "seconds": the model's host seconds; on a ``pallas`` prep for GAT
+    # also "gat": "plan" or "flash" and "gat_costs": each one's seconds}
     choice: Optional[dict] = None
 
     @property
@@ -241,6 +246,15 @@ class CostTable:
     flash_threshs: Tuple[int, ...]  # the hybrid split's threshold ladder
     flash_full_cover_n: int  # full cover at tb 256 up to this many nodes
     shard_tbs: Tuple[int, ...]  # candidate tile sizes of a shard's local block
+    # the plan attention (ops/plan_gat, on a pallas prep's plans) at
+    # flash_heads heads of flash_payload_f features, the unit of the flash
+    # prices: the forward's and the backward's two passes' seconds a live
+    # slot, and their fixed seconds a training (forward + backward) call.
+    # Infinite where not measured (the JAX package has no such kernel): the
+    # flash layout is then always kept.
+    plan_gat_slot_s: float = float("inf")
+    plan_gat_bwd_slot_s: float = float("inf")
+    plan_gat_call_s: float = 0.0
 
 
 # Measured on an NVIDIA H100 80GB HBM3 at 700.00 W: the mean of two runs
@@ -263,7 +277,11 @@ class CostTable:
 # effective product rate at tb 256, the measured f32 elementwise rate.
 # flash_heads: the flash prices are for 4 heads (the GAT slice's and PPI's
 # first layer), measured per head at H = 4 (H = 1 beside it in the phase's
-# output).
+# output). The plan attention's entries: its kernels at H = 4, F = 64 on the
+# gat-products graph at 2^20 nodes (53.96 M slots; forward 10.45 ms, the
+# backward's row and column passes 12.41 + 17.60 ms, CUDA events, median of
+# 5), and the wrappers' fixed cost from a 1024-node graph: the forward, both
+# passes and two stagings, 0.563 ms.
 H100_COSTS = CostTable(
     card="NVIDIA H100 80GB HBM3, 700.00 W",
     hbm_bps=3.35e12,
@@ -306,6 +324,9 @@ H100_COSTS = CostTable(
     flash_threshs=(2, 4, 8, 16, 32, 64, 128, 256, 768, 1536, 3072),
     flash_full_cover_n=8192,
     shard_tbs=(64, 128, 256, 512, 1024),
+    plan_gat_slot_s=1.94e-10,
+    plan_gat_bwd_slot_s=5.56e-10,
+    plan_gat_call_s=5.63e-04,
 )
 
 
@@ -519,32 +540,44 @@ def _flash_layout_costs(
     for tb in costs.flash_tbs:
         uniq, counts = pops[tb]
         T = len(uniq)
-        runs_full = len(np.unique(uniq >> 32))
+        rb, cb = uniq >> 32, uniq & 0xFFFFFFFF
+        starts = np.flatnonzero(np.r_[True, rb[1:] != rb[:-1]]) if T else np.zeros(0, np.int64)
+        n_rt = -(-A.n_rows // tb)
+        n_ct = -(-A.n_cols // tb)
+        splits = []  # (thresh, dense tiles, cover tiles, chunks, remainder edges)
+        if hybrid and T:
+            # a row block's run (keys sort by row block) and a column block
+            # hold a tile that reaches a threshold where their fullest tile does
+            top_r = np.sort(np.maximum.reduceat(counts, starts))
+            top_c = np.zeros(int(cb.max()) + 1, counts.dtype)
+            np.maximum.at(top_c, cb, counts)
+            top_c = np.sort(top_c)
+            # a tile is dense at the ladder's first `b` thresholds (those <= its
+            # count), a remainder tile at the rest: one pass sums each row
+            # block's edges by that bin, whose running sums are its remainder
+            th = np.asarray(costs.flash_threshs, np.int64)
+            nb = len(th) + 1
+            b = np.searchsorted(th, counts, side="right")
+            rest = np.cumsum(np.bincount(rb * nb + b, weights=counts.astype(np.float64),
+                                         minlength=n_rt * nb).reshape(-1, nb), axis=1)
+            n_rest = np.cumsum(np.bincount(b, minlength=nb))
+            for j, thresh in enumerate(costs.flash_threshs):
+                T_d = T - int(n_rest[j])
+                if T_d == 0:
+                    continue
+                # a row or column block without a dense tile takes one zero
+                # cover tile; a row block's rest rounds up to whole chunks
+                runs_d = len(top_r) - int(np.searchsorted(top_r, thresh))
+                cols_d = len(top_c) - int(np.searchsorted(top_c, thresh))
+                splits.append((thresh, T_d, (n_rt - runs_d) + (n_ct - cols_d),
+                               int(np.ceil(rest[:, j] / K).sum()), int(rest[:, j].sum())))
         for packed in ((False, True) if tb in costs.flash_packed_tbs else (False,)):
             tile_bytes = tb * tb / (8.0 if packed else 1.0)
             tc = _flash_tile_s(tb, packed, costs)
             if T * tile_bytes <= costs.flash_tile_budget:
-                out[(tb, packed, None)] = passes * (T * tc + runs_full * _flash_run_s(tb, costs))
-            if not hybrid:
-                continue
-            # a row or column block without a dense tile takes one zero
-            # cover tile; a row block's rest rounds up to whole chunks
-            n_rt = -(-A.n_rows // tb)
-            n_ct = -(-A.n_cols // tb)
-            for thresh in costs.flash_threshs:
-                dense = counts >= thresh
-                T_d = int(dense.sum())
-                if T_d == 0:
-                    continue
-                rest_by_rb = np.bincount(
-                    (uniq >> 32)[~dense].astype(np.int64),
-                    weights=counts[~dense].astype(np.float64),
-                )
-                n_chunks = int(np.ceil(rest_by_rb / K).sum())
+                out[(tb, packed, None)] = passes * (T * tc + len(starts) * _flash_run_s(tb, costs))
+            for thresh, T_d, cover, n_chunks, e_rest in splits:
                 cc = _flash_chunk_s(tb, n_chunks, costs=costs)
-                runs_d = len(np.unique((uniq >> 32)[dense]))
-                cover = (n_rt - runs_d) + (n_ct - len(np.unique((uniq & 0xFFFFFFFF)[dense])))
-                e_rest = int(counts[~dense].sum())
                 if (T_d + cover) * tile_bytes <= costs.flash_tile_budget:
                     out[(tb, packed, thresh)] = (
                         passes * ((T_d + cover) * tc + n_rt * _flash_run_s(tb, costs))
@@ -553,6 +586,14 @@ def _flash_layout_costs(
                         + (e_rest * costs.flash_edge_bwd_s + costs.flash_bwd_fixed_s if train else 0.0)
                     )
     return out
+
+
+def _plan_gat_cost_s(nnz: int, train: bool = True, costs: CostTable = H100_COSTS) -> float:
+    """Seconds of the plan attention (``ops/plan_gat``) over ``nnz`` live
+    slots, forward and backward or, with ``train=False``, the forward alone,
+    in the flash prices' unit (``flash_heads`` heads of ``flash_payload_f``)."""
+    per = costs.plan_gat_slot_s + (costs.plan_gat_bwd_slot_s if train else 0.0)
+    return nnz * per + costs.plan_gat_call_s
 
 
 def _choose_flash_plan(
@@ -568,7 +609,10 @@ def _choose_flash_plan(
     where nothing fits the budget."""
     if n <= costs.flash_full_cover_n:
         return 256, False, None
-    est = _flash_layout_costs(A, hybrid=hybrid, train=train, costs=costs)
+    return _cheapest_flash(_flash_layout_costs(A, hybrid=hybrid, train=train, costs=costs))
+
+
+def _cheapest_flash(est: dict) -> tuple:
     if not est:
         return 1024, True, None  # nothing fits as int8: packed capacity
     return min(est, key=est.get)
@@ -593,6 +637,7 @@ def prepare_adjacency(
     gat_tb: Optional[int] = None,
     gat_rest_thresh: Optional[int] = None,
     gat_train: bool = True,
+    gat_self_loops: bool = False,
     costs: CostTable = H100_COSTS,
     fused_k: Optional[int] = None,
     device=None,
@@ -631,17 +676,32 @@ def prepare_adjacency(
     model's split, with ``tb`` the model's threshold at that size. An
     explicit ``tb`` / ``rest_thresh`` overrides the model's.
 
-    ``for_gat`` attaches the flash-GAT layout unless the prep's own tiles
-    already serve (``flash_tiles``): ``_choose_flash_plan`` with ``costs``,
-    priced for training, or for serving alone with ``gat_train=False``.
-    ``gat_tb`` / ``gat_rest_thresh`` override it: full cover at ``gat_tb``
-    without a threshold, the hybrid split at ``gat_rest_thresh`` (at
-    ``gat_tb``, else ``DEFAULT_TB``)."""
+    ``for_gat`` chooses the attention's layout unless the prep's own tiles
+    already serve (``flash_tiles``). There are three: the flash layouts,
+    full-cover mask tiles or the hybrid split of dense mask tiles and a
+    remainder edge list (``_choose_flash_plan`` with ``costs``, priced for
+    training, or for serving alone with ``gat_train=False``); and, on the
+    ``pallas`` kind, the plan attention on ``plan`` / ``plan_t``
+    (``ops/plan_gat``, ``gat_on_plan``), priced by ``_plan_gat_cost_s``
+    against the flash layout the chooser takes, the cheaper taken (no mask
+    tiles are built where the plan attention wins; both prices are in
+    ``prep.choice``). A prep with none of them runs the edge path. The edge
+    path and the hybrid remainder's backward materialise a per-edge
+    ``[E, H, F]`` tensor, the plan attention and the mask tiles do not.
+    ``gat_tb`` / ``gat_rest_thresh`` override the choice: full cover at
+    ``gat_tb`` without a threshold, the hybrid split at ``gat_rest_thresh``
+    (at ``gat_tb``, else ``DEFAULT_TB``). ``gat_self_loops`` is for a model
+    whose attention adds a self-loop a node (``GATConv(add_self_loops=True)``),
+    which no mask tile holds: ``auto`` then prepares the ``pallas`` kind,
+    which takes the plan attention unpriced; any other kind, or a
+    ``gat_tb`` / ``gat_rest_thresh``, raises ``ValueError``."""
     with span("prepare") as s:
         device = resolve_device(device)
         n = max(A.n_rows, A.n_cols)
         if method not in ("auto", "dense", "bsr", "hybrid", "pallas", "xla"):
             raise ValueError(f"unknown method {method!r}")
+        if for_gat and gat_self_loops and method == "auto":
+            method = "pallas"  # the one kind whose attention holds self-loops
         itemsize = torch.empty((), dtype=dense_dtype).element_size()
         fac = None
         if method in ("auto", "hybrid", "bsr"):
@@ -664,6 +724,11 @@ def prepare_adjacency(
             if method == "hybrid" and tb is None:
                 tb, rest_thresh = best_hy[0], (best_hy[1] if rest_thresh is None else rest_thresh)
             choice = dict(costs=est, best_tb=best_tb, best_hy=best_hy, seconds=time.perf_counter() - t0)
+        if for_gat and gat_self_loops and (method != "pallas" or gat_tb is not None or gat_rest_thresh is not None):
+            raise ValueError(
+                f"gat_self_loops: the attention's self-loops run on the pallas kind's plans, not on "
+                f"{method!r} with gat_tb={gat_tb}, gat_rest_thresh={gat_rest_thresh} (mask tiles hold none)"
+            )
         with span("prepare.upload"):
             A_dev = A.to(device)
 
@@ -673,9 +738,10 @@ def prepare_adjacency(
                 prep = dataclasses.replace(prep, choice=choice)
             if not for_gat or prep.flash_tiles is not None:
                 return prep
-            return dataclasses.replace(
-                prep, **_gat_layout(A, n, gat_tb, gat_rest_thresh, gat_train, costs, choice, device)
-            )
+            return dataclasses.replace(prep, **_gat_layout(
+                A, n, gat_tb, gat_rest_thresh, gat_train, costs, choice, device, on_plan=prep.kind == "pallas",
+                self_loops=gat_self_loops,
+            ))
 
         if method == "xla":
             return finish(PreparedAdjacency(A=A_dev, kind="xla"))
@@ -769,18 +835,39 @@ def _traced_plan(A: SparseMatrix, transposed: bool, tiling: dict) -> SpMMPlan:
 
 def _gat_layout(
     A: SparseMatrix, n: int, tb: Optional[int], thresh: Optional[int], train: bool,
-    costs: CostTable, choice: Optional[dict], device,
+    costs: CostTable, choice: Optional[dict], device, on_plan: bool = False, self_loops: bool = False,
 ) -> dict:
     """The flash-GAT fields of a prep (``_finish`` of the JAX prepare): the
     layout ``_choose_flash_plan`` prices cheapest, or the one ``tb`` /
-    ``thresh`` ask for.
+    ``thresh`` ask for. With ``on_plan`` (a ``pallas`` prep) and neither
+    asked for, the plan attention on the prep's own plans is priced beside
+    the flash layout ``_choose_flash_plan`` takes (``_plan_gat_cost_s``
+    against that layout's ``_flash_layout_costs`` entry), the cheaper taken
+    and both recorded (``choice["gat"]``, ``choice["gat_costs"]``); where the
+    plan attention wins no mask tile is built. With ``self_loops`` as well
+    the plan attention is taken unpriced against the flash layouts, which
+    cannot serve it (``choice["gat_costs"]`` holds its price alone).
 
     Hybrid split: the tiles holding >= ``thresh`` edges become int8 (or
     packed) mask tiles covering every row and column block; the remainder,
     without its zero-valued edges (GAT masks on val > 0), rides the chunks
     of a value-mode fused plan. Full cover (or a degenerate split): mask
     tiles of the whole adjacency."""
-    if tb is None and thresh is None:
+    if tb is None and thresh is None and on_plan and self_loops:
+        return dict(gat_on_plan=True, choice=dict(choice or {}, gat="plan",
+                                                   gat_costs=dict(plan=_plan_gat_cost_s(A.nnz, train, costs))))
+    if tb is None and thresh is None and on_plan:
+        t0 = time.perf_counter()
+        est = _flash_layout_costs(A, train=train, costs=costs)
+        key = (256, False, None) if n <= costs.flash_full_cover_n else _cheapest_flash(est)
+        costs_s = dict(plan=_plan_gat_cost_s(A.nnz, train, costs), flash=est.get(key, float("inf")))
+        choice = dict(choice or {}, gat_costs=costs_s,
+                      seconds=(choice or {}).get("seconds", 0.0) + time.perf_counter() - t0)
+        if costs_s["plan"] < costs_s["flash"]:
+            return dict(gat_on_plan=True, choice=dict(choice, gat="plan"))
+        choice["gat"] = "flash"
+        tb, packed, thresh = key
+    elif tb is None and thresh is None:
         t0 = time.perf_counter()
         tb, packed, thresh = _choose_flash_plan(A, n, train=train, costs=costs)
         choice = dict(choice or {}, seconds=(choice or {}).get("seconds", 0.0) + time.perf_counter() - t0)
@@ -805,7 +892,7 @@ def _gat_layout(
 
 def prepare_from_config(
     A: SparseMatrix, cfg, *, for_gat: bool = False, method: Optional[str] = None,
-    device=None,
+    gat_self_loops: bool = False, device=None,
 ) -> PreparedAdjacency:
     """``prepare_adjacency`` driven by an ``SGRACEConfig``: ``method`` when
     it names a backend, else the ``pallas`` kind with ``cfg.use_pallas``,
@@ -815,13 +902,13 @@ def prepare_from_config(
     1024 edges, the edge block rounded up to a multiple of 1024. Mask
     tiles with rank-1 scalings unless the config fake-quantizes the
     adjacency (QAT layers remap the adjacency values per call, which {0,1}
-    mask tiles cannot hold: ``map_adjacency_vals``). ``device`` as in
-    ``prepare_adjacency``."""
+    mask tiles cannot hold: ``map_adjacency_vals``). ``gat_self_loops`` and
+    ``device`` as in ``prepare_adjacency``."""
     be = (max(cfg.edge_block, 1024) + 1023) // 1024 * 1024
     return prepare_adjacency(
         A, method=method or ("pallas" if cfg.use_pallas else "auto"),
         rb=max(cfg.row_block, 8), cb=max(cfg.col_block, 128), be=be,
-        for_gat=for_gat, rank1=not cfg.fake_quantization, device=device,
+        for_gat=for_gat, gat_self_loops=gat_self_loops, rank1=not cfg.fake_quantization, device=device,
     )
 
 

@@ -61,8 +61,9 @@ def _prepare_backend(A, cfg: SGRACEConfig, model, prepare, device):
     host matrix ``A`` (a ``SparseMatrix``, or a callable that builds it,
     called only when ``prepare`` is not a ``PreparedAdjacency``):
 
-    - ``"auto"`` / ``True`` (default): ``prepare_from_config``, with flash
-      mask tiles for GAT models;
+    - ``"auto"`` / ``True`` (default): ``prepare_from_config``, with the
+      attention's layout for GAT models (``gat_self_loops`` where the model
+      says ``attention_self_loops``);
     - a backend name (``"dense"``/``"bsr"``/``"hybrid"``/``"pallas"``/
       ``"xla"``): that method;
     - ``"off"`` / ``None`` / ``False``: the bare ``SparseMatrix`` edge path;
@@ -75,7 +76,8 @@ def _prepare_backend(A, cfg: SGRACEConfig, model, prepare, device):
         return A.to(device)
     method = None if prepare in (True, "auto") else prepare
     return prepare_from_config(
-        A, cfg, for_gat=_uses_attention(model), method=method, device=device
+        A, cfg, for_gat=_uses_attention(model), method=method,
+        gat_self_loops=bool(getattr(model, "attention_self_loops", False)), device=device,
     )
 
 

@@ -9,8 +9,9 @@ directory).
 
 Spans: the port marks its layer boundaries with ``span(name, **attrs)``
 (the host prepare by stage, the training loop's step, evaluation and
-syncs, the model's forward, each aggregation and its backward; the list
-is ``PERF.md``'s layer table). They record only inside ``recording()``,
+syncs, the model's forward, each aggregation and its backward, each
+attention on the plans and its backward, ``gat.agg`` and
+``gat.agg.backward``; the list is ``PERF.md``'s layer table). They record only inside ``recording()``,
 the process's one open recorder, which keeps them in memory for its
 caller; each also enters ``torch.profiler.record_function("sg." + name)``,
 so inside a profiled stretch the spans lie on the profiler's own clock
