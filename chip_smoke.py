@@ -2703,8 +2703,10 @@ def phase_plan_gat_products(device) -> tuple:
     once against its plain version on the same inputs (PLAN_GAT_TOL of the
     largest magnitude, the row max ``m`` equal) and is timed (CUDA events,
     median of 10; the plain version once) beside the bound of the gat
-    family's count. Then the layer's entry, forward and backward, once with
-    the counters set to 0 just before: one launch of each kernel, and no
+    family's count; the column pass's line also gives its ring (slots a
+    warp, shared memory a block), registers and blocks an SM
+    (``bwd_cols_occupancy``). Then the layer's entry, forward and backward,
+    once with the counters set to 0 just before: one launch of each kernel, and no
     flash or other kernel's launch; its kernels' device ms under
     torch.profiler, the split rows' merge (merge_split_attention) among
     them. Returns (records, launches)."""
@@ -2770,17 +2772,25 @@ def phase_plan_gat_products(device) -> tuple:
              lambda: PG.plan_gat_bwd_cols_plain(plan_t, s1, s2, m, l, t, Whs, gOs, **kw),
              FAM.attention_bwd_cols, e_c),
         )
+        occ = PG.bwd_cols_occupancy(H, Fp)
         for name, (kern, plain, count, err) in zip(names, calls):
             ms = cuda_ms(kern)
             plain_ms = cuda_ms(plain, reps=1, warmup=0)
             bound_ms = PC.least_time([count(name, n, nnz, H, F)]) * 1e3
+            ring = (f"; its ring {occ['stages']} slots a warp, {occ['smem_bytes']} B a block, "
+                    f"{occ['regs']} registers, {occ['blocks_per_sm']} blocks an SM, {occ['spill_bytes']} B "
+                    f"spilled" if name == names[2] else "")
             _log(f"{name} at gat-products shapes [n={n}, nnz={nnz}, H={H}, F={F} (staged {Fp})]: {ms:.4f} ms, "
                  f"plain {plain_ms:.2f} ms, bound {bound_ms:.4f} ms by the gat family's count "
-                 f"({100 * bound_ms / ms:.1f}% of it), largest gap {err:.3g} of the largest magnitude")
+                 f"({100 * bound_ms / ms:.1f}% of it), largest gap {err:.3g} of the largest magnitude{ring}")
             if F == cfg["hidden_channels"]:
                 rec[name] = dict(max_rel_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, F=F)
+                if name == names[2]:
+                    rec[name].update(ring=occ)
             else:
                 rec[name].update(max_rel_err_f47=err, ms_f47=ms, plain_ms_f47=plain_ms, bound_ms_f47=bound_ms)
+                if name == names[2]:
+                    rec[name].update(ring_f47=occ)
         del s1, s2, Whs, gOs, m, l, t, u1, u2
 
     # the layer's entry, forward and backward, at the hidden layers' width
@@ -2796,14 +2806,15 @@ def phase_plan_gat_products(device) -> tuple:
     entry()  # warm-up
     torch.cuda.synchronize()
     _reset_counts()
-    for k in ("launches", "launches_bwd_rows", "launches_bwd_cols", "launches_merge"):
+    counters = ("launches", "launches_bwd_rows", "launches_bwd_cols", "launches_bwd_cols_ring", "launches_merge")
+    for k in counters:
         setattr(PG.plan_gat_agg, k, 0)
     entry()
     torch.cuda.synchronize()
-    got = {k: getattr(PG.plan_gat_agg, k)
-           for k in ("launches", "launches_bwd_rows", "launches_bwd_cols", "launches_merge")}
+    got = {k: getattr(PG.plan_gat_agg, k) for k in counters}
     split = [int(p.segments.n_fin > 0) for p in (plan, plan, plan_t)]
-    want = dict(launches=1, launches_bwd_rows=1, launches_bwd_cols=1, launches_merge=sum(split))
+    want = dict(launches=1, launches_bwd_rows=1, launches_bwd_cols=1, launches_bwd_cols_ring=1,
+                launches_merge=sum(split))
     others = {k: v for k, v in _counts().items() if v}
     if got != want or others:
         raise AssertionError(f"plan_gat_agg forward + backward: counters {got}, expected {want}; other "

@@ -218,8 +218,10 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.sg_plan_gat_bwd_cols.restype = i
     lib.sg_plan_gat_bwd_cols.argtypes = plan_args + [
         p, p, p, p, i, i, ctypes.c_float, i,  # Whs, gOs (bf16), st, s2, H, Fp, alpha, self_loops
-        p, p, p, p, p,  # dwh, ds2, pdwh, pds2, stream
+        p, p, p, p, i, p,  # dwh, ds2, pdwh, pds2, stages, stream
     ]
+    lib.sg_plan_gat_bwd_cols_occupancy.restype = i
+    lib.sg_plan_gat_bwd_cols_occupancy.argtypes = [i, i, i, p]  # H, Fp, stages, out[4]
     lib.sg_stage_hqt.restype = i
     lib.sg_stage_hqt.argtypes = [p, i, i, p, i, p]  # Hq, n_valid, P, HqT, rows, stream
     lib.sg_fused_agg_int8_ring.restype = i

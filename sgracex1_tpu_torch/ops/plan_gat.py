@@ -25,10 +25,17 @@ fits.
 - ``plan_gat_bwd_cols``: the column pass on ``plan_t``: ``dWh[c] = sum_r p
   gO[r]`` and ``ds2[c] = sum_r p (q - t[r]) lr'``.
 - ``plan_gat_agg``: the layer's entry, differentiable, in a ``gat.agg``
-  span (its backward in ``gat.agg.backward``). Its attributes count the
-  launches: ``launches`` (forward), ``launches_bwd_rows``,
-  ``launches_bwd_cols``, and ``launches_merge`` (launches on a plan with
-  split rows, which the merge or the split rows' sum then finishes).
+  span (its backward in ``gat.agg.backward``, which also carries the column
+  pass's ring: ``ring_stages``, ``ring_slots``, ``ring_bytes``). Its
+  attributes count the launches: ``launches`` (forward),
+  ``launches_bwd_rows``, ``launches_bwd_cols``, ``launches_bwd_cols_ring``
+  (column passes through the shared-memory ring: all of them), and
+  ``launches_merge`` (launches on a plan with split rows, which the merge or
+  the split rows' sum then finishes).
+
+The column pass stages each gathered ``gO`` row and its heads' row
+statistics in a ring of shared memory a warp (``bwd_cols_ring``: its depth
+follows from a slot's bytes, so that three blocks share an SM).
 
 The backward is ``flash_gat_backward``'s softmax-Jacobian identity; no
 per-edge ``[E, H, F]`` tensor exists on the card. Operands are staged head
@@ -45,7 +52,7 @@ of ``Wh`` and ``gO``, everything else f32).
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -61,6 +68,11 @@ from sgracex1_tpu_torch.ops.pallas_spmm import SpMMPlan
 from sgracex1_tpu_torch.utils.profiling import span
 
 SLICE = 256  # features a warp of the kernels covers in one walk
+RING_WARPS = 8  # warps a block of the column pass, each with its own ring
+RING_WALK = 2 * SLICE  # features of a gathered row the column pass stages a slot
+RING_MAX_STAGES = 16  # slots a warp's ring holds at most
+RING_BLOCK_BYTES = 72 * 1024  # a block's ring: three blocks of 256 threads share an SM
+SMEM_BLOCK_MAX = 232448  # the shared memory a block can have on the H100 (227 KB)
 
 
 def plan_gat_width(H: int, F: int) -> Optional[int]:
@@ -72,6 +84,44 @@ def plan_gat_width(H: int, F: int) -> Optional[int]:
     if H * fp > SLICE and SLICE % fp:
         fp = 1 << (fp - 1).bit_length()
     return fp if fp <= SLICE else None
+
+
+class ColsRing(NamedTuple):
+    """The column pass's ring at one staged shape."""
+
+    stages: int  # slots in flight a warp, one mbarrier each
+    slot_bytes: int  # a slot: a walk's features of a gathered gO row, then its heads' st
+    smem_bytes: int  # a block's shared memory: RING_WARPS rings and their barriers
+
+
+def bwd_cols_ring(H: int, Fp: int) -> Optional[ColsRing]:
+    """The ring of ``plan_gat_bwd_cols`` at ``H`` heads of the staged width
+    ``Fp``, or None where the kernels' shape rule refuses the shape (the
+    host's rule of ``csrc/plan_gat.cu``, which checks what it is given). A
+    slot holds the ``gf = min(H Fp, RING_WALK)`` features of one walk of a
+    gO row (bf16) and the (s1, m, 1 / l, t) of their ``gf / Fp`` heads (16 B
+    each); as many slots a warp as ``RING_BLOCK_BYTES`` holds, with an
+    8-byte barrier each, up to ``RING_MAX_STAGES``."""
+    if H < 1 or Fp < 8 or plan_gat_width(H, Fp) != Fp:
+        return None
+    gf = min(H * Fp, RING_WALK)
+    slot = 2 * gf + 16 * (gf // Fp)
+    stages = min(RING_MAX_STAGES, RING_BLOCK_BYTES // (RING_WARPS * (slot + 8)))
+    return ColsRing(stages, slot, RING_WARPS * stages * (slot + 8))
+
+
+def bwd_cols_occupancy(H: int, Fp: int) -> dict:
+    """What the column pass gets on the current card at its ring for (H,
+    Fp): registers a thread, blocks an SM, the ring's stages and a block's
+    shared memory, and local (spilled) bytes a thread."""
+    ring = bwd_cols_ring(H, Fp)
+    if ring is None:
+        raise ValueError(f"no column pass for {H} heads of {Fp}")
+    out = (ctypes.c_int * 4)()
+    _cuda.check(_cuda.library().sg_plan_gat_bwd_cols_occupancy(H, Fp, ring.stages, out),
+                "plan_gat_bwd_cols_occupancy")
+    return dict(regs=out[0], blocks_per_sm=out[1], stages=ring.stages, smem_bytes=out[2],
+                spill_bytes=out[3])
 
 
 def stage(X: torch.Tensor, Fp: int) -> torch.Tensor:
@@ -285,6 +335,9 @@ def plan_gat_bwd_cols(plan_t: SpMMPlan, s1, s2, m, l, t, Whs, gOs, *, alpha: flo
     H, Fp = _check(plan_t, s2, s1, Whs, gOs)
     S, n, dev = plan_t.segments, plan_t.n_rows, Whs.device
     st = torch.stack([s1, m, _inv(l), t], dim=-1).contiguous()
+    if gOs.data_ptr() % 16:  # the ring's bulk copies move 16-byte units
+        raise ValueError("gOs must start on a 16-byte boundary")
+    ring = bwd_cols_ring(H, Fp)
     dwh = torch.empty((n, H, Fp), dtype=torch.float32, device=dev)
     ds2 = torch.empty((n, H), dtype=torch.float32, device=dev)
     npart = max(S.n_part, 1)
@@ -293,10 +346,11 @@ def plan_gat_bwd_cols(plan_t: SpMMPlan, s1, s2, m, l, t, Whs, gOs, *, alpha: flo
     err = _cuda.library().sg_plan_gat_bwd_cols(
         _ptr(plan_t.slot_cv), *_seg_args(S), _ptr(Whs), _ptr(gOs), _ptr(st), _ptr(s2), H, Fp,
         ctypes.c_float(alpha), int(self_loops), _ptr(dwh), _ptr(ds2), _ptr(pdwh), _ptr(pds2),
-        _stream(Whs),
+        ring.stages, _stream(Whs),
     )
     _cuda.check(err, "plan_gat_bwd_cols")
     _count(plan_t, "launches_bwd_cols")
+    plan_gat_agg.launches_bwd_cols_ring += 1
     return dwh, ds2
 
 
@@ -332,7 +386,9 @@ class _PlanGat(torch.autograd.Function):
         prep, kw = ctx.prep, dict(alpha=ctx.alpha, self_loops=ctx.self_loops)
         with span("gat.agg.backward") as s:
             if s:
-                s.set(**_attrs(Whs.shape[1], ctx.F, prep.plan))
+                ring = bwd_cols_ring(Whs.shape[1], Whs.shape[2])
+                s.set(**_attrs(Whs.shape[1], ctx.F, prep.plan), ring_stages=ring.stages,
+                      ring_slots=RING_WARPS * ring.stages, ring_bytes=ring.smem_bytes)
             gOs = stage(gO.float(), Whs.shape[2])
             t, u1, u2 = plan_gat_bwd_rows(prep.plan, s1, s2, m, l, Whs, gOs, **kw)
             ds1 = u1 - t * u2
@@ -365,4 +421,5 @@ def plan_gat_agg(prep, s1, s2, Wh, alpha: float = 0.2, self_loops: bool = False)
 plan_gat_agg.launches = 0
 plan_gat_agg.launches_bwd_rows = 0
 plan_gat_agg.launches_bwd_cols = 0
+plan_gat_agg.launches_bwd_cols_ring = 0
 plan_gat_agg.launches_merge = 0

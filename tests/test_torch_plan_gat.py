@@ -155,6 +155,113 @@ def test_staged_widths():
     assert torch.equal(s[..., :47], x.to(torch.bfloat16)) and not s[..., 47:].any()
 
 
+# The column pass's ring (csrc/plan_gat.cu): the host's depth rule and the
+# walk's fill and fold order.
+
+CARD_SHAPES = [(4, 128), (4, 48), (1, 128), (2, 64), (1, 8), (1, 256), (2, 128), (8, 256), (64, 8)]
+
+
+def _shape_ok(H, Fp):
+    """``shape_ok`` of ``csrc/plan_gat.cu``, written out."""
+    return H >= 1 and Fp >= 8 and Fp % 8 == 0 and Fp <= 256 and (H * Fp <= 256 or 256 % Fp == 0)
+
+
+@pytest.mark.parametrize("H,Fp", CARD_SHAPES)
+def test_bwd_cols_ring_fits_three_blocks_an_sm(H, Fp):
+    """The cell's widths (4 x 128, 4 x 48) and the card tests': a ring of at
+    least two slots a warp whose block fits 227 KB, three blocks with their
+    1 KB reserve in the SM's 228 KB, 16-byte slots that hold a walk's
+    features of a gO row and their heads' st."""
+    ring = PG.bwd_cols_ring(H, Fp)
+    assert ring is not None
+    gf = min(H * Fp, 512)
+    assert ring.slot_bytes == 2 * gf + 16 * (gf // Fp) and ring.slot_bytes % 16 == 0
+    assert 2 <= ring.stages <= PG.RING_MAX_STAGES  # a fold may take two slots
+    assert ring.smem_bytes == PG.RING_WARPS * ring.stages * (ring.slot_bytes + 8)
+    assert ring.smem_bytes <= PG.SMEM_BLOCK_MAX and 3 * (ring.smem_bytes + 1024) <= 228 * 1024
+    # the depth follows from the slot's bytes: one more slot a warp would pass the block's budget
+    more = PG.RING_WARPS * (ring.stages + 1) * (ring.slot_bytes + 8)
+    assert ring.stages == PG.RING_MAX_STAGES or more > PG.RING_BLOCK_BYTES
+
+
+def test_bwd_cols_ring_depth_at_the_cell():
+    """4 x 128 (the hidden layers): 8 slots of 1088 bytes a warp; 4 x 48
+    (the last layer, 47 staged at 48): the cap, 16 slots of 448 bytes."""
+    assert PG.bwd_cols_ring(4, 128) == PG.ColsRing(8, 1088, 70144)
+    assert PG.bwd_cols_ring(4, 48) == PG.ColsRing(16, 448, 58368)
+
+
+@pytest.mark.parametrize("H,Fp", [(4, 47), (0, 128), (4, 0), (1, 264), (3, 96), (5, 72), (2, 4)])
+def test_bwd_cols_ring_refuses_unstaged_shapes(H, Fp):
+    assert not _shape_ok(H, Fp) and PG.bwd_cols_ring(H, Fp) is None
+
+
+def test_bwd_cols_ring_refuses_what_shape_ok_refuses():
+    for H in range(0, 70):
+        for Fp in range(0, 300):
+            assert (PG.bwd_cols_ring(H, Fp) is not None) == _shape_ok(H, Fp), (H, Fp)
+
+
+def _ring_walk(pieces, stages):
+    """The column pass's walks of one warp's pieces ``(ok, self_first)``,
+    written out: the attended slots of each window of 32 enter the ring in
+    slot order as it frees, the oldest is folded when it is full, and the
+    rest at the walk's end; the ring's state carries over to the next
+    piece. Returns each piece's folded slots (-1 the self slot), checking
+    that no slot is filled before its last occupant was folded and that
+    each fold waits for its slot's next phase."""
+    held = fill_b = fold_b = fold_ph = 0
+    buf = [None] * stages  # the slot's occupant
+    phase = [0] * stages  # completed phases of the slot's barrier
+    out = []
+
+    def fill(b, slot):
+        assert buf[b] is None
+        buf[b] = slot
+        phase[b] += 1  # its bytes land: the phase completes
+
+    def fold():
+        nonlocal held, fold_b, fold_ph
+        assert buf[fold_b] is not None and phase[fold_b] % 2 != fold_ph
+        out[-1].append(buf[fold_b])
+        buf[fold_b] = None
+        fold_b += 1
+        if fold_b == stages:
+            fold_b, fold_ph = 0, fold_ph ^ 1
+        held -= 1
+
+    for ok, self_first in pieces:
+        out.append([])
+        if self_first:
+            fill(fill_b, -1)
+            fill_b, held = (fill_b + 1) % stages, held + 1
+        for s0 in range(0, len(ok), 32):
+            rest = [s0 + i for i in range(32) if s0 + i < len(ok) and ok[s0 + i]]
+            while rest:
+                if held == stages:
+                    fold()
+                    continue
+                took = rest[: stages - held]
+                for rank, slot in enumerate(took):
+                    fill((fill_b + rank) % stages, slot)
+                fill_b, held, rest = (fill_b + len(took)) % stages, held + len(took), rest[len(took):]
+        while held:
+            fold()
+    return out
+
+
+@pytest.mark.parametrize("stages", [2, 3, 8, 16])
+def test_ring_walk_folds_every_attended_slot_in_order(stages):
+    """Pieces of 0-200 slots, none to all attended, with and without the
+    self slot, one warp's in a row."""
+    rng = np.random.default_rng(stages)
+    pieces = [(list(rng.random(n) < share), self_first)
+              for n, share in ((0, 0.5), (5, 0.0), (64, 0.7), (64, 1.0), (200, 0.3), (33, 0.9))
+              for self_first in (False, True)]
+    want = [[-1] * self_first + [i for i, x in enumerate(ok) if x] for ok, self_first in pieces]
+    assert _ring_walk(pieces, stages) == want
+
+
 def _powerlaw(n, seed=0):
     """No id locality: a Chung-Lu graph at random ids, mean degree ~50."""
     rng = np.random.default_rng(seed)

@@ -24,6 +24,7 @@ import pytest
 import torch
 
 import sgracex1_tpu_torch as pt
+from sgracex1_tpu_torch.graph.csr import SparseMatrix
 from sgracex1_tpu_torch.ops import dispatch as D
 from sgracex1_tpu_torch.ops import plan_gat as PG
 from sgracex1_tpu_torch.ops.pallas_spmm import recut_rows
@@ -52,8 +53,8 @@ def _graph(n=3000, seed=0):
     return pt.sym_norm(np.unique(ei, axis=1), n)
 
 
-def _preps(device, cut=None):
-    A = _graph()
+def _preps(device, cut=None, A=None):
+    A = _graph() if A is None else A
     cpu = D.prepare_adjacency(A, method="pallas", rb=256, cb=256, device="cpu")
     if cut:
         cpu = dataclasses.replace(cpu, plan=recut_rows(cpu.plan, cut), plan_t=recut_rows(cpu.plan_t, cut))
@@ -123,6 +124,61 @@ def test_backward_kernels_match_plain(cuda_device, H, F, loops, cut):
     _close(got[1], want[1], "ds2")
 
 
+def _zero_columns(A, cols):
+    """``A`` with every entry of the columns ``cols`` at value 0: pieces of
+    ``plan_t`` with no slot the attention takes."""
+    r, c, v = (np.asarray(x)[: A.nnz] for x in (A.rows, A.cols, A.vals))
+    v = np.where(np.isin(c, cols), 0.0, v).astype(np.float32)
+    return SparseMatrix.from_coo(r, c, v, A.shape)
+
+
+# The column pass's ring at its edges: a slot of 8 features, one slice (256),
+# two slices staged whole (512), and rows walked in four parts of 512 (8 x
+# 256), where shared memory cuts the depth to 8 slots.
+RING_CASES = [(1, 8, True), (1, 256, False), (2, 128, True), (4, 128, False), (8, 256, True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,F,loops", RING_CASES)
+@pytest.mark.parametrize("cut", [None, 8])
+def test_column_pass_ring_edges(cuda_device, H, F, loops, cut):
+    """Against the plain column pass at TOL, on a graph whose hub and 200
+    other columns attend nothing (with ``loops`` their self slot alone);
+    two launches give the same bits, and each counts a launch through the
+    ring."""
+    A = _graph()
+    hub = np.bincount(np.asarray(A.cols)[: A.nnz]).argmax()
+    dead = np.append(np.arange(100, 300), hub)
+    _, cpu, dev = _preps(cuda_device, cut, _zero_columns(A, dead))
+    c, d = _operands(cpu.plan.n_rows, H, F, cuda_device)
+    _, m, l = PG.plan_gat_fwd(cpu.plan, c["s1"], c["s2"], c["Whs"], self_loops=loops)
+    t = PG.plan_gat_bwd_rows(cpu.plan, c["s1"], c["s2"], m, l, c["Whs"], c["gOs"], self_loops=loops)[0]
+    args = dict(s1=d["s1"], s2=d["s2"], m=m.to(cuda_device), l=l.to(cuda_device), t=t.to(cuda_device),
+                Whs=d["Whs"], gOs=d["gOs"], self_loops=loops)
+    want = PG.plan_gat_bwd_cols(cpu.plan_t, c["s1"], c["s2"], m, l, t, c["Whs"], c["gOs"], self_loops=loops)
+    before = (PG.plan_gat_agg.launches_bwd_cols, PG.plan_gat_agg.launches_bwd_cols_ring)
+    got = [PG.plan_gat_bwd_cols(dev.plan_t, **args) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert (PG.plan_gat_agg.launches_bwd_cols, PG.plan_gat_agg.launches_bwd_cols_ring) == (before[0] + 2, before[1] + 2)
+    _close(got[0][0], want[0], "dWh")
+    _close(got[0][1], want[1], "ds2")
+    assert torch.equal(got[0][0], got[1][0]) and torch.equal(got[0][1], got[1][1]), "two launches differ"
+    if not loops:  # the dead columns' pieces attend nothing
+        assert float(got[0][0][dead].abs().max()) == 0.0 and float(got[0][1][dead].abs().max()) == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,F", [(4, 128), (4, 47), (8, 256), (1, 8)])
+def test_column_pass_occupancy(cuda_device, H, F):
+    """The ring's launch on this card: the host rule's shared memory, at
+    most 80 registers a thread, so that three blocks share an SM."""
+    Fp = PG.plan_gat_width(H, F)
+    occ = PG.bwd_cols_occupancy(H, Fp)
+    ring = PG.bwd_cols_ring(H, Fp)
+    assert occ["stages"] == ring.stages and occ["smem_bytes"] == ring.smem_bytes
+    assert occ["regs"] <= 80 and occ["blocks_per_sm"] >= 3, occ
+
+
 @pytest.mark.cuda
 def test_layer_entry_and_counters(cuda_device):
     """``plan_gat_agg`` under autograd on the card against the CPU's plain
@@ -137,12 +193,14 @@ def test_layer_entry_and_counters(cuda_device):
     for name, prep, dv in (("cpu", cpu, "cpu"), ("cuda", dev, cuda_device)):
         leaves = [x.detach().to(dv).requires_grad_(True) for x in (s1, s2, Wh)]
         before = {k: getattr(PG.plan_gat_agg, k) for k in
-                  ("launches", "launches_bwd_rows", "launches_bwd_cols", "launches_merge")}
+                  ("launches", "launches_bwd_rows", "launches_bwd_cols", "launches_bwd_cols_ring",
+                   "launches_merge")}
         out = PG.plan_gat_agg(prep, *leaves, self_loops=True)
         out.backward(gO.to(dv))
         res[name] = [out.detach()] + [x.grad for x in leaves]
         after = {k: getattr(PG.plan_gat_agg, k) - v for k, v in before.items()}
-    assert after == dict(launches=1, launches_bwd_rows=1, launches_bwd_cols=1, launches_merge=3)
+    assert after == dict(launches=1, launches_bwd_rows=1, launches_bwd_cols=1, launches_bwd_cols_ring=1,
+                         launches_merge=3)
     for what, a, b in zip(("out", "ds1", "ds2", "dWh"), res["cuda"], res["cpu"]):
         _close(a, b, what)
 
