@@ -105,9 +105,8 @@ Phases, each raising on failure (so the run exits non-zero):
    (spmm_plan) over rb/cb 128, 256 and 1024, be 1024 and 2048, P in {16, 33,
    100, 128}, f32 and bf16 H, ragged n, a row block without a group, the
    empty matrix, H with spare rows, weighted and rank-1 values, a split hub
-   row, plan_with_vals and plan_t, through the kernel its shape selects (the
-   gather kernel at P % 8 == 0, else the first kernel) and, where the gather
-   kernel took it, the first kernel too; K10 (bsr_spmm_rowloop) in the tile forms
+   row, plan_with_vals and plan_t, through the gather kernel (H padded with
+   zero columns to a multiple of 8 at P 33 and 100); K10 (bsr_spmm_rowloop) in the tile forms
    with an empty row block, also against K1, through the kernel its shape
    selects (the cluster kernel for int8 and bf16 tiles of height 64-256 at
    P % 8 == 0, else the single-stage one) and, where the cluster kernel took
@@ -125,13 +124,11 @@ Phases, each raising on failure (so the run exits non-zero):
    prepare_from_config with SGRACEConfig(use_pallas=True, row_block=1024,
    col_block=1024, edge_block=1024); the seconds and bytes plan_t adds to a
    prep made with build_transpose=False; K9 timed at P = 128 against its plain
-   version, its bound and torch.sparse.mm, the gather and the first kernel
-   in turns, on plan and plan_t, and the gather kernel over ROW_SEG_SLOTS
+   version, its bound and torch.sparse.mm, on plan and plan_t, and over ROW_SEG_SLOTS
    16-256; the width-128 GCNModel answers 3 requests through K9 (logits
    against the plain-K9 forward and the K2 forward) and trains for 3 epochs
    (K9 on plan and plan_t); one agg_matmul_with_vals forward and backward
-   with random positive values; every K9 launch of these runs must be the
-   gather kernel; K9 alone at the config's default tiling (128 / 128 /
+   with random positive values; K9 alone at the config's default tiling (128 / 128 /
    2048). Then the plan attention at the gat-products cell's shapes
    (phase_plan_gat_products): its graph (2^20 nodes, mean degree 50.5),
    sym_norm and its prepare with gat_self_loops (no mask tile); the
@@ -1705,8 +1702,7 @@ RING_KERNELS = (K1.bsr_spmm, K2.bsr_spmm_fused, FG.flash_gat_forward, FG.flash_g
 
 # each redesigned kernel's wrapper and the count of its launches on the new kernel
 REDESIGNED = tuple((k, "launches_ring") for k in RING_KERNELS + (
-    K2.bsr_spmm_int8_fused, K1.bsr_spmm_int8, FG.flash_gat_forward_subskip)) + (
-    (K9.spmm_plan, "launches_gather"),)
+    K2.bsr_spmm_int8_fused, K1.bsr_spmm_int8, FG.flash_gat_forward_subskip))
 
 
 def _reset_counts() -> None:
@@ -1719,7 +1715,7 @@ def _reset_counts() -> None:
 
 def _all_ring(label: str) -> None:
     """Every K1-K8 and K12 launch since the last reset went through the
-    ring kernel, every K9 launch through the gather kernel."""
+    ring kernel."""
     for k, attr in REDESIGNED:
         new = getattr(k, attr)
         if new != k.launches or k.launches_single:
@@ -2337,11 +2333,8 @@ def phase_variant_kernels_small(device):
         plan, plan_t = prep.plan, prep.plan_t
         split |= plan.segments.n_fin > 0
         H = randn(n + 37, P).to(hdt)  # spare rows of H are never read
-        out = K9.spmm_plan(plan, H)  # the kernel its shape selects
+        out = K9.spmm_plan(plan, H)
         err = _check(f"K9 {name}", out, K9.spmm_plan_plain(plan, H), K9_TOL)
-        gather = K9.gather_shape_ok(P, H.data_ptr())
-        if gather:  # the first kernel on the same operands
-            _check(f"K9 {name} first kernel", K9._spmm_plan_single(plan, H), out, K9_TOL)
         if "empty" in name:
             rows = slice(2 * blk, 3 * blk) if "block" in name else slice(None)
             if (out[rows] != 0).any():
@@ -2352,7 +2345,7 @@ def phase_variant_kernels_small(device):
         pv = K9.plan_with_vals(plan, vals)
         err_v = _check(f"K9 {name} plan_with_vals", K9.spmm_plan(pv, H), K9.spmm_plan_plain(pv, H), K9_TOL)
         live = int((plan.perm >= 0).sum())
-        _log(f"  K9 {name} ({'gather kernel and first kernel' if gather else 'first kernel'}): "
+        _log(f"  K9 {name}: "
              f"n={n} nnz={A.nnz} groups={plan.num_groups} be={plan.be} "
              f"fill={live / max(plan.perm.numel(), 1):.3f} row segments={plan.segments.n_seg} "
              f"split_rows={plan.segments.n_fin} err {err:.3g} plan_t {err_t:.3g} with_vals {err_v:.3g}")
@@ -2526,39 +2519,29 @@ def phase_pallas_slice(A, data, device, k2_logits, cfg=SLICE):
     gen = torch.Generator(device=device).manual_seed(1)
     H = torch.randn(A.n_cols, HIDDEN, generator=gen, device=device)
     lib_ms, lib = _sparse_mm_ms(A, H)
-    if not K9.gather_shape_ok(HIDDEN, H.data_ptr()):
-        raise AssertionError("the slice's K9 must take the gather kernel")
     out = K9.spmm_plan(plan, H)
     err = _check("spmm_plan at slice shapes", out, K9.spmm_plan_plain(plan, H), K9_TOL)
     e_lib = _check("spmm_plan against torch.sparse.mm", out, lib, K2_TOL)
-    e_old = _check("spmm_plan against the first kernel", out, K9._spmm_plan_single(plan, H), K9_TOL)
     del lib
-    # the first kernel and the gather kernel in turns: first, gather, gather, first
-    first = [cuda_ms(lambda: K9._spmm_plan_single(plan, H))]
     gather = [cuda_ms(lambda: K9._spmm_plan_gather(plan, H)) for _ in range(2)]
-    first.append(cuda_ms(lambda: K9._spmm_plan_single(plan, H)))
     pre_ms = cuda_ms(lambda: K1._stage_h(H, None, A.n_cols, A.n_cols))
     Hb = H.to(torch.bfloat16)
     bf16_ms = cuda_ms(lambda: K9._spmm_plan_gather(plan, Hb))
     ms = float(np.median(gather))
     plain_ms = cuda_ms(lambda: K9.spmm_plan_plain(plan, H), reps=3)
     bound = _k9_bound(plan, H, out)
-    b8 = RL.CostModel({"f32": bound["ops"]}, bound["nbytes"] - 4 * plan.slot_idx.numel()).bound()["bound_ms"]
     rec = {"spmm_plan": dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                              bound_ms=bound["bound_ms"], bound_by=bound["bound_by"], library_ms=lib_ms)}
     _log(f"spmm_plan at slice shapes [n={A.n_rows}, P={HIDDEN}]: gather kernel "
          + " / ".join(f"{m:.4f}" for m in gather) + f" ms ({A.nnz / (ms * 1e-3) / 1e6:.1f} M edges/s; the "
-         f"bf16 pre-pass alone {pre_ms:.4f} ms, the kernel on a bf16 H {bf16_ms:.4f} ms), first kernel "
-         + " / ".join(f"{m:.4f}" for m in first) + f" ms (same run, in turns), plain {plain_ms:.4f} ms "
-         f"(median of 3), bound {bound['bound_ms']:.4f} ms by {bound['bound_by']} (12 B of plan a slot; "
-         f"at the 8 B of slot_cv the gather kernel reads: {b8:.4f} ms), max abs err {err:.3g}, against the "
-         f"first kernel {e_old:.3g}; against the library product (f32 operands) {e_lib:.3g}")
+         f"bf16 pre-pass alone {pre_ms:.4f} ms, the kernel on a bf16 H {bf16_ms:.4f} ms), plain {plain_ms:.4f} ms "
+         f"(median of 3), bound {bound['bound_ms']:.4f} ms by {bound['bound_by']} (8 B of slot_cv a slot), "
+         f"max abs err {err:.3g}; against the library product (f32 operands) {e_lib:.3g}")
     g = torch.randn(A.n_rows, HIDDEN, generator=gen, device=device)
     err_t = _check("spmm_plan on plan_t at slice shapes", K9.spmm_plan(plan_t, g),
                    K9.spmm_plan_plain(plan_t, g), K9_TOL)
     ms_t = cuda_ms(lambda: K9._spmm_plan_gather(plan_t, g))
-    ms_t1 = cuda_ms(lambda: K9._spmm_plan_single(plan_t, g))
-    _log(f"spmm_plan on plan_t: gather kernel {ms_t:.4f} ms, first kernel {ms_t1:.4f} ms, max abs err {err_t:.3g}")
+    _log(f"spmm_plan on plan_t: gather kernel {ms_t:.4f} ms, max abs err {err_t:.3g}")
     # the row pieces: slots a worker sums before a row is split (ROW_SEG_SLOTS)
     sweep = []
     for seg in (16, 32, 64, 128, 256):

@@ -20,9 +20,10 @@ hand-written CUDA kernel per Pallas kernel on the ported path:
   their shape rules hold (else ``csrc/bsr_spmm_int8.cu`` /
   ``csrc/fused_agg_int8.cu``): the exact int32 ``Aq @ Hq`` of full-integer
   inference, on a full tile cover and on the hybrid split;
-- ``ops/pallas_spmm.spmm_plan`` (K9, ``csrc/plan_spmm.cu``): the ``pallas``
-  kind's aggregation over edge groups, whose values can be replaced per
-  call (``ops/dispatch.agg_matmul_with_vals``);
+- ``ops/pallas_spmm.spmm_plan`` (K9, ``csrc/plan_spmm_gather.cu`` at every
+  width, H padded with zero columns to a multiple of 8 where it needs it):
+  the ``pallas`` kind's aggregation over edge groups, whose values can be
+  replaced per call (``ops/dispatch.agg_matmul_with_vals``);
 - the three variants the JAX package keeps as experiments, each under its
   JAX name: ``ops/bsr.bsr_spmm_rowloop`` (K10, ``csrc/bsr_spmm_rowloop.cu``),
   ``ops/fused_agg.bsr_spmm_fused_k`` (K11, ``csrc/fused_agg_k.cu``) and

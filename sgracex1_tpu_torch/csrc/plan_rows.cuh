@@ -1,11 +1,10 @@
-// The split rows of the plan SpMM kernels K9 (plan_spmm.cu and
-// plan_spmm_gather.cu): a row whose run of slots is cut into several pieces
-// (ops/bsr.RunSegments over rows) leaves one f32 partial row a piece, and
-// sum_split_rows adds each split row's partials into its output row.
+// The split rows of the plan SpMM kernel K9 (plan_spmm_gather.cu): a row
+// whose run of slots is cut into several pieces (ops/bsr.RunSegments over
+// rows) leaves one f32 partial row a piece, and sum_split_rows adds each split
+// row's partials into its output row.
 //
-// The sum's order is fixed, so a row comes out the same bits on every run and
-// from either K9 kernel: for each feature, the partials q of residue w
-// (q = w mod FIN_RESIDUES) are summed in increasing q from 0.f, for w = 0 ..
+// The sum's order is fixed, so a row comes out the same bits on every run:
+// for each feature, the partials q of residue w (q = w mod FIN_RESIDUES) are summed in increasing q from 0.f, for w = 0 ..
 // FIN_RESIDUES - 1, and the residues' sums are added in w order to a total
 // that starts at 0.f. Adds only: there is no product for FMA contraction to
 // fuse.

@@ -2,15 +2,16 @@
 // SpMMPlan (ops/pallas_spmm.py), each slot an edge (row, col, val).
 //
 // Replaces sgracex1_tpu/ops/pallas_spmm.py:spmm_pallas (Pallas kernel
-// _spmm_kernel), as plan_spmm.cu does, for H whose rows are whole 16-byte
-// bf16 pieces (P % 8 == 0, ops/pallas_spmm.gather_shape_ok); the other
-// widths stay on plan_spmm.cu.
+// _spmm_kernel) at every width. It reads H as bf16 rows of whole 16-byte
+// pieces (P % 8 == 0, 16-byte aligned); the host pads any other H with zero
+// columns to a multiple of 8 first (ops/pallas_spmm._gather_operand), which
+// leaves the other columns' bits as they are.
 //
 // Bound on the H100: bytes, and before that latency. At the 2^20-node slice
 // a row holds ~5 slots, so a worker's time is its chain of memory round
-// trips, not its arithmetic. The first kernel walked a slot in three
-// dependent loads (slot_idx, then lcol / val / tile_cb, then the H row) and
-// gathered f32 rows of 512 bytes. Here:
+// trips, not its arithmetic. Read through the padded group arrays, a slot
+// is three dependent loads (slot_idx, then lcol / val / tile_cb, then the H
+// row), and an f32 row is 512 bytes at P = 128. Here:
 //  * the host compacts every live slot into one 8-byte (column, value) pair
 //    in row order (SpMMPlan.slot_cv), so the indices are one coalesced read
 //    that depends on nothing;

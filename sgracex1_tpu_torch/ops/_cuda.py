@@ -187,14 +187,6 @@ def _declare(lib: ctypes.CDLL) -> None:
         p, p, p, i, ctypes.c_float, i,  # s_own, m_own, l_own, H, alpha, fast_exp
         p, p, p, p, i, p,  # out, out2, part, part2, n_sm, stream
     ]
-    lib.sg_plan_spmm.restype = i
-    lib.sg_plan_spmm.argtypes = [
-        p, p, p, i, i, p,  # lcol, val, tile_cb, be, cb, slot_idx
-        i, p, p, p, p,  # n_seg, seg_row/lo/hi/part
-        i, p, p, p,  # n_fin, fin_row/p0/np
-        p, i, i, i, i,  # H, h_bf16, n_h, P, vec
-        p, p, i, p,  # out, partial, n_rows, stream
-    ]
     lib.sg_plan_spmm_gather.restype = i
     lib.sg_plan_spmm_gather.argtypes = [
         p, i, p, p, p, p,  # slot_cv, n_seg, seg_row/lo/hi/part

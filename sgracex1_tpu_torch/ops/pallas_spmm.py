@@ -14,11 +14,14 @@ Kernel K9, ``spmm_plan``: per slot ``f32(bf16(f32(bf16(H[col])) * val))``,
 summed in f32 on the slot's row, as the TPU kernel's one-hot products
 round. The TPU gathers and scatters with one-hot matmuls on its matrix
 unit; here rows of H are gathered directly. On a CUDA tensor it launches
-the gather kernel ``csrc/plan_spmm_gather.cu`` where ``gather_shape_ok``
-holds (H rounded to bf16 once, the compacted slot arrays ``slot_cv``, row
-gathers issued ahead of their sums), else the first kernel
-``csrc/plan_spmm.cu``; on a CPU tensor it runs ``spmm_plan_plain``, the
-plain PyTorch version of the same function.
+the gather kernel ``csrc/plan_spmm_gather.cu`` (H rounded to bf16 once,
+the compacted slot arrays ``slot_cv``, row gathers issued ahead of their
+sums) at every width: the kernel reads bf16 rows of whole 16-byte pieces,
+so an H of another width, or at an address not aligned to 16 bytes, is
+first copied into zero columns padded to a multiple of 8 (the columns are
+independent, so the padding changes no bit of the others). On a CPU tensor
+it runs ``spmm_plan_plain``, the plain PyTorch version of the same
+function.
 """
 
 from __future__ import annotations
@@ -230,13 +233,14 @@ def spmm_plan_plain(plan: SpMMPlan, H: torch.Tensor) -> torch.Tensor:
     return out[: plan.n_rows]
 
 
-def gather_shape_ok(P: int, data_ptr: int = 0) -> bool:
-    """Whether the gather kernel (csrc/plan_spmm_gather.cu) takes an H of
-    width ``P`` at address ``data_ptr``: bf16 rows of whole 16-byte pieces
-    (P % 8 == 0) from a 16-byte-aligned H. Everything else goes to the first
-    kernel, csrc/plan_spmm.cu. The rule reads the width and the address
-    only."""
-    return P % 8 == 0 and data_ptr % 16 == 0
+def _gather_operand(P: int, data_ptr: int) -> tuple:
+    """The gather kernel's operand for an H of width ``P`` at address
+    ``data_ptr``: its width ``round_up(P, 8)`` (bf16 rows of whole 16-byte
+    pieces), and whether H must first be copied into a fresh, zero-padded
+    tensor of that width (an odd width, or an H not aligned to 16 bytes).
+    The rule reads the width and the address only."""
+    Pp = _round_up(P, 8)
+    return Pp, Pp != P or data_ptr % 16 != 0
 
 
 def _check_k9_operands(plan: SpMMPlan, H: torch.Tensor, ints: dict) -> None:
@@ -256,78 +260,47 @@ def _stream(H: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(H.device).cuda_stream)
 
 
-def _spmm_plan_single(plan: SpMMPlan, H: torch.Tensor) -> torch.Tensor:
-    """K9 by the first kernel ``csrc/plan_spmm.cu``: any P, f32 or bf16 H
-    read as it is, the slot's column and value looked up through
-    ``slot_idx``."""
-    S = plan.segments
-    _check_k9_operands(plan, H, dict(lcol=plan.lcol, tile_cb=plan.tile_cb, slot_idx=plan.slot_idx,
-                                     **S.tensors()))
-    if plan.val.dtype != torch.float32 or plan.val.shape != plan.lcol.shape:
-        raise ValueError(
-            f"val must be float32 {tuple(plan.lcol.shape)}, got {plan.val.dtype} {tuple(plan.val.shape)}"
-        )
-    is_bf16 = H.dtype == torch.bfloat16
-    P = H.shape[1]
-    # four features a lane in one load: 16 bytes of f32, 8 of bf16
-    vec = int(P % 4 == 0 and H.data_ptr() % (8 if is_bf16 else 16) == 0)
-    out = torch.empty((plan.n_rows, P), dtype=torch.float32, device=H.device)
-    partial = torch.empty((max(S.n_part, 1), P), dtype=torch.float32, device=H.device)
-    err = _cuda.library().sg_plan_spmm(
-        _ptr(plan.lcol), _ptr(plan.val), _ptr(plan.tile_cb), plan.be, plan.cb,
-        _ptr(plan.slot_idx), *_seg_args(S), _ptr(H), int(is_bf16), H.shape[0], P, vec,
-        _ptr(out), _ptr(partial), plan.n_rows, _stream(H),
-    )
-    _cuda.check(err, "spmm_plan")
-    spmm_plan.launches += 1
-    spmm_plan.launches_single += 1
-    spmm_plan.launches_finalize += int(S.n_fin > 0)
-    return out
-
-
 def _spmm_plan_gather(plan: SpMMPlan, H: torch.Tensor) -> torch.Tensor:
-    """K9 by the gather kernel ``csrc/plan_spmm_gather.cu``: H rounded to
-    bf16 once (the pre-pass of the ring kernels, ``ops/bsr._stage_h``; a
-    bf16 H is read as it is), the slots' (column, value) pairs from
-    ``slot_cv``."""
+    """K9 by the gather kernel ``csrc/plan_spmm_gather.cu``: H padded where
+    ``_gather_operand`` asks, then rounded to bf16 once (the pre-pass of the
+    ring kernels, ``ops/bsr._stage_h``; a bf16 H is read as it is), the
+    slots' (column, value) pairs from ``slot_cv``."""
     S = plan.segments
     _check_k9_operands(plan, H, dict(slot_cv=plan.slot_cv, **S.tensors()))
-    P = H.shape[1]
-    if not gather_shape_ok(P, H.data_ptr()):
-        raise ValueError(f"the gather kernel needs P % 8 == 0 and a 16-byte-aligned H, got P={P}")
     if plan.slot_cv.shape != (plan.slot_idx.shape[0], 2):
         raise ValueError(f"slot_cv must be [nnz, 2], got {tuple(plan.slot_cv.shape)}")
+    P = H.shape[1]
+    Pp, copy = _gather_operand(P, H.data_ptr())
+    if copy:
+        Hp = H.new_zeros((plan.n_cols, Pp))
+        Hp[:, :P] = H[: plan.n_cols]
+        H = Hp
     Hs = _stage_h(H, None, plan.n_cols, plan.n_cols)
-    out = torch.empty((plan.n_rows, P), dtype=torch.float32, device=H.device)
-    partial = torch.empty((max(S.n_part, 1), P), dtype=torch.float32, device=H.device)
+    out = torch.empty((plan.n_rows, Pp), dtype=torch.float32, device=H.device)
+    partial = torch.empty((max(S.n_part, 1), Pp), dtype=torch.float32, device=H.device)
     err = _cuda.library().sg_plan_spmm_gather(
-        _ptr(plan.slot_cv), *_seg_args(S), _ptr(Hs), P, _ptr(out), _ptr(partial), _stream(H),
+        _ptr(plan.slot_cv), *_seg_args(S), _ptr(Hs), Pp, _ptr(out), _ptr(partial), _stream(H),
     )
     _cuda.check(err, "spmm_plan_gather")
     spmm_plan.launches += 1
-    spmm_plan.launches_gather += 1
     spmm_plan.launches_finalize += int(S.n_fin > 0)
-    return out
+    return out if Pp == P else out[:, :P].contiguous()
 
 
 def spmm_plan(plan: SpMMPlan, H: torch.Tensor) -> torch.Tensor:
     """K9: out = A @ H over the plan's edge groups, f32 [n_rows, P]
     (H rounds to bf16, each weighted row rounds to bf16, f32 sums in slot
     order). A CPU tensor runs ``spmm_plan_plain``; a CUDA tensor launches
-    the gather kernel where ``gather_shape_ok`` holds, else the first
-    kernel, or raises. ``launches`` counts both; ``launches_gather`` /
-    ``launches_single`` each one; ``launches_finalize`` those whose plan has
-    split rows, which the split rows' reduction then sums."""
+    the gather kernel at every width and address (``_spmm_plan_gather``),
+    or raises. ``launches`` counts its launches, ``launches_finalize``
+    those whose plan has split rows, which the split rows' reduction then
+    sums."""
     if H.device.type == "cpu":
         return spmm_plan_plain(plan, H)
     if H.device.type != "cuda":
         raise ValueError(f"spmm_plan runs on cpu or cuda, not {H.device}")
-    if H.dim() == 2 and gather_shape_ok(H.shape[1], H.data_ptr()):
-        return _spmm_plan_gather(plan, H)
-    return _spmm_plan_single(plan, H)
+    return _spmm_plan_gather(plan, H)
 
 
 spmm_plan.launches = 0
-spmm_plan.launches_gather = 0
-spmm_plan.launches_single = 0
 spmm_plan.launches_finalize = 0

@@ -17,8 +17,8 @@ VPU's: CUDA-core elementwise work and exps together).
 The counts follow what the port's kernels read, not what the TPU kernels
 did: the live tiles only (``BSRMatrix.live``, or the schedule of the tiles
 that carry an edge), the live schedule's bytes, the chunk arrays, one
-multiply-add a live chunk slot and feature, K9's 12 bytes a live slot, K12's
-populated sub-blocks. ``cost_for_prep`` prices ``agg_matmul`` on any kind
+multiply-add a live chunk slot and feature, K9's 8 bytes of ``slot_cv`` a
+live slot, K12's populated sub-blocks. ``cost_for_prep`` prices ``agg_matmul`` on any kind
 from the prep's own arrays.
 
 ``H100_PEAKS``: NVIDIA's published rates for the H100 SXM at its 700 W
@@ -208,12 +208,11 @@ def cost_k7(B, P: int, io_bytes: int) -> CostModel:
 
 
 def cost_pallas(plan, P: int, io_bytes: int) -> CostModel:
-    """K9: the live slots' 12 bytes of plan (``slot_idx``, ``lcol``,
-    ``val``), the group and segment arrays and ``io_bytes`` once; two f32
+    """K9 (the gather kernel): the live slots' 8-byte (column, value) pairs
+    of ``slot_cv``, the segment arrays and ``io_bytes`` once; two f32
     operations a live slot and feature, outside the tensor cores."""
-    live = plan.slot_idx.numel()
-    return CostModel({"f32": 2.0 * live * P},
-                     float(12 * live + nbytes(plan.tile_cb) + io_bytes + seg_bytes(plan.segments)), "pallas")
+    return CostModel({"f32": 2.0 * plan.slot_idx.numel() * P},
+                     float(nbytes(plan.slot_cv) + io_bytes + seg_bytes(plan.segments)), "pallas")
 
 
 def cost_flash_gat(B, H: int, F: int, io_bytes: int, *, products: int = 1, plan=None,

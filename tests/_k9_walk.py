@@ -1,8 +1,9 @@
-"""A plain emulation of the gather K9's data flow (``csrc/plan_spmm_gather.cu``
-and the split rows' reduction of ``csrc/plan_rows.cuh``), shared by the CPU
-tests (``test_torch_plan_gather.py``) and the card's (``test_torch_cuda.py``).
-Imports only torch and the port, so it runs where the JAX package does not.
-Holds no test itself."""
+"""A plain emulation of K9's data flow on the card: the gather kernel
+(``csrc/plan_spmm_gather.cu``, at every width: the zero columns that pad H to
+a multiple of 8 change none of the others) and the split rows' reduction of
+``csrc/plan_rows.cuh``, shared by the CPU tests (``test_torch_plan_gather.py``)
+and the card's (``test_torch_cuda.py``). Imports only torch and the port, so
+it runs where the JAX package does not. Holds no test itself."""
 
 import torch
 

@@ -1076,27 +1076,25 @@ def _counts3(kern, a, b):
      (False, 1024, 1024, 128, torch.bfloat16), (True, 128, 1024, 200, torch.float32),
      (True, 256, 1024, 264, torch.bfloat16), (False, 256, 1024, 64, torch.float32)],
 )
-def test_plan_gather_matches_plain_and_first_kernel(cuda_device, weighted, blk, be, P, hdtype):
-    """The gather K9 (P % 8 == 0) on plan, plan_t and plan_with_vals, a
-    split hub row, spare rows of H, one to two 256-feature slices: within
-    1e-3 of the plain K9 and of the first kernel (identical roundings, f32
-    sums in another order); every launch counted as a gather launch."""
+def test_plan_gather_matches_plain_and_walk(cuda_device, weighted, blk, be, P, hdtype):
+    """The gather K9 on plan, plan_t and plan_with_vals, a split hub row,
+    spare rows of H, one to two 256-feature slices: ``torch.equal`` to the
+    walk of ``_k9_walk`` and within 1e-3 of the plain K9 (identical
+    roundings, f32 sums in another order); every launch counted."""
     A = _graph(3001, weighted, seed=17)
     prep = pt.prepare_adjacency(A, method="pallas", rb=blk, cb=blk, be=be, device=cuda_device)
     assert prep.plan.segments.n_fin > 0
     H = torch.randn(A.n_cols + 5, P, device=cuda_device).to(hdtype)
     g = torch.randn(A.n_rows, P, device=cuda_device).to(hdtype)
     pv = K9.plan_with_vals(prep.plan, torch.rand(A.vals.shape[0], device=cuda_device))
-    assert K9.gather_shape_ok(P, H.data_ptr())
     for plan, x in ((prep.plan, H), (prep.plan_t, g), (pv, H)):
-        before = _counts3(K9.spmm_plan, "launches_gather", "launches_single")
+        before = K9.spmm_plan.launches
         out = K9.spmm_plan(plan, x)
         torch.cuda.synchronize()
-        assert _counts3(K9.spmm_plan, "launches_gather", "launches_single") == (
-            before[0] + 1, before[1] + 1, before[2])
+        assert K9.spmm_plan.launches == before + 1
         assert out.dtype == torch.float32 and out.shape == (plan.n_rows, P)
+        assert torch.equal(out, gather_walk(plan, x))
         torch.testing.assert_close(out, K9.spmm_plan_plain(plan, x), rtol=1e-3, atol=1e-3)
-        torch.testing.assert_close(out, K9._spmm_plan_single(plan, x), rtol=1e-3, atol=1e-3)
 
 
 @pytest.mark.cuda
@@ -1140,43 +1138,48 @@ def hub_prep():
 def test_plan_split_rows_equal_walk(cuda_device, hub_prep, seg_slots, P):
     """K9 over row pieces of 1 to 64 slots, a hub row of >= 100 pieces, on
     plan, plan_t and plan_with_vals: the gather kernel (one to two
-    256-feature slices) and the first kernel (P % 8 != 0: 16-byte rows at P
-    100, scalar loads at P 33) are ``torch.equal`` to the walk of
-    ``_k9_walk`` (bf16 roundings, piece sums in slot order, split rows in the
-    fixed residue order) and within 1e-3 of the plain K9 (f32 sums in
-    another order); ``launches_finalize`` moves by one where the plan has
-    split rows."""
+    256-feature slices; at P 100 and 33 on H padded to 104 and 40) is
+    ``torch.equal`` to the walk of ``_k9_walk`` (bf16 roundings, piece sums
+    in slot order, split rows in the fixed residue order) and within 1e-3 of
+    the plain K9 (f32 sums in another order); ``launches`` moves by one at
+    every P, ``launches_finalize`` by one where the plan has split rows."""
     A, prep = hub_prep
     H = torch.randn(A.n_cols + 5, P, device=cuda_device)
     pv = K9.plan_with_vals(prep.plan, torch.rand(A.vals.shape[0], device=cuda_device))
     for plan, x in ((prep.plan, H), (prep.plan_t, torch.randn(A.n_rows, P, device=cuda_device)), (pv, H)):
         plan = K9.recut_rows(plan, seg_slots)
-        kernel = "launches_gather" if P % 8 == 0 else "launches_single"
-        before = getattr(K9.spmm_plan, kernel), K9.spmm_plan.launches_finalize
+        before = K9.spmm_plan.launches, K9.spmm_plan.launches_finalize
         out = K9.spmm_plan(plan, x)
         torch.cuda.synchronize()
-        assert (getattr(K9.spmm_plan, kernel), K9.spmm_plan.launches_finalize) == (
+        assert (K9.spmm_plan.launches, K9.spmm_plan.launches_finalize) == (
             before[0] + 1, before[1] + int(plan.segments.n_fin > 0))
         assert torch.equal(out, gather_walk(plan, x))
         torch.testing.assert_close(out, K9.spmm_plan_plain(plan, x), rtol=1e-3, atol=1e-3)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("P,offset,gather", [(16, 0, True), (128, 0, True), (100, 0, False), (33, 0, False),
-                                             (128, 2, False)])
-def test_plan_kernel_choice_reads_width_and_address_only(cuda_device, P, offset, gather):
-    """``gather_shape_ok``: whole 16-byte bf16 pieces and a 16-byte-aligned
-    H take the gather kernel, everything else the first kernel."""
+@pytest.mark.parametrize("P,offset,hdtype", [(7, 0, torch.float32), (16, 0, torch.float32), (33, 0, torch.float32),
+                                             (100, 0, torch.float32), (128, 0, torch.float32),
+                                             (128, 2, torch.float32), (64, 4, torch.bfloat16)])
+def test_plan_gather_takes_every_width_and_address(cuda_device, P, offset, hdtype):
+    """Every width and address runs the gather kernel, on plan, plan_t and
+    plan_with_vals: an odd width or an H not aligned to 16 bytes (``offset``
+    elements past an aligned one) through a zero-padded copy of H, one
+    launch each, ``torch.equal`` to the walk of ``_k9_walk`` at width P."""
     A = _graph(1500, weighted=True, seed=19)
-    plan = K9.plan_spmm(A, rb=256, cb=256, device=cuda_device)
-    H = torch.randn(1500 * P + offset, device=cuda_device)[offset:].view(1500, P)
-    assert K9.gather_shape_ok(P, H.data_ptr()) == gather
-    before = _counts3(K9.spmm_plan, "launches_gather", "launches_single")
-    out = K9.spmm_plan(plan, H)
-    torch.cuda.synchronize()
-    assert _counts3(K9.spmm_plan, "launches_gather", "launches_single") == (
-        before[0] + 1, before[1] + int(gather), before[2] + int(not gather))
-    torch.testing.assert_close(out, K9.spmm_plan_plain(plan, H), rtol=1e-3, atol=1e-3)
+    prep = pt.prepare_adjacency(A, method="pallas", rb=256, cb=256, device=cuda_device)
+    pv = K9.plan_with_vals(prep.plan, torch.rand(A.vals.shape[0], device=cuda_device))
+    at = lambda n: torch.randn(n * P + offset, device=cuda_device).to(hdtype)[offset:].view(n, P)
+    H, g = at(A.n_cols), at(A.n_rows)
+    assert (H.data_ptr() % 16 != 0) == (offset != 0)
+    for plan, x in ((prep.plan, H), (prep.plan_t, g), (pv, H)):
+        before = K9.spmm_plan.launches
+        out = K9.spmm_plan(plan, x)
+        torch.cuda.synchronize()
+        assert K9.spmm_plan.launches == before + 1
+        assert out.shape == (plan.n_rows, P) and out.is_contiguous()
+        assert torch.equal(out, gather_walk(plan, x))
+        torch.testing.assert_close(out, K9.spmm_plan_plain(plan, x), rtol=1e-3, atol=1e-3)
 
 
 def _int8_edge_graph(n, tb, seed):

@@ -131,6 +131,8 @@ def test_gather_walk_over_row_pieces(seg_slots):
 @pytest.mark.parametrize("P,ptr,ok", [(8, 0, True), (16, 64, True), (128, 1024, True), (264, 16, True),
                                       (100, 0, False), (33, 0, False), (4, 0, False), (128, 8, False)])
 def test_gather_shape_rule(P, ptr, ok):
-    """Whole 16-byte bf16 pieces from a 16-byte-aligned H; the rest goes to
-    the first kernel."""
-    assert tps.gather_shape_ok(P, ptr) == ok
+    """The gather kernel's operand is round_up(P, 8) wide; H is read (or
+    staged) as it is only where its rows are whole 16-byte bf16 pieces at a
+    16-byte-aligned address (``ok``), and is otherwise first copied into a
+    zero-padded tensor of that width."""
+    assert tps._gather_operand(P, ptr) == (-(-P // 8) * 8, not ok)

@@ -84,7 +84,7 @@ def test_cost_for_prep_pallas_dense_and_edges():
     live = plan.slot_idx.numel()
     c = tr.cost_for_prep(pp, P)
     assert live == T.nnz and c.flops == {"f32": 2.0 * live * P}
-    assert c.bytes == (12 * live + 4 * plan.tile_cb.numel() + sum(4 * t.numel() for t in plan.segments.tensors().values())
+    assert c.bytes == (8 * live + sum(4 * t.numel() for t in plan.segments.tensors().values())
                        + T.n_cols * P * 4 + T.n_rows * P * 4)
     d = pt.prepare_adjacency(T, method="dense", device="cpu")
     assert tr.cost_for_prep(d, P).bytes == tr.cost_dense(T.n_rows, P).bytes
